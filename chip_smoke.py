@@ -1,0 +1,606 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Drives the port alone (never JAX or the JAX package) through these phases,
+each printing one JSON line; any failure raises and exits non-zero:
+
+ 1. build   — nvcc builds the three kernels from `src/repro_torch/kernels/
+              csrc/` (one process per source, in parallel); prints the build
+              time, ptxas' register/spill report and the card's name and
+              power limit.
+ 2. k2      — K2 (LUT lerp) against its torch twin on 2^24 floats in
+              [-10, 1] through the exp-weight LUT: bit-equal.  Also counts
+              where PyTorch's CUDA division by a Python scalar differs from
+              a true division and from the reciprocal multiply the port
+              uses (XLA's compiled form of the reference's `/ dx`).
+ 3. k1      — K1 (KY draw) against its twin on 65,536 rows of V in
+              {3, 11, 127} random weights with shared words: labels and the
+              three stats bit-equal.
+ 4. k3      — K3 (one BN sweep) against its twin for pigs and hailfinder at
+              1,024 chains: lut_ky bit-equal; exact_ky reports the share of
+              differing labels, and its marginals over 200 sweeps lie within
+              per-node TV 0.02 of the twin's.
+ 5. serve   — the main path.  Launch counters are zeroed, then the port
+              serves: 4 posterior queries on pigs (each with its own 5-20
+              observed nodes and seed) and 1 on hailfinder through
+              `compile_graph(...).run(key, n_chains=1024, n_iters=200,
+              burn_in=50, fused=True)`, and one direct draw request (65,536
+              rows of 32 log-potentials through `ops.lut_exp_weights` and
+              `ops.ky_sample`).  Counters are read right after.  Each query
+              is bit-equal to `fused=False`; a run sliced 100 + 100 through
+              `carry_state` equals the whole run; K3's launches equal the
+              sweeps served plus the first-use cross-checks'; marginals on
+              asia agree with exact variable elimination.
+ 6. timing  — every kernel and its twin at the main path's shapes: the
+              kernel's device time (torch.profiler) and time per call (CUDA
+              events), the twin's time, and the least time the card needs
+              for the same bytes and operations; K1 and K2 also alone at the
+              shapes their bodies take inside K3 on pigs.  Prints
+              `{"kernels": [...]}`.
+
+The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
+or run from a directory that lacks the port's sources, it prints no result
+and exits 2.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+CHAINS = 1024
+ITERS = 200
+BURN_IN = 50
+DEVICE = "cuda"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to measure",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: the port's sources (src/repro_torch) are not "
+              "beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_all = time.perf_counter()
+    card = phase_build(torch)
+    phase_k2(torch)
+    phase_k1(torch)
+    k3_err = phase_k3(torch)
+    launches = phase_serve(torch)
+    phase_timing(torch, launches, k3_err)
+    for mod in sys.modules:
+        check(not (mod == "jax" or mod.startswith("jax.")
+                   or mod == "repro" or mod.startswith("repro.")),
+              f"{mod} was imported")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_all})
+    print(card)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return out[0] if out else ""
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean ms per call over `reps` calls after one warm-up (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, kernel: str):
+    """Mean device time per call of the kernels whose name contains
+    `kernel`, from torch.profiler's CUPTI trace (launch gaps excluded); None
+    when the profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in kernel_events(torch, prof)
+             if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def kernel_events(torch, prof):
+    """The profile's device-side kernel rows (the host ops that launched
+    them carry the same device time and would count it twice)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, ops: float, ops_rate: float = FP32_FLOPS):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def exp_lut(device):
+    from repro_torch.core.interp import build_exp_weight_lut
+
+    return build_exp_weight_lut(device=device)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_build(torch) -> str:
+    from repro_torch.kernels import _lib
+
+    t0 = time.perf_counter()
+    seconds = _lib.build()
+    ptxas = {}
+    for name in _lib.SOURCES:
+        log = _lib.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            ptxas[name] = [
+                ln.strip() for ln in log.read_text().splitlines()
+                if "registers" in ln or "spill" in ln
+            ]
+    card = nvidia_smi()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_library_s": seconds, "ptxas": ptxas,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nvidia_smi": card})
+    print(card, flush=True)
+    return card
+
+
+def phase_k2(torch):
+    from repro_torch.core.interp import inv_dx
+    from repro_torch.kernels import interp_lut
+
+    dev = torch.device(DEVICE)
+    tab, spec = exp_lut(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand(1 << 24, generator=g, device=dev) * 11.0 - 10.0
+    y_k = interp_lut.interp_kernel(x, tab, spec)
+    y_t = interp_lut.interp_kernel_ref(x, tab, spec)
+    torch.cuda.synchronize()
+    diff = int((y_k.view(torch.int32) != y_t.view(torch.int32)).sum())
+    # PyTorch's CUDA division by a Python scalar, against the true division
+    # and against the reciprocal multiply the port takes from XLA
+    shifted = x - spec.x0
+    by_scalar = shifted / spec.dx
+    true_div = shifted / torch.full((), spec.dx, device=dev)
+    recip = shifted * torch.full((), inv_dx(spec), device=dev)
+    emit({"phase": "k2", "n": x.numel(), "mismatches": diff,
+          "scalar_division_vs_true_division": int(
+              (by_scalar != true_div).sum()),
+          "scalar_division_vs_reciprocal_multiply": int(
+              (by_scalar != recip).sum())})
+    check(diff == 0, f"K2 differs from its twin in {diff} elements")
+
+
+def phase_k1(torch):
+    from repro_torch import prng
+    from repro_torch.core import ky as ky_core
+    from repro_torch.kernels import ky_sampler
+
+    dev = torch.device(DEVICE)
+    rows = 1 << 16
+    out = {"phase": "k1", "rows": rows, "mismatches": {}}
+    for v in (3, 11, 127):
+        g = torch.Generator(device=dev).manual_seed(v)
+        w = torch.randint(0, 256, (rows, v), generator=g, device=dev,
+                          dtype=torch.int32)
+        words = ky_core.random_words(prng.key(v), (rows,), 4, dev)
+        lab_k, st_k = ky_sampler.ky_sample_kernel(w, words, n_bins=v)
+        lab_t, st_t = ky_sampler.ky_sample_kernel_ref(w, words, n_bins=v)
+        bad = int((lab_k != lab_t).sum())
+        for name in ("bits_used", "rejections", "fallback"):
+            bad += int((st_k[name] != st_t[name]).sum())
+        out["mismatches"][str(v)] = bad
+        check(bad == 0, f"K1 differs from its twin at V={v} ({bad})")
+    emit(out)
+
+
+def _k3_setup(torch, name: str, sampler: str):
+    from repro_torch import prng
+    from repro_torch.core import bayesnet as bnet
+    from repro_torch.core.graphs import bn_repository_replica
+    from repro_torch.kernels import bn_gibbs
+
+    dev = torch.device(DEVICE)
+    cbn = bnet.compile_bayesnet(bn_repository_replica(name), device=dev)
+    fr = bn_gibbs.build_fused_rounds(cbn.groups)
+    vals, _ = bnet.init_chain_values(cbn, prng.key(1), CHAINS)
+    p = bn_gibbs.sweep_params(cbn, sampler)
+    words = bn_gibbs.fused_round_words(fr, prng.key(2), CHAINS, p.n_words,
+                                       dev)
+    return cbn, fr, vals, p, words
+
+
+def _marginals(torch, cbn, fr, vals, sampler, sweep):
+    """Marginals over ITERS sweeps (burn-in BURN_IN) with `sweep` as the
+    sweep function (K3 or its twin), from the same keys."""
+    from repro_torch import prng
+    from repro_torch.kernels import bn_gibbs
+
+    p = bn_gibbs.sweep_params(cbn, sampler)
+    key = prng.key(3)
+    v_range = torch.arange(cbn.max_card, device=vals.device)
+    hist = torch.zeros(cbn.n_nodes, cbn.max_card, device=vals.device)
+    for t in range(ITERS):
+        key, sub = prng.split(key)
+        words = bn_gibbs.fused_round_words(fr, sub, vals.shape[0], p.n_words,
+                                           vals.device)
+        vals = sweep(cbn, fr, vals, words, sampler, p)
+        if t >= BURN_IN:
+            hist += (vals[..., None] == v_range).sum(0)
+    return hist / hist.sum(-1, keepdim=True)
+
+
+def phase_k3(torch) -> dict:
+    from repro_torch.kernels import bn_gibbs
+
+    errs = {}
+    for name in ("pigs", "hailfinder"):
+        cbn, fr, vals, p, words = _k3_setup(torch, name, "lut_ky")
+        out_k = bn_gibbs.bn_sweep(cbn, fr, vals, words, "lut_ky", p)
+        out_t = bn_gibbs.bn_sweep_ref(cbn, fr, vals, words, "lut_ky", p)
+        torch.cuda.synchronize()
+        bad = int((out_k != out_t).sum())
+        changed = float((out_k != vals).float().mean())
+        errs[name] = int((out_k - out_t).abs().max())
+        check(bad == 0, f"K3 lut_ky differs from its twin on {name} ({bad})")
+
+        cbn, fr, vals, p, words = _k3_setup(torch, name, "exact_ky")
+        ex_k = bn_gibbs.bn_sweep(cbn, fr, vals, words, "exact_ky", p)
+        ex_t = bn_gibbs.bn_sweep_ref(cbn, fr, vals, words, "exact_ky", p)
+        share = float((ex_k != ex_t).float().mean())
+        m_k = _marginals(torch, cbn, fr, vals, "exact_ky", bn_gibbs.bn_sweep)
+        m_t = _marginals(torch, cbn, fr, vals, "exact_ky",
+                         bn_gibbs.bn_sweep_ref)
+        tv = float((0.5 * (m_k - m_t).abs().sum(-1)).max())
+        emit({"phase": "k3", "model": name, "chains": CHAINS,
+              "nodes": cbn.n_nodes, "rounds": len(fr.n_c),
+              "c_max": fr.c_max, "f_max": fr.f_max, "s_max": fr.s_max,
+              "lut_ky_mismatches": bad, "lut_ky_changed_share": changed,
+              "exact_ky_differing_label_share": share,
+              "exact_ky_max_node_tv_200_sweeps": tv})
+        check(tv <= 0.02, f"K3 exact_ky marginals off by TV {tv} on {name}")
+    return errs
+
+
+def _queries(model_name: str, n: int, seed: int, cards):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for q in range(n):
+        k = int(rng.integers(5, 21))
+        nodes = rng.choice(len(cards), size=k, replace=False)
+        ev = {int(v): int(rng.integers(0, cards[v])) for v in nodes}
+        out.append((model_name, ev, int(rng.integers(0, 2**31 - 1))))
+    return out
+
+
+def phase_serve(torch) -> dict:
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.compile import ir
+    from repro_torch.compile.program import compile_graph
+    from repro_torch.core import draws
+    from repro_torch.core.exact import ve_marginal
+    from repro_torch.core.graphs import bn_repository_replica
+    from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
+
+    dev = torch.device(DEVICE)
+    nets = {m: bn_repository_replica(m) for m in ("pigs", "hailfinder")}
+    progs = {m: compile_graph(ir.canonicalize(bn, evidence_mode="runtime"),
+                              device=dev) for m, bn in nets.items()}
+    queries = (_queries("pigs", 4, 11, nets["pigs"].cards)
+               + _queries("hailfinder", 1, 12, nets["hailfinder"].cards))
+    run_kw = dict(n_chains=CHAINS, n_iters=ITERS, burn_in=BURN_IN,
+                  sampler="lut_ky", fused=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    draw_logp = torch.log(torch.rand((1 << 16, 32), generator=g, device=dev)
+                          * 200.0 + 1.0)
+    tab, spec = exp_lut(dev)
+
+    # ---- the main path: counters zeroed, requests served, counters read --
+    bn_gibbs.bn_sweep.launches = 0
+    ky_sampler.ky_sample_kernel.launches = 0
+    interp_lut.interp_kernel.launches = 0
+    served, walls, sweeps, checks = [], [], 0, 0
+    checked_programs = set()
+    for i, (model, ev, seed) in enumerate(queries):
+        prog = progs[model]
+        before = bn_gibbs.bn_sweep.launches
+        first = model not in checked_programs
+        # warm-up run (its first use also runs the fused cross-check)
+        prog.run(prng.key(seed), evidence=ev, **run_kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marg, vals = prog.run(prng.key(seed), evidence=ev, **run_kw)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        sweeps += 2 * ITERS
+        if first:
+            checks += 3  # cross_check_fused: 3 sweeps of 2 chains
+            checked_programs.add(model)
+        served.append((model, ev, seed, marg, vals))
+        walls.append(ms)
+        emit({"phase": "serve", "query": i, "model": model,
+              "n_evidence": len(ev), "seed": seed, "wall_ms": ms,
+              "sweeps_per_s": ITERS / (ms / 1e3),
+              "k3_launches": bn_gibbs.bn_sweep.launches - before})
+    weights = ops.lut_exp_weights(draw_logp, tab, spec)
+    labels = ops.ky_sample(weights, prng.key(9))
+    torch.cuda.synchronize()
+    launches = {
+        "bn_sweep": bn_gibbs.bn_sweep.launches,
+        "ky_sample_kernel": ky_sampler.ky_sample_kernel.launches,
+        "interp_kernel": interp_lut.interp_kernel.launches,
+    }
+    # ---- end of the main path ----------------------------------------------
+
+    check(launches["bn_sweep"] == sweeps + checks,
+          f"K3 launched {launches['bn_sweep']} times, expected "
+          f"{sweeps} sweeps + {checks} cross-check sweeps")
+    check(launches["ky_sample_kernel"] == 1 and launches["interp_kernel"] == 1,
+          f"draw request launches {launches}")
+
+    # ---- is what came out right? ------------------------------------------
+    for i, (model, ev, seed, marg, vals) in enumerate(served):
+        n, v = nets[model].n_nodes, int(np.max(nets[model].cards))
+        check(tuple(marg.shape) == (n, v) and tuple(vals.shape) == (CHAINS, n),
+              f"query {i}: shapes {tuple(marg.shape)} {tuple(vals.shape)}")
+        check(bool(torch.isfinite(marg).all()), f"query {i}: non-finite")
+        check(bool(torch.allclose(marg.sum(-1), torch.ones(n, device=dev))),
+              f"query {i}: marginals do not sum to 1")
+        for node, val in ev.items():
+            check(float(marg[node, val]) == 1.0 and bool(
+                (vals[:, node] == val).all()), f"query {i}: evidence moved")
+        m_u, v_u = progs[model].run(prng.key(seed), evidence=ev,
+                                    **{**run_kw, "fused": False})
+        check(torch.equal(marg, m_u) and torch.equal(vals, v_u),
+              f"query {i}: fused and unfused runs differ")
+    model, ev, seed, marg, vals = served[0]
+    half = {**run_kw, "n_iters": ITERS // 2}
+    _, _, st = progs[model].run(prng.key(seed), evidence=ev,
+                                return_state=True, **half)
+    m_s, v_s = progs[model].run(None, evidence=ev, carry_state=st, **half)
+    check(torch.equal(m_s, marg) and torch.equal(v_s, vals),
+          "a run sliced 100 + 100 differs from the whole run")
+    ref_labels = draws.draw_from_logits(draw_logp, prng.key(9), "lut_ky",
+                                        tab, spec)
+    check(torch.equal(labels, ref_labels),
+          "draw request differs from the plain draw_from_logits")
+
+    asia = bn_repository_replica("asia")
+    ev = {0: 1, 5: 0}
+    asia_prog = compile_graph(ir.canonicalize(asia, evidence_mode="runtime"),
+                              device=dev)
+    tvs = {}
+    for sampler in ("lut_ky", "exact_ky"):
+        marg, _ = asia_prog.run(prng.key(4), evidence=ev, n_chains=CHAINS,
+                                n_iters=500, burn_in=100, sampler=sampler,
+                                fused=True, device=dev)
+        tvs[sampler] = max(
+            0.5 * float(np.abs(ve_marginal(asia, q, ev)
+                               - marg[q, :asia.cards[q]].cpu().numpy()).sum())
+            for q in range(asia.n_nodes) if q not in ev
+        )
+    sweep_profile(torch, progs[served[0][0]], served[0][1], served[0][2],
+                  run_kw, walls[0])
+    emit({"phase": "serve_checks", "fused_equals_unfused": True,
+          "sliced_equals_whole": True, "draw_request_equals_plain": True,
+          "asia_max_node_tv_vs_exact": tvs, "launches": launches})
+    check(max(tvs.values()) <= 0.05, f"asia marginals off exact VE: {tvs}")
+    return launches
+
+
+def sweep_profile(torch, prog, ev, seed, run_kw, wall_ms: float):
+    """Device time per sweep by kernel (torch.profiler, over a 50-sweep run
+    of a served query), set against the query's unprofiled wall time per
+    sweep: how busy the card is and what keeps it busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+
+    sweeps = 50
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog.run(prng.key(seed), evidence=ev,
+                 **{**run_kw, "n_iters": sweeps})
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3)
+                   for e in kernel_events(torch, prof)),
+                  key=lambda r: -r[1])
+    total = sum(ms for _, ms in rows) / sweeps
+    k3 = sum(ms for name, ms in rows if "bn_sweep_kernel" in name) / sweeps
+    wall = wall_ms / run_kw["n_iters"]
+    emit({"phase": "serve_profile", "per_sweep": True,
+          "wall_ms_unprofiled": wall, "device_ms": total,
+          "k3_device_ms": k3, "other_device_ms": total - k3,
+          "device_busy_share": total / wall,
+          "top_kernels_ms": [[name[:80], ms / sweeps]
+                             for name, ms in rows[:6]]})
+
+
+def phase_timing(torch, launches: dict, k3_err: dict):
+    from repro_torch import prng
+    from repro_torch.core import ky as ky_core
+    from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
+
+    dev = torch.device(DEVICE)
+    rows = []
+
+    # K3 at the pigs main-path shape (B = 1024, lut_ky)
+    cbn, fr, vals, p, words = _k3_setup(torch, "pigs", "lut_ky")
+    k3 = lambda: bn_gibbs.bn_sweep(cbn, fr, vals, words, "lut_ky", p)
+    ms_events = time_ms(torch, k3, 50)
+    ms = device_ms(torch, k3, 50, "bn_sweep_kernel")
+    plain = time_ms(torch, lambda: bn_gibbs.bn_sweep_ref(cbn, fr, vals, words,
+                                                        "lut_ky", p), 2)
+    b = vals.shape[0]
+    moved = (nbytes(words, vals, cbn.log_flat, cbn.exp_table, fr.nodes,
+                    fr.cards, fr.base, fr.stride, fr.scope_var, fr.is_self)
+             + nbytes(vals))
+    flops = b * sum(fr.n_c) * fr.f_max * p.v_max
+    bms, by = bound(moved, flops, FP32_FLOPS)
+    rows.append({
+        "name": "K3 bn_sweep (pigs, B=1024, lut_ky)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bn_gibbs.cu",
+        "replaces": "src/repro/kernels/bn_gibbs.py:236",
+        "launches": launches["bn_sweep"], "max_abs_err": k3_err["pigs"],
+        "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
+    })
+
+    # K2 at the draw request's shape (65,536 x 32 log-potentials)
+    tab, spec = exp_lut(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand(1 << 21, generator=g, device=dev) * 11.0 - 10.0
+    y_k = interp_lut.interp_kernel(x, tab, spec)
+    y_t = interp_lut.interp_kernel_ref(x, tab, spec)
+    k2 = lambda: interp_lut.interp_kernel(x, tab, spec)
+    ms_events = time_ms(torch, k2, 200)
+    ms = device_ms(torch, k2, 200, "interp_kernel")
+    plain = time_ms(torch, lambda: interp_lut.interp_kernel_ref(x, tab, spec),
+                    50)
+    bms, by = bound(2 * nbytes(x) + nbytes(tab), 8 * x.numel(), FP32_FLOPS)
+    rows.append({
+        "name": "K2 interp_kernel (65,536 x 32)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/interp_lut.cu",
+        "replaces": "src/repro/kernels/interp_lut.py:50",
+        "launches": launches["interp_kernel"],
+        "max_abs_err": float((y_k - y_t).abs().max()),
+        "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
+    })
+
+    # K1 at the draw request's shape (65,536 rows of 32 bins)
+    w = ops.lut_exp_weights(x.reshape(1 << 16, 32), tab, spec)
+    words = ky_core.random_words(prng.key(9), (1 << 16,), 4, dev)
+    lab_k, st = ky_sampler.ky_sample_kernel(w, words, n_bins=32)
+    lab_t, _ = ky_sampler.ky_sample_kernel_ref(w, words, n_bins=32)
+    k1 = lambda: ky_sampler.ky_sample_kernel(w, words, n_bins=32)
+    ms_events = time_ms(torch, k1, 200)
+    ms = device_ms(torch, k1, 200, "ky_sample_kernel")
+    plain = time_ms(torch, lambda: ky_sampler.ky_sample_kernel_ref(
+        w, words, n_bins=32), 5)
+    steps = float(st["bits_used"].sum())
+    # per walk step: shift, mask, add and compare on 33 lanes, plus the
+    # step's own bookkeeping; counted at the float32 peak, the highest
+    # non-tensor rate of NVIDIA's H100 data sheet
+    bms, by = bound(nbytes(w, words) + 4 * 4 * w.shape[0],
+                    steps * (4 * 33 + 8), FP32_FLOPS)
+    rows.append({
+        "name": "K1 ky_sample_kernel (65,536 x 32)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ky_sampler.cu",
+        "replaces": "src/repro/kernels/ky_sampler.py:159",
+        "launches": launches["ky_sample_kernel"],
+        "max_abs_err": int((lab_k - lab_t).abs().max()),
+        "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
+    })
+
+    # the sweep's word generation (prng.bits, plain torch) for comparison
+    key = prng.key(7)
+    wgen = time_ms(torch, lambda: bn_gibbs.fused_round_words(
+        fr, key, b, p.n_words, dev), 20)
+    emit({"phase": "timing_context", "pigs_sweep_word_generation_ms": wgen,
+          "pigs_sweep_word_bytes": b * sum(fr.n_c) * p.n_words * 4})
+
+    # K2 and K1 alone at the shapes their bodies take inside K3 on pigs:
+    # one sweep's B * 441 rows of 3 max-subtracted log-probs
+    n_rows = b * sum(fr.n_c)
+    z = -10.0 * torch.rand((n_rows, p.v_max), generator=g, device=dev)
+    w3 = ops.lut_exp_weights(z, tab, spec)
+    words3 = ky_core.random_words(prng.key(8), (n_rows,), p.n_words, dev)
+    pigs = {}
+    for name, kern, twin, kernel, moved, ops_ in (
+        ("K2", lambda: interp_lut.interp_kernel(z, tab, spec),
+         lambda: interp_lut.interp_kernel_ref(z, tab, spec), "interp_kernel",
+         2 * nbytes(z) + nbytes(tab), 8 * z.numel()),
+        ("K1", lambda: ky_sampler.ky_sample_kernel(w3, words3, n_bins=3),
+         lambda: ky_sampler.ky_sample_kernel_ref(w3, words3, n_bins=3),
+         "ky_sample_kernel", nbytes(w3, words3) + 4 * 4 * n_rows,
+         float(ky_sampler.ky_sample_kernel(w3, words3, n_bins=3)[1][
+             "bits_used"].sum()) * (4 * 4 + 8)),
+    ):
+        bms, by = bound(moved, ops_)
+        pigs[name] = {"ms": device_ms(torch, kern, 50, kernel),
+                      "ms_per_call_events": time_ms(torch, kern, 50),
+                      "plain_ms": time_ms(torch, twin, 3),
+                      "bound_ms": bms, "bound_by": by}
+    emit({"phase": "timing_pigs_shapes", "rows": n_rows, "bins": p.v_max,
+          **pigs})
+    emit({"kernels": rows})
+
+
+if __name__ == "__main__":
+    sys.exit(main())

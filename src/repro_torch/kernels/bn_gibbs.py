@@ -1,0 +1,317 @@
+"""K3: one whole Bayes-net Gibbs sweep per launch, as a CUDA kernel.
+
+Replaces the reference's Pallas kernel `fused_gibbs_sweep`
+(src/repro/kernels/bn_gibbs.py:236; body `bn_round_step` :137, layout
+`build_fused_rounds` :96, words `fused_round_words` :216).  The CUDA source
+is `csrc/bn_gibbs.cu`; it inlines K2's lerp and K1's KY walk from
+`csrc/aia_common.cuh`.
+
+For every schedule round in order, for every (chain, node) row: gather the
+CPT addresses from the chain values, sum the F factor log-probs in f32 left
+to right, mask by card, subtract the max, turn the log-probs into integer
+weights (LUT-exp for lut_ky, exact exp quantised to 15 bits for exact_ky),
+run the KY walk and store the label.
+
+Bound on the H100: bytes.  A sweep must read its random words (B rows of
+n_words uint32 per free node: 7.2 MB for pigs at B = 1024) and read and
+write the (B, n) values once.  The design keeps everything else on chip:
+each block holds its chains' values in shared memory for the whole sweep
+(the TPU kept them VMEM-resident across its sequential grid over rounds;
+here a loop over rounds inside the block takes the grid's place), the log-
+CPT arena is read through the read-only cache, and a label is stored
+straight into shared memory where the TPU scattered with a one-hot matmul.
+
+Random words are exactly what the unfused `draw_from_logits` draws for the
+same round (`ky.random_words(keys[r], (B * n_c_r,), W)`), so lut_ky is bit-
+identical to the unfused sweep.  They are generated with torch
+(`prng.bits`) outside the kernel, as the reference leaves them to XLA.
+Here they are stored round after round without padding rows: round r's
+rows are (chain, node) = chain * n_c_r + node.
+
+`bn_sweep` launches the kernel for CUDA tensors (counted in
+`bn_sweep.launches`) and runs the plain twin `bn_sweep_ref` for CPU
+tensors.  `fused_gibbs_sweep` is the reference's drop-in entry point.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core import ky as ky_core
+from repro_torch.core.bayesnet import NEG_INF, CompiledBayesNet
+from repro_torch.core.interp import interp_ref, inv_dx
+from repro_torch.kernels import _lib
+from repro_torch.kernels.ky_sampler import LANES
+
+# The samplers whose draw pipeline this kernel implements; anything else
+# must be rejected loudly by the callers (never silently fall back).
+FUSED_BN_SAMPLERS = ("lut_ky", "exact_ky")
+
+_SMS = 132  # H100 SXM
+_SMEM_DEFAULT = 48 * 1024
+_SMEM_MAX = 232448  # 227 KB, after the dynamic shared-memory opt-in
+
+
+def check_fused_sampler(sampler: str) -> None:
+    """The fused-BN sampler gate shared by every entry layer: cdf/gumbel
+    draw from a different random stream entirely, so a silent fallback
+    would change which engine served without anyone noticing."""
+    if sampler not in FUSED_BN_SAMPLERS:
+        raise ValueError(
+            f"fused BN rounds implement the {'/'.join(FUSED_BN_SAMPLERS)} "
+            f"datapaths only, got sampler={sampler!r}"
+        )
+
+
+@dataclasses.dataclass
+class BNFusedRounds:
+    """A round-group list padded to the common (c_max, f_max, s_max)
+    envelope and stacked on a leading rounds axis.  Padded factor and scope
+    slots address the arena's zero entry with stride 0; padded node lanes
+    carry node id -1 and are never processed."""
+
+    nodes: torch.Tensor  # (R, C) int32; -1 = padded lane
+    cards: torch.Tensor  # (R, C) int32; 0 = padded lane
+    base: torch.Tensor  # (R, C*F) int32
+    stride: torch.Tensor  # (R, C*F*S) int32
+    scope_var: torch.Tensor  # (R, C*F*S) int32
+    is_self: torch.Tensor  # (R, C*F*S) int32 (0/1)
+    n_c_t: torch.Tensor  # (R,) int32 real node count per round
+    n_c: tuple[int, ...]
+    c_max: int
+    f_max: int
+    s_max: int
+
+
+def build_fused_rounds(groups) -> BNFusedRounds:
+    """Stack a `ColorGroup` list into the kernel's padded layout, on the
+    groups' device.  Built once per run, not per sweep."""
+    c_max = max(g.nodes.shape[0] for g in groups)
+    f_max = max(g.base.shape[1] for g in groups)
+    s_max = max(g.stride.shape[2] for g in groups)
+
+    def pad(x, shape, fill=0):
+        out = torch.full(shape, fill, dtype=torch.int32, device=x.device)
+        out[tuple(slice(0, d) for d in x.shape)] = x.to(torch.int32)
+        return out.reshape(-1)
+
+    device = groups[0].nodes.device
+    n_c = tuple(int(g.nodes.shape[0]) for g in groups)
+    return BNFusedRounds(
+        nodes=torch.stack([pad(g.nodes, (c_max,), -1) for g in groups]),
+        cards=torch.stack([pad(g.cards, (c_max,)) for g in groups]),
+        base=torch.stack([pad(g.base, (c_max, f_max)) for g in groups]),
+        stride=torch.stack(
+            [pad(g.stride, (c_max, f_max, s_max)) for g in groups]),
+        scope_var=torch.stack(
+            [pad(g.scope_var, (c_max, f_max, s_max)) for g in groups]),
+        is_self=torch.stack(
+            [pad(g.is_self, (c_max, f_max, s_max)) for g in groups]),
+        n_c_t=torch.tensor(n_c, dtype=torch.int32, device=device),
+        n_c=n_c,
+        c_max=c_max,
+        f_max=f_max,
+        s_max=s_max,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepParams:
+    """The draw's static parameters, derived as `draw_from_logits` derives
+    them (precision widened so V weights of weight_bits fit 2^precision)."""
+
+    v_max: int
+    weight_bits: int
+    precision: int
+    max_retries: int
+
+    @property
+    def total_steps(self) -> int:
+        return self.precision * self.max_retries
+
+    @property
+    def n_words(self) -> int:
+        return -(-self.total_steps // 32)
+
+
+def sweep_params(
+    cbn: CompiledBayesNet, sampler: str, precision: int = 16,
+    max_retries: int = 8,
+) -> SweepParams:
+    check_fused_sampler(sampler)
+    v = cbn.max_card
+    if v >= LANES:  # raised, not asserted: must hold under `python -O`
+        raise ValueError(
+            f"max_card {v} >= {LANES} KY lanes; pad wider alphabets "
+            "hierarchically"
+        )
+    weight_bits = 8 if sampler == "lut_ky" else 15
+    precision = max(precision, weight_bits + (v - 1).bit_length() + 1)
+    return SweepParams(v, weight_bits, precision, max_retries)
+
+
+def fused_round_words(
+    fr: BNFusedRounds, key: prng.Key, n_chains: int, n_words: int, device
+) -> torch.Tensor:
+    """Every round's packed words, rounds in order, unpadded: round r's
+    block is `ky.random_words(keys[r], (B * n_c_r,), W)` flattened."""
+    keys = prng.split(key, len(fr.n_c))
+    return torch.cat([
+        ky_core.random_words(k, (n_chains * nc,), n_words, device).reshape(-1)
+        for k, nc in zip(keys, fr.n_c)
+    ])
+
+
+def bn_round_step(
+    vals: torch.Tensor, fr: BNFusedRounds, r: int, words: torch.Tensor,
+    cbn: CompiledBayesNet, sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """One colour round, plain torch, in the reference `bn_round_step`'s op
+    order: gather, factor sum left to right, card mask, max-subtract,
+    weights, KY walk, scatter.  `words` is round r's (B * n_c_r, W) block."""
+    b = vals.shape[0]
+    nc, c, f, s = fr.n_c[r], fr.c_max, fr.f_max, fr.s_max
+    nodes = fr.nodes[r, :nc].long()
+    cards = fr.cards[r, :nc]
+    base = fr.base[r].reshape(c, f)[:nc]
+    stride = fr.stride[r].reshape(c, f, s)[:nc]
+    scope = fr.scope_var[r].reshape(c, f, s)[:nc].long()
+    is_self = fr.is_self[r].reshape(c, f, s)[:nc] != 0
+
+    sv = vals[:, scope]  # (B, nc, F, S)
+    v_range = torch.arange(p.v_max, dtype=torch.int32, device=vals.device)
+    val_or_v = torch.where(is_self[None, ..., None], v_range, sv[..., None])
+    addr = base[None, :, :, None] + (
+        stride[None, ..., None] * val_or_v).sum(-2)  # (B, nc, F, V)
+    # lanes v >= card may address past the arena; they are masked below
+    addr = addr.clamp(0, cbn.log_flat.shape[0] - 1)
+    g = cbn.log_flat[addr]
+    logp = g[..., 0, :]
+    for k in range(1, f):  # left to right, as XLA reduces on the CPU
+        logp = logp + g[..., k, :]
+    logp = torch.where(v_range < cards[None, :, None], logp,
+                       torch.full_like(logp, NEG_INF))
+
+    flat = logp.reshape(b * nc, p.v_max)
+    z = flat - flat.amax(-1, keepdim=True)
+    if sampler == "lut_ky":
+        w = torch.clamp(
+            torch.round(interp_ref(z, cbn.exp_table, cbn.exp_spec)), min=0.0,
+        ).to(torch.int32)
+    else:
+        w = ky_core.quantize_probs(torch.exp(z), bits=p.weight_bits)
+    # w >= 0, so the plain walk's argmax fallback is the kernel's
+    labels, _ = ky_core.ky_sample_fast(
+        w, words.reshape(b * nc, p.n_words), n_bins=p.v_max,
+        precision=p.precision, max_retries=p.max_retries,
+    )
+    labels = labels.reshape(b, nc)
+    out = vals.clone()
+    out[:, nodes] = labels
+    return out
+
+
+def _check_sweep(cbn, fr, vals, words, sampler: str, p: SweepParams):
+    check_fused_sampler(sampler)
+    if vals.dtype != torch.int32 or vals.dim() != 2:
+        raise ValueError("vals must be (B, n) int32")
+    if vals.shape[1] != cbn.n_nodes:
+        raise ValueError(f"vals has {vals.shape[1]} nodes, net has "
+                         f"{cbn.n_nodes}")
+    want = vals.shape[0] * sum(fr.n_c) * p.n_words
+    if words.dtype != torch.int32 or words.numel() != want:
+        raise ValueError(f"words must be {want} int32 (rounds in order)")
+
+
+def bn_sweep_ref(
+    cbn: CompiledBayesNet, fr: BNFusedRounds, vals: torch.Tensor,
+    words: torch.Tensor, sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """Plain torch twin of K3: every round of one sweep, in order."""
+    _check_sweep(cbn, fr, vals, words, sampler, p)
+    off = 0
+    for r, nc in enumerate(fr.n_c):
+        n = vals.shape[0] * nc * p.n_words
+        vals = bn_round_step(vals, fr, r, words[off:off + n], cbn, sampler,
+                             p)
+        off += n
+    return vals
+
+
+def chains_per_block(n_chains: int, n_nodes: int, lut_size: int) -> int:
+    """Chains a block keeps resident: enough blocks for two per SM when the
+    batch allows, within the default 48 KB of shared memory when a chain
+    fits there (beyond it, one chain per block with the opt-in)."""
+    per_chain = 4 * n_nodes
+    fixed = 4 * lut_size
+    fit = (_SMEM_DEFAULT - fixed) // per_chain
+    cpc = max(1, min(n_chains // (2 * _SMS), fit)) if fit >= 1 else 1
+    if cpc * per_chain + fixed > _SMEM_MAX:
+        raise ValueError(
+            f"{n_nodes} nodes do not fit one block's shared memory"
+        )
+    return cpc
+
+
+def bn_sweep(
+    cbn: CompiledBayesNet, fr: BNFusedRounds, vals: torch.Tensor,
+    words: torch.Tensor, sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """One sweep over all rounds: K3 for CUDA tensors, the twin for CPU
+    tensors.  `words` holds every round's words (see module docstring)."""
+    _check_sweep(cbn, fr, vals, words, sampler, p)
+    if vals.device.type == "cpu":
+        return bn_sweep_ref(cbn, fr, vals, words, sampler, p)
+    tab = cbn.exp_table
+    _lib.require_cuda(
+        "bn_sweep", vals, words, cbn.log_flat, tab, fr.nodes, fr.cards,
+        fr.base, fr.stride, fr.scope_var, fr.is_self, fr.n_c_t,
+    )
+    b, n = vals.shape
+    spec = cbn.exp_spec
+    cpc = chains_per_block(b, n, spec.size)
+    out = torch.empty_like(vals)
+    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
+    fn = _lib.function(
+        "bn_gibbs", "aia_bn_sweep",
+        [P, P, I, I, I, I, P, I, I, I, P, P, P, P, P, P, P, I, P, P, I, F, F,
+         I, I, I, I, I, P],
+    )
+    with torch.cuda.device(vals.device):
+        code = fn(
+            vals.data_ptr(), out.data_ptr(), b, n, cpc, len(fr.n_c),
+            fr.n_c_t.data_ptr(), fr.c_max, fr.f_max, fr.s_max,
+            fr.nodes.data_ptr(), fr.cards.data_ptr(), fr.base.data_ptr(),
+            fr.stride.data_ptr(), fr.scope_var.data_ptr(),
+            fr.is_self.data_ptr(), words.data_ptr(), p.n_words,
+            cbn.log_flat.data_ptr(), tab.data_ptr(), spec.size, spec.x0,
+            inv_dx(spec), p.v_max, int(sampler == "exact_ky"), p.weight_bits,
+            p.precision, p.total_steps, _lib.stream_of(vals),
+        )
+    _lib.check("bn_gibbs", code, "bn_sweep")
+    bn_sweep.launches += 1
+    return out
+
+
+bn_sweep.launches = 0
+
+
+def fused_gibbs_sweep(
+    cbn: CompiledBayesNet,
+    fr: BNFusedRounds,
+    vals: torch.Tensor,
+    key: prng.Key,
+    sampler: str = "lut_ky",
+    *,
+    precision: int = 16,
+    max_retries: int = 8,
+) -> torch.Tensor:
+    """Drop-in for `bayesnet.gibbs_sweep` on the fused samplers: one K3
+    launch runs every round of the sweep, bit-exact with the unfused sweep
+    for lut_ky.  Raises on samplers outside `FUSED_BN_SAMPLERS`."""
+    p = sweep_params(cbn, sampler, precision, max_retries)
+    words = fused_round_words(fr, key, vals.shape[0], p.n_words, vals.device)
+    return bn_sweep(cbn, fr, vals, words, sampler, p)

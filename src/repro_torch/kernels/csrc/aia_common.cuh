@@ -1,0 +1,147 @@
+// Device functions shared by the three sampling kernels of the port, as
+// the reference shares `interp_eval` (kernels/interp_lut.py) and
+// `preprocess_lanes`/`ddg_walk`/`argmax_fallback` (kernels/ky_sampler.py)
+// between its Pallas kernels.
+//
+// Bit-exactness rules (the lut_ky draw rounds the lerp's output, so one
+// flipped low bit changes a label):
+//   * every float op is written as the explicitly rounded intrinsic of the
+//     op the reference executes, so nvcc cannot contract or reorder it.  The
+//     reference as XLA compiles it (under jit and in its Pallas kernels)
+//     multiplies by the float32 reciprocal of the LUT step instead of
+//     dividing, and evaluates the lerp as one fused multiply-add; the lerp
+//     here does the same (__fmul_rn, __fmaf_rn);
+//   * round-half-to-even is rintf, never roundf (jnp.round rounds half to
+//     even, roundf rounds half away from zero);
+//   * random words are int32 holding the uint32 bit patterns of
+//     jax.random.bits; bit t of a row is (word[t / 32] >> (t % 32)) & 1.
+//
+// Distributions live in per-thread register arrays of a compile-time
+// capacity VCAP >= n_bins + 1 (bins plus the rejection bin); every loop
+// over them is unrolled with a runtime mask so the arrays stay in
+// registers.  Lanes past n_bins + 1 play the part of the reference's zero
+// lanes up to 128.
+
+#pragma once
+
+#include <climits>
+#include <cuda_runtime.h>
+
+namespace aia {
+
+// K2's body: Y[i] + frac * (Y[i+1] - Y[i]) on a uniform table with
+// saturating ends (interp_lut.interp_eval); inv_dx is fl32(1 / dx).
+__device__ __forceinline__ float lut_interp(float x, const float* tab,
+                                            float x0, float inv_dx, int size) {
+  float u = __fmul_rn(__fsub_rn(x, x0), inv_dx);
+  u = fminf(fmaxf(u, 0.0f), (float)(size - 1));
+  int idx = min((int)u, size - 2);
+  float frac = __fsub_rn(u, (float)idx);
+  float y0 = tab[idx];
+  float y1 = tab[idx + 1];
+  return __fmaf_rn(frac, __fsub_rn(y1, y0), y0);
+}
+
+// ky_sampler.preprocess_lanes: clamp -> uniform if all zero -> scale to
+// fill 2^precision -> rejection bin in lane n_bins.
+template <int VCAP>
+__device__ __forceinline__ void ky_prepare(const int (&w)[VCAP], int n_bins,
+                                           int precision, int (&m)[VCAP]) {
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < VCAP; ++i) {
+    m[i] = (i < n_bins) ? max(w[i], 0) : 0;
+    s += m[i];
+  }
+  if (s <= 0) {
+    s = 0;
+#pragma unroll
+    for (int i = 0; i < VCAP; ++i) {
+      m[i] = (i < n_bins) ? 1 : 0;
+      s += m[i];
+    }
+  }
+  int k = max((1 << precision) / s, 1);
+  int tot = 0;
+#pragma unroll
+  for (int i = 0; i < VCAP; ++i) {
+    m[i] *= k;
+    tot += m[i];
+  }
+  int rej = (1 << precision) - tot;
+#pragma unroll
+  for (int i = 0; i < VCAP; ++i) {
+    if (i == n_bins) m[i] = rej;
+  }
+}
+
+// ky_sampler.ddg_walk for one row, stopping at the row's own termination
+// (the reference's lock-step loop never changes a finished row, so the
+// per-row exit gives the same label and counts).  Returns the label, or -1
+// when the bit budget ran out (done = false).
+template <int VCAP>
+__device__ __forceinline__ int ddg_walk(const int (&m)[VCAP],
+                                        const int* words, int n_bins,
+                                        int precision, int total_steps,
+                                        int& bits, int& rejs, bool& done) {
+  int d = 0, level = 0, label = -1;
+  unsigned word = 0u;
+  bits = 0;
+  rejs = 0;
+  done = false;
+  for (int t = 0; t < total_steps; ++t) {
+    if ((t & 31) == 0) word = (unsigned)words[t >> 5];
+    int bit = (int)((word >> (t & 31)) & 1u);
+    d = 2 * d + bit;
+    int sh = precision - 1 - level;
+    int c = 0, idx = -1;
+#pragma unroll
+    for (int i = 0; i < VCAP; ++i) {
+      if (i <= n_bins) {
+        c += (m[i] >> sh) & 1;
+        if (idx < 0 && c > d) idx = i;
+      }
+    }
+    ++bits;
+    if (c > d) {
+      if (idx >= n_bins) {
+        ++rejs;
+        d = 0;
+        level = 0;
+      } else {
+        label = idx;
+        done = true;
+        break;
+      }
+    } else {
+      d -= c;
+      ++level;
+    }
+  }
+  return label;
+}
+
+// ky_sampler.argmax_fallback: first lane of the largest raw weight among
+// the n_bins bins.  The reference holds -1 in its lanes n_bins..127, so
+// when every weight is below -1 its argmax is lane n_bins.
+template <int VCAP>
+__device__ __forceinline__ int argmax_fallback(const int (&w)[VCAP],
+                                               int n_bins) {
+  int mx = INT_MIN, amax = 0;
+#pragma unroll
+  for (int i = 0; i < VCAP; ++i) {
+    if (i < n_bins && w[i] > mx) {
+      mx = w[i];
+      amax = i;
+    }
+  }
+  return mx < -1 ? n_bins : amax;
+}
+
+}  // namespace aia
+
+// Each kernel library is one translation unit that includes this header
+// once, so the error-string helper is defined exactly once per library.
+extern "C" const char* aia_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,67 @@
+"""Public entry points for the kernels (port of `repro/kernels/ops.py`).
+
+These wrappers own the layout plumbing (flattening, random-word generation)
+so callers see clean shapes.  They run where their input tensors live: the
+CUDA kernels for tensors on the card, the plain torch twins for CPU
+tensors, which only a caller that made CPU tensors gets.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core import ky as ky_core
+from repro_torch.core.interp import LUTSpec
+from repro_torch.kernels import interp_lut as _interp_lut
+from repro_torch.kernels import ky_sampler as _ky
+
+LANES = _ky.LANES
+
+
+def ky_sample(
+    weights: torch.Tensor,
+    key: prng.Key,
+    *,
+    precision: int = 16,
+    max_retries: int = 8,
+    return_stats: bool = False,
+):
+    """Draw one exact sample per row from unnormalized int32 weights
+    (B, N), N < 128, with the reference's random words for `key`.  Returns
+    labels (B,) int32 [, stats]."""
+    b, n_bins = weights.shape
+    if n_bins >= LANES:  # raised, not asserted: must hold under `python -O`
+        raise ValueError(
+            f"KY kernel handles <={LANES - 1} bins, got {n_bins}"
+        )
+    n_words = -(-precision * max_retries // 32)
+    words = ky_core.random_words(key, (b,), n_words, weights.device)
+    labels, stats = _ky.ky_sample_kernel(
+        weights.to(torch.int32).contiguous(), words, n_bins=n_bins,
+        precision=precision, max_retries=max_retries,
+    )
+    if return_stats:
+        return labels, stats
+    return labels
+
+
+def interp(
+    x: torch.Tensor, table: torch.Tensor, spec: LUTSpec
+) -> torch.Tensor:
+    """Vectorized LUT lerp over an arbitrary-shaped float32 tensor."""
+    flat = x.to(torch.float32).contiguous().reshape(-1)
+    tab = table.to(torch.float32).contiguous().reshape(-1)
+    return _interp_lut.interp_kernel(flat, tab, spec).reshape(x.shape)
+
+
+def lut_exp_weights(
+    log_potentials: torch.Tensor,
+    exp_table: torch.Tensor,
+    exp_spec: LUTSpec,
+) -> torch.Tensor:
+    """Fused C2 stage of the sampling pipeline: max-subtracted
+    log-potentials -> LUT-exp -> integer KY weights (no softmax)."""
+    z = log_potentials - log_potentials.amax(-1, keepdim=True)
+    w = interp(z, exp_table, exp_spec)
+    return torch.clamp(torch.round(w), min=0.0).to(torch.int32)

@@ -1,0 +1,216 @@
+"""The port's compile chain and `CompiledProgram.run` against the
+reference's, plus the port's guards: it imports neither JAX nor the
+reference package, its entry points default to the card and refuse to run
+on the CPU unasked, and a CUDA tensor never reaches a kernel's twin.
+
+The reference runs `run(backend="schedule")` as it serves (jitted); the
+port runs `run(fused=True, device="cpu")`, i.e. K3's plain twin once per
+sweep.  Tolerance: bit-equal."""
+
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.compile import canonicalize as r_canonicalize
+from repro.compile import clear_program_cache as r_clear
+from repro.compile import compile_graph as r_compile_graph
+from repro.core import graphs as r_graphs
+from repro_torch import convert, prng
+from repro_torch.compile import ir as t_ir
+from repro_torch.compile import program as t_program
+from repro_torch.core import bayesnet as t_bn
+from repro_torch.core import graphs as t_graphs
+from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
+
+EVIDENCE = {3: 1, 10: 0, 20: 1}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_caches():
+    t_program.clear_program_cache()
+    r_clear()
+    yield
+    t_program.clear_program_cache()
+    r_clear()
+
+
+def _key(seed):
+    jk = jax.random.key(seed)
+    return jk, convert.key_from_reference(
+        np.asarray(jax.random.key_data(jk)))
+
+
+def _assert_same(port_out, ref_out):
+    for got, want in zip(port_out, ref_out):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("mode", ["baked", "runtime"])
+def test_fused_run_matches_reference_schedule_run_on_alarm(mode):
+    r_net = r_graphs.bn_repository_replica("alarm")
+    t_net = t_graphs.bn_repository_replica("alarm")
+    # the reference's first-use cross-checks compile its engines at 2
+    # chains x 3 sweeps without burn-in; serving the same budget reuses those
+    # executables instead of compiling a third one
+    kw = dict(n_chains=2, n_iters=3, burn_in=0)
+    jk, k = _key(6)
+    if mode == "baked":
+        r_prog = r_compile_graph(r_net, EVIDENCE)
+        t_prog = t_program.compile_graph(t_net, EVIDENCE, device="cpu")
+        want = r_prog.run(jk, backend="schedule", **kw)
+        got = t_prog.run(k, fused=True, device="cpu", **kw)
+    else:
+        r_prog = r_compile_graph(
+            r_canonicalize(r_net, evidence_mode="runtime"))
+        t_prog = t_program.compile_graph(
+            t_ir.canonicalize(t_net, evidence_mode="runtime"), device="cpu")
+        want = r_prog.run(jk, backend="schedule", evidence=EVIDENCE, **kw)
+        got = t_prog.run(k, fused=True, evidence=EVIDENCE, device="cpu",
+                         **kw)
+    assert t_prog.program_key == r_prog.program_key
+    _assert_same(got, want)
+    unfused = t_prog.run(k, device="cpu", evidence=EVIDENCE
+                         if mode == "runtime" else None, **kw)
+    _assert_same(unfused, [x.numpy() for x in got])
+
+
+def test_sliced_run_equals_whole_run():
+    t_net = t_graphs.bn_repository_replica("asia")
+    prog = t_program.compile_graph(
+        t_ir.canonicalize(t_net, evidence_mode="runtime"), device="cpu")
+    kw = dict(n_chains=6, burn_in=4, thin=2, evidence={1: 0}, fused=True,
+              device="cpu")
+    m, v = prog.run(prng.key(2), n_iters=15, **kw)
+    _, _, st = prog.run(prng.key(2), n_iters=7, return_state=True, **kw)
+    _, _, st = prog.run(None, n_iters=5, carry_state=st, return_state=True,
+                        **kw)
+    m2, v2 = prog.run(None, n_iters=3, carry_state=st, **kw)
+    assert torch.equal(m, m2) and torch.equal(v, v2)
+    assert isinstance(st, t_bn.BNChainState) and st.t == 12
+
+
+def test_program_cache_hits_on_recompile():
+    net = t_graphs.bn_repository_replica("survey")
+    graph = t_ir.canonicalize(net, evidence_mode="runtime")
+    p1 = t_program.compile_graph(graph, device="cpu")
+    p2 = t_program.compile_graph(
+        t_ir.canonicalize(t_graphs.bn_repository_replica("survey"),
+                          evidence_mode="runtime"), device="cpu")
+    assert p2 is p1
+    stats = t_program.cache_stats()
+    assert (stats["hits"], stats["misses"], stats["size"]) == (1, 1, 1)
+    p1.run(prng.key(0), n_chains=2, n_iters=2, evidence={0: 1}, device="cpu")
+    p1.run(prng.key(1), n_chains=2, n_iters=2, evidence={0: 0}, device="cpu")
+    assert p1.clamp_lowerings == 1  # one specialization per observed set
+    t_program.set_cache_capacity(1)
+    t_program.compile_graph(net, device="cpu")  # baked IR: another slot
+    assert t_program.cache_stats()["evictions"] == 1
+    t_program.set_cache_capacity(128)
+
+
+def test_converter_round_trips_reference_net_and_key():
+    from repro.core import bayesnet as r_bn
+
+    r = r_bn.compile_bayesnet(r_graphs.bn_repository_replica("cancer"),
+                              evidence={0: 1})
+    arrays, meta = convert.reference_bn_arrays(r)
+    t = convert.from_reference_bn(arrays, meta, device="cpu")
+    again, meta2 = convert.reference_bn_arrays(t)
+    assert meta2 == meta
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(again[k], v, err_msg=k)
+        assert again[k].dtype == v.dtype, k
+    jk, k = _key(99)
+    assert [k.k1, k.k2] == np.asarray(jax.random.key_data(jk)).tolist()
+    # the converted net gives the reference's chain init
+    rv, _ = r_bn.init_chain_values(r, jk, 4)
+    tv, _ = t_bn.init_chain_values(t, k, 4)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
+
+
+def test_unported_paths_raise():
+    prog = t_program.compile_graph(t_graphs.bn_repository_replica("survey"),
+                                   device="cpu")
+    with pytest.raises(ValueError):
+        prog.run(prng.key(0), fused=True, backend="eager", device="cpu")
+    with pytest.raises(ValueError):
+        prog.run(prng.key(0), fused=True, sampler="cdf", device="cpu")
+    with pytest.raises(NotImplementedError):
+        prog.run(prng.key(0), diagnostics=True, device="cpu")
+    with pytest.raises(NotImplementedError):
+        prog.run_sharded(prng.key(0), None)
+    mrf = t_program.compile_graph(t_graphs.GridMRF(4, 4, 2), device="cpu")
+    with pytest.raises(NotImplementedError):
+        mrf.run(prng.key(0), evidence=np.zeros((4, 4)), device="cpu")
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                            "triton"))
+        print(len(names), bad)
+        sys.exit(1 if bad or len(names) < 20 else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults would run")
+    net = t_graphs.bn_repository_replica("survey")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_program.compile_graph(net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_bn.compile_bayesnet(net)
+    cpu_net = t_bn.compile_bayesnet(net, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_bn.run_gibbs(cpu_net, prng.key(0))
+    prog = t_program.compile_graph(net, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prog.run(prng.key(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prng.bits(prng.key(0), (4,))
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_the_twins(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+
+    def twin_called(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain twin")
+
+    monkeypatch.setattr(interp_lut, "interp_kernel_ref", twin_called)
+    monkeypatch.setattr(ky_sampler, "ky_sample_kernel_ref", twin_called)
+    monkeypatch.setattr(bn_gibbs, "bn_sweep_ref", twin_called)
+    dev = torch.device("cuda")
+    net = t_graphs.bn_repository_replica("survey")
+    cbn = t_bn.compile_bayesnet(net, device=dev)
+    before = (interp_lut.interp_kernel.launches,
+              ky_sampler.ky_sample_kernel.launches,
+              bn_gibbs.bn_sweep.launches)
+    w = ops.lut_exp_weights(torch.randn(64, 5, device=dev), cbn.exp_table,
+                            cbn.exp_spec)
+    ops.ky_sample(w, prng.key(1))
+    vals, _ = t_bn.init_chain_values(cbn, prng.key(2), 8)
+    bn_gibbs.fused_gibbs_sweep(cbn, bn_gibbs.build_fused_rounds(cbn.groups),
+                               vals, prng.key(3))
+    torch.cuda.synchronize()
+    after = (interp_lut.interp_kernel.launches,
+             ky_sampler.ky_sample_kernel.launches,
+             bn_gibbs.bn_sweep.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
