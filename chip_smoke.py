@@ -6,7 +6,7 @@
 Drives the port alone (never JAX or the JAX package) through these phases,
 each printing one JSON line; any failure raises and exits non-zero:
 
- 1. build   — nvcc builds the three kernels from `src/repro_torch/kernels/
+ 1. build   — nvcc builds the four kernels from `src/repro_torch/kernels/
               csrc/` (one process per source, in parallel); prints the build
               time, ptxas' register/spill report and the card's name and
               power limit.
@@ -33,12 +33,32 @@ each printing one JSON line; any failure raises and exits non-zero:
               `carry_state` equals the whole run; K3's launches equal the
               sweeps served plus the first-use cross-checks'; marginals on
               asia agree with exact variable elimination.
- 6. timing  — every kernel and its twin at the main path's shapes: the
+ 6. k4      — K4 (one MRF half-step) against its twin at 1,024 chains,
+              both parities, on Penguin (64 x 64, 4 labels), Art (48 x 48,
+              8 labels) and quadratic-cost Art, the widths of the
+              reference's MRF benchmark: labels bit-equal.
+ 7. serve_mrf — the MRF main path.  Counters zeroed, then one denoising
+              query per model through `compile_graph(GridMRF).run(key,
+              evidence=noisy, n_chains=1024, n_iters=200, fused=True)`
+              (warm-up + timed), counters read right after: K4 launched
+              2 x 200 times per query plus the first-use cross-check's
+              2 x 3 per program.  Then, at 1,024 chains x 20 iterations:
+              fused equals `fused=False`, 10 + 10 iterations through
+              `carry_state` equal 20, 64 pixels pinned at their clean
+              labels hold in every chain; and chain 0 of each Potts query
+              has fewer wrong pixels than the noisy image.
+ 8. diag    — `diagnostics=True`: on asia, each of lut_ky, exact_ky, cdf
+              and gumbel gives a snapshot whose per-node p_hat is within TV
+              0.05 of exact variable elimination; the Penguin query with
+              diagnostics draws the served labels, and its snapshot's
+              per-pixel argmax beats the noisy image.
+ 9. timing  — every kernel and its twin at the main paths' shapes: the
               kernel's device time (torch.profiler) and time per call (CUDA
               events), the twin's time, and the least time the card needs
               for the same bytes and operations; K1 and K2 also alone at the
-              shapes their bodies take inside K3 on pigs.  Prints
-              `{"kernels": [...]}`.
+              shapes their bodies take inside K3 on pigs; one MRF half-step
+              split into word generation and K4, with the card's busy
+              share.  Prints `{"kernels": [...]}`.
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -63,6 +83,17 @@ CHAINS = 1024
 ITERS = 200
 BURN_IN = 50
 DEVICE = "cuda"
+
+# the reference's MRF benchmark (benchmarks/bench_mrf.py:33-34): grid,
+# labels, data cost; theta 1.2, h 2.0, evidence from
+# make_denoising_problem(h, w, v, 0.25, seed=1)
+MRF_MODELS = {
+    "penguin": (64, 64, 4, "potts"),
+    "art": (48, 48, 8, "potts"),
+    "art_quadratic": (48, 48, 8, "quadratic"),
+}
+MRF_CHECK_ITERS = 20
+MRF_PINS = 64
 
 
 def emit(obj) -> None:
@@ -97,12 +128,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_all = time.perf_counter()
-    card = phase_build(torch)
-    phase_k2(torch)
-    phase_k1(torch)
-    k3_err = phase_k3(torch)
-    launches = phase_serve(torch)
-    phase_timing(torch, launches, k3_err)
+    card = timed(phase_build, torch)
+    timed(phase_k2, torch)
+    timed(phase_k1, torch)
+    k3_err = timed(phase_k3, torch)
+    k4_err = timed(phase_k4, torch)
+    launches = timed(phase_serve, torch)
+    mrf_launches, served = timed(phase_serve_mrf, torch)
+    timed(phase_diag, torch, served)
+    timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err)
     for mod in sys.modules:
         check(not (mod == "jax" or mod.startswith("jax.")
                    or mod == "repro" or mod.startswith("repro.")),
@@ -119,6 +153,14 @@ def main() -> int:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+
+def timed(phase, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    emit({"phase_seconds": phase.__name__, "s": time.perf_counter() - t0})
+    return out
 
 
 def nvidia_smi() -> str:
@@ -167,6 +209,25 @@ def kernel_events(torch, prof):
     them carry the same device time and would count it twice)."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, mrf_gibbs
+
+    for wrapper in (bn_gibbs.bn_sweep, interp_lut.interp_kernel,
+                    ky_sampler.ky_sample_kernel, mrf_gibbs.mrf_half_step):
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, mrf_gibbs
+
+    return {
+        "bn_sweep": bn_gibbs.bn_sweep.launches,
+        "ky_sample_kernel": ky_sampler.ky_sample_kernel.launches,
+        "interp_kernel": interp_lut.interp_kernel.launches,
+        "mrf_half_step": mrf_gibbs.mrf_half_step.launches,
+    }
 
 
 def nbytes(*tensors) -> int:
@@ -330,6 +391,55 @@ def phase_k3(torch) -> dict:
     return errs
 
 
+def _mrf_model(torch, name: str):
+    """(GridMRF, clean (H, W) numpy, noisy evidence (H, W) on the card)."""
+    from repro_torch.core import mrf as mrf_mod
+    from repro_torch.core.graphs import GridMRF
+
+    h, w, v, cost = MRF_MODELS[name]
+    clean, noisy = mrf_mod.make_denoising_problem(h, w, v, 0.25, seed=1)
+    mrf = GridMRF(h, w, v, theta=1.2, h=2.0, data_cost=cost)
+    return mrf, clean, torch.as_tensor(noisy, device=DEVICE)
+
+
+def phase_k4(torch) -> dict:
+    from repro_torch import prng
+    from repro_torch.kernels import mrf_gibbs
+
+    dev = torch.device(DEVICE)
+    tab, spec = exp_lut(dev)
+    errs = {}
+    for name in MRF_MODELS:
+        mrf, _, ev = _mrf_model(torch, name)
+        labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width),
+                              0, mrf.n_labels, dev)
+        p = mrf_gibbs.half_step_params(mrf)
+        out = {"phase": "k4", "model": name, "chains": CHAINS,
+               "grid": [mrf.height, mrf.width], "labels": mrf.n_labels,
+               "data_cost": mrf.data_cost,
+               "tile_rows": mrf_gibbs.tile_rows(mrf.width, spec.size),
+               "mismatches": {}, "changed_share": {}}
+        err = 0
+        for parity in (0, 1):
+            words = mrf_gibbs.round_words(mrf, prng.key(2 + parity), CHAINS,
+                                          p, dev)
+            got = mrf_gibbs.mrf_half_step(mrf, labels, ev, words, parity,
+                                          tab, spec, p)
+            want = mrf_gibbs.mrf_half_step_ref(mrf, labels, ev, words,
+                                               parity, tab, spec, p)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            err = max(err, int((got - want).abs().max()))
+            out["mismatches"][str(parity)] = bad
+            out["changed_share"][str(parity)] = float(
+                (got != labels).float().mean())
+            check(bad == 0, f"K4 differs from its twin on {name}, parity "
+                  f"{parity} ({bad} labels)")
+        errs[name] = err
+        emit(out)
+    return errs
+
+
 def _queries(model_name: str, n: int, seed: int, cards):
     import numpy as np
 
@@ -352,7 +462,7 @@ def phase_serve(torch) -> dict:
     from repro_torch.core import draws
     from repro_torch.core.exact import ve_marginal
     from repro_torch.core.graphs import bn_repository_replica
-    from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
+    from repro_torch.kernels import bn_gibbs, ops
 
     dev = torch.device(DEVICE)
     nets = {m: bn_repository_replica(m) for m in ("pigs", "hailfinder")}
@@ -368,9 +478,7 @@ def phase_serve(torch) -> dict:
     tab, spec = exp_lut(dev)
 
     # ---- the main path: counters zeroed, requests served, counters read --
-    bn_gibbs.bn_sweep.launches = 0
-    ky_sampler.ky_sample_kernel.launches = 0
-    interp_lut.interp_kernel.launches = 0
+    zero_launches()
     served, walls, sweeps, checks = [], [], 0, 0
     checked_programs = set()
     for i, (model, ev, seed) in enumerate(queries):
@@ -399,13 +507,10 @@ def phase_serve(torch) -> dict:
     weights = ops.lut_exp_weights(draw_logp, tab, spec)
     labels = ops.ky_sample(weights, prng.key(9))
     torch.cuda.synchronize()
-    launches = {
-        "bn_sweep": bn_gibbs.bn_sweep.launches,
-        "ky_sample_kernel": ky_sampler.ky_sample_kernel.launches,
-        "interp_kernel": interp_lut.interp_kernel.launches,
-    }
+    launches = read_launches()
     # ---- end of the main path ----------------------------------------------
 
+    check(launches["mrf_half_step"] == 0, f"BN path launched K4: {launches}")
     check(launches["bn_sweep"] == sweeps + checks,
           f"K3 launched {launches['bn_sweep']} times, expected "
           f"{sweeps} sweeps + {checks} cross-check sweeps")
@@ -462,6 +567,164 @@ def phase_serve(torch) -> dict:
     return launches
 
 
+def phase_serve_mrf(torch):
+    """The MRF main path: one denoising query per model, fused through K4."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.compile import ir
+    from repro_torch.compile.program import compile_graph
+
+    dev = torch.device(DEVICE)
+    models = {name: _mrf_model(torch, name) for name in MRF_MODELS}
+    progs = {name: compile_graph(ir.canonicalize(mrf, evidence_mode="runtime"),
+                                 device=dev)
+             for name, (mrf, _, _) in models.items()}
+    run_kw = dict(n_chains=CHAINS, n_iters=ITERS, sampler="lut_ky",
+                  backend="schedule", fused=True, device=dev)
+
+    # ---- the main path: counters zeroed, queries served, counters read ----
+    zero_launches()
+    served = {}
+    for i, (name, (mrf, clean, ev)) in enumerate(models.items()):
+        seed = 100 + i
+        before = read_launches()["mrf_half_step"]
+        # warm-up query (its first use also runs the fused cross-check)
+        progs[name].run(prng.key(seed), evidence=ev, **run_kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        labels = progs[name].run(prng.key(seed), evidence=ev, **run_kw)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        served[name] = (seed, labels)
+        emit({"phase": "serve_mrf", "model": name,
+              "grid": [mrf.height, mrf.width], "labels": mrf.n_labels,
+              "data_cost": mrf.data_cost, "chains": CHAINS, "iters": ITERS,
+              "seed": seed, "wall_ms": ms,
+              "iters_per_s": ITERS / (ms / 1e3),
+              "site_updates_per_s": CHAINS * mrf.height * mrf.width * ITERS
+              / (ms / 1e3),
+              "k4_launches": read_launches()["mrf_half_step"] - before})
+    launches = read_launches()
+    # ---- end of the main path ----------------------------------------------
+
+    want = len(models) * (2 * 2 * ITERS + 2 * 3)
+    check(launches["mrf_half_step"] == want,
+          f"K4 launched {launches['mrf_half_step']} times, expected {want} "
+          "(2 per iteration per query, plus 2 x 3 cross-check rounds per "
+          "program)")
+    check(launches["bn_sweep"] == 0 and launches["ky_sample_kernel"] == 0
+          and launches["interp_kernel"] == 0,
+          f"MRF path launched other kernels: {launches}")
+
+    # ---- is what came out right? ------------------------------------------
+    checks = {}
+    chk = {**run_kw, "n_iters": MRF_CHECK_ITERS}
+    for name, (mrf, clean, ev) in models.items():
+        seed, labels = served[name]
+        prog = progs[name]
+        check(tuple(labels.shape) == (CHAINS, mrf.height, mrf.width)
+              and labels.dtype == torch.int32, f"{name}: labels shaped "
+              f"{tuple(labels.shape)} {labels.dtype}")
+        check(bool(((labels >= 0) & (labels < mrf.n_labels)).all()),
+              f"{name}: labels out of range")
+        fused = prog.run(prng.key(seed), evidence=ev, **chk)
+        unfused = prog.run(prng.key(seed), evidence=ev,
+                           **{**chk, "fused": False})
+        check(torch.equal(fused, unfused), f"{name}: fused and unfused "
+              "runs differ")
+        half = {**chk, "n_iters": MRF_CHECK_ITERS // 2}
+        _, st = prog.run(prng.key(seed), evidence=ev, return_state=True,
+                         **half)
+        sliced = prog.run(None, evidence=ev, carry_state=st, **half)
+        check(torch.equal(sliced, fused), f"{name}: a run sliced 10 + 10 "
+              "differs from the whole run")
+        rng = np.random.default_rng(seed)
+        sites = rng.choice(mrf.height * mrf.width, MRF_PINS, replace=False)
+        pins = {int(s_): int(clean.flat[s_]) for s_ in sites}
+        pinned = prog.run(prng.key(seed), evidence=ev, pins=pins, **chk)
+        rows, cols = np.unravel_index(sites, (mrf.height, mrf.width))
+        held = pinned.cpu()[:, torch.as_tensor(rows), torch.as_tensor(cols)]
+        check(bool((held == torch.as_tensor(clean[rows, cols])).all()),
+              f"{name}: pinned pixels moved")
+        noisy_err = float((ev.cpu().numpy() != clean).mean())
+        chain0_err = float((labels[0].cpu().numpy() != clean).mean())
+        checks[name] = {"noisy_error": noisy_err,
+                        "chain0_error": chain0_err}
+        if mrf.data_cost == "potts":
+            check(chain0_err < noisy_err, f"{name}: chain 0 error "
+                  f"{chain0_err} not below the noisy image's {noisy_err}")
+    emit({"phase": "serve_mrf_checks", "fused_equals_unfused": True,
+          "sliced_equals_whole": True, "pins_held": True,
+          "denoising": checks, "launches": launches})
+    return launches, {name: (models[name], progs[name], *served[name])
+                      for name in models}
+
+
+def phase_diag(torch, served: dict):
+    """diagnostics=True on both program kinds, held against exact variable
+    elimination (asia) and against the served MRF query."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.compile import ir
+    from repro_torch.compile.program import compile_graph
+    from repro_torch.core.exact import ve_marginal
+    from repro_torch.core.graphs import bn_repository_replica
+
+    dev = torch.device(DEVICE)
+    asia = bn_repository_replica("asia")
+    ev = {0: 1, 5: 0}
+    prog = compile_graph(ir.canonicalize(asia, evidence_mode="runtime"),
+                         device=dev)
+    out = {"phase": "diag", "asia_max_node_tv_vs_exact": {},
+           "asia_rhat_max": {}, "asia_ess_min": {}}
+    for sampler in ("lut_ky", "exact_ky", "cdf", "gumbel"):
+        marg, _, snap = prog.run(
+            prng.key(4), evidence=ev, n_chains=CHAINS, n_iters=500,
+            burn_in=100, sampler=sampler, diagnostics=True,
+            fused=sampler in ("lut_ky", "exact_ky"), device=dev)
+        tv = max(
+            0.5 * float(np.abs(ve_marginal(asia, q, ev)
+                               - snap.p_hat[q, :asia.cards[q]]).sum())
+            for q in range(asia.n_nodes) if q not in ev)
+        out["asia_max_node_tv_vs_exact"][sampler] = tv
+        out["asia_rhat_max"][sampler] = snap.rhat_max
+        out["asia_ess_min"][sampler] = snap.ess_min
+        check(snap.finite and snap.kept == 400, f"asia {sampler}: snapshot "
+              f"kept {snap.kept}, finite {snap.finite}")
+        check(np.allclose(snap.p_hat, marg.cpu().numpy(), atol=1e-5),
+              f"asia {sampler}: snapshot p_hat and marginals disagree")
+        check(tv <= 0.05, f"asia {sampler}: p_hat off exact VE by TV {tv}")
+
+    ((mrf, clean, noisy), mprog, seed, labels) = served["penguin"]
+    run_kw = dict(n_chains=CHAINS, n_iters=ITERS, sampler="lut_ky",
+                  fused=True, device=dev)
+    t0 = time.perf_counter()
+    lab, snap = mprog.run(prng.key(seed), evidence=noisy, diagnostics=True,
+                          **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(torch.equal(lab, labels), "penguin: labels with diagnostics differ "
+          "from the served query's")
+    mpm = snap.p_hat.argmax(-1).reshape(mrf.height, mrf.width)
+    mpm_err = float((mpm != clean).mean())
+    noisy_err = float((noisy.cpu().numpy() != clean).mean())
+    check(snap.finite and snap.kept == ITERS
+          and snap.p_hat.shape == (mrf.height * mrf.width, mrf.n_labels),
+          f"penguin snapshot: kept {snap.kept}, finite {snap.finite}")
+    check(mpm_err < noisy_err, f"penguin: snapshot argmax error {mpm_err} "
+          f"not below the noisy image's {noisy_err}")
+    out.update({"penguin_wall_s_with_diagnostics": wall,
+                "penguin_rhat_max": snap.rhat_max,
+                "penguin_ess_min": snap.ess_min,
+                "penguin_snapshot_argmax_error": mpm_err,
+                "penguin_noisy_error": noisy_err})
+    emit(out)
+
+
 def sweep_profile(torch, prog, ev, seed, run_kw, wall_ms: float):
     """Device time per sweep by kernel (torch.profiler, over a 50-sweep run
     of a served query), set against the query's unprofiled wall time per
@@ -490,7 +753,8 @@ def sweep_profile(torch, prog, ev, seed, run_kw, wall_ms: float):
                              for name, ms in rows[:6]]})
 
 
-def phase_timing(torch, launches: dict, k3_err: dict):
+def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
+                 k4_err: dict):
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
@@ -599,7 +863,96 @@ def phase_timing(torch, launches: dict, k3_err: dict):
                       "bound_ms": bms, "bound_by": by}
     emit({"phase": "timing_pigs_shapes", "rows": n_rows, "bins": p.v_max,
           **pigs})
+    rows.append(timing_mrf(torch, mrf_launches, k4_err))
     emit({"kernels": rows})
+
+
+def timing_mrf(torch, launches: dict, k4_err: dict) -> dict:
+    """K4 at the Penguin and Art shapes (1,024 chains, parity 0), one MRF
+    half-step split into word generation and K4, and the card's busy share
+    over a run of half-steps.  Returns K4's row of the kernels line
+    (Penguin, the first served model)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.core import ky as ky_core
+    from repro_torch.core.mrf import checkerboard_mask
+    from repro_torch.kernels import mrf_gibbs
+
+    dev = torch.device(DEVICE)
+    tab, spec = exp_lut(dev)
+    shapes = {}
+    for name in ("penguin", "art"):
+        mrf, _, ev = _mrf_model(torch, name)
+        b, v = CHAINS, mrf.n_labels
+        labels = prng.randint(prng.key(1), (b, mrf.height, mrf.width), 0, v,
+                              dev)
+        p = mrf_gibbs.half_step_params(mrf)
+        words = mrf_gibbs.round_words(mrf, prng.key(2), b, p, dev)
+        k4 = lambda: mrf_gibbs.mrf_half_step(mrf, labels, ev, words, 0, tab,
+                                             spec, p)
+        twin = lambda: mrf_gibbs.mrf_half_step_ref(mrf, labels, ev, words, 0,
+                                                   tab, spec, p)
+        # the bytes K4 must move: the active sites' words, the labels read
+        # once and written once, the evidence and the table; the operations
+        # its sites' data need: ~16 float ops per site and value (counts,
+        # energy, max, lerp) and, per walk step, shift, mask, add and
+        # compare on V + 1 lanes plus the step's bookkeeping
+        active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
+        n_active = b * int(active.sum())
+        w = mrf_gibbs.site_weights(mrf, labels, ev, tab, spec)[:, active]
+        steps = float(ky_core.ky_sample_fast(
+            w.reshape(-1, v), words[:, active].reshape(-1, p.n_words),
+            n_bins=v, precision=p.precision)[1]["bits_used"].sum())
+        moved = (n_active * p.n_words * 4 + 2 * nbytes(labels)
+                 + nbytes(ev, tab))
+        ops = n_active * v * 16 + steps * (4 * (v + 1) + 8)
+        bms, by = bound(moved, ops)
+        shapes[name] = {
+            "ms": device_ms(torch, k4, 50, "mrf_half_step_kernel"),
+            "ms_per_call_events": time_ms(torch, k4, 50),
+            "plain_ms": time_ms(torch, twin, 2), "bound_ms": bms,
+            "bound_by": by, "bytes": moved, "ops": ops,
+            "walk_steps_per_site": steps / n_active,
+        }
+
+    # one half-step of the served Penguin query: words + K4, and how busy
+    # the card is over a run of them
+    mrf, _, ev = _mrf_model(torch, "penguin")
+    labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width), 0,
+                          mrf.n_labels, dev)
+    p = mrf_gibbs.half_step_params(mrf)
+    key = prng.key(3)
+    step = lambda: mrf_gibbs.mrf_round_step(mrf, labels, ev, key, 0, tab,
+                                            spec)
+    wgen = lambda: mrf_gibbs.round_words(mrf, key, CHAINS, p, dev)
+    reps = 20
+    step_ms = time_ms(torch, step, reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    device_total = sum(e.device_time_total
+                       for e in kernel_events(torch, prof)) / 1e3 / reps
+    emit({"phase": "timing_mrf", "chains": CHAINS, "shapes": shapes,
+          "penguin_half_step_ms": step_ms,
+          "penguin_word_generation_ms": time_ms(torch, wgen, reps),
+          "penguin_half_step_device_ms": device_total,
+          "device_busy_share": device_total / step_ms,
+          "penguin_words_bytes": CHAINS * mrf.height * mrf.width
+          * p.n_words * 4})
+    pg = shapes["penguin"]
+    return {
+        "name": "K4 mrf_half_step (penguin 64x64x4, B=1024)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mrf_gibbs.cu",
+        "replaces": "src/repro/kernels/mrf_gibbs.py:159",
+        "launches": launches["mrf_half_step"],
+        "max_abs_err": max(k4_err.values()),
+        "ms": pg["ms"] or pg["ms_per_call_events"], "plain_ms": pg["plain_ms"],
+        "bound_ms": pg["bound_ms"], "bound_by": pg["bound_by"],
+        "library_ms": None, "ms_per_call_events": pg["ms_per_call_events"],
+    }
 
 
 if __name__ == "__main__":

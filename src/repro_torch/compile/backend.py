@@ -1,35 +1,48 @@
-"""Schedule-direct execution backend, BN half (port of `repro/compile/backend.py`).
+"""Schedule-direct execution backend (port of `repro/compile/backend.py`).
 
-The `Schedule` is the execution plan: one CPT-gather tensor set
-(`ColorGroup`) per `Round`, built from the round's node list — not from
-`cbn.groups` — and swept in schedule order.  A pass that merges or splits
-rounds changes execution through this lowering alone.
+The `Schedule` is the execution plan:
+
+  * BN: one CPT-gather tensor set (`ColorGroup`) per `Round`, built from
+    the round's node list — not from `cbn.groups` — and swept in schedule
+    order.  A pass that merges or splits rounds changes execution through
+    this lowering alone.
+  * MRF: each round is recognized as one checkerboard parity and executed
+    in schedule order.  The default path is the eager engine's half-step
+    (bit-exact for every sampler); `fused=True` routes lut_ky rounds
+    through the K4 kernel (`kernels/mrf_gibbs.py`) on the same random
+    words, so still bit-identical.
 
 Bit-exactness with the eager engine is a checked invariant: `cross_check`
 runs both on a tiny budget and compares bits the first time a program is
-lowered, `cross_check_fused` does the same before the K3 kernel first
-serves a program, and `cross_check_clamped` before a runtime-evidence
+lowered, `cross_check_fused` does the same before K3 or K4 first serves a
+program, and `cross_check_clamped` before a runtime-evidence
 specialization first serves.
 
-Grid-MRF programs and the sharded engines are later parts of the port
-(ROADMAP.md); their entry points raise here.
+The sharded engines are a later part of the port (ROADMAP.md); their
+entry points raise here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import prng
 from repro_torch.compile.schedule import Schedule, verify_schedule
 from repro_torch.core import bayesnet as bnet
+from repro_torch.core import mrf as mrf_mod
+from repro_torch.core.graphs import GridMRF
+from repro_torch.core.interp import build_exp_weight_lut
+from repro_torch.diag import accum as diag_accum
+from repro_torch.kernels import mrf_gibbs as mrf_kernels
 from repro_torch.kernels.bn_gibbs import check_fused_sampler
 from repro_torch.obs import tracer
 
-MRF_NOT_PORTED = (
-    "grid-MRF programs are the next slice of the port (ROADMAP.md, "
-    "'Modules still to port', item 6); run them with the reference package"
+SHARDED_NOT_PORTED = (
+    "the sharded fused engines are a later slice of the port "
+    "(ROADMAP.md, item 11)"
 )
 
 
@@ -52,40 +65,111 @@ class BNScheduleExec:
     clamp_nodes: tuple[int, ...] = ()
 
 
-def lower_schedule(program, clamp_nodes: tuple[int, ...] = ()) -> BNScheduleExec:
-    """Lower a BN `CompiledProgram`'s schedule into per-round gather
-    tensors on the program's device, after re-verifying its legality.
-    `clamp_nodes` specializes the lowering for a runtime-evidence node set:
-    clamped nodes drop out of every round exactly as baked evidence does."""
+@dataclasses.dataclass(frozen=True)
+class MRFScheduleExec:
+    """A grid-MRF schedule lowered to a checkerboard parity sequence."""
+
+    mrf: GridMRF
+    parities: tuple[int, ...]  # per-round parity, schedule-ordered
+    pinned: tuple[tuple[int, int], ...] = ()  # baked (site, label) pins
+
+
+def lower_schedule(
+    program, clamp_nodes: tuple[int, ...] = ()
+) -> BNScheduleExec | MRFScheduleExec:
+    """Lower a `CompiledProgram`'s schedule into an executable form, after
+    re-verifying its legality.
+
+    BN: per-round gather tensors on the program's device; `clamp_nodes`
+    specializes the lowering for a runtime-evidence node set (clamped nodes
+    drop out of every round exactly as baked evidence does).  MRF: one
+    checkerboard parity per round; pins are runtime arrays, so
+    `clamp_nodes` must be empty, and baked pins ride in from the IR."""
     ir = program.ir
     schedule: Schedule = program.schedule
     verify_schedule(ir, schedule)
-    if ir.kind != "bn":
-        raise NotImplementedError(MRF_NOT_PORTED)
-    bn = ir.source
-    clamp = set(clamp_nodes)
-    groups = bnet.build_clamped_groups(
-        bn, [r.nodes for r in schedule.rounds], clamp, bnet.cpt_bases(bn),
-        program.cbn.device,
-    )
-    if not groups:
-        raise ScheduleLoweringError(
-            "runtime evidence clamps every free RV; nothing to sample"
+    if ir.kind == "bn":
+        bn = ir.source
+        clamp = set(clamp_nodes)
+        groups = bnet.build_clamped_groups(
+            bn, [r.nodes for r in schedule.rounds], clamp, bnet.cpt_bases(bn),
+            program.cbn.device,
         )
-    return BNScheduleExec(
-        cbn=program.cbn, round_groups=groups,
-        clamp_nodes=tuple(sorted(clamp)),
+        if not groups:
+            raise ScheduleLoweringError(
+                "runtime evidence clamps every free RV; nothing to sample"
+            )
+        return BNScheduleExec(
+            cbn=program.cbn, round_groups=groups,
+            clamp_nodes=tuple(sorted(clamp)),
+        )
+    if clamp_nodes:
+        raise ScheduleLoweringError(
+            "MRF pins are runtime arrays (run(pins=...)), not a lowering "
+            "specialization"
+        )
+    mrf = ir.source
+    pinned_sites = {node for node, _ in ir.evidence}
+    class_size = {
+        p: sum(
+            (r + c) % 2 == p and (r * mrf.width + c) not in pinned_sites
+            for r in range(mrf.height) for c in range(mrf.width)
+        )
+        for p in (0, 1)
+    }
+    parities = []
+    for r in schedule.rounds:
+        pars = {(v // mrf.width + v % mrf.width) % 2 for v in r.nodes}
+        if len(pars) != 1:
+            raise ScheduleLoweringError(
+                f"MRF round {r.color} mixes checkerboard parities {pars}; "
+                "the grid path needs single-parity rounds"
+            )
+        parity = pars.pop()
+        if len(r.nodes) != class_size[parity]:
+            # the grid path executes whole parity classes (minus baked
+            # pins); a round holding only part of one has no lowering here
+            # and must fail loudly, not run the wrong plan
+            raise ScheduleLoweringError(
+                f"MRF round {r.color} covers {len(r.nodes)} of the "
+                f"{class_size[parity]} free parity-{parity} sites; partial-"
+                "parity rounds are not loweable by the grid backend"
+            )
+        parities.append(parity)
+    return MRFScheduleExec(
+        mrf=mrf, parities=tuple(parities), pinned=ir.evidence
     )
+
+
+def pin_arrays(
+    mrf: GridMRF, pinned, device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(site, label) pin pairs -> ((H, W) bool mask, (H, W) int32 values)
+    on `device`.  Accepts a dict or an iterable of pairs; values are
+    validated against the label alphabet."""
+    mask = np.zeros((mrf.height, mrf.width), bool)
+    vals = np.zeros((mrf.height, mrf.width), np.int32)
+    items = pinned.items() if isinstance(pinned, dict) else pinned
+    for site, lab in items:
+        site, lab = int(site), int(lab)
+        if not (0 <= site < mrf.height * mrf.width and
+                0 <= lab < mrf.n_labels):
+            raise ValueError(f"pinned pixel {site}={lab} out of range")
+        mask[site // mrf.width, site % mrf.width] = True
+        vals[site // mrf.width, site % mrf.width] = lab
+    return (torch.tensor(mask, device=device),
+            torch.tensor(vals, device=device))
 
 
 def bn_rounds_core(
     cbn, round_groups, key, *, n_chains, n_iters, burn_in, sampler, thin=1,
     clamp_vals=None, clamp_mask=None, carry=None, return_state=False,
-    fused=False,
+    fused=False, diag_total=None, diag_batch=diag_accum.DEFAULT_BATCH_LEN,
 ):
     """BN round sweep: init (with optional runtime clamps) + the shared
     `gibbs_run_loop`.  A `carry` skips the init and resumes the chain
-    exactly; `fused=True` runs each sweep through K3."""
+    exactly; `fused=True` runs each sweep through K3; `diag_total`
+    switches the quality accumulator on."""
     if carry is None:
         vals, key = bnet.init_chain_values(
             cbn, key, n_chains, clamp_vals=clamp_vals, clamp_mask=clamp_mask
@@ -95,6 +179,7 @@ def bn_rounds_core(
     return bnet.gibbs_run_loop(
         cbn, round_groups, vals, key, n_iters, burn_in, sampler, thin,
         carry=carry, return_state=return_state, fused=fused,
+        diag_total=diag_total, diag_batch=diag_batch,
     )
 
 
@@ -128,6 +213,8 @@ def bn_run_clamped(
     carry=None,
     return_state: bool = False,
     fused: bool = False,
+    diag_total: int | None = None,
+    diag_batch: int = diag_accum.DEFAULT_BATCH_LEN,
 ):
     """Execute an already-specialized clamped grouping with per-query
     evidence values; same contract as `bayesnet.run_gibbs`.  `fused=True`
@@ -144,6 +231,108 @@ def bn_run_clamped(
             burn_in=burn_in, sampler=sampler, thin=thin,
             clamp_vals=clamp_vals, clamp_mask=clamp_mask,
             carry=carry, return_state=return_state, fused=fused,
+            diag_total=diag_total, diag_batch=diag_batch,
+        )
+
+
+# ---------------------------------------------------------------------------
+# MRF: schedule-ordered rounds, optionally fused through K4
+# ---------------------------------------------------------------------------
+
+
+def mrf_rounds_core(
+    mrf, parities, evidence, key, *, n_chains, n_iters, sampler, fused,
+    pin_mask=None, pin_vals=None, carry=None, return_state=False,
+    diag_total=None, diag_batch=diag_accum.DEFAULT_BATCH_LEN,
+):
+    """Schedule-ordered MRF sweep on evidence's device.  Each iteration
+    splits its key into 1 + len(parities) and runs the rounds in order.
+    K4 computes the whole parity update and pinned sites are restored
+    afterwards, which matches the unfused path's masked select bit for bit
+    because pinned sites always hold their pinned value going in.
+
+    A `carry` (`mrf.MRFChainState`) skips the init and resumes the chain
+    exactly: the per-iteration key split is the carry itself."""
+    dev = evidence.device
+    exp_table, exp_spec = build_exp_weight_lut(device=dev)
+    if carry is None:
+        labels, key = mrf_mod.init_labels(
+            mrf, key, n_chains, pin_mask, pin_vals, dev
+        )
+        quality = None
+        if diag_total is not None:
+            quality = diag_accum.make_accum(
+                n_chains, mrf.height * mrf.width, mrf.n_labels, diag_total,
+                diag_batch, dev,
+            )
+    else:
+        labels, key, quality = carry.labels, carry.key, carry.quality
+
+    for _ in range(n_iters):
+        ks = prng.split(key, 1 + len(parities))
+        for i, parity in enumerate(parities):
+            if fused:
+                labels = mrf_kernels.mrf_round_step(
+                    mrf, labels, evidence, ks[1 + i], parity, exp_table,
+                    exp_spec,
+                )
+                if pin_mask is not None:
+                    labels = torch.where(pin_mask[None], pin_vals[None],
+                                         labels)
+            else:
+                labels = mrf_mod.half_step(
+                    mrf, labels, evidence, ks[1 + i], parity, sampler,
+                    exp_table, exp_spec, pin_mask,
+                )
+        if quality is not None:
+            quality = diag_accum.update(
+                quality, mrf_mod.site_onehot(labels, mrf.n_labels), True)
+        key = ks[0]
+    if return_state:
+        return labels, mrf_mod.MRFChainState(
+            labels=labels, key=key, quality=quality
+        )
+    return labels
+
+
+def run_mrf_schedule(
+    ex: MRFScheduleExec,
+    evidence: torch.Tensor,
+    key: prng.Key | None,
+    *,
+    n_chains: int = 32,
+    n_iters: int = 200,
+    sampler: str = "lut_ky",
+    fused: bool = False,
+    pin_mask: torch.Tensor | None = None,
+    pin_vals: torch.Tensor | None = None,
+    carry=None,
+    return_state: bool = False,
+    diag_total: int | None = None,
+    diag_batch: int = diag_accum.DEFAULT_BATCH_LEN,
+):
+    """Execute a lowered MRF schedule on evidence's device; same contract
+    as `mrf.run_mrf_gibbs` (returns final labels (B, H, W)).
+
+    `fused=True` drives the rounds through K4 (lut_ky only).  Pins come
+    from either the lowering (baked into the IR) or the caller (runtime
+    queries); `program.run()` guarantees they never both apply.
+    `carry`/`return_state` slice the run: see `mrf_rounds_core`."""
+    if fused:
+        mrf_kernels.check_fused_sampler(sampler)
+    if pin_mask is None and ex.pinned:
+        pin_mask, pin_vals = pin_arrays(ex.mrf, ex.pinned, evidence.device)
+    with tracer.span(
+        "mrf_rounds", cat="kernel", sampler=sampler, fused=fused,
+        n_chains=n_chains, n_iters=n_iters, n_rounds=len(ex.parities),
+        resumed=carry is not None, pinned=pin_mask is not None,
+    ):
+        return mrf_rounds_core(
+            ex.mrf, ex.parities, evidence, key, n_chains=n_chains,
+            n_iters=n_iters, sampler=sampler, fused=fused,
+            pin_mask=pin_mask, pin_vals=pin_vals, carry=carry,
+            return_state=return_state, diag_total=diag_total,
+            diag_batch=diag_batch,
         )
 
 
@@ -160,13 +349,40 @@ def _same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _mrf_check_inputs(program):
+    """Zero evidence and the program's baked pins (which bind the eager
+    side too), on the program's device."""
+    mrf = program.mrf
+    ev = torch.zeros((mrf.height, mrf.width), dtype=torch.int32,
+                     device=program.device)
+    pin_mask = pin_vals = None
+    if program.ir.evidence:
+        pin_mask, pin_vals = pin_arrays(mrf, program.ir.evidence,
+                                        program.device)
+    return ev, pin_mask, pin_vals
+
+
 def cross_check(program, ex=None) -> None:
     """Run the eager engine and the schedule backend on a tiny budget and
     require identical bits (raises `BackendMismatch`)."""
-    if program.kind != "bn":
-        raise NotImplementedError(MRF_NOT_PORTED)
     ex = lower_schedule(program) if ex is None else ex
     key = prng.key(_CHECK_KEY)
+    if program.kind == "mrf":
+        ev, pin_mask, pin_vals = _mrf_check_inputs(program)
+        lab_e = mrf_mod.run_mrf_gibbs(
+            program.mrf, ev, key, n_chains=_CHECK_CHAINS,
+            n_iters=_CHECK_ITERS, pin_mask=pin_mask, pin_vals=pin_vals,
+            device=program.device,
+        )
+        lab_s = run_mrf_schedule(
+            ex, ev, key, n_chains=_CHECK_CHAINS, n_iters=_CHECK_ITERS,
+        )
+        if not torch.equal(lab_e, lab_s):
+            raise BackendMismatch(
+                f"schedule backend diverged from eager on program "
+                f"{program.program_key[:12]} ({program.kind})"
+            )
+        return
     cbn = program.cbn
     eager = bnet.run_gibbs(
         cbn, key, n_chains=_CHECK_CHAINS, n_iters=_CHECK_ITERS, burn_in=0,
@@ -188,16 +404,26 @@ def cross_check_fused(
     """First-use guarantee for the fused kernel path: a tiny fused run must
     match the eager engine bit for bit before K3 ever serves the program
     (the eager side never touches a kernel, so a word-derivation or layout
-    drift in `kernels/bn_gibbs.py` is caught here).  Only the single-device
-    leg is ported."""
+    drift in `kernels/bn_gibbs.py` or `kernels/mrf_gibbs.py` is caught
+    here).  Only the single-device leg is ported."""
     if sharded:
-        raise NotImplementedError(
-            "the sharded fused engines are a later slice of the port "
-            "(ROADMAP.md, item 11)"
-        )
-    if program.kind != "bn":
-        raise NotImplementedError(MRF_NOT_PORTED)
+        raise NotImplementedError(SHARDED_NOT_PORTED)
     key = prng.key(_CHECK_KEY)
+    if program.kind == "mrf":
+        ev, pin_mask, pin_vals = _mrf_check_inputs(program)
+        kwargs = dict(n_chains=_CHECK_CHAINS, n_iters=_CHECK_ITERS,
+                      sampler=sampler)
+        lab_e = mrf_mod.run_mrf_gibbs(
+            program.mrf, ev, key, pin_mask=pin_mask, pin_vals=pin_vals,
+            device=program.device, **kwargs,
+        )
+        lab_f = run_mrf_schedule(ex, ev, key, fused=True, **kwargs)
+        if not torch.equal(lab_e, lab_f):
+            raise BackendMismatch(
+                f"fused MRF rounds diverged from eager on program "
+                f"{program.program_key[:12]} (sampler={sampler})"
+            )
+        return
     cbn = program.cbn
     eager = bnet.run_gibbs(
         cbn, key, n_chains=_CHECK_CHAINS, n_iters=_CHECK_ITERS, burn_in=0,

@@ -1,9 +1,10 @@
 """`CompiledProgram` — the executable artifact of the compile chain
-(port of `repro/compile/program.py`, BN branch).
+(port of `repro/compile/program.py`).
 
 One object carries the canonical IR (and its content hash), the placement
 and round schedule the passes chose, the per-colour CPT-gather tensors on
-the program's device, and diagnostics.  `run()` executes on that device.
+the program's device (BN), and diagnostics.  `run()` executes a Bayes net
+or a grid MRF on that device.
 
 `compile_graph()` is the entry point and fronts an LRU program cache keyed
 by `(ir_key, mesh_shape, pipeline, device)`: a serving workload that
@@ -13,10 +14,12 @@ Programs compiled from a runtime-evidence IR (`evidence_mode="runtime"`)
 accept per-query observations at `run(evidence={node: value})`; the
 lowering is specialized per observed-node set and cached on the program,
 the values stay runtime inputs, and the result is bit-exact with baking
-the same observations.
+the same observations.  MRF programs take the evidence image and
+optional pixel pins at `run()`.
 
-Not ported yet, each raising where the reference would have run: grid-MRF
-programs, `run_sharded`, `diagnostics=True` and the profiler hooks.
+Not ported yet, raising where the reference would have run: `run_sharded`
+(and so the sharded fused cross-check).  The reference's profiler hook is
+left out with the rest of `obs/profile.py`.
 """
 
 from __future__ import annotations
@@ -37,8 +40,11 @@ from repro_torch.compile import ir as ir_mod
 from repro_torch.compile import passes as passes_mod
 from repro_torch.compile.schedule import Schedule
 from repro_torch.core import bayesnet as bnet
+from repro_torch.core import mrf as mrf_mod
 from repro_torch.core.graphs import DiscreteBayesNet, GridMRF
 from repro_torch.core.mapping import MeshPlacement
+from repro_torch.diag import accum as diag_accum
+from repro_torch.kernels import mrf_gibbs as mrf_kernels
 from repro_torch.obs import tracer
 
 
@@ -57,7 +63,7 @@ class CompiledProgram:
     _clamp_execs: dict = dataclasses.field(default_factory=dict, repr=False)
     # how many clamped lowerings were built (serving metric: "recompiles")
     clamp_lowerings: int = 0
-    # samplers whose fused BN kernel path passed the first-use cross-check
+    # samplers whose fused kernel path passed the first-use cross-check
     _fused_checked: set = dataclasses.field(default_factory=set, repr=False)
 
     @property
@@ -68,7 +74,13 @@ class CompiledProgram:
     def kind(self) -> str:
         return self.ir.kind
 
-    def schedule_executable(self) -> backend_mod.BNScheduleExec:
+    @property
+    def mrf(self) -> GridMRF:
+        if self.kind != "mrf":
+            raise TypeError(f"program compiled for kind={self.kind!r}")
+        return self.ir.source
+
+    def schedule_executable(self):
         """The schedule lowered for direct execution (cached per program).
         The first lowering runs the backend cross-check: a tiny run of both
         backends must agree bit for bit before the schedule backend is ever
@@ -94,10 +106,7 @@ class CompiledProgram:
         match the eager engine bit for bit before `fused=True` ever serves
         this program with this sampler.  Cached per sampler."""
         if sharded:
-            raise NotImplementedError(
-                "the sharded fused engines are a later slice of the port "
-                "(ROADMAP.md, item 11)"
-            )
+            raise NotImplementedError(backend_mod.SHARDED_NOT_PORTED)
         if sampler in self._fused_checked:
             return
         with tracer.span(
@@ -170,6 +179,21 @@ class CompiledProgram:
         return (nodes, torch.tensor(vals, device=self.device),
                 torch.tensor(mask, device=self.device))
 
+    def _summarize_quality(self, state, free_mask=None, total_kept=None):
+        """Host-side reduction of a run's quality accumulator ->
+        `diag.accum.QualitySnapshot` (clamped nodes or pinned pixels
+        masked out of the R-hat/ESS roll-ups via `free_mask`)."""
+        if state.quality is None:
+            raise ValueError(
+                "chain state carries no quality accumulator; resume a run "
+                "that was started with diagnostics=True"
+            )
+        cards = self.cbn.cards.cpu().numpy() if self.kind == "bn" else None
+        return diag_accum.summarize(
+            state.quality, cards=cards, free_mask=free_mask,
+            total_kept=total_kept,
+        )
+
     def run(
         self,
         key: prng.Key | None,
@@ -189,22 +213,37 @@ class CompiledProgram:
         device="cuda",
     ):
         """Execute on `device`, which must be the device the program was
-        compiled for.  Returns (marginals (n, V), final vals (B, n))
-        [, state]; `burn_in` defaults to 50 and `thin` keeps every thin-th
-        post-burn-in sweep.  On a runtime-evidence program,
-        `evidence={node: value}` clamps per query, bit-exact with baking the
-        same dict.
+        compiled for.
+
+        BN: returns (marginals (n, V), final vals (B, n)); `burn_in`
+        defaults to 50 and `thin` keeps every thin-th post-burn-in sweep.
+        On a runtime-evidence program, `evidence={node: value}` clamps per
+        query, bit-exact with baking the same dict.  MRF: `evidence` is the
+        runtime (H, W) observation image; returns final labels (B, H, W)
+        and has no burn-in or thinning (passing one raises).  `pins=
+        {site: label}` (or a ((H, W) bool, (H, W) int32) pair of tensors)
+        clamps pixels per query on a runtime-mode MRF program, bit-exact
+        with baking them through `ir.from_mrf(mrf, pinned=...)`.
 
         `backend="schedule"` (the default) executes the schedule's rounds;
-        "eager" runs the colour groups directly.  `fused=True` routes the
-        schedule rounds through the K3 kernel, one launch per sweep; its
-        first use per sampler runs a tiny eager cross-check first.
+        "eager" runs the engines directly.  `fused=True` routes the
+        schedule rounds through the kernels: K3, one launch per BN sweep
+        (lut_ky/exact_ky), or K4, one launch per MRF half-step (lut_ky).
+        The first fused use per sampler runs a tiny eager cross-check.
 
-        `return_state=True` appends a `bayesnet.BNChainState`; passing it
-        back as `carry_state=` resumes the run for `n_iters` more sweeps
-        (then `key` may be None).  A run sliced at any boundaries equals the
-        uninterrupted run, given the same burn_in, thin, sampler, backend
-        and evidence in every slice."""
+        `return_state=True` appends the chain state (`bayesnet.BNChainState`
+        / `mrf.MRFChainState`); passing it back as `carry_state=` resumes
+        the run for `n_iters` more sweeps (then `key` may be None).  A run
+        sliced at any boundaries equals the uninterrupted run, given the
+        same burn_in, thin, sampler, backend and evidence/pins per slice.
+
+        `diagnostics=True` threads the streaming quality accumulator
+        (`diag.accum`) through the run and appends a `QualitySnapshot`
+        before the state: BN runs return (marginals, vals, snapshot
+        [, state]), MRF runs (labels, snapshot[, state]).  It consumes no
+        randomness, so the draws equal those with diagnostics off.  A
+        resumed run with diagnostics needs a carry that has the
+        accumulator."""
         dev = device_mod.resolve(device)
         if dev != self.device:
             raise ValueError(
@@ -219,13 +258,39 @@ class CompiledProgram:
             raise ValueError(f"thin must be >= 1, got {thin}")
         if carry_state is None and key is None:
             raise ValueError("a fresh run (carry_state=None) needs a PRNG key")
+        diag_total = None
         if diagnostics:
-            raise NotImplementedError(
-                "diagnostics=True (the streaming quality accumulator) is a "
-                "later part of the port (ROADMAP.md, item 7)"
-            )
-        if self.kind != "bn":
-            raise NotImplementedError(backend_mod.MRF_NOT_PORTED)
+            if carry_state is None:
+                # the accumulator's split point is fixed from this call's
+                # full budget; resumed slices ignore diag_total
+                diag_total = n_iters
+            elif getattr(carry_state, "quality", None) is None:
+                raise ValueError(
+                    "diagnostics=True on a resumed run needs a carry from a "
+                    "run that was itself started with diagnostics=True (the "
+                    "accumulator lives in the chain state)"
+                )
+        branch = self._run_bn if self.kind == "bn" else self._run_mrf
+        out, free_mask, total_kept = branch(
+            key, n_chains=n_chains, n_iters=n_iters, burn_in=burn_in,
+            thin=thin, sampler=sampler, evidence=evidence, pins=pins,
+            backend=backend, fused=fused, carry_state=carry_state,
+            return_state=return_state or diagnostics, diag_total=diag_total,
+        )
+        if not diagnostics:
+            return out
+        *results, state = out
+        snap = self._summarize_quality(
+            state, free_mask=free_mask,
+            total_kept=total_kept if carry_state is None else None,
+        )
+        return (*results, snap, state) if return_state else (*results, snap)
+
+    def _run_bn(
+        self, key, *, n_chains, n_iters, burn_in, thin, sampler, evidence,
+        pins, backend, fused, carry_state, return_state, diag_total,
+    ):
+        """The BN branch of `run`: (output, free_mask, kept draws)."""
         if carry_state is not None and not isinstance(
             carry_state, bnet.BNChainState
         ):
@@ -242,27 +307,87 @@ class CompiledProgram:
             backend_mod.check_fused_sampler(sampler)
             self.ensure_fused_cross_check(sampler)
         burn_in = 50 if burn_in is None else burn_in
+        kw = dict(n_chains=n_chains, n_iters=n_iters, burn_in=burn_in,
+                  sampler=sampler, thin=thin, carry=carry_state,
+                  return_state=return_state, diag_total=diag_total)
+        free_mask = None
         if evidence is not None:
             nodes, ev_vals, ev_mask = self._bn_clamp_arrays(evidence)
+            free_mask = ~ev_mask.cpu().numpy()
             groups = self.clamped_executable(nodes, backend)
-            return backend_mod.bn_run_clamped(
-                self.cbn, groups, ev_vals, ev_mask, key,
-                n_chains=n_chains, n_iters=n_iters, burn_in=burn_in,
-                sampler=sampler, thin=thin,
-                carry=carry_state, return_state=return_state, fused=fused,
+            out = backend_mod.bn_run_clamped(
+                self.cbn, groups, ev_vals, ev_mask, key, fused=fused, **kw)
+        elif backend == "schedule":
+            out = backend_mod.run_bn_schedule(
+                self.schedule_executable(), key, fused=fused, **kw)
+        else:
+            out = bnet.run_gibbs(self.cbn, key, device=self.device, **kw)
+        return out, free_mask, diag_accum.kept_count(n_iters, burn_in, thin)
+
+    def _run_mrf(
+        self, key, *, n_chains, n_iters, burn_in, thin, sampler, evidence,
+        pins, backend, fused, carry_state, return_state, diag_total,
+    ):
+        """The MRF branch of `run`: (output, free_mask, kept draws)."""
+        if carry_state is not None and not isinstance(
+            carry_state, mrf_mod.MRFChainState
+        ):
+            raise TypeError(
+                "MRF programs resume from an mrf.MRFChainState, got "
+                f"{type(carry_state).__name__}"
             )
+        if evidence is None:
+            raise ValueError("MRF programs take the evidence image at run()")
+        if burn_in is not None:
+            raise ValueError(
+                "MRF programs return final states only; burn_in does not apply"
+            )
+        if thin != 1:
+            raise ValueError(
+                "MRF programs return final states only; thin does not apply"
+            )
+        mrf = self.mrf
+        evidence = torch.as_tensor(evidence, dtype=torch.int32,
+                                   device=self.device)
+        if tuple(evidence.shape) != (mrf.height, mrf.width):
+            raise ValueError(
+                f"evidence image is {tuple(evidence.shape)}, the grid is "
+                f"{(mrf.height, mrf.width)}"
+            )
+        pin_mask = pin_vals = None
+        if pins is not None:
+            if self.ir.evidence_mode != "runtime":
+                raise ValueError(
+                    "this program bakes its pinned pixels at compile time "
+                    "(ir.from_mrf(mrf, pinned=...)); per-query pins need a "
+                    "runtime-mode IR"
+                )
+            if isinstance(pins, dict):
+                pin_mask, pin_vals = backend_mod.pin_arrays(
+                    mrf, pins, self.device)
+            else:
+                pin_mask, pin_vals = pins
+        elif self.ir.evidence:
+            pin_mask, pin_vals = backend_mod.pin_arrays(
+                mrf, self.ir.evidence, self.device)
+        kw = dict(n_chains=n_chains, n_iters=n_iters, sampler=sampler,
+                  pin_mask=pin_mask, pin_vals=pin_vals, carry=carry_state,
+                  return_state=return_state, diag_total=diag_total)
         if backend == "schedule":
-            return backend_mod.run_bn_schedule(
-                self.schedule_executable(), key, n_chains=n_chains,
-                n_iters=n_iters, burn_in=burn_in, sampler=sampler,
-                thin=thin, carry=carry_state, return_state=return_state,
-                fused=fused,
-            )
-        return bnet.run_gibbs(
-            self.cbn, key, n_chains=n_chains, n_iters=n_iters,
-            burn_in=burn_in, sampler=sampler, thin=thin,
-            carry=carry_state, return_state=return_state, device=dev,
-        )
+            if fused:
+                mrf_kernels.check_fused_sampler(sampler)
+                self.ensure_fused_cross_check(sampler)
+            out = backend_mod.run_mrf_schedule(
+                self.schedule_executable(), evidence, key, fused=fused, **kw)
+        else:
+            out = mrf_mod.run_mrf_gibbs(mrf, evidence, key,
+                                        device=self.device, **kw)
+        # pinned pixels are constant by construction; keep them out of the
+        # R-hat/ESS roll-ups like clamped BN nodes
+        free_mask = None
+        if pin_mask is not None:
+            free_mask = ~pin_mask.cpu().numpy().reshape(-1)
+        return out, free_mask, n_iters
 
     def run_sharded(self, *args, **kwargs):
         raise NotImplementedError(

@@ -36,6 +36,7 @@ from repro_torch.core import coloring as coloring_mod
 from repro_torch.core.draws import draw_from_logits
 from repro_torch.core.graphs import DiscreteBayesNet
 from repro_torch.core.interp import LUTSpec, build_exp_weight_lut
+from repro_torch.diag import accum as diag_accum
 
 NEG_INF = -1e30
 
@@ -220,12 +221,14 @@ class BNChainState:
     """Everything a BN Gibbs run needs to resume exactly where it stopped:
     the chain values, the key of the next sweep, the marginal histogram so
     far and `t`, the global count of sweeps done, so the burn-in/thinning
-    gate stays aligned across slices."""
+    gate stays aligned across slices.  `quality` carries the run's
+    `diag.accum.QualityAccum` when it was started with diagnostics on."""
 
     vals: torch.Tensor  # (B, n) int32 current chain states
     key: prng.Key  # key as of the next sweep
     hist: torch.Tensor  # (n, V) int32 marginal histogram so far
     t: int  # sweeps completed
+    quality: diag_accum.QualityAccum | None = None
 
 
 def group_log_conditionals(
@@ -326,6 +329,8 @@ def gibbs_run_loop(
     carry: BNChainState | None = None,
     return_state: bool = False,
     fused: bool = False,
+    diag_total: int | None = None,
+    diag_batch: int = diag_accum.DEFAULT_BATCH_LEN,
 ):
     """The iteration loop shared by the eager engine (`groups=cbn.groups`)
     and the schedule-direct backend (`groups` built from the schedule's
@@ -340,7 +345,13 @@ def gibbs_run_loop(
     ignored) and `n_iters` counts additional sweeps; the burn-in/thinning
     gate tests the carried global sweep count, so a run sliced at any
     boundaries equals the uninterrupted run.  `return_state=True` appends
-    the state needed to continue."""
+    the state needed to continue.
+
+    `diag_total` (the query's *total* sweep budget, more than this call's
+    `n_iters` under slicing) switches the streaming quality accumulator on
+    for a fresh run: it takes the same one-hot tensor as the histogram,
+    under the same keep gate, and consumes no randomness.  On a resumed
+    carry the accumulator (or its absence) rides in with the state."""
     if fused:
         # lazy import: kernels/bn_gibbs imports this module for NEG_INF
         from repro_torch.kernels import bn_gibbs
@@ -355,24 +366,37 @@ def gibbs_run_loop(
             return gibbs_sweep(cbn, v, k, sampler, groups)
 
     if carry is None:
+        quality = None
+        if diag_total is not None:
+            quality = diag_accum.make_accum(
+                vals.shape[0], cbn.n_nodes, cbn.max_card,
+                diag_accum.kept_count(diag_total, burn_in, thin), diag_batch,
+                cbn.device,
+            )
         carry = BNChainState(
             vals=vals,
             key=key,
             hist=torch.zeros((cbn.n_nodes, cbn.max_card), dtype=torch.int32,
                              device=cbn.device),
             t=0,
+            quality=quality,
         )
     vals, key, hist, t = carry.vals, carry.key, carry.hist, carry.t
+    quality = carry.quality
     v_range = torch.arange(cbn.max_card, dtype=torch.int32,
                            device=cbn.device)
     for _ in range(n_iters):
         key, sub = prng.split(key)
         vals = sweep(vals, sub)
-        if t >= burn_in and (t - burn_in) % thin == 0:
+        keep = t >= burn_in and (t - burn_in) % thin == 0
+        if keep or quality is not None:
             onehot = vals[..., None] == v_range
+        if keep:
             hist = hist + onehot.sum(0, dtype=torch.int32)
+        if quality is not None:
+            quality = diag_accum.update(quality, onehot, keep)
         t += 1
-    carry = BNChainState(vals=vals, key=key, hist=hist, t=t)
+    carry = BNChainState(vals=vals, key=key, hist=hist, t=t, quality=quality)
     card_mask = v_range[None] < cbn.cards[:, None]
     denom = torch.clamp(hist.sum(-1, keepdim=True, dtype=torch.int32), min=1)
     marginals = torch.where(
@@ -395,10 +419,13 @@ def run_gibbs(
     carry: BNChainState | None = None,
     return_state: bool = False,
     device="cuda",
+    diag_total: int | None = None,
+    diag_batch: int = diag_accum.DEFAULT_BATCH_LEN,
 ):
     """Multi-chain chromatic Gibbs on `device`; returns (marginals (n, V),
     final vals (B, n)) [, state].  `cbn` must have been compiled for that
-    device (`compile_bayesnet(..., device=...)`)."""
+    device (`compile_bayesnet(..., device=...)`).  `diag_total` switches
+    the quality accumulator on (see `gibbs_run_loop`)."""
     dev = device_mod.resolve(device)
     if cbn.device != dev:
         raise ValueError(
@@ -411,4 +438,5 @@ def run_gibbs(
     return gibbs_run_loop(
         cbn, cbn.groups, vals, key, n_iters, burn_in, sampler, thin,
         carry=carry, return_state=return_state,
+        diag_total=diag_total, diag_batch=diag_batch,
     )

@@ -2,12 +2,17 @@
 
   lut_ky   : LUT-exp int8 weights + rejection-KY      (AIA, paper C1+C2)
   exact_ky : exact exp, 15-bit weights + rejection-KY (ablates C2)
-  cdf      : normalized softmax + inverse-CDF search  (not ported yet)
-  gumbel   : Gumbel-max argmax                        (not ported yet)
+  cdf      : normalized softmax + inverse-CDF search  (PULP/CPU baseline)
+  gumbel   : Gumbel-max argmax                        (the reference's
+             accelerator-native alternative)
 
 All take (..., V) unnormalized log-potentials and return (...) int32 labels.
 The KY paths are normalization-free end to end.  This is the unfused
-engine's draw: plain torch, no kernel, as in the reference.
+engine's draw: plain torch, no kernel, as in the reference.  The KY paths
+and the uniform/Gumbel noise consume the reference's random streams bit for
+bit; softmax, cumsum and the logs are torch's, whose last bits may differ
+from XLA's, so `cdf` and `gumbel` are held to the reference in
+distribution.
 """
 
 from __future__ import annotations
@@ -33,11 +38,14 @@ def draw_from_logits(
     shape = logp.shape[:-1]
     v = logp.shape[-1]
     flat = logp.reshape(-1, v)
-    if sampler in ("cdf", "gumbel"):
-        raise NotImplementedError(
-            f"sampler {sampler!r} draws from softmax/Gumbel noise and is "
-            "ported in a later slice (ROADMAP.md, 'Modules still to port')"
-        )
+    if sampler == "gumbel":
+        gum = prng.gumbel(key, flat.shape, flat.device)
+        return torch.argmax(flat + gum, dim=-1).to(torch.int32).reshape(shape)
+    if sampler == "cdf":
+        c = torch.cumsum(torch.softmax(flat, dim=-1), dim=-1)
+        u = prng.uniform(key, (flat.shape[0], 1), device=flat.device)
+        lab = torch.clamp((c < u).sum(-1), max=v - 1)
+        return lab.to(torch.int32).reshape(shape)
     z = flat - flat.amax(-1, keepdim=True)
     if sampler == "lut_ky":
         if exp_table is None or exp_spec is None:

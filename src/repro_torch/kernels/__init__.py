@@ -3,6 +3,7 @@
   K1 `ky_sampler.ky_sample_kernel`  <- repro/kernels/ky_sampler.py:159
   K2 `interp_lut.interp_kernel`     <- repro/kernels/interp_lut.py:50
   K3 `bn_gibbs.bn_sweep`            <- repro/kernels/bn_gibbs.py:236
+  K4 `mrf_gibbs.mrf_half_step`      <- repro/kernels/mrf_gibbs.py:159
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its `.launches` attribute; for CPU tensors it runs its plain torch twin

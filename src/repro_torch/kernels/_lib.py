@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEADER = CSRC / "aia_common.cuh"
-SOURCES = ("interp_lut", "ky_sampler", "bn_gibbs")
+SOURCES = ("interp_lut", "ky_sampler", "bn_gibbs", "mrf_gibbs")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,0 +1,217 @@
+"""K4: one checkerboard Gibbs half-step of a grid MRF, as a CUDA kernel.
+
+Replaces the reference's Pallas kernel `mrf_half_step_kernel`
+(src/repro/kernels/mrf_gibbs.py:159; body `_mrf_tile_body` :38, kernel
+`_mrf_kernel` :101, vmapped over the chains by `mrf_round_step` :229).
+The CUDA source is `csrc/mrf_gibbs.cu`; it inlines K2's lerp and K1's KY
+walk from `csrc/aia_common.cuh`, as K3 does.
+
+For every site of the active parity: count the 4-neighbours holding each
+value (-1 beyond the borders), energy `theta * cnt + data` (Potts or
+quadratic data cost), subtract the max, LUT-exp to integer weights, KY
+walk; the other parity's sites keep their labels.
+
+Random words are `ky.random_words(key, (B, H, W), n_words)`, the stream
+the unfused `draw_from_logits` consumes for the same half-step, so lut_ky
+labels are bit-identical to `core.mrf.half_step`.  They are generated with
+torch (`prng.bits`) outside the kernel, as the reference leaves them to
+XLA.
+
+`mrf_half_step` launches the kernel for CUDA tensors (counted in
+`mrf_half_step.launches`) and runs the plain twin `mrf_half_step_ref` for
+CPU tensors.  `mrf_round_step` is the reference's entry point: it derives
+the words from the key and calls `mrf_half_step`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core import ky as ky_core
+from repro_torch.core.graphs import GridMRF
+from repro_torch.core.interp import LUTSpec, interp_ref, inv_dx, scalar
+from repro_torch.core.mrf import checkerboard_mask
+from repro_torch.kernels import _lib
+from repro_torch.kernels.bn_gibbs import SweepParams
+from repro_torch.kernels.ky_sampler import LANES
+
+# The sampler whose draw pipeline this kernel implements; anything else
+# must be rejected loudly by the callers (never silently fall back).
+FUSED_MRF_SAMPLERS = ("lut_ky",)
+
+_TILE_ROWS = 32  # the reference's DEFAULT_BLOCK_H
+_SMEM_DEFAULT = 48 * 1024
+_SMEM_MAX = 232448  # 227 KB, after the dynamic shared-memory opt-in
+
+
+def check_fused_sampler(sampler: str) -> None:
+    if sampler not in FUSED_MRF_SAMPLERS:
+        raise ValueError(
+            f"fused MRF rounds implement the lut_ky datapath only, got "
+            f"sampler={sampler!r}"
+        )
+
+
+def half_step_params(
+    mrf: GridMRF, precision: int = 16, max_retries: int = 8
+) -> SweepParams:
+    """The draw's static parameters, widened as `draw_from_logits` widens
+    them for 8-bit weights over n_labels bins."""
+    v = mrf.n_labels
+    if v >= LANES:  # raised, not asserted: must hold under `python -O`
+        raise ValueError(f"n_labels {v} >= {LANES} KY lanes")
+    precision = max(precision, 8 + (v - 1).bit_length() + 1)
+    return SweepParams(v, 8, precision, max_retries)
+
+
+def round_words(
+    mrf: GridMRF, key: prng.Key, n_chains: int, p: SweepParams, device
+) -> torch.Tensor:
+    """One half-step's packed words, (B, H, W, n_words) int32."""
+    return ky_core.random_words(
+        key, (n_chains, mrf.height, mrf.width), p.n_words, device
+    )
+
+
+def _check(mrf, labels, evidence, words, p: SweepParams) -> None:
+    if labels.dtype != torch.int32 or labels.dim() != 3 or tuple(
+            labels.shape[1:]) != (mrf.height, mrf.width):
+        raise ValueError(
+            f"labels must be (B, {mrf.height}, {mrf.width}) int32")
+    b, hh, ww = labels.shape
+    if evidence.dtype != torch.int32 or tuple(evidence.shape) != (hh, ww):
+        raise ValueError(f"evidence must be ({hh}, {ww}) int32")
+    if words.dtype != torch.int32 or tuple(words.shape) != (
+            b, hh, ww, p.n_words):
+        raise ValueError(f"words must be ({b}, {hh}, {ww}, {p.n_words}) int32")
+    if mrf.data_cost not in ("potts", "quadratic"):
+        raise ValueError(mrf.data_cost)
+
+
+def site_weights(
+    mrf: GridMRF, labels: torch.Tensor, evidence: torch.Tensor,
+    exp_table: torch.Tensor, exp_spec: LUTSpec,
+) -> torch.Tensor:
+    """(B, H, W, V) int32 LUT-exp weights of every site, in the op order of
+    the reference's oracle `kernels/ref.py:41` `mrf_gibbs_half_step` and of
+    the kernel: neighbours -1 beyond the borders, cnt = ((up + down) +
+    left) + right, e = theta * cnt + data, z = e - max_v e, LUT-exp, round,
+    clamp at 0."""
+    neg_row = torch.full_like(labels[..., :1, :], -1)
+    neg_col = torch.full_like(labels[..., :, :1], -1)
+    up = torch.cat([neg_row, labels[..., :-1, :]], dim=-2)
+    down = torch.cat([labels[..., 1:, :], neg_row], dim=-2)
+    left = torch.cat([neg_col, labels[..., :, :-1]], dim=-1)
+    right = torch.cat([labels[..., :, 1:], neg_col], dim=-1)
+    f32 = torch.float32
+    theta = scalar(mrf.theta, exp_table)
+    energies = []
+    for v in range(mrf.n_labels):
+        cnt = (((up == v).to(f32) + (down == v).to(f32))
+               + (left == v).to(f32)) + (right == v).to(f32)
+        if mrf.data_cost == "potts":
+            data = scalar(mrf.h, exp_table) * (evidence == v).to(f32)
+        else:
+            diff = (evidence - v).to(f32)
+            data = scalar(-mrf.h, exp_table) * diff * diff
+        energies.append(theta * cnt + data)
+    e = torch.stack(energies, dim=-1)
+    z = e - e.amax(-1, keepdim=True)
+    w = torch.round(interp_ref(z, exp_table.reshape(-1), exp_spec))
+    return torch.clamp(w, min=0.0).to(torch.int32)
+
+
+def mrf_half_step_ref(
+    mrf: GridMRF, labels: torch.Tensor, evidence: torch.Tensor,
+    words: torch.Tensor, parity: int, exp_table: torch.Tensor,
+    exp_spec: LUTSpec, p: SweepParams,
+) -> torch.Tensor:
+    """Plain torch twin of K4: `site_weights`, the KY walk of every site,
+    then the checkerboard select (the kernel walks the active sites only;
+    each site reads only its own words, so the labels are the same)."""
+    _check(mrf, labels, evidence, words, p)
+    b, hh, ww = labels.shape
+    w = site_weights(mrf, labels, evidence, exp_table, exp_spec)
+    # w >= 0, so the plain walk's argmax fallback is the kernel's
+    new, _ = ky_core.ky_sample_fast(
+        w.reshape(-1, mrf.n_labels), words.reshape(-1, p.n_words),
+        n_bins=mrf.n_labels, precision=p.precision,
+        max_retries=p.max_retries,
+    )
+    mask = checkerboard_mask(hh, ww, parity, labels.device)
+    return torch.where(mask, new.reshape(b, hh, ww), labels)
+
+
+def tile_rows(width: int, lut_size: int) -> int:
+    """Rows of the grid a block takes: the reference's 32 where its label
+    rows (plus two halo rows), evidence rows and LUT fit the default 48 KB
+    of shared memory, fewer for wide grids, and one row (with the opt-in
+    to 227 KB) for the widest."""
+    fit = (_SMEM_DEFAULT // 4 - lut_size - 2 * width) // (2 * width)
+    rows = max(1, min(_TILE_ROWS, fit))
+    if 4 * ((2 * rows + 2) * width + lut_size) > _SMEM_MAX:
+        raise ValueError(f"grid width {width} does not fit one block's "
+                         "shared memory")
+    return rows
+
+
+def mrf_half_step(
+    mrf: GridMRF, labels: torch.Tensor, evidence: torch.Tensor,
+    words: torch.Tensor, parity: int, exp_table: torch.Tensor,
+    exp_spec: LUTSpec, p: SweepParams,
+) -> torch.Tensor:
+    """One half-step over (B, H, W) int32 labels from (B, H, W, n_words)
+    packed words: K4 for CUDA tensors, the twin for CPU tensors.  Returns
+    new labels; the input is left as it was."""
+    _check(mrf, labels, evidence, words, p)
+    if labels.device.type == "cpu":
+        return mrf_half_step_ref(mrf, labels, evidence, words, parity,
+                                 exp_table, exp_spec, p)
+    tab = exp_table.reshape(-1)
+    _lib.require_cuda("mrf_half_step", labels, evidence, words, tab)
+    b, hh, ww = labels.shape
+    out = torch.empty_like(labels)
+    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
+    fn = _lib.function(
+        "mrf_gibbs", "aia_mrf_half_step",
+        [P, P, P, P, P, I, I, I, I, I, I, I, F, F, F, I, F, F, I, I, I, P],
+    )
+    with torch.cuda.device(labels.device):
+        code = fn(
+            labels.data_ptr(), out.data_ptr(), evidence.data_ptr(),
+            words.data_ptr(), tab.data_ptr(), b, hh, ww,
+            tile_rows(ww, exp_spec.size), mrf.n_labels, parity,
+            int(mrf.data_cost == "quadratic"), mrf.theta, mrf.h, -mrf.h,
+            exp_spec.size, exp_spec.x0, inv_dx(exp_spec), p.n_words,
+            p.precision, p.total_steps, _lib.stream_of(labels),
+        )
+    _lib.check("mrf_gibbs", code, "mrf_half_step")
+    mrf_half_step.launches += 1
+    return out
+
+
+mrf_half_step.launches = 0
+
+
+def mrf_round_step(
+    mrf: GridMRF,
+    labels: torch.Tensor,
+    evidence: torch.Tensor,
+    key: prng.Key,
+    parity: int,
+    exp_table: torch.Tensor,
+    exp_spec: LUTSpec,
+    *,
+    precision: int = 16,
+    max_retries: int = 8,
+) -> torch.Tensor:
+    """One schedule round (a single checkerboard parity) through K4, the
+    `compile.backend` entry point for `fused=True` MRF execution: words
+    from `ky.random_words(key, (B, H, W), n_words)`, the stream
+    `draw_from_logits` consumes for the eager half-step, so lut_ky labels
+    are bit-identical to `core.mrf.half_step` under the same key."""
+    p = half_step_params(mrf, precision, max_retries)
+    words = round_words(mrf, key, labels.shape[0], p, labels.device)
+    return mrf_half_step(mrf, labels, evidence, words, parity, exp_table,
+                         exp_spec, p)

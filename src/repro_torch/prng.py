@@ -9,11 +9,11 @@ than only in distribution.
 
 A `Key` is two uint32 words kept as Python ints on the host: splitting a
 key is a handful of integer operations, and keeping it off the device
-means a sweep never waits on the card to learn its next key.  `bits` and
-`randint` run on the device they are given.  uint32 arithmetic is done in
-int64 masked to 32 bits (torch's uint32 support is partial), and words are
-returned as int32 tensors holding the uint32 bit patterns, for which
-`(w >> s) & 1` is still exact.
+means a sweep never waits on the card to learn its next key.  `bits`,
+`uniform`, `gumbel` and `randint` run on the device they are given.
+uint32 arithmetic is done in int64 masked to 32 bits (torch's uint32
+support is partial), and words are returned as int32 tensors holding the
+uint32 bit patterns, for which `(w >> s) & 1` is still exact.
 
 Only the partitionable mode is implemented (`jax_threefry_partitionable`,
 the default of jax 0.9): split counts with a two-word iota and bits are
@@ -106,6 +106,30 @@ def bits(k: Key, shape, device="cuda") -> torch.Tensor:
     """`jax.random.bits(k, shape, jnp.uint32)` as an int32 tensor of the
     same bit patterns, computed on `device`."""
     return to_int32(_raw_bits(k, tuple(shape), device_mod.resolve(device)))
+
+
+def uniform(
+    k: Key, shape, minval: float = 0.0, maxval: float = 1.0, device="cuda"
+) -> torch.Tensor:
+    """`jax.random.uniform(k, shape, jnp.float32, minval, maxval)`, bit for
+    bit: the top 23 bits of each word become the mantissa of a float in
+    [1, 2), minus one, scaled to [minval, maxval) and floored at minval."""
+    shape = tuple(shape)
+    raw = _raw_bits(k, shape, device_mod.resolve(device))
+    floats = to_int32((raw >> 9) | 0x3F800000).view(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=floats.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=floats.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=floats.device)
+    return torch.maximum(lo, (floats - one) * (hi - lo) + lo)
+
+
+def gumbel(k: Key, shape, device="cuda") -> torch.Tensor:
+    """`jax.random.gumbel(k, shape, jnp.float32)` (its default low-range
+    mode): -log(-log(u)) with u uniform in [tiny, 1).  The uniform draw is
+    bit-exact; the logs are torch's, which may differ from XLA's in the last
+    bit, so the noise is held to the reference in distribution."""
+    u = uniform(k, shape, float(torch.finfo(torch.float32).tiny), 1.0, device)
+    return -torch.log(-torch.log(u))
 
 
 def randint(

@@ -25,7 +25,8 @@ from repro_torch.compile import ir as t_ir
 from repro_torch.compile import program as t_program
 from repro_torch.core import bayesnet as t_bn
 from repro_torch.core import graphs as t_graphs
-from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
+from repro_torch.kernels import (bn_gibbs, interp_lut, ky_sampler, mrf_gibbs,
+                                 ops)
 
 EVIDENCE = {3: 1, 10: 0, 20: 1}
 
@@ -134,6 +135,9 @@ def test_converter_round_trips_reference_net_and_key():
 
 
 def test_unported_paths_raise():
+    """What still raises: the sharded engines (a later slice), and a fused
+    run with a sampler its kernel does not implement (K3: lut_ky/exact_ky;
+    K4: lut_ky)."""
     prog = t_program.compile_graph(t_graphs.bn_repository_replica("survey"),
                                    device="cpu")
     with pytest.raises(ValueError):
@@ -141,12 +145,17 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError):
         prog.run(prng.key(0), fused=True, sampler="cdf", device="cpu")
     with pytest.raises(NotImplementedError):
-        prog.run(prng.key(0), diagnostics=True, device="cpu")
-    with pytest.raises(NotImplementedError):
         prog.run_sharded(prng.key(0), None)
-    mrf = t_program.compile_graph(t_graphs.GridMRF(4, 4, 2), device="cpu")
     with pytest.raises(NotImplementedError):
-        mrf.run(prng.key(0), evidence=np.zeros((4, 4)), device="cpu")
+        prog.ensure_fused_cross_check("lut_ky", sharded=True)
+    mrf = t_program.compile_graph(t_graphs.GridMRF(4, 4, 2), device="cpu")
+    ev = np.zeros((4, 4))
+    for sampler in ("exact_ky", "cdf", "gumbel"):
+        with pytest.raises(ValueError):
+            mrf.run(prng.key(0), evidence=ev, fused=True, sampler=sampler,
+                    device="cpu")
+    with pytest.raises(NotImplementedError):
+        mrf.run_sharded(prng.key(0), None)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -197,20 +206,28 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
     monkeypatch.setattr(interp_lut, "interp_kernel_ref", twin_called)
     monkeypatch.setattr(ky_sampler, "ky_sample_kernel_ref", twin_called)
     monkeypatch.setattr(bn_gibbs, "bn_sweep_ref", twin_called)
+    monkeypatch.setattr(mrf_gibbs, "mrf_half_step_ref", twin_called)
     dev = torch.device("cuda")
     net = t_graphs.bn_repository_replica("survey")
     cbn = t_bn.compile_bayesnet(net, device=dev)
     before = (interp_lut.interp_kernel.launches,
               ky_sampler.ky_sample_kernel.launches,
-              bn_gibbs.bn_sweep.launches)
+              bn_gibbs.bn_sweep.launches,
+              mrf_gibbs.mrf_half_step.launches)
     w = ops.lut_exp_weights(torch.randn(64, 5, device=dev), cbn.exp_table,
                             cbn.exp_spec)
     ops.ky_sample(w, prng.key(1))
     vals, _ = t_bn.init_chain_values(cbn, prng.key(2), 8)
     bn_gibbs.fused_gibbs_sweep(cbn, bn_gibbs.build_fused_rounds(cbn.groups),
                                vals, prng.key(3))
+    grid = t_graphs.GridMRF(9, 7, 4)
+    mrf_gibbs.mrf_round_step(
+        grid, torch.zeros((3, 9, 7), dtype=torch.int32, device=dev),
+        torch.ones((9, 7), dtype=torch.int32, device=dev), prng.key(4), 1,
+        cbn.exp_table, cbn.exp_spec)
     torch.cuda.synchronize()
     after = (interp_lut.interp_kernel.launches,
              ky_sampler.ky_sample_kernel.launches,
-             bn_gibbs.bn_sweep.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+             bn_gibbs.bn_sweep.launches,
+             mrf_gibbs.mrf_half_step.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]

@@ -145,7 +145,14 @@ def test_draw_from_logits_lut_ky_matches_reference(v):
 
 
 def test_unported_samplers_raise():
+    """Every sampler of the reference is ported; a name outside them, or
+    lut_ky without its exp-weight table, raises."""
     logp = torch.zeros(4, 3)
+    assert set(t_draws.SAMPLERS) == set(r_draws.SAMPLERS)
+    with pytest.raises(ValueError):
+        t_draws.draw_from_logits(logp, prng.key(0), "softmax")
+    with pytest.raises(ValueError):
+        t_draws.draw_from_logits(logp, prng.key(0), "lut_ky")
     for sampler in ("cdf", "gumbel"):
-        with pytest.raises(NotImplementedError):
-            t_draws.draw_from_logits(logp, prng.key(0), sampler)
+        labels = t_draws.draw_from_logits(logp, prng.key(0), sampler)
+        assert labels.dtype == torch.int32 and tuple(labels.shape) == (4,)
