@@ -6,8 +6,9 @@
 Drives the port alone (never JAX or the JAX package) through these phases,
 each printing one JSON line; any failure raises and exits non-zero:
 
- 1. build   — nvcc builds the four kernels from `src/repro_torch/kernels/
-              csrc/` (one process per source, in parallel); prints the build
+ 1. build   — nvcc builds the four kernel libraries (K1-K6) from
+              `src/repro_torch/kernels/csrc/` (one process per source, in
+              parallel); prints the build
               time, ptxas' register/spill report and the card's name and
               power limit.
  2. k2      — K2 (LUT lerp) against its torch twin on 2^24 floats in
@@ -52,13 +53,35 @@ each printing one JSON line; any failure raises and exits non-zero:
               0.05 of exact variable elimination; the Penguin query with
               diagnostics draws the served labels, and its snapshot's
               per-pixel argmax beats the noisy image.
- 9. timing  — every kernel and its twin at the main paths' shapes: the
+ 9. k5      — K5 (one BN colour round over a mesh position's owned nodes)
+              against its twin for pigs and hailfinder at 1,024 chains,
+              under the ownership of a (2, 4) mesh: every round and every
+              position of one sweep; lut_ky bit-equal, exact_ky reports the
+              share of differing labels.
+10. k6      — K6 (one MRF half-step over a row slab with halo rows) against
+              its twin at 1,024 chains on the slabs of a (2, 4) mesh (4-way
+              row split) of Penguin, Art and Art-quadratic, random halo rows
+              holding -1, both parities: bit-equal.
+11. serve_sharded — the sharded main path.  Counters zeroed, then
+              `compile_graph(query).run_sharded(key, make_mesh((2, 4)),
+              n_chains=1024, n_iters=200, fused=True)` for the 4 pigs and 1
+              hailfinder queries of `serve` (evidence baked, burn-in 50) and
+              for Penguin, Art and Art-quadratic (evidence image at run
+              time); counters read right after: K5 launched rounds x 8 per
+              sweep and K6 2 x 8 per iteration, plus the first-use
+              cross-checks', and K3/K4 only in the cross-checks' single-
+              device legs.  Each query equals `run(fused=True)` bit for bit;
+              a pigs query sliced 100 sharded + 100 single-device equals the
+              whole run; the legacy `fused=False` route on asia (100
+              sweeps) is within TV 0.05 of exact variable elimination.
+12. timing  — every kernel and its twin at the main paths' shapes: the
               kernel's device time (torch.profiler) and time per call (CUDA
               events), the twin's time, and the least time the card needs
               for the same bytes and operations; K1 and K2 also alone at the
               shapes their bodies take inside K3 on pigs; one MRF half-step
               split into word generation and K4, with the card's busy
-              share.  Prints `{"kernels": [...]}`.
+              share; K5 over one pigs sweep's 32 launches and K6 over one
+              Penguin half-step's 8.  Prints `{"kernels": [...]}` (K1-K6).
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -136,7 +159,11 @@ def main() -> int:
     launches = timed(phase_serve, torch)
     mrf_launches, served = timed(phase_serve_mrf, torch)
     timed(phase_diag, torch, served)
-    timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err)
+    k5_err = timed(phase_k5, torch)
+    k6_err = timed(phase_k6, torch)
+    sharded_launches = timed(phase_serve_sharded, torch, served)
+    timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
+          sharded_launches, k5_err, k6_err)
     for mod in sys.modules:
         check(not (mod == "jax" or mod.startswith("jax.")
                    or mod == "repro" or mod.startswith("repro.")),
@@ -211,23 +238,26 @@ def kernel_events(torch, prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def zero_launches() -> None:
+def _wrappers() -> dict:
     from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, mrf_gibbs
 
-    for wrapper in (bn_gibbs.bn_sweep, interp_lut.interp_kernel,
-                    ky_sampler.ky_sample_kernel, mrf_gibbs.mrf_half_step):
+    return {
+        "bn_sweep": bn_gibbs.bn_sweep,
+        "ky_sample_kernel": ky_sampler.ky_sample_kernel,
+        "interp_kernel": interp_lut.interp_kernel,
+        "mrf_half_step": mrf_gibbs.mrf_half_step,
+        "fused_color_round": bn_gibbs.fused_color_round,
+        "mrf_halo_half_step": mrf_gibbs.mrf_halo_half_step,
+    }
+
+
+def zero_launches() -> None:
+    for wrapper in _wrappers().values():
         wrapper.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, mrf_gibbs
-
-    return {
-        "bn_sweep": bn_gibbs.bn_sweep.launches,
-        "ky_sample_kernel": ky_sampler.ky_sample_kernel.launches,
-        "interp_kernel": interp_lut.interp_kernel.launches,
-        "mrf_half_step": mrf_gibbs.mrf_half_step.launches,
-    }
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def nbytes(*tensors) -> int:
@@ -725,6 +755,286 @@ def phase_diag(torch, served: dict):
     emit(out)
 
 
+MESH = (2, 4)  # (chain positions, node / row positions)
+
+
+def _sharded_bn(torch, name: str):
+    """A compiled program of `name` on the card, its (2, 4) ownership table
+    over the schedule's rounds, and 1,024 chains' initial values."""
+    from repro_torch import prng
+    from repro_torch.compile.program import compile_graph
+    from repro_torch.core import bayesnet as bnet
+    from repro_torch.core import distributed
+    from repro_torch.core.graphs import bn_repository_replica
+
+    dev = torch.device(DEVICE)
+    prog = compile_graph(bn_repository_replica(name), device=dev)
+    groups = prog.schedule_executable().round_groups
+    sfr = distributed.build_sharded_fused_rounds(prog.cbn, groups, MESH[1],
+                                                 prog.placement)
+    vals, _ = bnet.init_chain_values(prog.cbn, prng.key(1), CHAINS)
+    return prog.cbn, sfr, vals
+
+
+def _k5_sweep(torch, cbn, sfr, vals, sampler, key, kernel):
+    """One sweep of the sharded engine's rounds with `kernel` (K5 or its
+    twin) at every position, merged as the engine merges; yields (round,
+    position, chain block, output) before each merge."""
+    from repro_torch import prng
+    from repro_torch.core import distributed
+    from repro_torch.core import ky as ky_core
+    from repro_torch.kernels import bn_gibbs
+
+    p = bn_gibbs.sweep_params(cbn, sampler)
+    b_loc = CHAINS // MESH[0]
+    outs = []
+    for r, k in enumerate(prng.split(key, len(sfr.n_c))):
+        words = ky_core.random_words(k, (CHAINS * sfr.n_c[r],), p.n_words,
+                                     vals.device).reshape(-1)
+        new = torch.empty_like(vals)
+        for ci in range(MESH[0]):
+            cs = slice(ci * b_loc, (ci + 1) * b_loc)
+            news = [kernel(cbn, sfr, d, r, vals[cs], words, cs.start,
+                           sampler, p) for d in range(MESH[1])]
+            outs.extend(news)
+            new[cs] = distributed._psum_merge(vals[cs], news)
+        vals = new
+    return vals, outs
+
+
+def phase_k5(torch) -> dict:
+    from repro_torch import prng
+    from repro_torch.kernels import bn_gibbs
+
+    errs = {}
+    for name in ("pigs", "hailfinder"):
+        cbn, sfr, vals = _sharded_bn(torch, name)
+        out = {"phase": "k5", "model": name, "chains": CHAINS,
+               "mesh": list(MESH), "rounds": len(sfr.n_c),
+               "c_max": sfr.c_max, "owned_per_round_position":
+               [list(row) for row in sfr.n_own]}
+        for sampler in ("lut_ky", "exact_ky"):
+            got, outs_k = _k5_sweep(torch, cbn, sfr, vals, sampler,
+                                    prng.key(2), bn_gibbs.fused_color_round)
+            want, outs_t = _k5_sweep(torch, cbn, sfr, vals, sampler,
+                                     prng.key(2),
+                                     bn_gibbs.fused_color_round_ref)
+            torch.cuda.synchronize()
+            # each launch against the twin on the same input (the inputs
+            # agree while the outputs do; exact_ky's may drift apart)
+            bad = sum(int((a != b).sum()) for a, b in zip(outs_k, outs_t))
+            if sampler == "lut_ky":
+                out["lut_ky_mismatches"] = bad
+                out["lut_ky_changed_share"] = float(
+                    (got != vals).float().mean())
+                errs[name] = max(int((a - b).abs().max())
+                                 for a, b in zip(outs_k, outs_t))
+                check(bad == 0 and torch.equal(got, want),
+                      f"K5 lut_ky differs from its twin on {name} ({bad})")
+            else:
+                out["exact_ky_differing_label_share"] = float(
+                    (got != want).float().mean())
+        out["launches_per_sweep"] = len(sfr.n_c) * MESH[0] * MESH[1]
+        emit(out)
+    return errs
+
+
+def phase_k6(torch) -> dict:
+    from repro_torch import prng
+    from repro_torch.kernels import mrf_gibbs
+
+    dev = torch.device(DEVICE)
+    tab, spec = exp_lut(dev)
+    errs = {}
+    n_c, n_g = MESH
+    for name in MRF_MODELS:
+        mrf, _, ev = _mrf_model(torch, name)
+        b_loc, h_loc = CHAINS // n_c, mrf.height // n_g
+        labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width),
+                              0, mrf.n_labels, dev)
+        # random halo rows, -1 (beyond the grid) among the labels
+        up = prng.randint(prng.key(5), (n_g, CHAINS, mrf.width), -1,
+                          mrf.n_labels, dev)
+        down = prng.randint(prng.key(6), (n_g, CHAINS, mrf.width), -1,
+                            mrf.n_labels, dev)
+        p = mrf_gibbs.half_step_params(mrf)
+        out = {"phase": "k6", "model": name, "chains": CHAINS,
+               "mesh": list(MESH), "slab_rows": h_loc,
+               "grid": [mrf.height, mrf.width], "labels": mrf.n_labels,
+               "data_cost": mrf.data_cost, "mismatches": {}}
+        err = 0
+        for parity in (0, 1):
+            words = mrf_gibbs.round_words(mrf, prng.key(2 + parity), CHAINS,
+                                          p, dev)
+            bad = 0
+            for ci in range(n_c):
+                cs = slice(ci * b_loc, (ci + 1) * b_loc)
+                for gi in range(n_g):
+                    rs = slice(gi * h_loc, (gi + 1) * h_loc)
+                    args = (mrf, labels[cs, rs], up[gi, cs], down[gi, cs],
+                            gi * h_loc, ev[rs], words[cs, rs], parity, tab,
+                            spec, p)
+                    got = mrf_gibbs.mrf_halo_half_step(*args)
+                    want = mrf_gibbs.mrf_halo_half_step_ref(*args)
+                    bad += int((got != want).sum())
+                    err = max(err, int((got - want).abs().max()))
+            torch.cuda.synchronize()
+            out["mismatches"][str(parity)] = bad
+            check(bad == 0, f"K6 differs from its twin on {name}, parity "
+                  f"{parity} ({bad} labels)")
+        errs[name] = err
+        emit(out)
+    return errs
+
+
+def phase_serve_sharded(torch, served_mrf: dict) -> dict:
+    """The sharded main path: BN and MRF queries through run_sharded on a
+    (2, 4) mesh of one card, counters zeroed before and read after."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.compile.program import compile_graph
+    from repro_torch.core import distributed
+    from repro_torch.core.exact import ve_marginal
+    from repro_torch.core.graphs import bn_repository_replica
+
+    dev = torch.device(DEVICE)
+    mesh = distributed.make_mesh(MESH, ("data", "model"), DEVICE)
+    n_pos = mesh.size
+    nets = {m: bn_repository_replica(m) for m in ("pigs", "hailfinder")}
+    queries = (_queries("pigs", 4, 11, nets["pigs"].cards)
+               + _queries("hailfinder", 1, 12, nets["hailfinder"].cards))
+    # runtime evidence is a single-device path: each query bakes its own
+    progs = [compile_graph(nets[m], ev, device=dev) for m, ev, _ in queries]
+    rounds = [len(p.schedule_executable().round_groups) for p in progs]
+    bn_kw = dict(n_chains=CHAINS, n_iters=ITERS, burn_in=BURN_IN,
+                 sampler="lut_ky", fused=True)
+    mrf_kw = dict(n_chains=CHAINS, n_iters=ITERS, sampler="lut_ky",
+                  fused=True)
+
+    def wall(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    # ---- the main path: counters zeroed, queries served, counters read ----
+    zero_launches()
+    bn_out, mrf_out = [], {}
+    for prog, (model, ev, seed) in zip(progs, queries):
+        prog.ensure_fused_cross_check("lut_ky", sharded=True)
+        out, ms = wall(lambda: prog.run_sharded(prng.key(seed), mesh,
+                                                **bn_kw))
+        bn_out.append((out, ms))
+    for name, ((mrf, clean, ev), prog, seed, _) in served_mrf.items():
+        prog.ensure_fused_cross_check("lut_ky", sharded=True)
+        mrf_out[name] = wall(lambda: prog.run_sharded(
+            prng.key(seed), mesh, evidence=ev, **mrf_kw))
+    launches = read_launches()
+    # ---- end of the main path ----------------------------------------------
+
+    # cross-checks: eager + 3 single-device fused sweeps (K3) or half-step
+    # pairs (K4) + the same on a (1, 2) mesh (K5/K6, 2 positions)
+    want_k5 = sum(ITERS * r * n_pos + 3 * r * 2 for r in rounds)
+    want_k6 = len(served_mrf) * (2 * ITERS * n_pos + 2 * 3 * 2)
+    want = {"fused_color_round": want_k5, "mrf_halo_half_step": want_k6,
+            "bn_sweep": 3 * len(progs),
+            "mrf_half_step": 2 * 3 * len(served_mrf),
+            "ky_sample_kernel": 0, "interp_kernel": 0}
+    check(launches == want, f"sharded path launches {launches}, expected "
+          f"{want}")
+
+    # ---- is what came out right? ------------------------------------------
+    for i, (prog, (model, ev, seed), ((marg, vals), ms)) in enumerate(
+            zip(progs, queries, bn_out)):
+        (m1, v1), ms1 = wall(lambda: prog.run(prng.key(seed), device=dev,
+                                              **bn_kw))
+        n = nets[model].n_nodes
+        check(tuple(vals.shape) == (CHAINS, n) and bool(
+            torch.isfinite(marg).all()), f"sharded query {i}: shapes/values")
+        check(torch.equal(marg, m1) and torch.equal(vals, v1),
+              f"sharded query {i} differs from run(fused=True)")
+        for node, val in ev.items():
+            check(float(marg[node, val]) == 1.0, f"query {i}: evidence moved")
+        emit({"phase": "serve_sharded", "query": i, "model": model,
+              "mesh": list(MESH), "n_evidence": len(ev), "seed": seed,
+              "rounds": rounds[i], "wall_ms_sharded": ms,
+              "wall_ms_single_device": ms1,
+              "sweeps_per_s_sharded": ITERS / (ms / 1e3),
+              "equals_single_device": True})
+    for name, ((mrf, clean, ev), prog, seed, labels) in served_mrf.items():
+        got, ms = mrf_out[name]
+        check(torch.equal(got, labels), f"{name}: run_sharded differs from "
+              "the served run(fused=True)")
+        emit({"phase": "serve_sharded", "model": name, "mesh": list(MESH),
+              "grid": [mrf.height, mrf.width], "slab_rows":
+              mrf.height // MESH[1], "wall_ms_sharded": ms,
+              "iters_per_s_sharded": ITERS / (ms / 1e3),
+              "chain0_error": float((got[0].cpu().numpy() != clean).mean()),
+              "equals_single_device": True})
+
+    sharded_profile(torch, progs[0], queries[0][2], mesh, bn_kw,
+                    bn_out[0][1])
+    # a pigs query: 100 sweeps sharded, then 100 single-device
+    prog, (_, ev, seed), ((marg, vals), _) = progs[0], queries[0], bn_out[0]
+    half = {**bn_kw, "n_iters": ITERS // 2}
+    _, _, st = prog.run_sharded(prng.key(seed), mesh, return_state=True,
+                                **half)
+    m_s, v_s = prog.run(None, carry_state=st, device=dev, **half)
+    check(torch.equal(m_s, marg) and torch.equal(v_s, vals),
+          "a pigs query sliced 100 sharded + 100 single-device differs")
+
+    # the legacy route (plain torch, keys folded per position) on asia
+    asia = bn_repository_replica("asia")
+    ev = {0: 1, 5: 0}
+    asia_prog = compile_graph(asia, ev, device=dev)
+    # 100 sweeps: each position draws its own words every round, so the
+    # legacy route issues ~8x the word-generation launches of the fused one
+    legacy, ms = wall(lambda: asia_prog.run_sharded(
+        prng.key(4), mesh, n_chains=CHAINS, n_iters=100, burn_in=20,
+        fused=False))
+    tv = max(0.5 * float(np.abs(
+        ve_marginal(asia, q, ev)
+        - legacy[0][q, :asia.cards[q]].cpu().numpy()).sum())
+        for q in range(asia.n_nodes) if q not in ev)
+    emit({"phase": "serve_sharded_checks", "sharded_equals_single_device":
+          True, "sliced_across_routes_equals_whole": True,
+          "legacy_asia_max_node_tv_vs_exact": tv, "legacy_asia_wall_ms": ms,
+          "launches": launches, "expected_launches": want})
+    check(tv <= 0.05, f"legacy sharded asia marginals off exact VE: {tv}")
+    return launches
+
+
+def sharded_profile(torch, prog, seed, mesh, run_kw, wall_ms: float):
+    """Device time per sweep by kernel over a 50-sweep sharded run of a
+    served pigs query, against its unprofiled wall time per sweep."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+
+    sweeps = 50
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog.run_sharded(prng.key(seed), mesh,
+                         **{**run_kw, "n_iters": sweeps})
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3)
+                   for e in kernel_events(torch, prof)),
+                  key=lambda r: -r[1])
+    total = sum(ms for _, ms in rows) / sweeps
+    k5 = sum(ms for name, ms in rows if "bn_sweep_kernel" in name) / sweeps
+    wall = wall_ms / run_kw["n_iters"]
+    emit({"phase": "serve_sharded_profile", "per_sweep": True,
+          "mesh": list(MESH), "wall_ms_unprofiled": wall,
+          "device_ms": total, "k5_device_ms": k5,
+          "other_device_ms": total - k5, "device_busy_share": total / wall,
+          "top_kernels_ms": [[name[:80], ms / sweeps]
+                             for name, ms in rows[:6]]})
+
+
 def sweep_profile(torch, prog, ev, seed, run_kw, wall_ms: float):
     """Device time per sweep by kernel (torch.profiler, over a 50-sweep run
     of a served query), set against the query's unprofiled wall time per
@@ -754,7 +1064,8 @@ def sweep_profile(torch, prog, ev, seed, run_kw, wall_ms: float):
 
 
 def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
-                 k4_err: dict):
+                 k4_err: dict, sharded_launches: dict, k5_err: dict,
+                 k6_err: dict):
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
@@ -864,6 +1175,7 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     emit({"phase": "timing_pigs_shapes", "rows": n_rows, "bins": p.v_max,
           **pigs})
     rows.append(timing_mrf(torch, mrf_launches, k4_err))
+    rows.extend(timing_sharded(torch, sharded_launches, k5_err, k6_err))
     emit({"kernels": rows})
 
 
@@ -953,6 +1265,132 @@ def timing_mrf(torch, launches: dict, k4_err: dict) -> dict:
         "bound_ms": pg["bound_ms"], "bound_by": pg["bound_by"],
         "library_ms": None, "ms_per_call_events": pg["ms_per_call_events"],
     }
+
+
+def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict):
+    """K5 over the 32 launches of one pigs sweep and K6 over the 8 launches
+    of one Penguin half-step, both on a (2, 4) mesh at 1,024 chains; times
+    and bounds per launch (averaged over the sweep's or half-step's
+    launches).  Returns K5's and K6's rows of the kernels line."""
+    from repro_torch import prng
+    from repro_torch.core import distributed
+    from repro_torch.core import ky as ky_core
+    from repro_torch.core.mrf import checkerboard_mask
+    from repro_torch.kernels import bn_gibbs, mrf_gibbs
+
+    dev = torch.device(DEVICE)
+    rows = []
+
+    # K5: every (round, chain block, node position) of one pigs sweep
+    cbn, sfr, vals = _sharded_bn(torch, "pigs")
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    b_loc = CHAINS // MESH[0]
+    words = [ky_core.random_words(k, (CHAINS * nc,), p.n_words,
+                                  dev).reshape(-1)
+             for k, nc in zip(prng.split(prng.key(2), len(sfr.n_c)),
+                              sfr.n_c)]
+    calls = [(d, r, ci * b_loc) for r in range(len(sfr.n_c))
+             for ci in range(MESH[0]) for d in range(MESH[1])]
+
+    def sweep(kernel):
+        for d, r, c0 in calls:
+            kernel(cbn, sfr, d, r, vals[c0:c0 + b_loc], words[r], c0,
+                   "lut_ky", p)
+
+    n = len(calls)
+    ms_events = time_ms(torch, lambda: sweep(bn_gibbs.fused_color_round),
+                        20) / n
+    ms = device_ms(torch, lambda: sweep(bn_gibbs.fused_color_round), 20,
+                   "bn_sweep_kernel")
+    plain = time_ms(torch, lambda: sweep(bn_gibbs.fused_color_round_ref),
+                    2) / n
+    # per launch: the owned rows' words, the block's values read and
+    # written once, the position's table slice; the arena and LUT once
+    owned = sum(sfr.n_own[d][r] for d, r, _ in calls)
+    table = nbytes(sfr.nodes, sfr.cards, sfr.base, sfr.stride,
+                   sfr.scope_var, sfr.is_self, sfr.word_pos) // (
+        MESH[1] * len(sfr.n_c))
+    moved = (b_loc * owned * p.n_words * 4
+             + n * (2 * b_loc * cbn.n_nodes * 4 + table
+                    + nbytes(cbn.log_flat, cbn.exp_table))) / n
+    flops = b_loc * owned * sfr.f_max * p.v_max / n
+    bms, by = bound(moved, flops)
+    emit({"phase": "timing_k5", "model": "pigs", "mesh": list(MESH),
+          "launches_timed": n, "ms": ms and ms / n,
+          "ms_per_call_events": ms_events, "plain_ms": plain,
+          "bound_ms": bms, "bound_by": by, "bytes_per_launch": moved})
+    rows.append({
+        "name": "K5 fused_color_round (pigs, (2, 4) mesh, B=1024, lut_ky)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bn_gibbs.cu",
+        "replaces": "src/repro/kernels/bn_gibbs.py:316",
+        "launches": launches["fused_color_round"],
+        "max_abs_err": k5_err["pigs"],
+        "ms": (ms / n) if ms else ms_events, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "ms_per_call_events": ms_events,
+    })
+
+    # K6: every position's slab of one Penguin half-step
+    tab, spec = exp_lut(dev)
+    mrf, _, ev = _mrf_model(torch, "penguin")
+    n_c, n_g = MESH
+    b_loc, h_loc = CHAINS // n_c, mrf.height // n_g
+    v = mrf.n_labels
+    labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width), 0, v,
+                          dev)
+    p = mrf_gibbs.half_step_params(mrf)
+    words = mrf_gibbs.round_words(mrf, prng.key(2), CHAINS, p, dev)
+    up, down = distributed._halo_exchange(labels, n_g)
+    out = torch.empty_like(labels)
+    slabs = [(slice(ci * b_loc, (ci + 1) * b_loc),
+              slice(gi * h_loc, (gi + 1) * h_loc), gi)
+             for ci in range(n_c) for gi in range(n_g)]
+
+    def half_step(kernel, **kw):
+        # as the engine calls K6: each slab written into one output tensor
+        for cs, rs, gi in slabs:
+            kernel(mrf, labels[cs, rs], up[gi, cs], down[gi, cs],
+                   gi * h_loc, ev[rs], words[cs, rs], 0, tab, spec, p,
+                   **{k: t[cs, rs] for k, t in kw.items()})
+
+    n = len(slabs)
+    k6 = lambda: half_step(mrf_gibbs.mrf_halo_half_step, out=out)
+    ms_events = time_ms(torch, k6, 50) / n
+    ms = device_ms(torch, k6, 50, "mrf_half_step_kernel")
+    plain = time_ms(torch, lambda: half_step(
+        mrf_gibbs.mrf_halo_half_step_ref), 2) / n
+    # per launch: the slab's active words, its labels read and written
+    # once, its two halo rows per chain, its evidence rows and the LUT;
+    # operations counted as for K4
+    active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
+    n_active = CHAINS * int(active.sum())
+    w = mrf_gibbs.site_weights(mrf, labels, ev, tab, spec)[:, active]
+    steps = float(ky_core.ky_sample_fast(
+        w.reshape(-1, v), words[:, active].reshape(-1, p.n_words),
+        n_bins=v, precision=p.precision)[1]["bits_used"].sum())
+    moved = (n_active * p.n_words * 4 + 2 * nbytes(labels)
+             + nbytes(up, down) + n_c * nbytes(ev) + n * nbytes(tab)) / n
+    ops = (n_active * v * 16 + steps * (4 * (v + 1) + 8)) / n
+    bms, by = bound(moved, ops)
+    emit({"phase": "timing_k6", "model": "penguin", "mesh": list(MESH),
+          "slab_rows": h_loc, "launches_timed": n, "ms": ms and ms / n,
+          "ms_per_call_events": ms_events, "plain_ms": plain,
+          "bound_ms": bms, "bound_by": by, "bytes_per_launch": moved,
+          "ops_per_launch": ops})
+    rows.append({
+        "name": "K6 mrf_halo_half_step (penguin 16-row slabs, (2, 4) mesh, "
+                "B=1024)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mrf_gibbs.cu",
+        "replaces": "src/repro/kernels/mrf_gibbs.py:280",
+        "launches": launches["mrf_halo_half_step"],
+        "max_abs_err": max(k6_err.values()),
+        "ms": (ms / n) if ms else ms_events, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "ms_per_call_events": ms_events,
+    })
+    return rows
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ lowered, `cross_check_fused` does the same before K3 or K4 first serves a
 program, and `cross_check_clamped` before a runtime-evidence
 specialization first serves.
 
-The sharded engines are a later part of the port (ROADMAP.md); their
-entry points raise here.
+`cross_check_fused(sharded=True)` adds the sharded leg: the fused engine
+of `core/distributed.py` on a tiny mesh must give the single-device fused
+run's bits.
 """
 
 from __future__ import annotations
@@ -39,12 +40,6 @@ from repro_torch.diag import accum as diag_accum
 from repro_torch.kernels import mrf_gibbs as mrf_kernels
 from repro_torch.kernels.bn_gibbs import check_fused_sampler
 from repro_torch.obs import tracer
-
-SHARDED_NOT_PORTED = (
-    "the sharded fused engines are a later slice of the port "
-    "(ROADMAP.md, item 11)"
-)
-
 
 class ScheduleLoweringError(RuntimeError):
     """The schedule cannot be lowered to this backend's execution form."""
@@ -243,13 +238,15 @@ def bn_run_clamped(
 def mrf_rounds_core(
     mrf, parities, evidence, key, *, n_chains, n_iters, sampler, fused,
     pin_mask=None, pin_vals=None, carry=None, return_state=False,
-    diag_total=None, diag_batch=diag_accum.DEFAULT_BATCH_LEN,
+    diag_total=None, diag_batch=diag_accum.DEFAULT_BATCH_LEN, step=None,
 ):
     """Schedule-ordered MRF sweep on evidence's device.  Each iteration
     splits its key into 1 + len(parities) and runs the rounds in order.
     K4 computes the whole parity update and pinned sites are restored
     afterwards, which matches the unfused path's masked select bit for bit
-    because pinned sites always hold their pinned value going in.
+    because pinned sites always hold their pinned value going in.  A `step`
+    callable ((labels, key, parity) -> labels) runs each fused round
+    instead of K4: the sharded engine's, on the same words.
 
     A `carry` (`mrf.MRFChainState`) skips the init and resumes the chain
     exactly: the per-iteration key split is the carry itself."""
@@ -271,7 +268,9 @@ def mrf_rounds_core(
     for _ in range(n_iters):
         ks = prng.split(key, 1 + len(parities))
         for i, parity in enumerate(parities):
-            if fused:
+            if step is not None:
+                labels = step(labels, ks[1 + i], parity)
+            elif fused:
                 labels = mrf_kernels.mrf_round_step(
                     mrf, labels, evidence, ks[1 + i], parity, exp_table,
                     exp_spec,
@@ -398,21 +397,37 @@ def cross_check(program, ex=None) -> None:
         )
 
 
+def _check_mesh(program):
+    """The mesh of the sharded cross-check leg: (1, 2) on the program's
+    device (both positions on one device, so the check crosses a shard
+    boundary even on one card), or (1, 1) for an MRF of odd height, which
+    two row slabs cannot split.  The reference takes the widest legal
+    split over the host's devices instead."""
+    from repro_torch.core import distributed as dist_mod
+
+    w = 2
+    if program.kind == "mrf" and program.mrf.height % 2:
+        w = 1
+    return dist_mod.make_mesh((1, w), ("data", "model"), program.device)
+
+
 def cross_check_fused(
     program, ex, sampler: str = "lut_ky", *, sharded: bool = False,
 ) -> None:
     """First-use guarantee for the fused kernel path: a tiny fused run must
-    match the eager engine bit for bit before K3 ever serves the program
-    (the eager side never touches a kernel, so a word-derivation or layout
-    drift in `kernels/bn_gibbs.py` or `kernels/mrf_gibbs.py` is caught
-    here).  Only the single-device leg is ported."""
-    if sharded:
-        raise NotImplementedError(SHARDED_NOT_PORTED)
+    match the eager engine bit for bit before K3 or K4 ever serves the
+    program (the eager side never touches a kernel, so a word-derivation or
+    layout drift in `kernels/bn_gibbs.py` or `kernels/mrf_gibbs.py` is
+    caught here).
+
+    `sharded=True` also runs the fused sharded engine
+    (`core/distributed.py`, K5 / K6) on a tiny mesh (`_check_mesh`) and
+    requires the single-device fused run's bits, and so eager's."""
     key = prng.key(_CHECK_KEY)
+    kwargs = dict(n_chains=_CHECK_CHAINS, n_iters=_CHECK_ITERS,
+                  sampler=sampler)
     if program.kind == "mrf":
         ev, pin_mask, pin_vals = _mrf_check_inputs(program)
-        kwargs = dict(n_chains=_CHECK_CHAINS, n_iters=_CHECK_ITERS,
-                      sampler=sampler)
         lab_e = mrf_mod.run_mrf_gibbs(
             program.mrf, ev, key, pin_mask=pin_mask, pin_vals=pin_vals,
             device=program.device, **kwargs,
@@ -423,21 +438,41 @@ def cross_check_fused(
                 f"fused MRF rounds diverged from eager on program "
                 f"{program.program_key[:12]} (sampler={sampler})"
             )
+        if sharded:
+            from repro_torch.core import distributed as dist_mod
+
+            lab_s = dist_mod.run_program_sharded(
+                program, key, _check_mesh(program), evidence=ev,
+                backend="schedule", fused=True, **kwargs,
+            )
+            if not torch.equal(lab_s, lab_f):
+                raise BackendMismatch(
+                    f"sharded fused MRF rounds diverged from single-device "
+                    f"fused on program {program.program_key[:12]} "
+                    f"(sampler={sampler})"
+                )
         return
     cbn = program.cbn
-    eager = bnet.run_gibbs(
-        cbn, key, n_chains=_CHECK_CHAINS, n_iters=_CHECK_ITERS, burn_in=0,
-        sampler=sampler, device=cbn.device,
-    )
-    fused = run_bn_schedule(
-        ex, key, fused=True, n_chains=_CHECK_CHAINS, n_iters=_CHECK_ITERS,
-        burn_in=0, sampler=sampler,
-    )
+    eager = bnet.run_gibbs(cbn, key, burn_in=0, device=cbn.device, **kwargs)
+    fused = run_bn_schedule(ex, key, fused=True, burn_in=0, **kwargs)
     if not _same(eager, fused):
         raise BackendMismatch(
             f"fused BN rounds diverged from eager on program "
             f"{program.program_key[:12]} (sampler={sampler})"
         )
+    if sharded:
+        from repro_torch.core import distributed as dist_mod
+
+        shard = dist_mod.run_program_sharded(
+            program, key, _check_mesh(program), burn_in=0,
+            backend="schedule", fused=True, **kwargs,
+        )
+        if not _same(shard, fused):
+            raise BackendMismatch(
+                f"sharded fused BN rounds diverged from single-device "
+                f"fused on program {program.program_key[:12]} "
+                f"(sampler={sampler})"
+            )
 
 
 def cross_check_clamped(program, ex: BNScheduleExec) -> None:

@@ -17,9 +17,11 @@ the values stay runtime inputs, and the result is bit-exact with baking
 the same observations.  MRF programs take the evidence image and
 optional pixel pins at `run()`.
 
-Not ported yet, raising where the reference would have run: `run_sharded`
-(and so the sharded fused cross-check).  The reference's profiler hook is
-left out with the rest of `obs/profile.py`.
+`run_sharded()` executes across a `core.distributed.Mesh` of positions on
+the program's device: the fused route runs K5 / K6 per position and is
+bit-exact with `run(fused=True)`, the legacy route folds keys per
+position.  The reference's profiler hook is left out with the rest of
+`obs/profile.py`.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from repro_torch.compile import ir as ir_mod
 from repro_torch.compile import passes as passes_mod
 from repro_torch.compile.schedule import Schedule
 from repro_torch.core import bayesnet as bnet
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import mrf as mrf_mod
 from repro_torch.core.graphs import DiscreteBayesNet, GridMRF
 from repro_torch.core.mapping import MeshPlacement
@@ -104,19 +107,21 @@ class CompiledProgram:
     ) -> None:
         """First-use gate for the fused kernel path: a tiny fused run must
         match the eager engine bit for bit before `fused=True` ever serves
-        this program with this sampler.  Cached per sampler."""
-        if sharded:
-            raise NotImplementedError(backend_mod.SHARDED_NOT_PORTED)
-        if sampler in self._fused_checked:
+        this program with this sampler.  `sharded=True` extends it to the
+        sharded engines (their bits must match the single-device fused
+        run's too) and is checked at first sharded use.  Cached per
+        (sampler, route)."""
+        tag = (sampler, "sharded") if sharded else sampler
+        if tag in self._fused_checked:
             return
         with tracer.span(
             "cross_check_fused", cat="compile", program=self.program_key,
-            sampler=sampler, sharded=False,
+            sampler=sampler, sharded=sharded,
         ):
             backend_mod.cross_check_fused(
-                self, self.schedule_executable(), sampler
+                self, self.schedule_executable(), sampler, sharded=sharded,
             )
-        self._fused_checked.add(sampler)
+        self._fused_checked.add(tag)
 
     def clamped_executable(self, clamp_nodes: tuple[int, ...], backend: str):
         """Round-ordered gather groups specialized for a runtime-evidence
@@ -389,11 +394,125 @@ class CompiledProgram:
             free_mask = ~pin_mask.cpu().numpy().reshape(-1)
         return out, free_mask, n_iters
 
-    def run_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "sharded execution (torch.distributed) is a later slice of the "
-            "port (ROADMAP.md, item 11)"
+    def run_sharded(
+        self,
+        key: prng.Key | None,
+        mesh: dist_mod.Mesh,
+        *,
+        n_chains: int = 32,
+        n_iters: int = 200,
+        burn_in: int | None = None,
+        sampler: str = "lut_ky",
+        evidence=None,
+        backend: str = "schedule",
+        fused: bool = False,
+        thin: int = 1,
+        carry_state=None,
+        return_state: bool = False,
+        diagnostics: bool = False,
+        **axes,
+    ):
+        """Execute across `mesh` (`core.distributed.make_mesh`), whose
+        positions lie on the program's device; node ownership follows this
+        program's placement (see `distributed.run_program_sharded`).  With
+        backend="schedule" (the default, like `run()`) the rounds come from
+        this program's schedule and each round's comm op is routed onto
+        its named collective; backend="eager" is the escape hatch.
+
+        `fused=True` runs K5 (BN colour round) / K6 (MRF slab half-step)
+        once per position per round, with halo exchanges or psum merges
+        between rounds.  The draw stream is bit-identical to
+        `run(fused=True)` (asserted at first sharded use), so `thin`,
+        `carry_state`, `return_state` and `diagnostics` keep the `run()`
+        contracts, and a query may be sliced across the route boundary and
+        resume on either side.  The legacy route (`fused=False`) folds the
+        key per position and carries no state."""
+        if self.kind == "bn" and evidence is not None:
+            raise ValueError(
+                "runtime evidence clamps are a single-device serving path; "
+                "bake the evidence for sharded execution"
+            )
+        if not fused:
+            if carry_state is not None or return_state or diagnostics:
+                raise ValueError(
+                    "carry_state/return_state/diagnostics ride the fused "
+                    "sharded datapath; pass fused=True"
+                )
+            if thin != 1:
+                raise ValueError(
+                    "thin rides the fused sharded datapath; pass fused=True"
+                )
+            return dist_mod.run_program_sharded(
+                self, key, mesh, n_chains=n_chains, n_iters=n_iters,
+                burn_in=burn_in, sampler=sampler, evidence=evidence,
+                backend=backend, **axes,
+            )
+        if backend != "schedule":
+            raise ValueError("fused execution requires backend='schedule'")
+        if thin < 1:
+            raise ValueError(f"thin must be >= 1, got {thin}")
+        if carry_state is None and key is None:
+            raise ValueError("a fresh run (carry_state=None) needs a PRNG key")
+        if self.kind == "bn":
+            if carry_state is not None and not isinstance(
+                carry_state, bnet.BNChainState
+            ):
+                raise TypeError(
+                    "BN programs resume from a bayesnet.BNChainState, got "
+                    f"{type(carry_state).__name__}"
+                )
+            backend_mod.check_fused_sampler(sampler)
+            burn_in = 50 if burn_in is None else burn_in
+        else:
+            if carry_state is not None and not isinstance(
+                carry_state, mrf_mod.MRFChainState
+            ):
+                raise TypeError(
+                    "MRF programs resume from an mrf.MRFChainState, got "
+                    f"{type(carry_state).__name__}"
+                )
+            if evidence is None:
+                raise ValueError(
+                    "MRF programs take the evidence image at run_sharded()")
+            if burn_in is not None:
+                raise ValueError(
+                    "MRF programs return final states only; burn_in does "
+                    "not apply"
+                )
+            if thin != 1:
+                raise ValueError(
+                    "MRF programs return final states only; thin does not "
+                    "apply"
+                )
+            mrf_kernels.check_fused_sampler(sampler)
+        diag_total = None
+        if diagnostics:
+            if carry_state is None:
+                diag_total = n_iters
+            elif getattr(carry_state, "quality", None) is None:
+                raise ValueError(
+                    "diagnostics=True on a resumed run needs a carry from a "
+                    "run that was itself started with diagnostics=True (the "
+                    "accumulator lives in the chain state)"
+                )
+        self.ensure_fused_cross_check(sampler, sharded=True)
+        out = dist_mod.run_program_sharded(
+            self, key, mesh, n_chains=n_chains, n_iters=n_iters,
+            burn_in=burn_in, sampler=sampler, evidence=evidence,
+            backend=backend, fused=True, thin=thin, carry=carry_state,
+            return_state=return_state or diagnostics, diag_total=diag_total,
+            **axes,
         )
+        if not diagnostics:
+            return out
+        *results, state = out
+        total_kept = n_iters
+        if self.kind == "bn":
+            total_kept = diag_accum.kept_count(n_iters, burn_in, thin)
+        snap = self._summarize_quality(
+            state, total_kept=total_kept if carry_state is None else None,
+        )
+        return (*results, snap, state) if return_state else (*results, snap)
 
 
 def _compile_uncached(

@@ -331,14 +331,17 @@ def gibbs_run_loop(
     fused: bool = False,
     diag_total: int | None = None,
     diag_batch: int = diag_accum.DEFAULT_BATCH_LEN,
+    sweep=None,
 ):
-    """The iteration loop shared by the eager engine (`groups=cbn.groups`)
-    and the schedule-direct backend (`groups` built from the schedule's
-    rounds).
+    """The iteration loop shared by the eager engine (`groups=cbn.groups`),
+    the schedule-direct backend (`groups` built from the schedule's rounds)
+    and the fused sharded engine (`core/distributed.py`).
 
     `fused=True` runs every sweep as one launch of K3
     (`kernels/bn_gibbs.fused_gibbs_sweep`; its plain twin on the CPU), bit-
-    exact with the unfused sweep for lut_ky; other samplers raise.
+    exact with the unfused sweep for lut_ky; other samplers raise.  A
+    `sweep` callable ((vals, key) -> vals) runs each sweep instead: the
+    sharded engine's, which draws the same words.
 
     `thin` keeps every thin-th post-burn-in sweep in the histogram.
     `carry` resumes a previous call's `BNChainState` (then `vals`/`key` are
@@ -352,7 +355,7 @@ def gibbs_run_loop(
     for a fresh run: it takes the same one-hot tensor as the histogram,
     under the same keep gate, and consumes no randomness.  On a resumed
     carry the accumulator (or its absence) rides in with the state."""
-    if fused:
+    if sweep is None and fused:
         # lazy import: kernels/bn_gibbs imports this module for NEG_INF
         from repro_torch.kernels import bn_gibbs
 
@@ -361,7 +364,7 @@ def gibbs_run_loop(
 
         def sweep(v, k):
             return bn_gibbs.fused_gibbs_sweep(cbn, fr, v, k, sampler)
-    else:
+    elif sweep is None:
         def sweep(v, k):
             return gibbs_sweep(cbn, v, k, sampler, groups)
 
@@ -397,15 +400,22 @@ def gibbs_run_loop(
             quality = diag_accum.update(quality, onehot, keep)
         t += 1
     carry = BNChainState(vals=vals, key=key, hist=hist, t=t, quality=quality)
-    card_mask = v_range[None] < cbn.cards[:, None]
-    denom = torch.clamp(hist.sum(-1, keepdim=True, dtype=torch.int32), min=1)
-    marginals = torch.where(
-        card_mask, hist.to(torch.float32) / denom.to(torch.float32),
-        torch.zeros((), dtype=torch.float32, device=cbn.device),
-    )
+    marginals = hist_marginals(cbn, hist)
     if return_state:
         return marginals, vals, carry
     return marginals, vals
+
+
+def hist_marginals(cbn: CompiledBayesNet, hist: torch.Tensor) -> torch.Tensor:
+    """(n, V) int32 histogram -> float32 marginals, 0 beyond each card."""
+    v_range = torch.arange(cbn.max_card, dtype=torch.int32,
+                           device=cbn.device)
+    card_mask = v_range[None] < cbn.cards[:, None]
+    denom = torch.clamp(hist.sum(-1, keepdim=True, dtype=torch.int32), min=1)
+    return torch.where(
+        card_mask, hist.to(torch.float32) / denom.to(torch.float32),
+        torch.zeros((), dtype=torch.float32, device=cbn.device),
+    )
 
 
 def run_gibbs(

@@ -80,9 +80,11 @@ def site_log_potentials(
 
 
 def checkerboard_mask(
-    h: int, w: int, parity: int, device="cpu"
+    h: int, w: int, parity: int, device="cpu", row0: int = 0
 ) -> torch.Tensor:
-    ii = (torch.arange(h, device=device)[:, None]
+    """(h, w) bool, True where ((row0 + r) + c) % 2 == parity: the active
+    sites of a grid, or of a row slab whose first row is global row row0."""
+    ii = (torch.arange(row0, row0 + h, device=device)[:, None]
           + torch.arange(w, device=device)[None, :])
     return (ii % 2) == parity
 

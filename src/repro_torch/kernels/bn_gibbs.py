@@ -1,4 +1,5 @@
-"""K3: one whole Bayes-net Gibbs sweep per launch, as a CUDA kernel.
+"""K3: one whole Bayes-net Gibbs sweep per launch, and K5: one colour
+round over a mesh position's owned nodes per launch, as CUDA kernels.
 
 Replaces the reference's Pallas kernel `fused_gibbs_sweep`
 (src/repro/kernels/bn_gibbs.py:236; body `bn_round_step` :137, layout
@@ -31,6 +32,17 @@ rows are (chain, node) = chain * n_c_r + node.
 `bn_sweep` launches the kernel for CUDA tensors (counted in
 `bn_sweep.launches`) and runs the plain twin `bn_sweep_ref` for CPU
 tensors.  `fused_gibbs_sweep` is the reference's drop-in entry point.
+
+K5 (`fused_color_round`, twin `fused_color_round_ref`, counter
+`fused_color_round.launches`) replaces the reference's
+`fused_color_round` (src/repro/kernels/bn_gibbs.py:316), which the sharded
+engine `core/distributed.py` `bn_fused_sharded` launches once per round
+per mesh position.  It is K3's template with one round, over the
+position's slice of a `core.distributed.ShardedFusedRounds` table (owned
+nodes first, pad lanes after them with node id -1, never processed), and
+it reads each owned row's words straight from the round's full stream, so
+its draws are the single-device round's.  Bound: bytes (the owned rows'
+words, and the position's values read and written once).
 """
 
 from __future__ import annotations
@@ -172,18 +184,34 @@ def bn_round_step(
     """One colour round, plain torch, in the reference `bn_round_step`'s op
     order: gather, factor sum left to right, card mask, max-subtract,
     weights, KY walk, scatter.  `words` is round r's (B * n_c_r, W) block."""
-    b = vals.shape[0]
     nc, c, f, s = fr.n_c[r], fr.c_max, fr.f_max, fr.s_max
-    nodes = fr.nodes[r, :nc].long()
-    cards = fr.cards[r, :nc]
-    base = fr.base[r].reshape(c, f)[:nc]
-    stride = fr.stride[r].reshape(c, f, s)[:nc]
-    scope = fr.scope_var[r].reshape(c, f, s)[:nc].long()
-    is_self = fr.is_self[r].reshape(c, f, s)[:nc] != 0
+    return round_update(
+        vals, fr.nodes[r, :nc], fr.cards[r, :nc],
+        fr.base[r].reshape(c, f)[:nc], fr.stride[r].reshape(c, f, s)[:nc],
+        fr.scope_var[r].reshape(c, f, s)[:nc],
+        fr.is_self[r].reshape(c, f, s)[:nc],
+        words.reshape(vals.shape[0], nc, p.n_words), cbn, sampler, p,
+    )
 
-    sv = vals[:, scope]  # (B, nc, F, S)
+
+def round_update(
+    vals: torch.Tensor, nodes: torch.Tensor, cards: torch.Tensor,
+    base: torch.Tensor, stride: torch.Tensor, scope: torch.Tensor,
+    is_self: torch.Tensor, words: torch.Tensor, cbn: CompiledBayesNet,
+    sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """The body of `bn_round_step` over the nc real nodes of one round:
+    (nc,) nodes and cards, (nc, F) base, (nc, F, S) stride/scope/is_self,
+    (B, nc, W) words.  Returns new values; `vals` is left as it was."""
+    b, nc = vals.shape[0], nodes.shape[0]
+    out = vals.clone()
+    if nc == 0:
+        return out
+    f = base.shape[1]
+    sv = vals[:, scope.long()]  # (B, nc, F, S)
     v_range = torch.arange(p.v_max, dtype=torch.int32, device=vals.device)
-    val_or_v = torch.where(is_self[None, ..., None], v_range, sv[..., None])
+    val_or_v = torch.where(is_self[None, ..., None] != 0, v_range,
+                           sv[..., None])
     addr = base[None, :, :, None] + (
         stride[None, ..., None] * val_or_v).sum(-2)  # (B, nc, F, V)
     # lanes v >= card may address past the arena; they are masked below
@@ -208,9 +236,7 @@ def bn_round_step(
         w, words.reshape(b * nc, p.n_words), n_bins=p.v_max,
         precision=p.precision, max_retries=p.max_retries,
     )
-    labels = labels.reshape(b, nc)
-    out = vals.clone()
-    out[:, nodes] = labels
+    out[:, nodes.long()] = labels.reshape(b, nc)
     return out
 
 
@@ -315,3 +341,89 @@ def fused_gibbs_sweep(
     p = sweep_params(cbn, sampler, precision, max_retries)
     words = fused_round_words(fr, key, vals.shape[0], p.n_words, vals.device)
     return bn_sweep(cbn, fr, vals, words, sampler, p)
+
+
+def _check_color_round(cbn, sfr, d, r, vals, words, chain0, sampler, p):
+    check_fused_sampler(sampler)
+    if vals.dtype != torch.int32 or vals.dim() != 2 or (
+            vals.shape[1] != cbn.n_nodes):
+        raise ValueError(f"vals must be (B, {cbn.n_nodes}) int32")
+    n_full = sfr.n_c[r]
+    if words.dtype != torch.int32 or words.numel() % (n_full * p.n_words):
+        raise ValueError(f"words must be round {r}'s full int32 stream of "
+                         f"(chains x {n_full} x {p.n_words}) words")
+    total = words.numel() // (n_full * p.n_words)
+    if not 0 <= chain0 <= total - vals.shape[0]:
+        raise ValueError(f"chains [{chain0}, {chain0 + vals.shape[0]}) lie "
+                         f"outside the stream's {total}")
+    if not (0 <= d < len(sfr.n_own) and 0 <= r < len(sfr.n_c)):
+        raise ValueError(f"no position {d} / round {r} in the table")
+
+
+def fused_color_round_ref(
+    cbn: CompiledBayesNet, sfr, d: int, r: int, vals: torch.Tensor,
+    words: torch.Tensor, chain0: int, sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """Plain torch twin of K5: `round_update` over position d's owned
+    nodes of round r, with their rows gathered out of the full stream."""
+    _check_color_round(cbn, sfr, d, r, vals, words, chain0, sampler, p)
+    k = sfr.n_own[d][r]
+    wr = words.reshape(-1, sfr.n_c[r], p.n_words)[chain0:chain0 + len(vals)]
+    return round_update(
+        vals, sfr.nodes[d, r, :k], sfr.cards[d, r, :k], sfr.base[d, r, :k],
+        sfr.stride[d, r, :k], sfr.scope_var[d, r, :k],
+        sfr.is_self[d, r, :k], wr[:, sfr.word_pos[d, r, :k].long()], cbn,
+        sampler, p,
+    )
+
+
+def fused_color_round(
+    cbn: CompiledBayesNet, sfr, d: int, r: int, vals: torch.Tensor,
+    words: torch.Tensor, chain0: int, sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """One colour round over mesh position d's owned nodes of round r of
+    the `ShardedFusedRounds` table `sfr`: K5 for CUDA tensors, the twin for
+    CPU tensors.  `vals` is the position's (b_loc, n) chain block, whose
+    first chain is chain `chain0` of the run; `words` is round r's full
+    stream, `ky.random_words(keys[r], (B * n_c_r,), W)` over all B chains.
+    Returns the block's new values; nodes the position does not own keep
+    theirs."""
+    _check_color_round(cbn, sfr, d, r, vals, words, chain0, sampler, p)
+    if vals.device.type == "cpu":
+        return fused_color_round_ref(cbn, sfr, d, r, vals, words, chain0,
+                                     sampler, p)
+    tab = cbn.exp_table
+    _lib.require_cuda(
+        "fused_color_round", vals, words, cbn.log_flat, tab, sfr.nodes,
+        sfr.cards, sfr.base, sfr.stride, sfr.scope_var, sfr.is_self,
+        sfr.word_pos, sfr.n_own_t,
+    )
+    b, n = vals.shape
+    spec = cbn.exp_spec
+    cpc = chains_per_block(b, n, spec.size)
+    out = torch.empty_like(vals)
+    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
+    fn = _lib.function(
+        "bn_gibbs", "aia_bn_color_round",
+        [P, P, I, I, I, P, I, I, I, P, P, P, P, P, P, P, P, I, I, I, P, P, I,
+         F, F, I, I, I, I, I, P],
+    )
+    with torch.cuda.device(vals.device):
+        code = fn(
+            vals.data_ptr(), out.data_ptr(), b, n, cpc,
+            sfr.n_own_t[d, r].data_ptr(), sfr.c_max, sfr.f_max, sfr.s_max,
+            sfr.nodes[d, r].data_ptr(), sfr.cards[d, r].data_ptr(),
+            sfr.base[d, r].data_ptr(), sfr.stride[d, r].data_ptr(),
+            sfr.scope_var[d, r].data_ptr(), sfr.is_self[d, r].data_ptr(),
+            sfr.word_pos[d, r].data_ptr(), words.data_ptr(), chain0,
+            sfr.n_c[r], p.n_words, cbn.log_flat.data_ptr(), tab.data_ptr(),
+            spec.size, spec.x0, inv_dx(spec), p.v_max,
+            int(sampler == "exact_ky"), p.weight_bits, p.precision,
+            p.total_steps, _lib.stream_of(vals),
+        )
+    _lib.check("bn_gibbs", code, "fused_color_round")
+    fused_color_round.launches += 1
+    return out
+
+
+fused_color_round.launches = 0

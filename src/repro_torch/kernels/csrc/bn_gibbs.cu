@@ -26,6 +26,25 @@
 // the (B, n) values once; the arena and the round tables are small and
 // L2-resident.  The gather/lerp/walk arithmetic is tens of integer and
 // float ops per row.
+//
+// K5: one colour round over one mesh position's owned nodes per launch.
+//
+// Replaces the reference's Pallas kernel `fused_color_round`
+// (src/repro/kernels/bn_gibbs.py:316), which runs the same `bn_round_step`
+// body as a grid=(1,) call over a shard's slice of one round; the sharded
+// engine (`core/distributed.py` `bn_fused_sharded`) launches it once per
+// round per position, between the psum merges.  It is the template below
+// with R = 1 and two differences:
+//   * the round table is the position's slice of `ShardedFusedRounds`,
+//     whose pad lanes trail the n_c owned lanes (node id -1, cards 0) and
+//     are never processed, as K3 never processes its rounds' pad lanes;
+//   * a row's words are not packed per shard: the kernel reads them from
+//     the round's full stream (B_total chains x word_nc nodes, generated
+//     once per round for every position) at chain word_chain0 + b and node
+//     word_pos[c], the owned node's place in the round's full group.  The
+//     reference gathers the same rows with dynamic_slice and take.
+// Bound: bytes.  A launch reads the owned rows' words (b_loc x n_c rows of
+// n_words) and reads and writes the position's (b_loc, n) values once.
 
 #include "aia_common.cuh"
 
@@ -46,6 +65,10 @@ struct SweepArgs {
   const int* scope;    // (R, c_max * f_max * s_max)
   const int* is_self;  // (R, c_max * f_max * s_max)
   const int* words;    // per round r: (B * n_c[r], n_words), rounds in order
+  // K5 only (null for K3): words are the round's full stream, row
+  // (word_chain0 + chain) * word_nc + word_pos[c]
+  const int* word_pos;  // (c_max,)
+  int word_chain0, word_nc;
   int n_words;
   const float* logf;  // (T,) log-CPT arena
   const float* tab;   // (lut_size,) exp-weight LUT
@@ -144,8 +167,11 @@ __global__ void bn_sweep_kernel(SweepArgs a) {
       // --- C1: KY walk over v_max bins + the rejection bin ---
       int m[VCAP];
       aia::ky_prepare<VCAP>(w, a.v_max, a.precision, m);
-      const int* wrow =
-          a.words + word_off + ((long long)(chain0 + b) * nc + c) * a.n_words;
+      const long long wr =
+          a.word_pos ? (long long)(a.word_chain0 + chain0 + b) * a.word_nc +
+                           __ldg(a.word_pos + c)
+                     : (long long)(chain0 + b) * nc + c;
+      const int* wrow = a.words + word_off + wr * a.n_words;
       int bits, rejs;
       bool done;
       int label = aia::ddg_walk<VCAP>(m, wrow, a.v_max, a.precision,
@@ -178,6 +204,16 @@ int launch(const SweepArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+int dispatch(const SweepArgs& a, cudaStream_t s) {
+  const int lanes = a.v_max + 1;
+  if (lanes <= 4) return launch<4>(a, s);
+  if (lanes <= 8) return launch<8>(a, s);
+  if (lanes <= 16) return launch<16>(a, s);
+  if (lanes <= 32) return launch<32>(a, s);
+  if (lanes <= 128) return launch<128>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int aia_bn_sweep(
@@ -189,14 +225,28 @@ extern "C" int aia_bn_sweep(
     int weight_bits, int precision, int total_steps, void* stream) {
   SweepArgs a{vals_in, vals_out, B, n, chains_per_block, R, n_c,
               c_max, f_max, s_max, nodes, cards, base, stride,
-              scope, is_self, words, n_words, logf, tab, lut_size,
-              x0, inv_dx, v_max, exact, weight_bits, precision, total_steps};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int lanes = v_max + 1;
-  if (lanes <= 4) return launch<4>(a, s);
-  if (lanes <= 8) return launch<8>(a, s);
-  if (lanes <= 16) return launch<16>(a, s);
-  if (lanes <= 32) return launch<32>(a, s);
-  if (lanes <= 128) return launch<128>(a, s);
-  return (int)cudaErrorInvalidValue;
+              scope, is_self, words, nullptr, 0, 0, n_words, logf, tab,
+              lut_size, x0, inv_dx, v_max, exact, weight_bits, precision,
+              total_steps};
+  return dispatch(a, (cudaStream_t)stream);
+}
+
+// K5: one round (R = 1) over a mesh position's owned nodes; vals_in and
+// vals_out are the position's (B, n) chain block, words the round's full
+// stream, n_c a pointer to the position's owned-node count.
+extern "C" int aia_bn_color_round(
+    const int* vals_in, int* vals_out, int B, int n, int chains_per_block,
+    const int* n_c, int c_max, int f_max, int s_max, const int* nodes,
+    const int* cards, const int* base, const int* stride, const int* scope,
+    const int* is_self, const int* word_pos, const int* words,
+    int word_chain0, int word_nc, int n_words, const float* logf,
+    const float* tab, int lut_size, float x0, float inv_dx, int v_max,
+    int exact, int weight_bits, int precision, int total_steps,
+    void* stream) {
+  SweepArgs a{vals_in, vals_out, B, n, chains_per_block, 1, n_c,
+              c_max, f_max, s_max, nodes, cards, base, stride,
+              scope, is_self, words, word_pos, word_chain0, word_nc,
+              n_words, logf, tab, lut_size, x0, inv_dx, v_max, exact,
+              weight_bits, precision, total_steps};
+  return dispatch(a, (cudaStream_t)stream);
 }

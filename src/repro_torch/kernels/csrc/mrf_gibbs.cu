@@ -41,6 +41,29 @@
 // B = 1024), read the labels once (16.8 MB) and write them once (16.8 MB);
 // evidence and table are small and cached.  The arithmetic is tens of
 // integer and float ops per site and lane.
+//
+// K6: K4 over one mesh position's row slab, per launch.
+//
+// Replaces the reference's Pallas kernel `mrf_halo_half_step_kernel`
+// (src/repro/kernels/mrf_gibbs.py:280; body `_mrf_halo_kernel` :123),
+// which the sharded engine (`core/distributed.py` `mrf_fused_sharded`)
+// launches once per half-step per position.  It is the template below
+// with three differences, all in its arguments:
+//   * the slab's rows -1 and h_loc are the chain's up and down halo rows
+//     (the neighbouring positions' border rows, exchanged before the
+//     round; -1 beyond the grid) where K4 stages -1;
+//   * the checkerboard is taken against the slab's global row offset
+//     row0: a site (r, c) of the slab is active when ((row0 + r) + c) % 2
+//     equals the parity, so an odd row0 works;
+//   * labels, output and words are addressed with a chain stride: a slab
+//     of the (B, H, W) labels and of the round's full (B, H, W, n_words)
+//     words is contiguous within a chain and strided across chains, so
+//     every position reads the one stream generated for the round and
+//     writes its slab of one output tensor, with no copies.
+// The ragged last tile stays: the reference needs h_loc % block_h == 0,
+// this kernel does not, and the labels are the same either way.
+// Bound: bytes, as K4's: the slab's active words, its labels read and
+// written once, its halo rows.
 
 #include <math.h>
 
@@ -49,11 +72,15 @@
 namespace {
 
 struct HalfStepArgs {
-  const int* labels_in;  // (B, H, W)
-  int* labels_out;       // (B, H, W)
+  const int* labels_in;  // (B, H, W), chain stride lab_stride
+  int* labels_out;       // (B, H, W), chain stride lab_stride
   const int* evidence;   // (H, W)
-  const int* words;      // (B, H, W, n_words)
+  const int* words;      // (B, H, W, n_words), chain stride word_stride
   const float* tab;      // (lut_size,) exp-weight LUT
+  const int* up;         // (B, W) row above row 0, or null: -1 (K4)
+  const int* down;       // (B, W) row below row H - 1, or null: -1 (K4)
+  long long lab_stride, word_stride;
+  int row0;              // global row of row 0, for the parity
   int B, H, W, block_h, tiles, n_labels, parity, quadratic;
   float theta, h, neg_h;
   int lut_size;
@@ -68,15 +95,22 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
   const int chain = blockIdx.x / a.tiles;
   const int r0 = (blockIdx.x - chain * a.tiles) * a.block_h;
   const int rows = min(a.block_h, a.H - r0);
-  const long long plane = (long long)chain * a.H * W;
+  const long long plane = (long long)chain * a.lab_stride;
   const int* lin = a.labels_in + plane;
   int* lout = a.labels_out + plane;
+  const int* wplane = a.words + (long long)chain * a.word_stride;
   int* lab = smem;                        // (rows + 2) x W, row 0 = r0 - 1
   int* ev = smem + (a.block_h + 2) * W;   // rows x W
   float* tab = reinterpret_cast<float*>(ev + a.block_h * W);
   for (int i = threadIdx.x; i < (rows + 2) * W; i += blockDim.x) {
     const int gr = r0 - 1 + i / W;
-    lab[i] = (gr >= 0 && gr < a.H) ? lin[(long long)gr * W + i % W] : -1;
+    const int c = i % W;
+    if (gr >= 0 && gr < a.H)
+      lab[i] = lin[(long long)gr * W + c];
+    else if (gr < 0)
+      lab[i] = a.up ? a.up[(long long)chain * W + c] : -1;
+    else
+      lab[i] = a.down ? a.down[(long long)chain * W + c] : -1;
   }
   const int* evg = a.evidence + (long long)r0 * W;
   for (int i = threadIdx.x; i < rows * W; i += blockDim.x) ev[i] = evg[i];
@@ -87,7 +121,7 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
   for (int i = threadIdx.x; i < rows * W; i += blockDim.x) {
     const int r = i / W;
     const int c = i - r * W;
-    if (((r0 + r + c) & 1) != a.parity)
+    if (((a.row0 + r0 + r + c) & 1) != a.parity)
       lout[(long long)(r0 + r) * W + c] = lab[(r + 1) * W + c];
   }
 
@@ -95,7 +129,7 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
   for (int s = threadIdx.x; s < rows * half_w; s += blockDim.x) {
     const int r = s / half_w;
     const int gr = r0 + r;
-    const int c = ((a.parity + gr) & 1) + 2 * (s - r * half_w);
+    const int c = ((a.parity + a.row0 + gr) & 1) + 2 * (s - r * half_w);
     if (c >= W) continue;
     const int* row = lab + (r + 1) * W;
     const int up = row[c - W];
@@ -139,8 +173,7 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
     // --- C1: KY walk over n_labels bins + the rejection bin ---
     int m[VCAP];
     aia::ky_prepare<VCAP>(w, a.n_labels, a.precision, m);
-    const int* wrow =
-        a.words + (plane + (long long)gr * W + c) * (long long)a.n_words;
+    const int* wrow = wplane + ((long long)gr * W + c) * a.n_words;
     int bits, rejs;
     bool done;
     int label = aia::ddg_walk<VCAP>(m, wrow, a.n_labels, a.precision,
@@ -154,6 +187,7 @@ template <int VCAP>
 int launch(const HalfStepArgs& a, cudaStream_t stream) {
   const int threads = 256;
   const long long blocks = (long long)a.tiles * a.B;
+  if (a.row0 < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(int) * (size_t)(2 * a.block_h + 2) * a.W +
                       sizeof(float) * (size_t)a.lut_size;
   if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
@@ -167,6 +201,16 @@ int launch(const HalfStepArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+int dispatch(const HalfStepArgs& a, cudaStream_t s) {
+  const int lanes = a.n_labels + 1;
+  if (lanes <= 4) return launch<4>(a, s);
+  if (lanes <= 8) return launch<8>(a, s);
+  if (lanes <= 16) return launch<16>(a, s);
+  if (lanes <= 32) return launch<32>(a, s);
+  if (lanes <= 128) return launch<128>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int aia_mrf_half_step(
@@ -177,17 +221,33 @@ extern "C" int aia_mrf_half_step(
     int precision, int total_steps, void* stream) {
   if (block_h < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const int tiles = (H + block_h - 1) / block_h;
+  const long long plane = (long long)H * W;
   HalfStepArgs a{labels_in, labels_out, evidence, words,    tab,
+                 nullptr,   nullptr,    plane,    plane * n_words, 0,
                  B,         H,          W,        block_h,  tiles,
                  n_labels,  parity,     quadratic, theta,   h,
                  neg_h,     lut_size,   x0,       inv_dx,   n_words,
                  precision, total_steps};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int lanes = n_labels + 1;
-  if (lanes <= 4) return launch<4>(a, s);
-  if (lanes <= 8) return launch<8>(a, s);
-  if (lanes <= 16) return launch<16>(a, s);
-  if (lanes <= 32) return launch<32>(a, s);
-  if (lanes <= 128) return launch<128>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(a, (cudaStream_t)stream);
+}
+
+// K6: a slab of H rows starting at global row row0, with its chains' up
+// and down halo rows ((B, W) each) and chain strides (in elements) for the
+// labels (in and out alike) and the words.
+extern "C" int aia_mrf_halo_half_step(
+    const int* labels_in, int* labels_out, const int* up, const int* down,
+    long long lab_stride, int row0, const int* evidence, const int* words,
+    long long word_stride, const float* tab, int B, int H, int W,
+    int block_h, int n_labels, int parity, int quadratic, float theta,
+    float h, float neg_h, int lut_size, float x0, float inv_dx, int n_words,
+    int precision, int total_steps, void* stream) {
+  if (block_h < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int tiles = (H + block_h - 1) / block_h;
+  HalfStepArgs a{labels_in, labels_out, evidence, words,    tab,
+                 up,        down,       lab_stride, word_stride, row0,
+                 B,         H,          W,        block_h,  tiles,
+                 n_labels,  parity,     quadratic, theta,   h,
+                 neg_h,     lut_size,   x0,       inv_dx,   n_words,
+                 precision, total_steps};
+  return dispatch(a, (cudaStream_t)stream);
 }

@@ -89,6 +89,18 @@ def split(k: Key, num: int = 2) -> tuple[Key, ...]:
     return tuple(Key(int(a), int(b)) for a, b in zip(b1, b2))
 
 
+def fold_in(k: Key, data: int) -> Key:
+    """`jax.random.fold_in(k, data)` for a uint32 `data`: the threefry hash
+    of the counter pair `(0, data)` (jax's `threefry_seed` of a 32-bit
+    value) under `k`.  The legacy sharded engines fold the mesh position
+    into the key with it."""
+    data = int(data)
+    if not 0 <= data <= MASK:
+        raise ValueError(f"fold_in data {data} is not a uint32")
+    a, b = threefry2x32(k.k1, k.k2, 0, data)
+    return Key(int(a), int(b))
+
+
 def to_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2**32) -> int32 tensor of the same bit patterns."""
     return ((x ^ 0x80000000) - 0x80000000).to(torch.int32)

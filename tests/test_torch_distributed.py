@@ -1,0 +1,376 @@
+"""The port's sharded execution (`core/distributed.py`,
+`CompiledProgram.run_sharded`) on meshes of CPU positions:
+
+  * `prng.fold_in` against `jax.random.fold_in`, bit for bit;
+  * the fused route against the port's own single-device fused run, bit
+    for bit, on (1, 1), (1, 2) and (2, 4) meshes: BN lut_ky and exact_ky
+    with burn-in and thinning mid-stride, MRF lut_ky, carries crossing the
+    route boundary both ways, `diagnostics=True` snapshots field for field;
+  * both fused engines and both legacy engines against the reference's on
+    a (2, 4) mesh of 8 simulated host devices (one subprocess, built with
+    `compat.make_mesh`), bit for bit at lut_ky; the legacy engines'
+    exact_ky, cdf and gumbel by per-node TV against variable elimination,
+    under 0.05 (the repo's quickstart gate);
+  * every argument check of the sharded route.
+
+Inputs come from numpy seeds; keys are the reference's keys carried
+across."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert, prng
+from repro_torch.compile import ir as t_ir
+from repro_torch.compile import program as t_program
+from repro_torch.core import distributed as t_dist
+from repro_torch.core.exact import ve_marginal
+from repro_torch.core.graphs import GridMRF, bn_repository_replica, \
+    random_bayesnet
+
+MESHES = [(1, 1), (1, 2), (2, 4)]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_cache():
+    t_program.clear_program_cache()
+    yield
+    t_program.clear_program_cache()
+
+
+def _cpu_mesh(shape):
+    return t_dist.make_mesh(shape, ("data", "model"), device="cpu")
+
+
+def _bn_prog():
+    return t_program.compile_graph(
+        t_ir.from_bayesnet(random_bayesnet(12, seed=3)), device="cpu")
+
+
+def _mrf_prog(height=8):
+    return t_program.compile_graph(
+        t_ir.from_mrf(GridMRF(height, 16, 4, theta=1.1)), device="cpu")
+
+
+def _evidence(height=8, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, 4, (height, 16)).astype(np.int32)
+
+
+def _same_state(a, b):
+    for f in ("vals", "labels", "hist"):
+        if hasattr(a, f):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.key == b.key
+    assert getattr(a, "t", None) == getattr(b, "t", None)
+
+
+# ---------------------------------------------------------------------------
+# prng.fold_in
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("data", [0, 1, 7, 2**31 - 1])
+@pytest.mark.parametrize("seed", [0, 5, 2**31 - 1])
+def test_fold_in_matches_jax(seed, data):
+    # a key straight from a seed, and one with both words random
+    base = jax.random.key(seed)
+    for jk in (base, jax.random.split(base)[1]):
+        k = convert.key_from_reference(np.asarray(jax.random.key_data(jk)))
+        want = np.asarray(jax.random.key_data(jax.random.fold_in(jk, data)))
+        got = prng.fold_in(k, data)
+        assert [got.k1, got.k2] == want.tolist()
+
+
+# ---------------------------------------------------------------------------
+# the fused route against the single-device fused run
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sampler", ["lut_ky", "exact_ky"])
+@pytest.mark.parametrize("shape", MESHES)
+def test_fused_sharded_bn_equals_single_device(shape, sampler):
+    prog = _bn_prog()
+    # 7 sweeps, burn-in 2, thin 2: the run ends mid-stride
+    kw = dict(n_chains=8, n_iters=7, burn_in=2, thin=2, sampler=sampler,
+              fused=True)
+    m1, v1 = prog.run(prng.key(11), device="cpu", **kw)
+    m2, v2 = prog.run_sharded(prng.key(11), _cpu_mesh(shape), **kw)
+    assert torch.equal(m1, m2) and torch.equal(v1, v2)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_fused_sharded_mrf_equals_single_device(shape):
+    prog = _mrf_prog()
+    ev = _evidence()
+    kw = dict(n_chains=4, n_iters=5, fused=True)
+    want = prog.run(prng.key(7), evidence=ev, device="cpu", **kw)
+    got = prog.run_sharded(prng.key(7), _cpu_mesh(shape), evidence=ev, **kw)
+    assert torch.equal(got, want)
+
+
+def test_bn_carry_crosses_the_route_boundary_both_ways():
+    prog = _bn_prog()
+    mesh = _cpu_mesh((2, 4))
+    kw = dict(n_chains=8, burn_in=2, thin=2, fused=True)
+    m, v, st = prog.run(prng.key(3), n_iters=7, return_state=True,
+                        device="cpu", **kw)
+    # 3 sweeps single-device, then 4 sharded (slice inside a thin stride)
+    _, _, a = prog.run(prng.key(3), n_iters=3, return_state=True,
+                       device="cpu", **kw)
+    m_a, v_a, st_a = prog.run_sharded(None, mesh, n_iters=4, carry_state=a,
+                                      return_state=True, **kw)
+    # and the other way round
+    _, _, b = prog.run_sharded(prng.key(3), mesh, n_iters=3,
+                               return_state=True, **kw)
+    m_b, v_b, st_b = prog.run(None, n_iters=4, carry_state=b,
+                              return_state=True, device="cpu", **kw)
+    for mm, vv, ss in ((m_a, v_a, st_a), (m_b, v_b, st_b)):
+        assert torch.equal(mm, m) and torch.equal(vv, v)
+        _same_state(ss, st)
+
+
+def test_mrf_carry_crosses_the_route_boundary_both_ways():
+    prog = _mrf_prog()
+    mesh = _cpu_mesh((2, 4))
+    ev = _evidence(seed=2)
+    kw = dict(evidence=ev, n_chains=4, fused=True)
+    whole = prog.run(prng.key(9), n_iters=6, device="cpu", **kw)
+    _, a = prog.run(prng.key(9), n_iters=2, return_state=True, device="cpu",
+                    **kw)
+    lab_a = prog.run_sharded(None, mesh, n_iters=4, carry_state=a, **kw)
+    _, b = prog.run_sharded(prng.key(9), mesh, n_iters=2, return_state=True,
+                            **kw)
+    lab_b = prog.run(None, n_iters=4, carry_state=b, device="cpu", **kw)
+    assert torch.equal(lab_a, whole) and torch.equal(lab_b, whole)
+
+
+def _assert_snap_equal(a, b):
+    da, db = a.to_dict(), b.to_dict()
+    assert da.keys() == db.keys()
+    for k in da:
+        x, y = da[k], db[k]
+        if isinstance(x, (str, bool)) or x is None or y is None:
+            assert x == y, k
+        else:
+            np.testing.assert_array_equal(np.asarray(x, float),
+                                          np.asarray(y, float), k)
+    np.testing.assert_array_equal(a.p_hat, b.p_hat)
+
+
+def test_sharded_quality_snapshots_equal_single_device():
+    mesh = _cpu_mesh((2, 4))
+    mprog = _mrf_prog()
+    ev = np.zeros((8, 16), np.int32)
+    lab1, snap1 = mprog.run(prng.key(7), evidence=ev, n_chains=4, n_iters=5,
+                            fused=True, diagnostics=True, device="cpu")
+    lab2, snap2 = mprog.run_sharded(prng.key(7), mesh, evidence=ev,
+                                    n_chains=4, n_iters=5, fused=True,
+                                    diagnostics=True)
+    assert torch.equal(lab1, lab2)
+    _assert_snap_equal(snap1, snap2)
+    pbn = _bn_prog()
+    kw = dict(n_chains=4, n_iters=6, burn_in=2, thin=2, fused=True,
+              diagnostics=True)
+    m1, v1, sn1 = pbn.run(prng.key(11), device="cpu", **kw)
+    m2, v2, sn2 = pbn.run_sharded(prng.key(11), mesh, **kw)
+    assert torch.equal(m1, m2) and torch.equal(v1, v2)
+    _assert_snap_equal(sn1, sn2)
+
+
+# ---------------------------------------------------------------------------
+# the port against the reference's engines on a (2, 4) mesh
+# ---------------------------------------------------------------------------
+
+_REFERENCE = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import numpy as np, jax, jax.numpy as jnp
+    from repro.compile import compile_graph
+    from repro.compile import ir as compile_ir
+    from repro.core import compat
+    from repro.core.graphs import GridMRF, random_bayesnet
+
+    # jax.make_mesh's explicit axes make indexing a sharded result raise
+    mesh = compat.make_mesh((2, 4), ("data", "model"))
+    ev = np.random.default_rng(0).integers(0, 4, (8, 16)).astype(np.int32)
+    res = {}
+    prog = compile_graph(compile_ir.from_mrf(GridMRF(8, 16, 4, theta=1.1)))
+    res["mrf_fused"] = prog.run_sharded(
+        jax.random.key(7), mesh, evidence=jnp.asarray(ev), n_chains=4,
+        n_iters=5, fused=True)
+    for be in ("schedule", "eager"):
+        res["mrf_legacy_" + be] = prog.run_sharded(
+            jax.random.key(8), mesh, evidence=jnp.asarray(ev), n_chains=4,
+            n_iters=3, fused=False, backend=be)
+    pbn = compile_graph(compile_ir.from_bayesnet(random_bayesnet(12, seed=3)))
+    res["bn_fused_m"], res["bn_fused_v"] = pbn.run_sharded(
+        jax.random.key(11), mesh, n_chains=4, n_iters=6, burn_in=2, thin=2,
+        fused=True)
+    for be in ("schedule", "eager"):
+        m, v = pbn.run_sharded(jax.random.key(12), mesh, n_chains=4,
+                               n_iters=6, burn_in=2, fused=False, backend=be)
+        res["bn_legacy_" + be + "_m"], res["bn_legacy_" + be + "_v"] = m, v
+    np.savez(sys.argv[1], ev=ev, **{k: np.asarray(x) for k, x in res.items()})
+    print("REFERENCE_OK")
+""")
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reference's sharded engines on a (2, 4) mesh, run once in a
+    subprocess with 8 simulated host devices."""
+    out = tmp_path_factory.mktemp("sharded") / "reference.npz"
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src")
+    env["JAX_PLATFORMS"] = "cpu"
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", _REFERENCE, str(out)],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert "REFERENCE_OK" in res.stdout, (res.stdout[-2000:]
+                                          + res.stderr[-4000:])
+    return dict(np.load(out))
+
+
+def test_fused_engines_match_the_reference(reference):
+    mesh = _cpu_mesh((2, 4))
+    ev = reference["ev"]
+    got = _mrf_prog().run_sharded(prng.key(7), mesh, evidence=ev,
+                                  n_chains=4, n_iters=5, fused=True)
+    np.testing.assert_array_equal(got.numpy(), reference["mrf_fused"])
+    m, v = _bn_prog().run_sharded(prng.key(11), mesh, n_chains=4, n_iters=6,
+                                  burn_in=2, thin=2, fused=True)
+    np.testing.assert_array_equal(m.numpy(), reference["bn_fused_m"])
+    np.testing.assert_array_equal(v.numpy(), reference["bn_fused_v"])
+
+
+@pytest.mark.parametrize("backend", ["schedule", "eager"])
+def test_legacy_engines_match_the_reference(reference, backend):
+    mesh = _cpu_mesh((2, 4))
+    got = _mrf_prog().run_sharded(prng.key(8), mesh,
+                                  evidence=reference["ev"], n_chains=4,
+                                  n_iters=3, fused=False, backend=backend)
+    np.testing.assert_array_equal(got.numpy(),
+                                  reference[f"mrf_legacy_{backend}"])
+    m, v = _bn_prog().run_sharded(prng.key(12), mesh, n_chains=4, n_iters=6,
+                                  burn_in=2, fused=False, backend=backend)
+    np.testing.assert_array_equal(m.numpy(),
+                                  reference[f"bn_legacy_{backend}_m"])
+    np.testing.assert_array_equal(v.numpy(),
+                                  reference[f"bn_legacy_{backend}_v"])
+
+
+@pytest.mark.parametrize("sampler", ["exact_ky", "cdf", "gumbel"])
+def test_legacy_bn_samplers_within_tv_of_exact(sampler):
+    asia = bn_repository_replica("asia")
+    ev = {0: 1, 5: 0}
+    prog = t_program.compile_graph(asia, ev, device="cpu")
+    marg, _ = prog.run_sharded(prng.key(4), _cpu_mesh((2, 4)), n_chains=256,
+                               n_iters=300, burn_in=50, sampler=sampler)
+    tv = max(
+        0.5 * np.abs(ve_marginal(asia, q, ev)
+                     - marg[q, :asia.cards[q]].numpy()).sum()
+        for q in range(asia.n_nodes) if q not in ev
+    )
+    assert tv < 0.05, tv
+
+
+def test_legacy_mrf_runs_every_sampler():
+    prog = _mrf_prog()
+    mesh = _cpu_mesh((2, 4))
+    for sampler in ("exact_ky", "cdf", "gumbel"):
+        lab = prog.run_sharded(prng.key(2), mesh, evidence=_evidence(),
+                               n_chains=4, n_iters=2, sampler=sampler)
+        assert lab.shape == (4, 8, 16) and lab.dtype == torch.int32
+        assert bool(((lab >= 0) & (lab < 4)).all())
+
+
+# ---------------------------------------------------------------------------
+# argument checks
+# ---------------------------------------------------------------------------
+
+
+def test_meshes_lie_on_one_device_and_default_to_the_card():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_dist.Mesh(np.array([[torch.device("cpu"), torch.device("cuda", 1)]],
+                             dtype=object), ("data", "model"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_dist.make_mesh((2, 4))
+    mesh = _cpu_mesh((2, 4))
+    assert mesh.shape == {"data": 2, "model": 4} and mesh.size == 8
+    with pytest.raises(ValueError):
+        mesh.axis_size("pod")
+
+
+def test_indivisible_shapes_raise():
+    mprog = _mrf_prog(height=9)
+    for fused in (True, False):
+        with pytest.raises(ValueError, match="grid height"):
+            mprog.run_sharded(prng.key(0), _cpu_mesh((1, 2)),
+                              evidence=_evidence(9), n_chains=2, n_iters=1,
+                              fused=fused)
+        with pytest.raises(ValueError, match="n_chains"):
+            _bn_prog().run_sharded(prng.key(0), _cpu_mesh((3, 1)),
+                                   n_chains=4, n_iters=1, fused=fused)
+
+
+def test_unlowered_comm_mechanisms_raise():
+    import dataclasses
+
+    for prog, wrong in ((_bn_prog(), "ppermute_halo"),
+                        (_mrf_prog(), "psum_broadcast")):
+        rounds = tuple(
+            dataclasses.replace(r, comm=tuple(
+                dataclasses.replace(op, mechanism=wrong) for op in r.comm))
+            for r in prog.schedule.rounds)
+        assert any(r.comm for r in rounds)
+        prog.schedule = dataclasses.replace(prog.schedule, rounds=rounds)
+        kw = {} if prog.kind == "bn" else {"evidence": _evidence()}
+        with pytest.raises(ValueError, match="mechanism"):
+            prog.run_sharded(prng.key(0), _cpu_mesh((1, 2)), n_chains=2,
+                             n_iters=1, fused=False, **kw)
+        t_program.clear_program_cache()
+
+
+def test_sharded_route_argument_checks():
+    mesh = _cpu_mesh((1, 2))
+    bn = _bn_prog()
+    with pytest.raises(ValueError, match="runtime evidence"):
+        bn.run_sharded(prng.key(0), mesh, evidence={0: 1}, fused=True)
+    for kw in (dict(return_state=True), dict(diagnostics=True),
+               dict(thin=2)):
+        with pytest.raises(ValueError):
+            bn.run_sharded(prng.key(0), mesh, n_iters=1, **kw)
+    with pytest.raises(ValueError):
+        bn.run_sharded(prng.key(0), mesh, fused=True, backend="eager")
+    with pytest.raises(ValueError):
+        bn.run_sharded(prng.key(0), mesh, fused=True, sampler="cdf")
+    mrf = _mrf_prog()
+    ev = _evidence()
+    for kw in (dict(burn_in=3), dict(thin=2)):
+        for fused in (True, False):
+            with pytest.raises(ValueError):
+                mrf.run_sharded(prng.key(0), mesh, evidence=ev, n_iters=1,
+                                fused=fused, **kw)
+    with pytest.raises(ValueError, match="lut_ky"):
+        mrf.run_sharded(prng.key(0), mesh, evidence=ev, fused=True,
+                        sampler="exact_ky")
+    pinned = t_program.compile_graph(
+        t_ir.from_mrf(GridMRF(8, 16, 4), pinned={3: 1}), device="cpu")
+    with pytest.raises(ValueError, match="pins"):
+        pinned.run_sharded(prng.key(0), mesh, evidence=ev, n_chains=2,
+                           n_iters=1, fused=True)
+    with pytest.raises(ValueError, match="mesh lies on"):
+        bn.run_sharded(prng.key(0), t_dist.Mesh(
+            np.array([[torch.device("meta")]], dtype=object),
+            ("data", "model")), n_iters=1)

@@ -24,6 +24,7 @@ from repro_torch import convert, prng
 from repro_torch.compile import ir as t_ir
 from repro_torch.compile import program as t_program
 from repro_torch.core import bayesnet as t_bn
+from repro_torch.core import distributed
 from repro_torch.core import graphs as t_graphs
 from repro_torch.kernels import (bn_gibbs, interp_lut, ky_sampler, mrf_gibbs,
                                  ops)
@@ -135,27 +136,44 @@ def test_converter_round_trips_reference_net_and_key():
 
 
 def test_unported_paths_raise():
-    """What still raises: the sharded engines (a later slice), and a fused
-    run with a sampler its kernel does not implement (K3: lut_ky/exact_ky;
-    K4: lut_ky)."""
+    """What still raises: a fused run with a sampler its kernel does not
+    implement (K3/K5: lut_ky/exact_ky; K4/K6: lut_ky), on either route, and
+    on the sharded route a mesh over more than one device (a later item),
+    BN runtime evidence, baked MRF pins and an indivisible grid.  The
+    sharded cross-check itself runs."""
     prog = t_program.compile_graph(t_graphs.bn_repository_replica("survey"),
                                    device="cpu")
+    mesh = distributed.make_mesh((1, 2), device="cpu")
     with pytest.raises(ValueError):
         prog.run(prng.key(0), fused=True, backend="eager", device="cpu")
     with pytest.raises(ValueError):
         prog.run(prng.key(0), fused=True, sampler="cdf", device="cpu")
+    with pytest.raises(ValueError):
+        prog.run_sharded(prng.key(0), mesh, fused=True, sampler="cdf")
+    with pytest.raises(ValueError):
+        prog.run_sharded(prng.key(0), mesh, evidence={0: 1}, fused=True)
     with pytest.raises(NotImplementedError):
-        prog.run_sharded(prng.key(0), None)
-    with pytest.raises(NotImplementedError):
-        prog.ensure_fused_cross_check("lut_ky", sharded=True)
+        distributed.Mesh(np.array([[torch.device("cpu"), torch.device(
+            "cuda", 1)]], dtype=object), ("data", "model"))
+    prog.ensure_fused_cross_check("lut_ky", sharded=True)
+    assert ("lut_ky", "sharded") in prog._fused_checked
     mrf = t_program.compile_graph(t_graphs.GridMRF(4, 4, 2), device="cpu")
     ev = np.zeros((4, 4))
     for sampler in ("exact_ky", "cdf", "gumbel"):
         with pytest.raises(ValueError):
             mrf.run(prng.key(0), evidence=ev, fused=True, sampler=sampler,
                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        mrf.run_sharded(prng.key(0), None)
+        with pytest.raises(ValueError):
+            mrf.run_sharded(prng.key(0), mesh, evidence=ev, fused=True,
+                            sampler=sampler)
+    with pytest.raises(ValueError):
+        mrf.run_sharded(prng.key(0), distributed.make_mesh(
+            (1, 3), device="cpu"), evidence=ev, fused=True)
+    pinned = t_program.compile_graph(
+        t_ir.from_mrf(t_graphs.GridMRF(4, 4, 2), pinned={1: 0}),
+        device="cpu")
+    with pytest.raises(ValueError):
+        pinned.run_sharded(prng.key(0), mesh, evidence=ev, fused=True)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -207,13 +225,15 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
     monkeypatch.setattr(ky_sampler, "ky_sample_kernel_ref", twin_called)
     monkeypatch.setattr(bn_gibbs, "bn_sweep_ref", twin_called)
     monkeypatch.setattr(mrf_gibbs, "mrf_half_step_ref", twin_called)
+    monkeypatch.setattr(bn_gibbs, "fused_color_round_ref", twin_called)
+    monkeypatch.setattr(mrf_gibbs, "mrf_halo_half_step_ref", twin_called)
     dev = torch.device("cuda")
     net = t_graphs.bn_repository_replica("survey")
     cbn = t_bn.compile_bayesnet(net, device=dev)
-    before = (interp_lut.interp_kernel.launches,
-              ky_sampler.ky_sample_kernel.launches,
-              bn_gibbs.bn_sweep.launches,
-              mrf_gibbs.mrf_half_step.launches)
+    counters = (interp_lut.interp_kernel, ky_sampler.ky_sample_kernel,
+                bn_gibbs.bn_sweep, mrf_gibbs.mrf_half_step,
+                bn_gibbs.fused_color_round, mrf_gibbs.mrf_halo_half_step)
+    before = [c.launches for c in counters]
     w = ops.lut_exp_weights(torch.randn(64, 5, device=dev), cbn.exp_table,
                             cbn.exp_spec)
     ops.ky_sample(w, prng.key(1))
@@ -225,9 +245,17 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
         grid, torch.zeros((3, 9, 7), dtype=torch.int32, device=dev),
         torch.ones((9, 7), dtype=torch.int32, device=dev), prng.key(4), 1,
         cbn.exp_table, cbn.exp_spec)
+    sfr = distributed.build_sharded_fused_rounds(cbn, cbn.groups, 2)
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    words = prng.bits(prng.key(5), (8 * sfr.n_c[0] * p.n_words,), dev)
+    bn_gibbs.fused_color_round(cbn, sfr, 1, 0, vals[4:], words, 4, "lut_ky",
+                               p)
+    labels = torch.zeros((3, 9, 7), dtype=torch.int32, device=dev)
+    up, down = distributed._halo_exchange(labels, 3)
+    mrf_gibbs.mrf_sharded_round_step(
+        grid, labels, torch.ones((9, 7), dtype=torch.int32, device=dev),
+        prng.key(6), 0, cbn.exp_table, cbn.exp_spec, n_chain_pos=1,
+        n_row_pos=3, up_halo=up, down_halo=down)
     torch.cuda.synchronize()
-    after = (interp_lut.interp_kernel.launches,
-             ky_sampler.ky_sample_kernel.launches,
-             bn_gibbs.bn_sweep.launches,
-             mrf_gibbs.mrf_half_step.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    after = [c.launches for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1, 3]
