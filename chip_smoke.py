@@ -11,6 +11,14 @@ each printing one JSON line; any failure raises and exits non-zero:
               parallel); prints the build
               time, ptxas' register/spill report and the card's name and
               power limit.
+ 1a. threefry — the device function K3 and K4 hash their random words
+              with (`aia::jax_word`, through its test entry
+              `ops.device_bits`) against `prng.bits` on 2^24 counters under
+              three keys, and on 2^20 counters across the 2^32 boundary:
+              bit-equal.  Times both.  Reads the integer instructions of
+              one call from the SASS of the test entry's loop (cuobjdump)
+              and fails if the 2^24 calls ran faster than those
+              instructions allow at the rates the bounds assume.
  2. k2      — K2 (LUT lerp) against its torch twin on 2^24 floats in
               [-10, 1] through the exp-weight LUT: bit-equal.  Also counts
               where PyTorch's CUDA division by a Python scalar differs from
@@ -19,10 +27,12 @@ each printing one JSON line; any failure raises and exits non-zero:
  3. k1      — K1 (KY draw) against its twin on 65,536 rows of V in
               {3, 11, 127} random weights with shared words: labels and the
               three stats bit-equal.
- 4. k3      — K3 (one BN sweep) against its twin for pigs and hailfinder at
-              1,024 chains: lut_ky bit-equal; exact_ky reports the share of
-              differing labels, and its marginals over 200 sweeps lie within
-              per-node TV 0.02 of the twin's.
+ 4. k3      — K3 (one BN sweep, words hashed inside the kernel from the
+              sweep's key) against its twin on the same key's words for
+              pigs and hailfinder at 1,024 chains: lut_ky bit-equal;
+              exact_ky reports the share of differing labels, and its
+              marginals over 200 sweeps lie within per-node TV 0.02 of the
+              twin's.  Reports the threefry calls the rows' walks need.
  5. serve   — the main path.  Launch counters are zeroed, then the port
               serves: 4 posterior queries on pigs (each with its own 5-20
               observed nodes and seed) and 1 on hailfinder through
@@ -32,12 +42,15 @@ each printing one JSON line; any failure raises and exits non-zero:
               `ops.ky_sample`).  Counters are read right after.  Each query
               is bit-equal to `fused=False`; a run sliced 100 + 100 through
               `carry_state` equals the whole run; K3's launches equal the
-              sweeps served plus the first-use cross-checks'; marginals on
-              asia agree with exact variable elimination.
- 6. k4      — K4 (one MRF half-step) against its twin at 1,024 chains,
-              both parities, on Penguin (64 x 64, 4 labels), Art (48 x 48,
-              8 labels) and quadratic-cost Art, the widths of the
-              reference's MRF benchmark: labels bit-equal.
+              sweeps served plus the first-use cross-checks'; the plain-
+              torch generator (`prng._raw_bits`) ran only for each query's
+              chain init, and not once in the resumed 100 sweeps; marginals
+              on asia agree with exact variable elimination.
+ 6. k4      — K4 (one MRF half-step, words hashed inside the kernel from
+              the half-step's key) against its twin on the same key's words
+              at 1,024 chains, both parities, on Penguin (64 x 64, 4
+              labels), Art (48 x 48, 8 labels) and quadratic-cost Art, the
+              widths of the reference's MRF benchmark: labels bit-equal.
  7. serve_mrf — the MRF main path.  Counters zeroed, then one denoising
               query per model through `compile_graph(GridMRF).run(key,
               evidence=noisy, n_chains=1024, n_iters=200, fused=True)`
@@ -46,8 +59,10 @@ each printing one JSON line; any failure raises and exits non-zero:
               2 x 3 per program.  Then, at 1,024 chains x 20 iterations:
               fused equals `fused=False`, 10 + 10 iterations through
               `carry_state` equal 20, 64 pixels pinned at their clean
-              labels hold in every chain; and chain 0 of each Potts query
-              has fewer wrong pixels than the noisy image.
+              labels hold in every chain; chain 0 of each Potts query has
+              fewer wrong pixels than the noisy image; and the plain-torch
+              generator ran only for the chain init (none in a resumed
+              run).
  8. diag    — `diagnostics=True`: on asia, each of lut_ky, exact_ky, cdf
               and gumbel gives a snapshot whose per-node p_hat is within TV
               0.05 of exact variable elimination; the Penguin query with
@@ -76,12 +91,21 @@ each printing one JSON line; any failure raises and exits non-zero:
               sweeps) is within TV 0.05 of exact variable elimination.
 12. timing  — every kernel and its twin at the main paths' shapes: the
               kernel's device time (torch.profiler) and time per call (CUDA
-              events), the twin's time, and the least time the card needs
-              for the same bytes and operations; K1 and K2 also alone at the
-              shapes their bodies take inside K3 on pigs; one MRF half-step
-              split into word generation and K4, with the card's busy
-              share; K5 over one pigs sweep's 32 launches and K6 over one
-              Penguin half-step's 8.  Prints `{"kernels": [...]}` (K1-K6).
+              events), the twin's time (for K3 and K4 with the key's words
+              generated, as the function's input is the key), and the least
+              time the card needs for the same bytes and operations (K3 and
+              K4 count the threefry calls their rows' walks need, each at
+              the instructions the threefry phase read from the SASS: its
+              bit operations on 132 SMs x 64 ALU lanes, all of its integer
+              instructions at 132 x 128 issue lanes, x the SM clock); K1
+              and K2 also alone at the shapes their bodies take inside K3
+              on pigs; one pigs sweep alone and in the query loop, wall,
+              device and host time by part (key split, wrapper, histogram),
+              and one Penguin half-step back to back with the card's busy
+              share, beside the plain-torch word generation they no longer
+              run; K5 over one pigs sweep's 32 launches and
+              K6 over one Penguin half-step's 8.  Prints `{"kernels":
+              [...]}` (K1-K6).
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -91,6 +115,7 @@ and exits 2.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +126,12 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# integer rates per SM and clock (H100 white paper: 64 INT32 and 128 FP32
+# lanes per SM, 4 schedulers issuing one warp instruction each): LOP3, SHF
+# and PRMT run only on the 64 INT32 lanes; an integer add runs there as
+# IADD3 or on the FMA pipe as IMAD, so no mix of integer instructions
+# issues faster than 128 lanes.  The clock is nvidia-smi's max SM clock.
+SMS, ALU_LANES, ISSUE_LANES = 132, 64, 128
 
 CHAINS = 1024
 ITERS = 200
@@ -117,6 +148,7 @@ MRF_MODELS = {
 }
 MRF_CHECK_ITERS = 20
 MRF_PINS = 64
+THREEFRY_COUNTERS = 1 << 24
 
 
 def emit(obj) -> None:
@@ -152,6 +184,7 @@ def main() -> int:
 
     t_all = time.perf_counter()
     card = timed(phase_build, torch)
+    per_call = timed(phase_threefry, torch)
     timed(phase_k2, torch)
     timed(phase_k1, torch)
     k3_err = timed(phase_k3, torch)
@@ -163,7 +196,7 @@ def main() -> int:
     k6_err = timed(phase_k6, torch)
     sharded_launches = timed(phase_serve_sharded, torch, served)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
-          sharded_launches, k5_err, k6_err)
+          sharded_launches, k5_err, k6_err, per_call)
     for mod in sys.modules:
         check(not (mod == "jax" or mod.startswith("jax.")
                    or mod == "repro" or mod.startswith("repro.")),
@@ -231,6 +264,22 @@ def device_ms(torch, fn, reps: int, kernel: str):
     return us / reps / 1e3 if us > 0 else None
 
 
+def device_busy_ms(torch, fn, reps: int) -> float:
+    """Device time per call of every kernel `fn` launches (torch.profiler),
+    for the card's busy share against the wall time per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total
+               for e in kernel_events(torch, prof)) / 1e3 / reps
+
+
 def kernel_events(torch, prof):
     """The profile's device-side kernel rows (the host ops that launched
     them carry the same device time and would count it twice)."""
@@ -264,11 +313,135 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved: float, ops: float, ops_rate: float = FP32_FLOPS):
+def bound(bytes_moved: float, ops: float, ops_rate: float = FP32_FLOPS,
+          int_ms: float = 0.0):
+    """Least ms for the work: the larger of its bytes at the HBM rate and
+    its operations at their peak rate (float32 ops at `ops_rate`, and the
+    integer work `int_ms`, from `hash_ms`)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_rate * 1e3
+    t_ops = max(ops / ops_rate * 1e3, int_ms)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def sm_clock_hz() -> float:
+    """The SM's maximum clock as nvidia-smi reports it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def sass_loop_counts(sass: str, function: str) -> list[dict]:
+    """Per loop of `function` in `cuobjdump -sass` output that stores
+    (STG): its stores, its bit operations (LOP3, SHF, PRMT: the hash's
+    xors and rotates), which only the ALU pipe runs, and its integer adds
+    (IADD3, VIADD and IMAD forms other than moves and wide products),
+    which either pipe runs.  A loop is the span from a branch's target
+    back to the branch (targets as addresses or as `.L_x_` labels)."""
+    lines, inside = [], False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = function in ln
+        elif inside:
+            lines.append(ln)
+    label = re.compile(r"^\s*(\.L_x_\d+):")
+    instr = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    labels, ops, pending = {}, [], []
+    for ln in lines:
+        m = label.match(ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = instr.search(ln)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((name, addr) for name in pending)
+            pending = []
+            ops.append((addr, m.group(2).split("."), m.group(3)))
+    loops = []
+    for addr, op, args in ops:
+        target = re.search(r"(0x[0-9a-f]+|\.L_x_\d+)", args)
+        if op[0] != "BRA" or not target:
+            continue
+        t = target.group(1)
+        start = labels.get(t, addr + 1) if t.startswith(".") else int(t, 16)
+        if start > addr:
+            continue
+        body = [o for a, o, _ in ops if start <= a <= addr]
+        stores = sum(o[0] == "STG" for o in body)
+        if not stores:
+            continue
+        loops.append({
+            "instructions": len(body), "stores": stores,
+            "bit_ops": sum(o[0] in ("LOP3", "SHF", "PRMT") for o in body),
+            "add_ops": sum(o[0] in ("IADD3", "VIADD") or (
+                o[0] == "IMAD" and not {"MOV", "WIDE"} & set(o))
+                for o in body),
+        })
+    return loops
+
+
+def threefry_sass(torch) -> dict:
+    """Integer instructions per `aia::jax_word` call, read from the SASS of
+    its test entry's kernel (`threefry_words_kernel`, the same in every
+    library) in the built interp_lut library: the storing loop with the
+    fewest bit operations per store, per store.  Its adds include the
+    loop's 64-bit index step."""
+    from repro_torch.kernels import _lib
+
+    tool = Path(_lib.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", str(_lib.library_path("interp_lut"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    loops = sass_loop_counts(sass, "threefry_words_kernel")
+    check(bool(loops), "no storing loop in threefry_words_kernel's SASS")
+    best = min(loops, key=lambda lp: lp["bit_ops"] / lp["stores"])
+    return {"loops": loops,
+            "bit_ops_per_call": best["bit_ops"] / best["stores"],
+            "add_ops_per_call": best["add_ops"] / best["stores"],
+            "sm_clock_hz": sm_clock_hz()}
+
+
+def hash_ms(calls: int, per_call: dict) -> float:
+    """Least ms for `calls` threefry calls: their bit operations on the
+    ALU lanes, and all their integer instructions at the issue rate."""
+    clock = per_call["sm_clock_hz"]
+    bit = calls * per_call["bit_ops_per_call"] / (SMS * ALU_LANES * clock)
+    every = calls * (per_call["bit_ops_per_call"]
+                     + per_call["add_ops_per_call"]) / (
+        SMS * ISSUE_LANES * clock)
+    return max(bit, every) * 1e3
+
+
+class WalkBits:
+    """Records `bits_used` of every KY walk the twins run (through
+    `ky.ky_sample_fast`) while active: `threefry_calls` is the sum over
+    rows of ceil(bits / 32), the words, and so the threefry calls, that
+    the kernel's walk of the same rows hashes."""
+
+    def __enter__(self):
+        from repro_torch.core import ky as ky_core
+
+        self._ky, self._fast, self.bits = ky_core, ky_core.ky_sample_fast, []
+
+        def fast(*args, **kwargs):
+            out = self._fast(*args, **kwargs)
+            self.bits.append(out[1]["bits_used"])
+            return out
+
+        ky_core.ky_sample_fast = fast
+        return self
+
+    def __exit__(self, *exc):
+        self._ky.ky_sample_fast = self._fast
+
+    @property
+    def threefry_calls(self) -> int:
+        return sum(int(((b.long() + 31) // 32).sum()) for b in self.bits)
 
 
 def exp_lut(device):
@@ -302,6 +475,48 @@ def phase_build(torch) -> str:
           "nvidia_smi": card})
     print(card, flush=True)
     return card
+
+
+def phase_threefry(torch):
+    """`aia::jax_word` (the device function of K3's and K4's words) against
+    `prng.bits`, the plain-torch generator the twins and K5/K6 use."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEVICE)
+    n = THREEFRY_COUNTERS
+    out = {"phase": "threefry", "counters": n, "mismatches": {}}
+    for seed in (0, 1234, 2**32 - 1):
+        k = prng.key(seed)
+        got = ops.device_bits(k, n, 0, dev)
+        want = prng.bits(k, (n,), dev)
+        bad = int((got != want).sum())
+        out["mismatches"][str(seed)] = bad
+        check(bad == 0, f"aia::jax_word differs from prng.bits in {bad} of "
+              f"{n} words (seed {seed})")
+    # a window across the 2^32 boundary: the counter's high word is 1 after
+    start, m = (1 << 32) - (1 << 19), 1 << 20
+    bad = int((ops.device_bits(k, m, start, dev)
+               != prng.bits(k, (m,), dev, start=start)).sum())
+    out["mismatches"]["across_2^32"] = bad
+    check(bad == 0, f"aia::jax_word differs across the 2^32 counter boundary "
+          f"in {bad} words")
+    out["device_function_ms"] = time_ms(
+        torch, lambda: ops.device_bits(k, n, 0, dev), 20)
+    out["prng_bits_ms"] = time_ms(torch, lambda: prng.bits(k, (n,), dev), 5)
+    out["device_function_words_per_s"] = n / (out["device_function_ms"] / 1e3)
+    # the instructions of one call, from the SASS; the least time they
+    # allow for these n words must not exceed the time measured, or the
+    # count or the rates (and so K3's and K4's bounds) are wrong
+    per_call = threefry_sass(torch)
+    out["sass"] = per_call
+    out["hash_bound_ms"] = hash_ms(n, per_call)
+    check(out["hash_bound_ms"] <= out["device_function_ms"],
+          f"{n} threefry calls took {out['device_function_ms']} ms, less "
+          f"than the {out['hash_bound_ms']} ms their instructions need at "
+          f"the rates assumed")
+    emit(out)
+    return per_call
 
 
 def phase_k2(torch):
@@ -354,6 +569,8 @@ def phase_k1(torch):
 
 
 def _k3_setup(torch, name: str, sampler: str):
+    """pigs or hailfinder on the card, its fused rounds, 1,024 chains'
+    initial values, the draw's parameters and a sweep key."""
     from repro_torch import prng
     from repro_torch.core import bayesnet as bnet
     from repro_torch.core.graphs import bn_repository_replica
@@ -364,9 +581,17 @@ def _k3_setup(torch, name: str, sampler: str):
     fr = bn_gibbs.build_fused_rounds(cbn.groups)
     vals, _ = bnet.init_chain_values(cbn, prng.key(1), CHAINS)
     p = bn_gibbs.sweep_params(cbn, sampler)
-    words = bn_gibbs.fused_round_words(fr, prng.key(2), CHAINS, p.n_words,
-                                       dev)
-    return cbn, fr, vals, p, words
+    return cbn, fr, vals, p, prng.key(2)
+
+
+def _k3_twin(cbn, fr, vals, key, sampler, p):
+    """K3's plain version as a function of the key: the key's words in
+    plain torch, then the twin."""
+    from repro_torch.kernels import bn_gibbs
+
+    words = bn_gibbs.fused_round_words(fr, key, vals.shape[0], p.n_words,
+                                       vals.device)
+    return bn_gibbs.bn_sweep_ref(cbn, fr, vals, words, sampler, p)
 
 
 def _marginals(torch, cbn, fr, vals, sampler, sweep):
@@ -381,40 +606,48 @@ def _marginals(torch, cbn, fr, vals, sampler, sweep):
     hist = torch.zeros(cbn.n_nodes, cbn.max_card, device=vals.device)
     for t in range(ITERS):
         key, sub = prng.split(key)
-        words = bn_gibbs.fused_round_words(fr, sub, vals.shape[0], p.n_words,
-                                           vals.device)
-        vals = sweep(cbn, fr, vals, words, sampler, p)
+        vals = sweep(cbn, fr, vals, sub, sampler, p)
         if t >= BURN_IN:
             hist += (vals[..., None] == v_range).sum(0)
     return hist / hist.sum(-1, keepdim=True)
 
 
 def phase_k3(torch) -> dict:
+    from repro_torch import prng
     from repro_torch.kernels import bn_gibbs
 
     errs = {}
     for name in ("pigs", "hailfinder"):
-        cbn, fr, vals, p, words = _k3_setup(torch, name, "lut_ky")
-        out_k = bn_gibbs.bn_sweep(cbn, fr, vals, words, "lut_ky", p)
-        out_t = bn_gibbs.bn_sweep_ref(cbn, fr, vals, words, "lut_ky", p)
-        torch.cuda.synchronize()
-        bad = int((out_k != out_t).sum())
+        cbn, fr, vals, p, key = _k3_setup(torch, name, "lut_ky")
+        bad, err = 0, 0
+        for k in (key, prng.key(12), prng.key(2**32 - 1)):
+            out_k = bn_gibbs.bn_sweep(cbn, fr, vals, k, "lut_ky", p)
+            with WalkBits() as walks:
+                out_t = _k3_twin(cbn, fr, vals, k, "lut_ky", p)
+            torch.cuda.synchronize()
+            bad += int((out_k != out_t).sum())
+            err = max(err, int((out_k - out_t).abs().max()))
         changed = float((out_k != vals).float().mean())
-        errs[name] = int((out_k - out_t).abs().max())
+        lut_words = p.n_words
+        errs[name] = err
         check(bad == 0, f"K3 lut_ky differs from its twin on {name} ({bad})")
 
-        cbn, fr, vals, p, words = _k3_setup(torch, name, "exact_ky")
-        ex_k = bn_gibbs.bn_sweep(cbn, fr, vals, words, "exact_ky", p)
-        ex_t = bn_gibbs.bn_sweep_ref(cbn, fr, vals, words, "exact_ky", p)
+        cbn, fr, vals, p, key = _k3_setup(torch, name, "exact_ky")
+        ex_k = bn_gibbs.bn_sweep(cbn, fr, vals, key, "exact_ky", p)
+        ex_t = _k3_twin(cbn, fr, vals, key, "exact_ky", p)
         share = float((ex_k != ex_t).float().mean())
         m_k = _marginals(torch, cbn, fr, vals, "exact_ky", bn_gibbs.bn_sweep)
-        m_t = _marginals(torch, cbn, fr, vals, "exact_ky",
-                         bn_gibbs.bn_sweep_ref)
+        m_t = _marginals(torch, cbn, fr, vals, "exact_ky", _k3_twin)
         tv = float((0.5 * (m_k - m_t).abs().sum(-1)).max())
+        rows = CHAINS * sum(fr.n_c)
         emit({"phase": "k3", "model": name, "chains": CHAINS,
               "nodes": cbn.n_nodes, "rounds": len(fr.n_c),
               "c_max": fr.c_max, "f_max": fr.f_max, "s_max": fr.s_max,
-              "lut_ky_mismatches": bad, "lut_ky_changed_share": changed,
+              "keys": 3, "lut_ky_mismatches": bad,
+              "lut_ky_changed_share": changed,
+              "rows": rows, "threefry_calls": walks.threefry_calls,
+              "threefry_calls_per_row": walks.threefry_calls / rows,
+              "lut_ky_words_per_row_before": lut_words,
               "exact_ky_differing_label_share": share,
               "exact_ky_max_node_tv_200_sweeps": tv})
         check(tv <= 0.02, f"K3 exact_ky marginals off by TV {tv} on {name}")
@@ -451,10 +684,10 @@ def phase_k4(torch) -> dict:
                "mismatches": {}, "changed_share": {}}
         err = 0
         for parity in (0, 1):
-            words = mrf_gibbs.round_words(mrf, prng.key(2 + parity), CHAINS,
-                                          p, dev)
-            got = mrf_gibbs.mrf_half_step(mrf, labels, ev, words, parity,
-                                          tab, spec, p)
+            key = prng.key(2 + parity)
+            got = mrf_gibbs.mrf_half_step(mrf, labels, ev, key, parity, tab,
+                                          spec, p)
+            words = mrf_gibbs.round_words(mrf, key, CHAINS, p, dev)
             want = mrf_gibbs.mrf_half_step_ref(mrf, labels, ev, words,
                                                parity, tab, spec, p)
             torch.cuda.synchronize()
@@ -489,6 +722,7 @@ def phase_serve(torch) -> dict:
     from repro_torch import prng
     from repro_torch.compile import ir
     from repro_torch.compile.program import compile_graph
+    from repro_torch.core import bayesnet as bnet
     from repro_torch.core import draws
     from repro_torch.core.exact import ve_marginal
     from repro_torch.core.graphs import bn_repository_replica
@@ -498,6 +732,11 @@ def phase_serve(torch) -> dict:
     nets = {m: bn_repository_replica(m) for m in ("pigs", "hailfinder")}
     progs = {m: compile_graph(ir.canonicalize(bn, evidence_mode="runtime"),
                               device=dev) for m, bn in nets.items()}
+    # the plain-torch generator's calls for one chain init (randint), the
+    # only words a fused query may make outside K3
+    c0 = prng._raw_bits.calls
+    bnet.init_chain_values(progs["pigs"].cbn, prng.key(0), CHAINS)
+    init_calls = prng._raw_bits.calls - c0
     queries = (_queries("pigs", 4, 11, nets["pigs"].cards)
                + _queries("hailfinder", 1, 12, nets["hailfinder"].cards))
     run_kw = dict(n_chains=CHAINS, n_iters=ITERS, burn_in=BURN_IN,
@@ -509,7 +748,7 @@ def phase_serve(torch) -> dict:
 
     # ---- the main path: counters zeroed, requests served, counters read --
     zero_launches()
-    served, walls, sweeps, checks = [], [], 0, 0
+    served, sweeps, checks, raw_calls = [], 0, 0, []
     checked_programs = set()
     for i, (model, ev, seed) in enumerate(queries):
         prog = progs[model]
@@ -519,21 +758,23 @@ def phase_serve(torch) -> dict:
         prog.run(prng.key(seed), evidence=ev, **run_kw)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        c0 = prng._raw_bits.calls
         start.record()
         marg, vals = prog.run(prng.key(seed), evidence=ev, **run_kw)
         end.record()
         end.synchronize()
+        raw_calls.append(prng._raw_bits.calls - c0)
         ms = start.elapsed_time(end)
         sweeps += 2 * ITERS
         if first:
             checks += 3  # cross_check_fused: 3 sweeps of 2 chains
             checked_programs.add(model)
         served.append((model, ev, seed, marg, vals))
-        walls.append(ms)
         emit({"phase": "serve", "query": i, "model": model,
               "n_evidence": len(ev), "seed": seed, "wall_ms": ms,
               "sweeps_per_s": ITERS / (ms / 1e3),
-              "k3_launches": bn_gibbs.bn_sweep.launches - before})
+              "k3_launches": bn_gibbs.bn_sweep.launches - before,
+              "plain_torch_generator_calls": raw_calls[-1]})
     weights = ops.lut_exp_weights(draw_logp, tab, spec)
     labels = ops.ky_sample(weights, prng.key(9))
     torch.cuda.synchronize()
@@ -546,6 +787,9 @@ def phase_serve(torch) -> dict:
           f"{sweeps} sweeps + {checks} cross-check sweeps")
     check(launches["ky_sample_kernel"] == 1 and launches["interp_kernel"] == 1,
           f"draw request launches {launches}")
+    check(all(c == init_calls for c in raw_calls),
+          f"a fused query called prng._raw_bits {raw_calls} times, its chain "
+          f"init {init_calls}: words were made outside K3")
 
     # ---- is what came out right? ------------------------------------------
     for i, (model, ev, seed, marg, vals) in enumerate(served):
@@ -566,9 +810,13 @@ def phase_serve(torch) -> dict:
     half = {**run_kw, "n_iters": ITERS // 2}
     _, _, st = progs[model].run(prng.key(seed), evidence=ev,
                                 return_state=True, **half)
+    c0 = prng._raw_bits.calls
     m_s, v_s = progs[model].run(None, evidence=ev, carry_state=st, **half)
+    resumed_calls = prng._raw_bits.calls - c0
     check(torch.equal(m_s, marg) and torch.equal(v_s, vals),
           "a run sliced 100 + 100 differs from the whole run")
+    check(resumed_calls == 0, f"100 resumed fused sweeps called "
+          f"prng._raw_bits {resumed_calls} times")
     ref_labels = draws.draw_from_logits(draw_logp, prng.key(9), "lut_ky",
                                         tab, spec)
     check(torch.equal(labels, ref_labels),
@@ -589,9 +837,12 @@ def phase_serve(torch) -> dict:
             for q in range(asia.n_nodes) if q not in ev
         )
     sweep_profile(torch, progs[served[0][0]], served[0][1], served[0][2],
-                  run_kw, walls[0])
+                  run_kw)
     emit({"phase": "serve_checks", "fused_equals_unfused": True,
           "sliced_equals_whole": True, "draw_request_equals_plain": True,
+          "plain_torch_generator_calls_per_query": raw_calls,
+          "of_which_chain_init": init_calls,
+          "plain_torch_generator_calls_resumed_100_sweeps": resumed_calls,
           "asia_max_node_tv_vs_exact": tvs, "launches": launches})
     check(max(tvs.values()) <= 0.05, f"asia marginals off exact VE: {tvs}")
     return launches
@@ -604,6 +855,7 @@ def phase_serve_mrf(torch):
     from repro_torch import prng
     from repro_torch.compile import ir
     from repro_torch.compile.program import compile_graph
+    from repro_torch.core import mrf as mrf_mod
 
     dev = torch.device(DEVICE)
     models = {name: _mrf_model(torch, name) for name in MRF_MODELS}
@@ -612,10 +864,16 @@ def phase_serve_mrf(torch):
              for name, (mrf, _, _) in models.items()}
     run_kw = dict(n_chains=CHAINS, n_iters=ITERS, sampler="lut_ky",
                   backend="schedule", fused=True, device=dev)
+    # the plain-torch generator's calls for one chain init (randint), the
+    # only words a fused query may make outside K4
+    c0 = prng._raw_bits.calls
+    mrf_mod.init_labels(models["penguin"][0], prng.key(0), CHAINS, None,
+                        None, dev)
+    init_calls = prng._raw_bits.calls - c0
 
     # ---- the main path: counters zeroed, queries served, counters read ----
     zero_launches()
-    served = {}
+    served, raw_calls = {}, {}
     for i, (name, (mrf, clean, ev)) in enumerate(models.items()):
         seed = 100 + i
         before = read_launches()["mrf_half_step"]
@@ -623,10 +881,12 @@ def phase_serve_mrf(torch):
         progs[name].run(prng.key(seed), evidence=ev, **run_kw)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        c0 = prng._raw_bits.calls
         start.record()
         labels = progs[name].run(prng.key(seed), evidence=ev, **run_kw)
         end.record()
         end.synchronize()
+        raw_calls[name] = prng._raw_bits.calls - c0
         ms = start.elapsed_time(end)
         served[name] = (seed, labels)
         emit({"phase": "serve_mrf", "model": name,
@@ -636,10 +896,14 @@ def phase_serve_mrf(torch):
               "iters_per_s": ITERS / (ms / 1e3),
               "site_updates_per_s": CHAINS * mrf.height * mrf.width * ITERS
               / (ms / 1e3),
-              "k4_launches": read_launches()["mrf_half_step"] - before})
+              "k4_launches": read_launches()["mrf_half_step"] - before,
+              "plain_torch_generator_calls": raw_calls[name]})
     launches = read_launches()
     # ---- end of the main path ----------------------------------------------
 
+    check(all(c == init_calls for c in raw_calls.values()),
+          f"a fused MRF query called prng._raw_bits {raw_calls} times, its "
+          f"chain init {init_calls}: words were made outside K4")
     want = len(models) * (2 * 2 * ITERS + 2 * 3)
     check(launches["mrf_half_step"] == want,
           f"K4 launched {launches['mrf_half_step']} times, expected {want} "
@@ -650,7 +914,7 @@ def phase_serve_mrf(torch):
           f"MRF path launched other kernels: {launches}")
 
     # ---- is what came out right? ------------------------------------------
-    checks = {}
+    checks, resumed_calls = {}, {}
     chk = {**run_kw, "n_iters": MRF_CHECK_ITERS}
     for name, (mrf, clean, ev) in models.items():
         seed, labels = served[name]
@@ -668,7 +932,11 @@ def phase_serve_mrf(torch):
         half = {**chk, "n_iters": MRF_CHECK_ITERS // 2}
         _, st = prog.run(prng.key(seed), evidence=ev, return_state=True,
                          **half)
+        c0 = prng._raw_bits.calls
         sliced = prog.run(None, evidence=ev, carry_state=st, **half)
+        resumed_calls[name] = prng._raw_bits.calls - c0
+        check(resumed_calls[name] == 0, f"{name}: resumed fused iterations "
+              f"called prng._raw_bits {resumed_calls[name]} times")
         check(torch.equal(sliced, fused), f"{name}: a run sliced 10 + 10 "
               "differs from the whole run")
         rng = np.random.default_rng(seed)
@@ -688,6 +956,9 @@ def phase_serve_mrf(torch):
                   f"{chain0_err} not below the noisy image's {noisy_err}")
     emit({"phase": "serve_mrf_checks", "fused_equals_unfused": True,
           "sliced_equals_whole": True, "pins_held": True,
+          "plain_torch_generator_calls_per_query": raw_calls,
+          "of_which_chain_init": init_calls,
+          "plain_torch_generator_calls_resumed": resumed_calls,
           "denoising": checks, "launches": launches})
     return launches, {name: (models[name], progs[name], *served[name])
                       for name in models}
@@ -976,8 +1247,7 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
               "chain0_error": float((got[0].cpu().numpy() != clean).mean()),
               "equals_single_device": True})
 
-    sharded_profile(torch, progs[0], queries[0][2], mesh, bn_kw,
-                    bn_out[0][1])
+    sharded_profile(torch, progs[0], queries[0][2], mesh, bn_kw)
     # a pigs query: 100 sweeps sharded, then 100 single-device
     prog, (_, ev, seed), ((marg, vals), _) = progs[0], queries[0], bn_out[0]
     half = {**bn_kw, "n_iters": ITERS // 2}
@@ -1008,64 +1278,166 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
     return launches
 
 
-def sharded_profile(torch, prog, seed, mesh, run_kw, wall_ms: float):
-    """Device time per sweep by kernel over a 50-sweep sharded run of a
-    served pigs query, against its unprofiled wall time per sweep."""
+PROFILE_SWEEPS = 50
+
+
+def run_profile(torch, run) -> tuple[float, float, list]:
+    """Wall ms of `run` unprofiled (CUDA events, after a warm-up) and the
+    device ms of every kernel it launches (torch.profiler), over the same
+    call, with the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import prng
-
-    sweeps = 50
+    wall = time_ms(torch, run, 2)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prog.run_sharded(prng.key(seed), mesh,
-                         **{**run_kw, "n_iters": sweeps})
+        run()
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.device_time_total / 1e3)
                    for e in kernel_events(torch, prof)),
                   key=lambda r: -r[1])
-    total = sum(ms for _, ms in rows) / sweeps
-    k5 = sum(ms for name, ms in rows if "bn_sweep_kernel" in name) / sweeps
-    wall = wall_ms / run_kw["n_iters"]
+    return wall, sum(ms for _, ms in rows), rows
+
+
+def sharded_profile(torch, prog, seed, mesh, run_kw):
+    """Wall and device time per sweep of one 50-sweep sharded run of a
+    served pigs query, every sweep kept in the histogram as after the
+    burn-in, with its kernels by device time."""
+    from repro_torch import prng
+
+    kw = {**run_kw, "n_iters": PROFILE_SWEEPS, "burn_in": 0}
+    wall, total, rows = run_profile(
+        torch, lambda: prog.run_sharded(prng.key(seed), mesh, **kw))
+    k5 = sum(ms for name, ms in rows if "bn_sweep_kernel" in name)
+    n = PROFILE_SWEEPS
     emit({"phase": "serve_sharded_profile", "per_sweep": True,
-          "mesh": list(MESH), "wall_ms_unprofiled": wall,
-          "device_ms": total, "k5_device_ms": k5,
-          "other_device_ms": total - k5, "device_busy_share": total / wall,
-          "top_kernels_ms": [[name[:80], ms / sweeps]
-                             for name, ms in rows[:6]]})
+          "mesh": list(MESH), "sweeps": n, "wall_ms": wall / n,
+          "device_ms": total / n, "k5_device_ms": k5 / n,
+          "other_device_ms": (total - k5) / n,
+          "device_busy_share": total / wall,
+          "top_kernels_ms": [[name[:80], ms / n] for name, ms in rows[:6]]})
 
 
-def sweep_profile(torch, prog, ev, seed, run_kw, wall_ms: float):
-    """Device time per sweep by kernel (torch.profiler, over a 50-sweep run
-    of a served query), set against the query's unprofiled wall time per
-    sweep: how busy the card is and what keeps it busy."""
-    from torch.profiler import ProfilerActivity, profile
-
+def sweep_profile(torch, prog, ev, seed, run_kw):
+    """Wall and device time per sweep of one 50-sweep run of a served
+    query, every sweep kept in the histogram as after the burn-in: how busy
+    the card is and what keeps it busy."""
     from repro_torch import prng
 
-    sweeps = 50
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prog.run(prng.key(seed), evidence=ev,
-                 **{**run_kw, "n_iters": sweeps})
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.device_time_total / 1e3)
-                   for e in kernel_events(torch, prof)),
-                  key=lambda r: -r[1])
-    total = sum(ms for _, ms in rows) / sweeps
-    k3 = sum(ms for name, ms in rows if "bn_sweep_kernel" in name) / sweeps
-    wall = wall_ms / run_kw["n_iters"]
-    emit({"phase": "serve_profile", "per_sweep": True,
-          "wall_ms_unprofiled": wall, "device_ms": total,
-          "k3_device_ms": k3, "other_device_ms": total - k3,
+    kw = {**run_kw, "n_iters": PROFILE_SWEEPS, "burn_in": 0}
+    wall, total, rows = run_profile(
+        torch, lambda: prog.run(prng.key(seed), evidence=ev, **kw))
+    k3 = sum(ms for name, ms in rows if "bn_sweep_kernel" in name)
+    n = PROFILE_SWEEPS
+    emit({"phase": "serve_profile", "per_sweep": True, "sweeps": n,
+          "wall_ms": wall / n, "device_ms": total / n,
+          "k3_device_ms": k3 / n, "other_device_ms": (total - k3) / n,
           "device_busy_share": total / wall,
-          "top_kernels_ms": [[name[:80], ms / sweeps]
-                             for name, ms in rows[:6]]})
+          "top_kernels_ms": [[name[:80], ms / n] for name, ms in rows[:6]]})
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Host ms per call of `fn` issued back to back (time.perf_counter),
+    not waiting for the card: the host's own cost, launches included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def per_sweep(torch, fn, reps: int = 3) -> tuple[float, float]:
+    """Wall ms (CUDA events) and the host's ms to issue it (perf_counter,
+    before waiting for the card) per sweep of `fn(n)`, both from the same
+    runs: the slope between n = 50 and n = 250, so fixed costs drop out,
+    over `reps` interleaved pairs of runs."""
+    fn(50)
+    torch.cuda.synchronize()
+    wall, host = {50: 0.0, 250: 0.0}, {50: 0.0, 250: 0.0}
+    for _ in range(reps):
+        for n in (50, 250):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fn(n)
+            host[n] += (time.perf_counter() - t0) * 1e3
+            end.record()
+            end.synchronize()
+            wall[n] += start.elapsed_time(end)
+    return ((wall[250] - wall[50]) / 200 / reps,
+            (host[250] - host[50]) / 200 / reps)
+
+
+def sweep_parts(torch, cbn, fr, vals, key) -> dict:
+    """One pigs sweep at 1,024 chains, alone and in the query loop, in one
+    call, per sweep (`per_sweep`: wall and host issue time from the same
+    runs).  `loop_*`: `bayesnet.gibbs_run_loop`, the loop a fused query
+    runs, every sweep kept in the histogram, with the device time of every
+    kernel (torch.profiler, same slope).  `presplit_*`: the same loop body
+    (sweep, histogram) with the sweeps' keys split beforehand, and
+    `insplit_*` with them split in the loop.  `sweep_*`:
+    `fused_gibbs_sweep` back to back on one key, as tools/kernel_ab.py
+    times it.  `host_*`: the host's time per call of each part of the
+    body, issued back to back: the key split (numpy), the sweep's wrapper
+    (parameters, checks, ctypes launch), the histogram update."""
+    from repro_torch import prng
+    from repro_torch.core import bayesnet as bnet
+    from repro_torch.kernels import bn_gibbs
+
+    sweep = lambda: bn_gibbs.fused_gibbs_sweep(cbn, fr, vals, key, "lut_ky")
+    hist = torch.zeros((cbn.n_nodes, cbn.max_card), dtype=torch.int32,
+                       device=vals.device)
+    v_range = torch.arange(cbn.max_card, dtype=torch.int32,
+                           device=vals.device)
+
+    def hist_update(v, h):
+        return h + (v[..., None] == v_range).sum(0, dtype=torch.int32)
+
+    keys, k = [], key
+    for _ in range(250):
+        k, sub = prng.split(k)
+        keys.append(sub)
+
+    def body(n, split):
+        v, h, k = vals, hist, key
+        for sub in keys[:n]:
+            if split:
+                k, sub = prng.split(k)
+            v = bn_gibbs.fused_gibbs_sweep(cbn, fr, v, sub, "lut_ky")
+            h = hist_update(v, h)
+        return v, h
+
+    loop = lambda n: bnet.gibbs_run_loop(cbn, cbn.groups, vals, key, n, 0,
+                                         "lut_ky", 1, fused=True)
+    out = {}
+    out["loop_ms"], out["loop_host_ms"] = per_sweep(torch, loop)
+    out["loop_device_ms"] = (device_busy_ms(torch, lambda: loop(250), 1)
+                             - device_busy_ms(torch, lambda: loop(50), 1)
+                             ) / 200
+    out["presplit_ms"], out["presplit_host_ms"] = per_sweep(
+        torch, lambda n: body(n, False))
+    out["insplit_ms"], out["insplit_host_ms"] = per_sweep(
+        torch, lambda n: body(n, True))
+    out["sweep_ms"] = time_ms(torch, sweep, 200)
+    out["sweep_device_ms"] = device_busy_ms(torch, sweep, 200)
+    out["host_split_ms"] = host_ms(torch, lambda: prng.split(key), 200)
+    out["host_sweep_ms"] = host_ms(torch, sweep, 200)
+    out["host_hist_ms"] = host_ms(torch, lambda: hist_update(vals, hist),
+                                  200)
+    out["host_parts_ms"] = (out["host_split_ms"] + out["host_sweep_ms"]
+                            + out["host_hist_ms"])
+    out["loop_busy_share"] = out["loop_device_ms"] / out["loop_ms"]
+    out["sweep_busy_share"] = out["sweep_device_ms"] / out["sweep_ms"]
+    return out
 
 
 def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
                  k4_err: dict, sharded_launches: dict, k5_err: dict,
-                 k6_err: dict):
+                 k6_err: dict, per_call: dict):
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
@@ -1073,19 +1445,25 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     dev = torch.device(DEVICE)
     rows = []
 
-    # K3 at the pigs main-path shape (B = 1024, lut_ky)
-    cbn, fr, vals, p, words = _k3_setup(torch, "pigs", "lut_ky")
-    k3 = lambda: bn_gibbs.bn_sweep(cbn, fr, vals, words, "lut_ky", p)
+    # K3 at the pigs main-path shape (B = 1024, lut_ky); its input is the
+    # sweep's key, so its plain version generates the key's words too
+    cbn, fr, vals, p, key = _k3_setup(torch, "pigs", "lut_ky")
+    k3 = lambda: bn_gibbs.bn_sweep(cbn, fr, vals, key, "lut_ky", p)
     ms_events = time_ms(torch, k3, 50)
     ms = device_ms(torch, k3, 50, "bn_sweep_kernel")
-    plain = time_ms(torch, lambda: bn_gibbs.bn_sweep_ref(cbn, fr, vals, words,
-                                                        "lut_ky", p), 2)
+    plain = time_ms(torch, lambda: _k3_twin(cbn, fr, vals, key, "lut_ky", p),
+                    2)
+    with WalkBits() as walks:
+        _k3_twin(cbn, fr, vals, key, "lut_ky", p)
     b = vals.shape[0]
-    moved = (nbytes(words, vals, cbn.log_flat, cbn.exp_table, fr.nodes,
-                    fr.cards, fr.base, fr.stride, fr.scope_var, fr.is_self)
+    # the values read and written once, the tables, arena and LUT; the
+    # factor sums' float ops and the threefry calls the rows' walks need
+    moved = (nbytes(vals, cbn.log_flat, cbn.exp_table, fr.nodes, fr.cards,
+                    fr.base, fr.stride, fr.scope_var, fr.is_self)
              + nbytes(vals))
     flops = b * sum(fr.n_c) * fr.f_max * p.v_max
-    bms, by = bound(moved, flops, FP32_FLOPS)
+    int_ms = hash_ms(walks.threefry_calls, per_call)
+    bms, by = bound(moved, flops, FP32_FLOPS, int_ms)
     rows.append({
         "name": "K3 bn_sweep (pigs, B=1024, lut_ky)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bn_gibbs.cu",
@@ -1093,6 +1471,8 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
         "launches": launches["bn_sweep"], "max_abs_err": k3_err["pigs"],
         "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
         "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
+        "bytes": moved, "threefry_calls": walks.threefry_calls,
+        "threefry_bound_ms": int_ms,
     })
 
     # K2 at the draw request's shape (65,536 x 32 log-potentials)
@@ -1143,12 +1523,14 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
         "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
     })
 
-    # the sweep's word generation (prng.bits, plain torch) for comparison
-    key = prng.key(7)
+    # one pigs sweep alone and in the query loop, by part, beside the
+    # plain-torch word generation the sweep ran before K3 made its words
     wgen = time_ms(torch, lambda: bn_gibbs.fused_round_words(
         fr, key, b, p.n_words, dev), 20)
-    emit({"phase": "timing_context", "pigs_sweep_word_generation_ms": wgen,
-          "pigs_sweep_word_bytes": b * sum(fr.n_c) * p.n_words * 4})
+    emit({"phase": "timing_context", "chains": b,
+          **sweep_parts(torch, cbn, fr, vals, prng.key(7)),
+          "plain_torch_word_generation_ms_not_run": wgen,
+          "pigs_sweep_word_bytes_not_made": b * sum(fr.n_c) * p.n_words * 4})
 
     # K2 and K1 alone at the shapes their bodies take inside K3 on pigs:
     # one sweep's B * 441 rows of 3 max-subtracted log-probs
@@ -1174,18 +1556,18 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
                       "bound_ms": bms, "bound_by": by}
     emit({"phase": "timing_pigs_shapes", "rows": n_rows, "bins": p.v_max,
           **pigs})
-    rows.append(timing_mrf(torch, mrf_launches, k4_err))
+    rows.append(timing_mrf(torch, mrf_launches, k4_err, per_call))
     rows.extend(timing_sharded(torch, sharded_launches, k5_err, k6_err))
     emit({"kernels": rows})
 
 
-def timing_mrf(torch, launches: dict, k4_err: dict) -> dict:
+def timing_mrf(torch, launches: dict, k4_err: dict,
+               per_call: dict) -> dict:
     """K4 at the Penguin and Art shapes (1,024 chains, parity 0), one MRF
-    half-step split into word generation and K4, and the card's busy share
-    over a run of half-steps.  Returns K4's row of the kernels line
-    (Penguin, the first served model)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    half-step through the entry point back to back with the card's busy
+    share, beside the plain-torch word generation it no longer runs.
+    Returns K4's row of the kernels line (Penguin, the first served
+    model)."""
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.core.mrf import checkerboard_mask
@@ -1200,36 +1582,47 @@ def timing_mrf(torch, launches: dict, k4_err: dict) -> dict:
         labels = prng.randint(prng.key(1), (b, mrf.height, mrf.width), 0, v,
                               dev)
         p = mrf_gibbs.half_step_params(mrf)
-        words = mrf_gibbs.round_words(mrf, prng.key(2), b, p, dev)
-        k4 = lambda: mrf_gibbs.mrf_half_step(mrf, labels, ev, words, 0, tab,
+        key = prng.key(2)
+        k4 = lambda: mrf_gibbs.mrf_half_step(mrf, labels, ev, key, 0, tab,
                                              spec, p)
-        twin = lambda: mrf_gibbs.mrf_half_step_ref(mrf, labels, ev, words, 0,
-                                                   tab, spec, p)
-        # the bytes K4 must move: the active sites' words, the labels read
-        # once and written once, the evidence and the table; the operations
-        # its sites' data need: ~16 float ops per site and value (counts,
-        # energy, max, lerp) and, per walk step, shift, mask, add and
-        # compare on V + 1 lanes plus the step's bookkeeping
+        # its input is the half-step's key: the plain version generates
+        # the key's words, then runs the twin
+        twin = lambda: mrf_gibbs.mrf_half_step_ref(
+            mrf, labels, ev, mrf_gibbs.round_words(mrf, key, b, p, dev), 0,
+            tab, spec, p)
+        # the bytes K4 must move: the labels read once and written once,
+        # the evidence and the table; the operations its sites' data need:
+        # ~16 float ops per site and value (counts, energy, max, lerp) and,
+        # per walk step, shift, mask, add and compare on V + 1 lanes plus
+        # the step's bookkeeping, at the float32 rate; one threefry call
+        # per 32 walk steps of every active site (`hash_ms`)
         active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
         n_active = b * int(active.sum())
+        words = mrf_gibbs.round_words(mrf, key, b, p, dev)
         w = mrf_gibbs.site_weights(mrf, labels, ev, tab, spec)[:, active]
-        steps = float(ky_core.ky_sample_fast(
+        bits = ky_core.ky_sample_fast(
             w.reshape(-1, v), words[:, active].reshape(-1, p.n_words),
-            n_bins=v, precision=p.precision)[1]["bits_used"].sum())
-        moved = (n_active * p.n_words * 4 + 2 * nbytes(labels)
-                 + nbytes(ev, tab))
+            n_bins=v, precision=p.precision)[1]["bits_used"]
+        steps = float(bits.sum())
+        calls = int(((bits.long() + 31) // 32).sum())
+        del words
+        moved = 2 * nbytes(labels) + nbytes(ev, tab)
         ops = n_active * v * 16 + steps * (4 * (v + 1) + 8)
-        bms, by = bound(moved, ops)
+        int_ms = hash_ms(calls, per_call)
+        bms, by = bound(moved, ops, FP32_FLOPS, int_ms)
         shapes[name] = {
             "ms": device_ms(torch, k4, 50, "mrf_half_step_kernel"),
             "ms_per_call_events": time_ms(torch, k4, 50),
             "plain_ms": time_ms(torch, twin, 2), "bound_ms": bms,
             "bound_by": by, "bytes": moved, "ops": ops,
             "walk_steps_per_site": steps / n_active,
+            "active_sites": n_active, "threefry_calls": calls,
+            "threefry_calls_per_site": calls / n_active,
+            "threefry_bound_ms": int_ms,
         }
 
-    # one half-step of the served Penguin query: words + K4, and how busy
-    # the card is over a run of them
+    # one half-step of the served Penguin query through the entry point,
+    # and how busy the card is over a run of them
     mrf, _, ev = _mrf_model(torch, "penguin")
     labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width), 0,
                           mrf.n_labels, dev)
@@ -1238,21 +1631,15 @@ def timing_mrf(torch, launches: dict, k4_err: dict) -> dict:
     step = lambda: mrf_gibbs.mrf_round_step(mrf, labels, ev, key, 0, tab,
                                             spec)
     wgen = lambda: mrf_gibbs.round_words(mrf, key, CHAINS, p, dev)
-    reps = 20
+    reps = 50
     step_ms = time_ms(torch, step, reps)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-    device_total = sum(e.device_time_total
-                       for e in kernel_events(torch, prof)) / 1e3 / reps
+    device_total = device_busy_ms(torch, step, reps)
     emit({"phase": "timing_mrf", "chains": CHAINS, "shapes": shapes,
           "penguin_half_step_ms": step_ms,
-          "penguin_word_generation_ms": time_ms(torch, wgen, reps),
           "penguin_half_step_device_ms": device_total,
           "device_busy_share": device_total / step_ms,
-          "penguin_words_bytes": CHAINS * mrf.height * mrf.width
+          "plain_torch_word_generation_ms_not_run": time_ms(torch, wgen, 5),
+          "penguin_words_bytes_not_made": CHAINS * mrf.height * mrf.width
           * p.n_words * 4})
     pg = shapes["penguin"]
     return {
@@ -1264,6 +1651,8 @@ def timing_mrf(torch, launches: dict, k4_err: dict) -> dict:
         "ms": pg["ms"] or pg["ms_per_call_events"], "plain_ms": pg["plain_ms"],
         "bound_ms": pg["bound_ms"], "bound_by": pg["bound_by"],
         "library_ms": None, "ms_per_call_events": pg["ms_per_call_events"],
+        "bytes": pg["bytes"], "threefry_calls": pg["threefry_calls"],
+        "threefry_bound_ms": pg["threefry_bound_ms"],
     }
 
 

@@ -141,5 +141,7 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+UINT = ctypes.c_uint
 LONG = ctypes.c_longlong
+ULONG = ctypes.c_ulonglong
 FLOAT = ctypes.c_float

@@ -13,25 +13,35 @@ to right, mask by card, subtract the max, turn the log-probs into integer
 weights (LUT-exp for lut_ky, exact exp quantised to 15 bits for exact_ky),
 run the KY walk and store the label.
 
-Bound on the H100: bytes.  A sweep must read its random words (B rows of
-n_words uint32 per free node: 7.2 MB for pigs at B = 1024) and read and
-write the (B, n) values once.  The design keeps everything else on chip:
-each block holds its chains' values in shared memory for the whole sweep
-(the TPU kept them VMEM-resident across its sequential grid over rounds;
-here a loop over rounds inside the block takes the grid's place), the log-
-CPT arena is read through the read-only cache, and a label is stored
-straight into shared memory where the TPU scattered with a one-hot matmul.
-
 Random words are exactly what the unfused `draw_from_logits` draws for the
-same round (`ky.random_words(keys[r], (B * n_c_r,), W)`), so lut_ky is bit-
-identical to the unfused sweep.  They are generated with torch
-(`prng.bits`) outside the kernel, as the reference leaves them to XLA.
-Here they are stored round after round without padding rows: round r's
-rows are (chain, node) = chain * n_c_r + node.
+same round (`ky.random_words(keys[r], (B * n_c_r,), W)` with `keys =
+prng.split(key, R)`), so lut_ky is bit-identical to the unfused sweep.
+The reference generates them with XLA outside its kernel; K3 makes them
+inside, from the sweep's key: round r's key is `round_key(key, r)`, and
+row (chain, c) of round r owns counters `row_word_index(chain, n_c_r, c,
+W)` + j of that round's stream, hashed (threefry2x32, partitionable mode)
+only when the row's walk reaches word j.  No word is generated outside the
+kernel or stored, and a row that stops early hashes only what it consumed.
+
+Bound on the H100: bytes, barely.  A sweep must read and write the (B, n)
+values once (3.6 MB for pigs at B = 1024, with the tables ~1.2 us) and
+hash one threefry call per 32 walk steps of every row: ~450 k calls on
+pigs, each 41 bit operations (20 rotates, 21 xors) that only the 64 ALU
+lanes of an SM run, ~1.1 us (counts from the SASS, chip_smoke's threefry
+phase).  The design keeps
+everything else on chip: each block holds its chains' values in shared
+memory for the whole sweep (the TPU kept them VMEM-resident across its
+sequential grid over rounds; here a loop over rounds inside the block takes
+the grid's place), the log-CPT arena is read through the read-only cache,
+and a label is stored straight into shared memory where the TPU scattered
+with a one-hot matmul.
 
 `bn_sweep` launches the kernel for CUDA tensors (counted in
-`bn_sweep.launches`) and runs the plain twin `bn_sweep_ref` for CPU
-tensors.  `fused_gibbs_sweep` is the reference's drop-in entry point.
+`bn_sweep.launches`).  For CPU tensors it generates the same key's words
+with `fused_round_words` (rounds in order, unpadded: round r's rows are
+(chain, node) = chain * n_c_r + node) and runs the plain twin
+`bn_sweep_ref` on them.  `fused_gibbs_sweep` is the reference's drop-in
+entry point.
 
 K5 (`fused_color_round`, twin `fused_color_round_ref`, counter
 `fused_color_round.launches`) replaces the reference's
@@ -40,9 +50,10 @@ engine `core/distributed.py` `bn_fused_sharded` launches once per round
 per mesh position.  It is K3's template with one round, over the
 position's slice of a `core.distributed.ShardedFusedRounds` table (owned
 nodes first, pad lanes after them with node id -1, never processed), and
-it reads each owned row's words straight from the round's full stream, so
-its draws are the single-device round's.  Bound: bytes (the owned rows'
-words, and the position's values read and written once).
+it reads each owned row's words straight from the round's full stream
+(generated with torch, once per round for every position), so its draws
+are the single-device round's.  Bound: bytes (the owned rows' words, and
+the position's values read and written once).
 """
 
 from __future__ import annotations
@@ -165,11 +176,27 @@ def sweep_params(
     return SweepParams(v, weight_bits, precision, max_retries)
 
 
+def round_key(key: prng.Key, r: int) -> prng.Key:
+    """`prng.split(key, R)[r]` for any R > r: split hashes the counter
+    pair (0, r) (its two-word iota), which is how K3 derives each round's
+    key inside the kernel."""
+    a, b = prng.threefry2x32(key.k1, key.k2, 0, int(r))
+    return prng.Key(int(a), int(b))
+
+
+def row_word_index(chain: int, n_c: int, c: int, n_words: int) -> int:
+    """The counter of word 0 of row (chain, c) in its round's stream, whose
+    rows are (chain, node) = chain * n_c + node of n_words words each; word
+    j is this + j.  K3 computes the same index (bn_gibbs.cu, 64-bit)."""
+    return (chain * n_c + c) * n_words
+
+
 def fused_round_words(
     fr: BNFusedRounds, key: prng.Key, n_chains: int, n_words: int, device
 ) -> torch.Tensor:
     """Every round's packed words, rounds in order, unpadded: round r's
-    block is `ky.random_words(keys[r], (B * n_c_r,), W)` flattened."""
+    block is `ky.random_words(keys[r], (B * n_c_r,), W)` flattened.  The
+    twin's input; K3 hashes the same words itself."""
     keys = prng.split(key, len(fr.n_c))
     return torch.cat([
         ky_core.random_words(k, (n_chains * nc,), n_words, device).reshape(-1)
@@ -240,13 +267,17 @@ def round_update(
     return out
 
 
-def _check_sweep(cbn, fr, vals, words, sampler: str, p: SweepParams):
+def _check_vals(cbn, vals, sampler: str):
     check_fused_sampler(sampler)
     if vals.dtype != torch.int32 or vals.dim() != 2:
         raise ValueError("vals must be (B, n) int32")
     if vals.shape[1] != cbn.n_nodes:
         raise ValueError(f"vals has {vals.shape[1]} nodes, net has "
                          f"{cbn.n_nodes}")
+
+
+def _check_sweep(cbn, fr, vals, words, sampler: str, p: SweepParams):
+    _check_vals(cbn, vals, sampler)
     want = vals.shape[0] * sum(fr.n_c) * p.n_words
     if words.dtype != torch.int32 or words.numel() != want:
         raise ValueError(f"words must be {want} int32 (rounds in order)")
@@ -284,27 +315,32 @@ def chains_per_block(n_chains: int, n_nodes: int, lut_size: int) -> int:
 
 def bn_sweep(
     cbn: CompiledBayesNet, fr: BNFusedRounds, vals: torch.Tensor,
-    words: torch.Tensor, sampler: str, p: SweepParams,
+    key: prng.Key, sampler: str, p: SweepParams,
 ) -> torch.Tensor:
-    """One sweep over all rounds: K3 for CUDA tensors, the twin for CPU
-    tensors.  `words` holds every round's words (see module docstring)."""
-    _check_sweep(cbn, fr, vals, words, sampler, p)
+    """One sweep over all rounds, drawing from the sweep's `key`: K3 for
+    CUDA tensors (it hashes its words itself), the twin on
+    `fused_round_words(fr, key, ...)` for CPU tensors."""
+    _check_vals(cbn, vals, sampler)
+    if not isinstance(key, prng.Key):
+        raise TypeError(f"bn_sweep draws from a prng.Key, got {type(key)}")
     if vals.device.type == "cpu":
+        words = fused_round_words(fr, key, vals.shape[0], p.n_words,
+                                  vals.device)
         return bn_sweep_ref(cbn, fr, vals, words, sampler, p)
     tab = cbn.exp_table
     _lib.require_cuda(
-        "bn_sweep", vals, words, cbn.log_flat, tab, fr.nodes, fr.cards,
-        fr.base, fr.stride, fr.scope_var, fr.is_self, fr.n_c_t,
+        "bn_sweep", vals, cbn.log_flat, tab, fr.nodes, fr.cards, fr.base,
+        fr.stride, fr.scope_var, fr.is_self, fr.n_c_t,
     )
     b, n = vals.shape
     spec = cbn.exp_spec
     cpc = chains_per_block(b, n, spec.size)
     out = torch.empty_like(vals)
-    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
+    P, I, U, F = _lib.PTR, _lib.INT, _lib.UINT, _lib.FLOAT
     fn = _lib.function(
         "bn_gibbs", "aia_bn_sweep",
-        [P, P, I, I, I, I, P, I, I, I, P, P, P, P, P, P, P, I, P, P, I, F, F,
-         I, I, I, I, I, P],
+        [P, P, I, I, I, I, P, I, I, I, P, P, P, P, P, P, U, U, I, P, P, I, F,
+         F, I, I, I, I, I, P],
     )
     with torch.cuda.device(vals.device):
         code = fn(
@@ -312,7 +348,7 @@ def bn_sweep(
             fr.n_c_t.data_ptr(), fr.c_max, fr.f_max, fr.s_max,
             fr.nodes.data_ptr(), fr.cards.data_ptr(), fr.base.data_ptr(),
             fr.stride.data_ptr(), fr.scope_var.data_ptr(),
-            fr.is_self.data_ptr(), words.data_ptr(), p.n_words,
+            fr.is_self.data_ptr(), key.k1, key.k2, p.n_words,
             cbn.log_flat.data_ptr(), tab.data_ptr(), spec.size, spec.x0,
             inv_dx(spec), p.v_max, int(sampler == "exact_ky"), p.weight_bits,
             p.precision, p.total_steps, _lib.stream_of(vals),
@@ -336,11 +372,11 @@ def fused_gibbs_sweep(
     max_retries: int = 8,
 ) -> torch.Tensor:
     """Drop-in for `bayesnet.gibbs_sweep` on the fused samplers: one K3
-    launch runs every round of the sweep, bit-exact with the unfused sweep
-    for lut_ky.  Raises on samplers outside `FUSED_BN_SAMPLERS`."""
+    launch runs every round of the sweep, words included, bit-exact with
+    the unfused sweep for lut_ky.  Raises on samplers outside
+    `FUSED_BN_SAMPLERS`."""
     p = sweep_params(cbn, sampler, precision, max_retries)
-    words = fused_round_words(fr, key, vals.shape[0], p.n_words, vals.device)
-    return bn_sweep(cbn, fr, vals, words, sampler, p)
+    return bn_sweep(cbn, fr, vals, key, sampler, p)
 
 
 def _check_color_round(cbn, sfr, d, r, vals, words, chain0, sampler, p):

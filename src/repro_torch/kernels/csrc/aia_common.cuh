@@ -13,8 +13,11 @@
 //     here does the same (__fmul_rn, __fmaf_rn);
 //   * round-half-to-even is rintf, never roundf (jnp.round rounds half to
 //     even, roundf rounds half away from zero);
-//   * random words are int32 holding the uint32 bit patterns of
-//     jax.random.bits; bit t of a row is (word[t / 32] >> (t % 32)) & 1.
+//   * random words are the uint32 bit patterns of jax.random.bits; bit t
+//     of a row is (word[t / 32] >> (t % 32)) & 1.  A walk takes them from
+//     a row of int32 words in device memory (K1, K5, K6) or hashes them
+//     from the stream's key and the row's counters when it reaches them
+//     (K3, K4: `threefry2x32`, `jax_word`, `WordsFromKey`).
 //
 // Distributions live in per-thread register arrays of a compile-time
 // capacity VCAP >= n_bins + 1 (bins plus the rejection bin); every loop
@@ -75,13 +78,80 @@ __device__ __forceinline__ void ky_prepare(const int (&w)[VCAP], int n_bins,
   }
 }
 
+// One threefry2x32 round: x += y, y = rotl(y, r) ^ x.
+__device__ __forceinline__ void threefry_round(unsigned& x, unsigned& y,
+                                               int r) {
+  x += y;
+  y = __funnelshift_l(y, y, r) ^ x;
+}
+
+// The threefry2x32 hash (20 rounds) of the counter pair (x1, x2) under the
+// key (k1, k2), in uint32 arithmetic that wraps: `prng.threefry2x32`
+// (prng.py), which follows jax's `_threefry2x32_lowering`.  Rotations
+// (13, 15, 26, 6) and (17, 29, 16, 24) in turn, key schedule k1, k2,
+// k1 ^ k2 ^ 0x1BD11BDA, five injections, the i-th (from 1) adding i to the
+// second word.  41 bit operations (20 SHF, 21 LOP3 with jax_word's xor) and
+// ~27 adds in the SASS, the key schedule hoisted out of a loop.
+__device__ __forceinline__ uint2 threefry2x32(unsigned k1, unsigned k2,
+                                              unsigned x1, unsigned x2) {
+  const unsigned k3 = k1 ^ k2 ^ 0x1BD11BDAu;
+  unsigned x = x1 + k1;
+  unsigned y = x2 + k2;
+  threefry_round(x, y, 13); threefry_round(x, y, 15);
+  threefry_round(x, y, 26); threefry_round(x, y, 6);
+  x += k2; y += k3 + 1u;
+  threefry_round(x, y, 17); threefry_round(x, y, 29);
+  threefry_round(x, y, 16); threefry_round(x, y, 24);
+  x += k3; y += k1 + 2u;
+  threefry_round(x, y, 13); threefry_round(x, y, 15);
+  threefry_round(x, y, 26); threefry_round(x, y, 6);
+  x += k1; y += k2 + 3u;
+  threefry_round(x, y, 17); threefry_round(x, y, 29);
+  threefry_round(x, y, 16); threefry_round(x, y, 24);
+  x += k2; y += k3 + 4u;
+  threefry_round(x, y, 13); threefry_round(x, y, 15);
+  threefry_round(x, y, 26); threefry_round(x, y, 6);
+  x += k3; y += k1 + 5u;
+  return make_uint2(x, y);
+}
+
+// Word i of `jax.random.bits(key, shape, uint32)` in jax's partitionable
+// threefry mode (`prng._raw_bits`): b1 ^ b2 of the hash of the counter
+// pair (i >> 32, i & 0xFFFFFFFF).  64-bit counters, whatever the shape.
+__device__ __forceinline__ unsigned jax_word(unsigned k1, unsigned k2,
+                                             unsigned long long i) {
+  const uint2 b = threefry2x32(k1, k2, (unsigned)(i >> 32), (unsigned)i);
+  return b.x ^ b.y;
+}
+
+// Where a walk takes word j of its row: a row of int32 words in device
+// memory ...
+struct WordsFromMemory {
+  const int* row;
+  __device__ __forceinline__ unsigned operator()(int j) const {
+    return (unsigned)row[j];
+  }
+};
+
+// ... or the row's counters base + j of the stream of key (k1, k2), hashed
+// when the walk reaches them, so a row that stops early hashes only the
+// words it consumes.
+struct WordsFromKey {
+  unsigned k1, k2;
+  unsigned long long base;
+  __device__ __forceinline__ unsigned operator()(int j) const {
+    return jax_word(k1, k2, base + (unsigned long long)j);
+  }
+};
+
 // ky_sampler.ddg_walk for one row, stopping at the row's own termination
 // (the reference's lock-step loop never changes a finished row, so the
-// per-row exit gives the same label and counts).  Returns the label, or -1
-// when the bit budget ran out (done = false).
-template <int VCAP>
+// per-row exit gives the same label and counts).  Word j of the row comes
+// from `words(j)` at step 32 j.  Returns the label, or -1 when the bit
+// budget ran out (done = false).
+template <int VCAP, class Words>
 __device__ __forceinline__ int ddg_walk(const int (&m)[VCAP],
-                                        const int* words, int n_bins,
+                                        const Words& words, int n_bins,
                                         int precision, int total_steps,
                                         int& bits, int& rejs, bool& done) {
   int d = 0, level = 0, label = -1;
@@ -90,7 +160,7 @@ __device__ __forceinline__ int ddg_walk(const int (&m)[VCAP],
   rejs = 0;
   done = false;
   for (int t = 0; t < total_steps; ++t) {
-    if ((t & 31) == 0) word = (unsigned)words[t >> 5];
+    if ((t & 31) == 0) word = words(t >> 5);
     int bit = (int)((word >> (t & 31)) & 1u);
     d = 2 * d + bit;
     int sh = precision - 1 - level;
@@ -141,7 +211,37 @@ __device__ __forceinline__ int argmax_fallback(const int (&w)[VCAP],
 }  // namespace aia
 
 // Each kernel library is one translation unit that includes this header
-// once, so the error-string helper is defined exactly once per library.
+// once, so the error-string helper and the generator's test entry are
+// defined exactly once per library.
 extern "C" const char* aia_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+namespace {
+
+__global__ void threefry_words_kernel(unsigned k1, unsigned k2,
+                                      unsigned long long start,
+                                      unsigned long long n, int* out) {
+  const unsigned long long stride =
+      (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i =
+           (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride)
+    out[i] = (int)aia::jax_word(k1, k2, start + i);
+}
+
+}  // namespace
+
+// Test entry of the generator, used by no sampling path: out[i] =
+// aia::jax_word(k1, k2, start + i) for i < n, words start .. start + n - 1
+// of the stream `prng.bits(Key(k1, k2), ...)` (`ops.device_bits`).
+extern "C" int aia_threefry_words(unsigned k1, unsigned k2,
+                                  unsigned long long start,
+                                  unsigned long long n, int* out,
+                                  void* stream) {
+  if (n == 0) return 0;
+  const unsigned long long blocks = (n + 255) / 256;
+  threefry_words_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                          (cudaStream_t)stream>>>(k1, k2, start, n, out);
+  return (int)cudaGetLastError();
 }

@@ -20,12 +20,27 @@
 //     store needs no barrier before the round ends: a node's gathers read
 //     only its Markov blanket, and a proper colouring puts none of it in
 //     the node's own round.  __syncthreads() separates the rounds.
+//   * The random words are made inside the kernel, where the TPU kernel
+//     read words that XLA generated before the call (`jax.random.bits`
+//     outside the Pallas kernel, src/repro/kernels/bn_gibbs.py:216).  The
+//     kernel takes the sweep's key by value; round r's key is
+//     `prng.split(key, R)[r]`, the threefry hash of the counter pair
+//     (0, r), derived at the top of the round.  Row (chain, c) of round r
+//     owns counters `row_word_index` (bn_gibbs.py) of that round's stream,
+//     and its walk hashes word j (`aia::WordsFromKey`) only when it reaches
+//     step 32 j, so a row hashes the words it consumes (one, in most rows)
+//     and no word crosses device memory.  The bits are the reference's:
+//     threefry is counter-based.
 //
-// Bound on the H100: bytes.  A sweep must read the random words (B rows of
-// n_words per free node, 7.2 MB for pigs at B = 1024) and read and write
-// the (B, n) values once; the arena and the round tables are small and
-// L2-resident.  The gather/lerp/walk arithmetic is tens of integer and
-// float ops per row.
+// Bound on the H100: bytes, barely.  A sweep must read and write the
+// (B, n) values once (3.6 MB for pigs at B = 1024; with the arena and the
+// round tables ~1.2 us at 3.35 TB/s).  It must hash one threefry call per
+// 32 walk steps of every row: ~450 k calls for pigs, each 41 bit
+// operations (20 SHF rotates, 21 LOP3 xors) that only the ALU pipe runs,
+// ~1.1 us on 132 SMs x 64 ALU lanes x the SM clock; its ~31 adds can issue
+// on the FMA pipe (counts read from the SASS by chip_smoke's threefry
+// phase).  The gather/lerp/walk arithmetic is tens of integer and float
+// ops per row.
 //
 // K5: one colour round over one mesh position's owned nodes per launch.
 //
@@ -34,7 +49,8 @@
 // body as a grid=(1,) call over a shard's slice of one round; the sharded
 // engine (`core/distributed.py` `bn_fused_sharded`) launches it once per
 // round per position, between the psum merges.  It is the template below
-// with R = 1 and two differences:
+// with R = 1, words read from device memory (KEYED = false), and two
+// differences:
 //   * the round table is the position's slice of `ShardedFusedRounds`,
 //     whose pad lanes trail the n_c owned lanes (node id -1, cards 0) and
 //     are never processed, as K3 never processes its rounds' pad lanes;
@@ -64,9 +80,11 @@ struct SweepArgs {
   const int* stride;   // (R, c_max * f_max * s_max)
   const int* scope;    // (R, c_max * f_max * s_max)
   const int* is_self;  // (R, c_max * f_max * s_max)
-  const int* words;    // per round r: (B * n_c[r], n_words), rounds in order
-  // K5 only (null for K3): words are the round's full stream, row
+  // K3 (KEYED): the sweep's key; round r draws from prng.split(key, R)[r]
+  unsigned k1, k2;
+  // K5 (not KEYED): the round's full stream of words, row
   // (word_chain0 + chain) * word_nc + word_pos[c]
+  const int* words;
   const int* word_pos;  // (c_max,)
   int word_chain0, word_nc;
   int n_words;
@@ -77,7 +95,7 @@ struct SweepArgs {
   int v_max, exact, weight_bits, precision, total_steps;
 };
 
-template <int VCAP>
+template <int VCAP, bool KEYED>
 __global__ void bn_sweep_kernel(SweepArgs a) {
   extern __shared__ int smem[];
   int* vals = smem;                                        // chains x n
@@ -90,9 +108,11 @@ __global__ void bn_sweep_kernel(SweepArgs a) {
   __syncthreads();
 
   const int fs = a.f_max * a.s_max;
-  long long word_off = 0;
   for (int r = 0; r < a.R; ++r) {
     const int nc = a.n_c[r];
+    // bn_gibbs.round_key: prng.split(key, R)[r] hashes the pair (0, r)
+    uint2 rk = make_uint2(0u, 0u);
+    if constexpr (KEYED) rk = aia::threefry2x32(a.k1, a.k2, 0u, (unsigned)r);
     const int* nodes = a.nodes + (long long)r * a.c_max;
     const int* cards = a.cards + (long long)r * a.c_max;
     const int* base = a.base + (long long)r * a.c_max * a.f_max;
@@ -167,19 +187,26 @@ __global__ void bn_sweep_kernel(SweepArgs a) {
       // --- C1: KY walk over v_max bins + the rejection bin ---
       int m[VCAP];
       aia::ky_prepare<VCAP>(w, a.v_max, a.precision, m);
-      const long long wr =
-          a.word_pos ? (long long)(a.word_chain0 + chain0 + b) * a.word_nc +
-                           __ldg(a.word_pos + c)
-                     : (long long)(chain0 + b) * nc + c;
-      const int* wrow = a.words + word_off + wr * a.n_words;
-      int bits, rejs;
+      int bits, rejs, label;
       bool done;
-      int label = aia::ddg_walk<VCAP>(m, wrow, a.v_max, a.precision,
-                                      a.total_steps, bits, rejs, done);
+      if constexpr (KEYED) {
+        // bn_gibbs.row_word_index: ((chain0 + b) * n_c[r] + c) * n_words
+        const aia::WordsFromKey src{
+            rk.x, rk.y,
+            ((unsigned long long)(chain0 + b) * nc + c) * a.n_words};
+        label = aia::ddg_walk<VCAP>(m, src, a.v_max, a.precision,
+                                    a.total_steps, bits, rejs, done);
+      } else {
+        const long long wr =
+            (long long)(a.word_chain0 + chain0 + b) * a.word_nc +
+            __ldg(a.word_pos + c);
+        const aia::WordsFromMemory src{a.words + wr * a.n_words};
+        label = aia::ddg_walk<VCAP>(m, src, a.v_max, a.precision,
+                                    a.total_steps, bits, rejs, done);
+      }
       if (!done) label = aia::argmax_fallback<VCAP>(w, a.v_max);
       vrow[nodes[c]] = label;
     }
-    word_off += (long long)a.B * nc * a.n_words;
     __syncthreads();
   }
 
@@ -187,7 +214,7 @@ __global__ void bn_sweep_kernel(SweepArgs a) {
   for (int i = threadIdx.x; i < nch * a.n; i += blockDim.x) vout[i] = vals[i];
 }
 
-template <int VCAP>
+template <int VCAP, bool KEYED>
 int launch(const SweepArgs& a, cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (a.B + a.chains_per_block - 1) / a.chains_per_block;
@@ -196,39 +223,42 @@ int launch(const SweepArgs& a, cudaStream_t stream) {
       sizeof(float) * (size_t)a.lut_size;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        bn_sweep_kernel<VCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        bn_sweep_kernel<VCAP, KEYED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bn_sweep_kernel<VCAP><<<blocks, threads, smem, stream>>>(a);
+  bn_sweep_kernel<VCAP, KEYED><<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <bool KEYED>
 int dispatch(const SweepArgs& a, cudaStream_t s) {
   const int lanes = a.v_max + 1;
-  if (lanes <= 4) return launch<4>(a, s);
-  if (lanes <= 8) return launch<8>(a, s);
-  if (lanes <= 16) return launch<16>(a, s);
-  if (lanes <= 32) return launch<32>(a, s);
-  if (lanes <= 128) return launch<128>(a, s);
+  if (lanes <= 4) return launch<4, KEYED>(a, s);
+  if (lanes <= 8) return launch<8, KEYED>(a, s);
+  if (lanes <= 16) return launch<16, KEYED>(a, s);
+  if (lanes <= 32) return launch<32, KEYED>(a, s);
+  if (lanes <= 128) return launch<128, KEYED>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// K3: one sweep of R rounds, drawing from the sweep's key (k1, k2).
 extern "C" int aia_bn_sweep(
     const int* vals_in, int* vals_out, int B, int n, int chains_per_block,
     int R, const int* n_c, int c_max, int f_max, int s_max, const int* nodes,
     const int* cards, const int* base, const int* stride, const int* scope,
-    const int* is_self, const int* words, int n_words, const float* logf,
-    const float* tab, int lut_size, float x0, float inv_dx, int v_max, int exact,
-    int weight_bits, int precision, int total_steps, void* stream) {
+    const int* is_self, unsigned k1, unsigned k2, int n_words,
+    const float* logf, const float* tab, int lut_size, float x0,
+    float inv_dx, int v_max, int exact, int weight_bits, int precision,
+    int total_steps, void* stream) {
   SweepArgs a{vals_in, vals_out, B, n, chains_per_block, R, n_c,
               c_max, f_max, s_max, nodes, cards, base, stride,
-              scope, is_self, words, nullptr, 0, 0, n_words, logf, tab,
-              lut_size, x0, inv_dx, v_max, exact, weight_bits, precision,
-              total_steps};
-  return dispatch(a, (cudaStream_t)stream);
+              scope, is_self, k1, k2, nullptr, nullptr, 0, 0, n_words, logf,
+              tab, lut_size, x0, inv_dx, v_max, exact, weight_bits,
+              precision, total_steps};
+  return dispatch<true>(a, (cudaStream_t)stream);
 }
 
 // K5: one round (R = 1) over a mesh position's owned nodes; vals_in and
@@ -245,8 +275,8 @@ extern "C" int aia_bn_color_round(
     void* stream) {
   SweepArgs a{vals_in, vals_out, B, n, chains_per_block, 1, n_c,
               c_max, f_max, s_max, nodes, cards, base, stride,
-              scope, is_self, words, word_pos, word_chain0, word_nc,
+              scope, is_self, 0u, 0u, words, word_pos, word_chain0, word_nc,
               n_words, logf, tab, lut_size, x0, inv_dx, v_max, exact,
               weight_bits, precision, total_steps};
-  return dispatch(a, (cudaStream_t)stream);
+  return dispatch<false>(a, (cudaStream_t)stream);
 }

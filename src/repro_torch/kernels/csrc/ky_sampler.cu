@@ -34,9 +34,9 @@ __global__ void ky_sample_kernel(const int* __restrict__ weights,
   aia::ky_prepare<VCAP>(w, n_bins, precision, m);
   int bits, rejs;
   bool done;
-  int label = aia::ddg_walk<VCAP>(m, words + (long long)row * n_words,
-                                  n_bins, precision, total_steps, bits, rejs,
-                                  done);
+  const aia::WordsFromMemory src{words + (long long)row * n_words};
+  int label = aia::ddg_walk<VCAP>(m, src, n_bins, precision, total_steps,
+                                  bits, rejs, done);
   if (!done) label = aia::argmax_fallback<VCAP>(w, n_bins);
   labels[row] = label;
   bits_out[row] = bits;

@@ -14,14 +14,22 @@ walk; the other parity's sites keep their labels.
 
 Random words are `ky.random_words(key, (B, H, W), n_words)`, the stream
 the unfused `draw_from_logits` consumes for the same half-step, so lut_ky
-labels are bit-identical to `core.mrf.half_step`.  They are generated with
-torch (`prng.bits`) outside the kernel, as the reference leaves them to
-XLA.
+labels are bit-identical to `core.mrf.half_step`.  The reference generates
+them with XLA outside its kernel; K4 makes them inside, from the
+half-step's key: active site (chain, r, c) owns counters
+`site_word_index(chain, r, c, H, W, n_words)` + j of the stream, hashed
+(threefry2x32, partitionable mode) only when the site's walk reaches word
+j.  The other parity's words are never generated.
+
+Bound on the H100: bytes: the labels read and written once (33.6 MB for
+Penguin at B = 1024, ~10 us) against one threefry call per 32 walk steps
+of every active site (~2.1 M calls, each 41 bit operations on the ALU
+lanes, ~5 us; counts from the SASS, chip_smoke's threefry phase).
 
 `mrf_half_step` launches the kernel for CUDA tensors (counted in
-`mrf_half_step.launches`) and runs the plain twin `mrf_half_step_ref` for
-CPU tensors.  `mrf_round_step` is the reference's entry point: it derives
-the words from the key and calls `mrf_half_step`.
+`mrf_half_step.launches`).  For CPU tensors it generates the key's words
+with `round_words` and runs the plain twin `mrf_half_step_ref` on them.
+`mrf_round_step` is the reference's entry point.
 
 K6 (`mrf_halo_half_step`, twin `mrf_halo_half_step_ref`, counter
 `mrf_halo_half_step.launches`) replaces the reference's
@@ -30,7 +38,9 @@ template over a (b_loc, h_loc, W) row slab whose rows -1 and h_loc are
 halo rows from the neighbouring positions, with the checkerboard taken at
 the slab's global row offset.  `mrf_sharded_round_step` is the reference's
 caller (:363) over every position of a (chains x rows) mesh at once: one
-word stream per round, K6 per position.  Bound: bytes, as K4.
+word stream per round (generated with torch, `round_words`), K6 per
+position reading its slab of it.  Bound: bytes (the slab's active words,
+its labels read and written once).
 """
 
 from __future__ import annotations
@@ -78,25 +88,40 @@ def half_step_params(
 def round_words(
     mrf: GridMRF, key: prng.Key, n_chains: int, p: SweepParams, device
 ) -> torch.Tensor:
-    """One half-step's packed words, (B, H, W, n_words) int32."""
+    """One half-step's packed words, (B, H, W, n_words) int32: the twin's
+    input, and K6's; K4 hashes the active sites' words itself."""
     return ky_core.random_words(
         key, (n_chains, mrf.height, mrf.width), p.n_words, device
     )
 
 
-def _check(mrf, labels, evidence, words, p: SweepParams) -> None:
+def site_word_index(
+    chain: int, r: int, c: int, height: int, width: int, n_words: int
+) -> int:
+    """The counter of word 0 of site (chain, r, c) in its half-step's
+    stream, laid out (B, H, W, n_words); word j is this + j.  K4 computes
+    the same index (mrf_gibbs.cu, 64-bit)."""
+    return ((chain * height + r) * width + c) * n_words
+
+
+def _check_grid(mrf, labels, evidence) -> None:
     if labels.dtype != torch.int32 or labels.dim() != 3 or tuple(
             labels.shape[1:]) != (mrf.height, mrf.width):
         raise ValueError(
             f"labels must be (B, {mrf.height}, {mrf.width}) int32")
-    b, hh, ww = labels.shape
+    hh, ww = labels.shape[1:]
     if evidence.dtype != torch.int32 or tuple(evidence.shape) != (hh, ww):
         raise ValueError(f"evidence must be ({hh}, {ww}) int32")
+    if mrf.data_cost not in ("potts", "quadratic"):
+        raise ValueError(mrf.data_cost)
+
+
+def _check(mrf, labels, evidence, words, p: SweepParams) -> None:
+    _check_grid(mrf, labels, evidence)
+    b, hh, ww = labels.shape
     if words.dtype != torch.int32 or tuple(words.shape) != (
             b, hh, ww, p.n_words):
         raise ValueError(f"words must be ({b}, {hh}, {ww}, {p.n_words}) int32")
-    if mrf.data_cost not in ("potts", "quadratic"):
-        raise ValueError(mrf.data_cost)
 
 
 def site_weights(
@@ -173,29 +198,35 @@ def tile_rows(width: int, lut_size: int) -> int:
 
 def mrf_half_step(
     mrf: GridMRF, labels: torch.Tensor, evidence: torch.Tensor,
-    words: torch.Tensor, parity: int, exp_table: torch.Tensor,
+    key: prng.Key, parity: int, exp_table: torch.Tensor,
     exp_spec: LUTSpec, p: SweepParams,
 ) -> torch.Tensor:
-    """One half-step over (B, H, W) int32 labels from (B, H, W, n_words)
-    packed words: K4 for CUDA tensors, the twin for CPU tensors.  Returns
-    new labels; the input is left as it was."""
-    _check(mrf, labels, evidence, words, p)
+    """One half-step over (B, H, W) int32 labels, drawing from the
+    half-step's `key`: K4 for CUDA tensors (it hashes its words itself),
+    the twin on `round_words(mrf, key, ...)` for CPU tensors.  Returns new
+    labels; the input is left as it was."""
+    _check_grid(mrf, labels, evidence)
+    if not isinstance(key, prng.Key):
+        raise TypeError(
+            f"mrf_half_step draws from a prng.Key, got {type(key)}")
     if labels.device.type == "cpu":
+        words = round_words(mrf, key, labels.shape[0], p, labels.device)
         return mrf_half_step_ref(mrf, labels, evidence, words, parity,
                                  exp_table, exp_spec, p)
     tab = exp_table.reshape(-1)
-    _lib.require_cuda("mrf_half_step", labels, evidence, words, tab)
+    _lib.require_cuda("mrf_half_step", labels, evidence, tab)
     b, hh, ww = labels.shape
     out = torch.empty_like(labels)
-    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
+    P, I, U, F = _lib.PTR, _lib.INT, _lib.UINT, _lib.FLOAT
     fn = _lib.function(
         "mrf_gibbs", "aia_mrf_half_step",
-        [P, P, P, P, P, I, I, I, I, I, I, I, F, F, F, I, F, F, I, I, I, P],
+        [P, P, P, U, U, P, I, I, I, I, I, I, I, F, F, F, I, F, F, I, I, I,
+         P],
     )
     with torch.cuda.device(labels.device):
         code = fn(
             labels.data_ptr(), out.data_ptr(), evidence.data_ptr(),
-            words.data_ptr(), tab.data_ptr(), b, hh, ww,
+            key.k1, key.k2, tab.data_ptr(), b, hh, ww,
             tile_rows(ww, exp_spec.size), mrf.n_labels, parity,
             int(mrf.data_cost == "quadratic"), mrf.theta, mrf.h, -mrf.h,
             exp_spec.size, exp_spec.x0, inv_dx(exp_spec), p.n_words,
@@ -222,13 +253,12 @@ def mrf_round_step(
     max_retries: int = 8,
 ) -> torch.Tensor:
     """One schedule round (a single checkerboard parity) through K4, the
-    `compile.backend` entry point for `fused=True` MRF execution: words
-    from `ky.random_words(key, (B, H, W), n_words)`, the stream
+    `compile.backend` entry point for `fused=True` MRF execution: words of
+    `ky.random_words(key, (B, H, W), n_words)`, the stream
     `draw_from_logits` consumes for the eager half-step, so lut_ky labels
     are bit-identical to `core.mrf.half_step` under the same key."""
     p = half_step_params(mrf, precision, max_retries)
-    words = round_words(mrf, key, labels.shape[0], p, labels.device)
-    return mrf_half_step(mrf, labels, evidence, words, parity, exp_table,
+    return mrf_half_step(mrf, labels, evidence, key, parity, exp_table,
                          exp_spec, p)
 
 

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch import prng
 from repro_torch.core import ky as ky_core
 from repro_torch.core.interp import LUTSpec
+from repro_torch.kernels import _lib
 from repro_torch.kernels import interp_lut as _interp_lut
 from repro_torch.kernels import ky_sampler as _ky
 
@@ -65,3 +67,28 @@ def lut_exp_weights(
     z = log_potentials - log_potentials.amax(-1, keepdim=True)
     w = interp(z, exp_table, exp_spec)
     return torch.clamp(torch.round(w), min=0.0).to(torch.int32)
+
+
+def device_bits(
+    key: prng.Key, n: int, start: int = 0, device="cuda"
+) -> torch.Tensor:
+    """Words start .. start + n - 1 of the stream `prng.bits(key, ...)`
+    (int32 bit patterns) as the kernels hash them: `aia::jax_word`
+    (csrc/aia_common.cuh), the device function from which K3 and K4 make
+    their random words, through its test entry `aia_threefry_words`.  Used
+    by no sampling path.  On the CPU: `prng.bits` from counter `start`."""
+    dev = device_mod.resolve(device)
+    if start < 0 or n < 0:
+        raise ValueError(f"counters [{start}, {start + n}) are not uint64")
+    if dev.type == "cpu":
+        return prng.bits(key, (n,), dev, start=start)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = _lib.function(
+        "bn_gibbs", "aia_threefry_words",
+        [_lib.UINT, _lib.UINT, _lib.ULONG, _lib.ULONG, _lib.PTR, _lib.PTR],
+    )
+    with torch.cuda.device(dev):
+        code = fn(key.k1, key.k2, start, n, out.data_ptr(),
+                  _lib.stream_of(out))
+    _lib.check("bn_gibbs", code, "device_bits")
+    return out

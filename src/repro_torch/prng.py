@@ -106,18 +106,32 @@ def to_int32(x: torch.Tensor) -> torch.Tensor:
     return ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
-def _raw_bits(k: Key, shape: tuple[int, ...], device) -> torch.Tensor:
-    """uint32 words of `jax.random.bits(k, shape, uint32)` as int64."""
+def _raw_bits(k: Key, shape: tuple[int, ...], device,
+              start: int = 0) -> torch.Tensor:
+    """uint32 words of `jax.random.bits(k, shape, uint32)` as int64, or with
+    `start` the words start .. of the same stream (counter i + start for
+    element i).  Every tensor of random numbers is made here;
+    `_raw_bits.calls` counts the calls, so a run can show that its kernels
+    made their words themselves (K3 and K4 hash theirs inside the
+    kernel)."""
+    _raw_bits.calls += 1
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k.k1, k.k2, idx >> 32, idx & MASK)
     return (b1 ^ b2).reshape(shape)
 
 
-def bits(k: Key, shape, device="cuda") -> torch.Tensor:
+_raw_bits.calls = 0
+
+
+def bits(k: Key, shape, device="cuda", start: int = 0) -> torch.Tensor:
     """`jax.random.bits(k, shape, jnp.uint32)` as an int32 tensor of the
-    same bit patterns, computed on `device`."""
-    return to_int32(_raw_bits(k, tuple(shape), device_mod.resolve(device)))
+    same bit patterns, computed on `device`; with `start`, the words from
+    counter `start` on of the same stream."""
+    if start < 0:
+        raise ValueError(f"counter {start} is not a uint64")
+    return to_int32(_raw_bits(k, tuple(shape), device_mod.resolve(device),
+                              start))
 
 
 def uniform(

@@ -125,3 +125,85 @@ def test_run_gibbs_refuses_a_net_compiled_for_another_device():
     _, t = _nets("survey")
     with pytest.raises(ValueError):
         t_bn.run_gibbs(t, prng.key(0), device="meta")
+
+
+@functools.lru_cache(maxsize=None)
+def _fused(name):
+    t = t_bn.compile_bayesnet(t_graphs.bn_repository_replica(name),
+                              device="cpu")
+    return t, t_fused.build_fused_rounds(t.groups)
+
+
+@pytest.mark.parametrize("name", ["pigs", "hailfinder"])
+def test_row_word_index_addresses_the_fused_round_words(name):
+    """K3 reads word j of row (chain, c) of round r at counter
+    `row_word_index(chain, n_c_r, c, W) + j` of round r's stream under
+    `round_key(key, r)`: indexed that way out of `prng.bits` over a flat
+    counter range, the words equal `fused_round_words`, element for
+    element."""
+    t, fr = _fused(name)
+    chains = 5
+    p = t_fused.sweep_params(t, "lut_ky")
+    key = prng.key(13)
+    words = t_fused.fused_round_words(fr, key, chains, p.n_words, "cpu")
+    off = 0
+    for r, nc in enumerate(fr.n_c):
+        stream = prng.bits(t_fused.round_key(key, r),
+                           (chains * nc * p.n_words,), "cpu")
+        b, c, j = np.meshgrid(np.arange(chains), np.arange(nc),
+                              np.arange(p.n_words), indexing="ij")
+        idx = t_fused.row_word_index(b, nc, c, p.n_words) + j
+        n = chains * nc * p.n_words
+        np.testing.assert_array_equal(
+            stream.numpy()[idx],
+            words[off:off + n].numpy().reshape(chains, nc, p.n_words))
+        off += n
+    assert off == words.numel()
+
+
+@pytest.mark.parametrize("name", ["pigs", "hailfinder", "alarm"])
+@pytest.mark.parametrize("sampler", ["lut_ky", "exact_ky"])
+def test_keyed_bn_sweep_is_the_twin_on_that_keys_words(name, sampler):
+    """`bn_sweep` takes the sweep's key; on CPU tensors it is the twin run
+    on `fused_round_words` of that key, and launches nothing."""
+    t, fr = _fused(name)
+    p = t_fused.sweep_params(t, sampler)
+    vals, _ = t_bn.init_chain_values(t, prng.key(2), 4)
+    key = prng.key(31)
+    launches = t_fused.bn_sweep.launches
+    got = t_fused.bn_sweep(t, fr, vals, key, sampler, p)
+    words = t_fused.fused_round_words(fr, key, 4, p.n_words, "cpu")
+    want = t_fused.bn_sweep_ref(t, fr, vals, words, sampler, p)
+    assert torch.equal(got, want)
+    assert t_fused.bn_sweep.launches == launches
+    with pytest.raises(TypeError):
+        t_fused.bn_sweep(t, fr, vals, words, sampler, p)
+
+
+@pytest.mark.cuda
+def test_k3_matches_its_twin_on_the_card():
+    """K3 hashes its words from the sweep key; the twin runs on the same
+    key's `fused_round_words`.  lut_ky bit-equal; exact_ky's `exp` may
+    round another way on the card in a few labels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+    dev = torch.device("cuda")
+    for name in ("survey", "alarm", "hailfinder", "pigs"):
+        cbn = t_bn.compile_bayesnet(t_graphs.bn_repository_replica(name),
+                                    device=dev)
+        fr = t_fused.build_fused_rounds(cbn.groups)
+        vals, _ = t_bn.init_chain_values(cbn, prng.key(1), 64)
+        for sampler in ("lut_ky", "exact_ky"):
+            p = t_fused.sweep_params(cbn, sampler)
+            for seed in (2, 3):
+                key = prng.key(seed)
+                got = t_fused.bn_sweep(cbn, fr, vals, key, sampler, p)
+                words = t_fused.fused_round_words(fr, key, 64, p.n_words,
+                                                  dev)
+                want = t_fused.bn_sweep_ref(cbn, fr, vals, words, sampler,
+                                            p)
+                torch.cuda.synchronize()
+                if sampler == "lut_ky":
+                    assert torch.equal(got, want), name
+                else:
+                    assert (got != want).float().mean() < 0.01, name

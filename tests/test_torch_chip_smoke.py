@@ -1,0 +1,100 @@
+"""The arithmetic of `chip_smoke.py`'s bounds, on the CPU: the SASS loop
+counter that reads a threefry call's instructions, the least time of a
+number of calls, and the bound's choice between bytes and operations.
+The script itself runs only on a card."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the shape of `cuobjdump -sass` output: a loop closed by a branch to an
+# address (newer cuobjdump) or to a label, and a trailing self-branch
+ADDRESS_FORM = """
+\t\tFunction : _Z13interp_kernelPKfS0_ifffPfi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   STG.E desc[UR4][R2.64], R5 ;
+        /*0020*/              @!P0 BRA 0x10 ;
+\t\tFunction : _ZN12_GLOBAL__N_121threefry_words_kernelEjjyyPi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LOP3.LUT R0, R2, 0x1bd11bda, R3, 0x96, !PT ;
+        /*0020*/                   IADD3 R8, P0, R4, UR12, RZ ;
+        /*0030*/                   IADD3.X R8, R5, UR13, RZ, P0, !PT ;
+        /*0040*/                   IMAD.IADD R9, R8, 0x1, R3 ;
+        /*0050*/                   SHF.L.W.U32.HI R9, R9, 0xd, R9 ;
+        /*0060*/                   LOP3.LUT R9, R9, R8, RZ, 0x3c, !PT ;
+        /*0070*/                   PRMT R9, R9, 0x1032, R9 ;
+        /*0080*/                   VIADD R7, R0, 0x1 ;
+        /*0090*/                   IMAD.MOV.U32 R3, RZ, RZ, RZ ;
+        /*00a0*/                   IMAD.WIDE.U32 R4, R5, UR6, R2 ;
+        /*00b0*/                   LEA R8, P0, R4, UR14, 0x2 ;
+        /*00c0*/                   STG.E desc[UR8][R8.64], R9 ;
+        /*00d0*/                   ISETP.GE.U32.AND P0, PT, R4, UR10, PT ;
+        /*00e0*/              @!P0 BRA 0x20 ;
+        /*00f0*/                   EXIT ;
+        /*0100*/                   BRA 0x100;
+"""
+
+LABEL_FORM = """
+\t\tFunction : threefry_words_kernel
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_0:
+        /*0010*/                   SHF.L.W.U32.HI R9, R9, 0xd, R9 ;
+        /*0020*/                   LOP3.LUT R9, R9, R8, RZ, 0x3c, !PT ;
+        /*0030*/                   IADD3 R8, R8, R9, RZ ;
+        /*0040*/                   STG.E desc[UR8][R8.64], R9 ;
+        /*0050*/                   SHF.L.W.U32.HI R9, R9, 0xf, R9 ;
+        /*0060*/                   LOP3.LUT R9, R9, R8, RZ, 0x3c, !PT ;
+        /*0070*/                   STG.E desc[UR8][R10.64], R9 ;
+        /*0080*/              @!P0 BRA `(.L_x_0) ;
+.L_x_1:
+        /*0090*/                   BRA `(.L_x_1);
+"""
+
+
+def test_sass_loop_counts_reads_the_storing_loop():
+    cs = _chip_smoke()
+    loops = cs.sass_loop_counts(ADDRESS_FORM, "threefry_words_kernel")
+    # 0x20 .. 0xe0: LOP3 x1, SHF x1, PRMT x1; IADD3, IADD3.X, IMAD.IADD,
+    # VIADD (the move and the wide product are not adds); the LOP3 before
+    # the loop is not counted
+    assert loops == [{"instructions": 13, "stores": 1, "bit_ops": 3,
+                      "add_ops": 4}]
+    loops = cs.sass_loop_counts(LABEL_FORM, "threefry_words_kernel")
+    assert loops == [{"instructions": 8, "stores": 2, "bit_ops": 4,
+                      "add_ops": 1}]
+    assert cs.sass_loop_counts(ADDRESS_FORM, "no_such_kernel") == []
+
+
+@pytest.mark.parametrize("bit,add,want_cycles", [
+    (41.0, 31.0, 41.0 / 64),   # bit operations on the ALU lanes bind
+    (10.0, 200.0, 210.0 / 128),  # the issue rate binds
+])
+def test_hash_ms_takes_the_binding_pipe(bit, add, want_cycles):
+    cs = _chip_smoke()
+    per_call = {"bit_ops_per_call": bit, "add_ops_per_call": add,
+                "sm_clock_hz": 2e9}
+    calls = 132 * 1000
+    want = calls * want_cycles / 132 / 2e9 * 1e3
+    assert cs.hash_ms(calls, per_call) == pytest.approx(want, rel=1e-12)
+
+
+def test_bound_names_what_sets_it():
+    cs = _chip_smoke()
+    ms, by = cs.bound(3.35e9, 0.0)  # 1 ms of bytes, no operations
+    assert (ms, by) == (pytest.approx(1.0), "bytes")
+    ms, by = cs.bound(3.35e9, 0.0, int_ms=2.0)
+    assert (ms, by) == (2.0, "operations")
+    ms, by = cs.bound(0.0, 67e9)  # 1 ms of float32 operations
+    assert (ms, by) == (pytest.approx(1.0), "operations")

@@ -244,22 +244,72 @@ def test_total_energy_and_denoising_problem_match_reference():
             np.testing.assert_array_equal(a, b)
 
 
+# the reference's MRF benchmark widths (benchmarks/bench_mrf.py:33-34)
+BENCH_GRIDS = {"penguin": (64, 64, 4, "potts"), "art": (48, 48, 8, "potts")}
+
+
+@pytest.mark.parametrize("name", list(BENCH_GRIDS))
+def test_site_word_index_addresses_the_round_words(name):
+    """K4 reads word j of active site (chain, r, c) at counter
+    `site_word_index(chain, r, c, H, W, n_words) + j` of the half-step's
+    stream: indexed that way out of `prng.bits` over a flat counter range,
+    the words equal `round_words`, element for element."""
+    h, w, v, cost = BENCH_GRIDS[name]
+    tm = TGrid(h, w, v, theta=1.2, h=2.0, data_cost=cost)
+    p = t_kernels.half_step_params(tm)
+    chains = 2
+    key = prng.key(17)
+    words = t_kernels.round_words(tm, key, chains, p, "cpu")
+    stream = prng.bits(key, (chains * h * w * p.n_words,), "cpu")
+    b, r, c, j = np.meshgrid(np.arange(chains), np.arange(h), np.arange(w),
+                             np.arange(p.n_words), indexing="ij")
+    idx = t_kernels.site_word_index(b, r, c, h, w, p.n_words) + j
+    np.testing.assert_array_equal(stream.numpy()[idx], words.numpy())
+
+
+@pytest.mark.parametrize("case", CASES + [(*BENCH_GRIDS["art"], 1.2, 2.0)],
+                         ids=IDS + ["art"])
+def test_keyed_mrf_half_step_is_the_twin_on_that_keys_words(case):
+    """`mrf_half_step` takes the half-step's key; on CPU tensors it is the
+    twin run on `round_words` of that key, and launches nothing."""
+    _, tm = _models(case)
+    _, _, t_tab, t_spec = _tables()
+    labels, evidence = _inputs(case, chains=2, seed=6)
+    lab_t, ev_t = torch.from_numpy(labels), torch.from_numpy(evidence)
+    p = t_kernels.half_step_params(tm)
+    launches = t_kernels.mrf_half_step.launches
+    for parity in (0, 1):
+        key = prng.key(40 + parity)
+        got = t_kernels.mrf_half_step(tm, lab_t, ev_t, key, parity, t_tab,
+                                      t_spec, p)
+        words = t_kernels.round_words(tm, key, 2, p, "cpu")
+        want = t_kernels.mrf_half_step_ref(tm, lab_t, ev_t, words, parity,
+                                           t_tab, t_spec, p)
+        assert torch.equal(got, want)
+    assert t_kernels.mrf_half_step.launches == launches
+    with pytest.raises(TypeError):
+        t_kernels.mrf_half_step(tm, lab_t, ev_t, words, 0, t_tab, t_spec, p)
+
+
 @pytest.mark.cuda
 def test_k4_matches_its_twin_on_the_card():
+    """K4 hashes its words from the half-step's key; the twin runs on the
+    same key's `round_words`.  Bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: see README)")
     dev = torch.device("cuda")
     tab, spec = t_interp.build_exp_weight_lut(device=dev)
-    for case in CASES:
+    for case in CASES + [(*BENCH_GRIDS["penguin"], 1.2, 2.0)]:
         _, tm = _models(case)
         labels, evidence = _inputs(case, chains=64)
         lab = torch.from_numpy(labels).to(dev)
         ev = torch.from_numpy(evidence).to(dev)
         p = t_kernels.half_step_params(tm)
         for parity in (0, 1):
-            words = t_kernels.round_words(tm, prng.key(parity), 64, p, dev)
-            got = t_kernels.mrf_half_step(tm, lab, ev, words, parity, tab,
+            key = prng.key(parity)
+            got = t_kernels.mrf_half_step(tm, lab, ev, key, parity, tab,
                                           spec, p)
+            words = t_kernels.round_words(tm, key, 64, p, dev)
             want = t_kernels.mrf_half_step_ref(tm, lab, ev, words, parity,
                                                tab, spec, p)
             torch.cuda.synchronize()

@@ -66,3 +66,83 @@ def test_only_the_partitionable_mode_is_ported():
         prng.key(0, partitionable=False)
     with pytest.raises(ValueError):
         prng.Key(0, 2**32)
+
+
+def _zoo_max_rounds():
+    from repro_torch.core import bayesnet, graphs
+
+    return max(
+        len(bayesnet.compile_bayesnet(graphs.bn_repository_replica(n),
+                                      device="cpu").groups)
+        for n in graphs.bn_repository_names())
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**32 - 3])
+def test_round_keys_are_the_hash_of_counter_pair_zero_r(seed):
+    """K3 derives round r's key inside the kernel as the threefry hash of
+    the counter pair (0, r) under the sweep key: that is `split(key, R)[r]`
+    for every R > r, here up to past the zoo's largest round count, and
+    jax's own split."""
+    from repro_torch.kernels import bn_gibbs
+
+    k = prng.key(seed)
+    r_max = _zoo_max_rounds() + 8
+    for num in range(1, r_max + 1):
+        keys = prng.split(k, num)
+        for r in range(num):
+            assert bn_gibbs.round_key(k, r) == keys[r]
+    want = _data(jax.random.split(jax.random.key(seed), r_max)).tolist()
+    assert [[bn_gibbs.round_key(k, r).k1, bn_gibbs.round_key(k, r).k2]
+            for r in range(r_max)] == want
+
+
+@pytest.mark.parametrize("start,n", [(0, 300), (7, 50), (1000, 4)])
+def test_device_bits_plain_version_is_the_bits_stream(start, n):
+    """`ops.device_bits` (the kernels' generator's test entry) on the CPU:
+    word start + i of `prng.bits`, and so of `jax.random.bits`."""
+    from repro_torch.kernels import ops
+
+    k = prng.key(21)
+    got = ops.device_bits(k, n, start, "cpu").numpy()
+    want = np.asarray(jax.random.bits(jax.random.key(21), (start + n,),
+                                      jnp.uint32))[start:]
+    np.testing.assert_array_equal(got.view(np.uint32), want)
+
+
+@pytest.mark.cuda
+def test_device_bits_match_prng_bits_on_the_card():
+    """`aia::jax_word`, the device function K3 and K4 hash their words
+    with, against `prng.bits` on the card, also across the 2^32 counter
+    boundary (high counter word non-zero)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+    for seed in (0, 77, 2**32 - 1):
+        k = prng.key(seed)
+        got = ops.device_bits(k, 1 << 20, 0, "cuda")
+        assert torch.equal(got, prng.bits(k, (1 << 20,), "cuda"))
+        start = (1 << 32) - 1000
+        got = ops.device_bits(k, 2000, start, "cuda")
+        assert torch.equal(got.cpu(), ops.device_bits(k, 2000, start, "cpu"))
+
+
+@pytest.mark.parametrize("start,n", [(0, 40), (13, 25), (2**32 - 5, 10)])
+def test_bits_from_a_start_counter(start, n):
+    """`prng.bits(..., start=s)` is words s .. s + n - 1 of the key's
+    stream: b1 ^ b2 of the hash of the counter pair (i >> 32, i & MASK),
+    also across the 2^32 boundary, and the stream's slice where jax can
+    make it."""
+    k = prng.key(9)
+    got = prng.bits(k, (n,), "cpu", start=start).numpy().view(np.uint32)
+    idx = np.arange(start, start + n, dtype=np.int64)
+    b1, b2 = prng.threefry2x32(k.k1, k.k2, idx >> 32, idx & prng.MASK)
+    np.testing.assert_array_equal(got, (b1 ^ b2).astype(np.uint32))
+    if start < 2**20:
+        want = np.asarray(jax.random.bits(jax.random.key(9), (start + n,),
+                                          jnp.uint32))[start:]
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):
+        prng.bits(k, (n,), "cpu", start=-1)

@@ -221,6 +221,9 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
     def twin_called(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain twin")
 
+    def words_made(*args, **kwargs):
+        raise AssertionError("K3/K4's words were made in plain torch")
+
     monkeypatch.setattr(interp_lut, "interp_kernel_ref", twin_called)
     monkeypatch.setattr(ky_sampler, "ky_sample_kernel_ref", twin_called)
     monkeypatch.setattr(bn_gibbs, "bn_sweep_ref", twin_called)
@@ -238,24 +241,67 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
                             cbn.exp_spec)
     ops.ky_sample(w, prng.key(1))
     vals, _ = t_bn.init_chain_values(cbn, prng.key(2), 8)
-    bn_gibbs.fused_gibbs_sweep(cbn, bn_gibbs.build_fused_rounds(cbn.groups),
-                               vals, prng.key(3))
+    fr = bn_gibbs.build_fused_rounds(cbn.groups)
     grid = t_graphs.GridMRF(9, 7, 4)
-    mrf_gibbs.mrf_round_step(
-        grid, torch.zeros((3, 9, 7), dtype=torch.int32, device=dev),
-        torch.ones((9, 7), dtype=torch.int32, device=dev), prng.key(4), 1,
-        cbn.exp_table, cbn.exp_spec)
+    labels = torch.zeros((3, 9, 7), dtype=torch.int32, device=dev)
+    evidence = torch.ones((9, 7), dtype=torch.int32, device=dev)
+    # K3 and K4 make their words inside the kernel: no word in plain torch
+    with monkeypatch.context() as m:
+        m.setattr(prng, "_raw_bits", words_made)
+        bn_gibbs.fused_gibbs_sweep(cbn, fr, vals, prng.key(3))
+        mrf_gibbs.mrf_round_step(grid, labels, evidence, prng.key(4), 1,
+                                 cbn.exp_table, cbn.exp_spec)
     sfr = distributed.build_sharded_fused_rounds(cbn, cbn.groups, 2)
     p = bn_gibbs.sweep_params(cbn, "lut_ky")
     words = prng.bits(prng.key(5), (8 * sfr.n_c[0] * p.n_words,), dev)
     bn_gibbs.fused_color_round(cbn, sfr, 1, 0, vals[4:], words, 4, "lut_ky",
                                p)
-    labels = torch.zeros((3, 9, 7), dtype=torch.int32, device=dev)
     up, down = distributed._halo_exchange(labels, 3)
     mrf_gibbs.mrf_sharded_round_step(
-        grid, labels, torch.ones((9, 7), dtype=torch.int32, device=dev),
-        prng.key(6), 0, cbn.exp_table, cbn.exp_spec, n_chain_pos=1,
-        n_row_pos=3, up_halo=up, down_halo=down)
+        grid, labels, evidence, prng.key(6), 0, cbn.exp_table, cbn.exp_spec,
+        n_chain_pos=1, n_row_pos=3, up_halo=up, down_halo=down)
     torch.cuda.synchronize()
     after = [c.launches for c in counters]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1, 3]
+
+
+@pytest.mark.cuda
+def test_fused_main_path_makes_no_words_outside_the_kernels(monkeypatch):
+    """`run(fused=True)` on one device, resumed from a carry (the chain
+    init and the first-use cross-check, which draw in plain torch, done
+    before): with `prng._raw_bits` raising, a BN and an MRF program still
+    serve, through K3 and K4 alone, and give the unpatched run's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+    dev = torch.device("cuda")
+    bn_prog = t_program.compile_graph(
+        t_ir.canonicalize(t_graphs.bn_repository_replica("alarm"),
+                          evidence_mode="runtime"), device=dev)
+    grid = t_graphs.GridMRF(12, 10, 3)
+    mrf_prog = t_program.compile_graph(grid, device=dev)
+    ev = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 3, (12, 10)).astype(
+            np.int32)).to(dev)
+    bn_kw = dict(n_chains=32, sampler="lut_ky", fused=True, device=dev,
+                 evidence={0: 1})
+    mrf_kw = dict(n_chains=32, sampler="lut_ky", fused=True, device=dev,
+                  evidence=ev)
+    _, _, bn_st = bn_prog.run(prng.key(1), n_iters=2, return_state=True,
+                              **bn_kw)
+    _, mrf_st = mrf_prog.run(prng.key(2), n_iters=2, return_state=True,
+                             **mrf_kw)
+    bn_want = bn_prog.run(None, n_iters=5, carry_state=bn_st, **bn_kw)
+    mrf_want = mrf_prog.run(None, n_iters=5, carry_state=mrf_st, **mrf_kw)
+    k3, k4 = bn_gibbs.bn_sweep.launches, mrf_gibbs.mrf_half_step.launches
+
+    def words_made(*args, **kwargs):
+        raise AssertionError("words were made in plain torch")
+
+    monkeypatch.setattr(prng, "_raw_bits", words_made)
+    bn_got = bn_prog.run(None, n_iters=5, carry_state=bn_st, **bn_kw)
+    mrf_got = mrf_prog.run(None, n_iters=5, carry_state=mrf_st, **mrf_kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(bn_got, bn_want))
+    assert torch.equal(mrf_got, mrf_want)
+    assert bn_gibbs.bn_sweep.launches - k3 == 5
+    assert mrf_gibbs.mrf_half_step.launches - k4 == 2 * 5
