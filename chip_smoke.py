@@ -11,7 +11,7 @@ each printing one JSON line; any failure raises and exits non-zero:
               parallel); prints the build
               time, ptxas' register/spill report and the card's name and
               power limit.
- 1a. threefry — the device function K3 and K4 hash their random words
+ 1a. threefry — the device function K3-K6 hash their random words
               with (`aia::jax_word`, through its test entry
               `ops.device_bits`) against `prng.bits` on 2^24 counters under
               three keys, and on 2^20 counters across the 2^32 boundary:
@@ -68,33 +68,43 @@ each printing one JSON line; any failure raises and exits non-zero:
               0.05 of exact variable elimination; the Penguin query with
               diagnostics draws the served labels, and its snapshot's
               per-pixel argmax beats the noisy image.
- 9. k5      — K5 (one BN colour round over a mesh position's owned nodes)
-              against its twin for pigs and hailfinder at 1,024 chains,
-              under the ownership of a (2, 4) mesh: every round and every
-              position of one sweep; lut_ky bit-equal, exact_ky reports the
-              share of differing labels.
-10. k6      — K6 (one MRF half-step over a row slab with halo rows) against
-              its twin at 1,024 chains on the slabs of a (2, 4) mesh (4-way
-              row split) of Penguin, Art and Art-quadratic, random halo rows
-              holding -1, both parities: bit-equal.
+ 9. k5      — K5 (one colour round on every position of a mesh per
+              launch, words hashed inside the kernel from the sweep's key)
+              against its twin per position on the round's full stream,
+              for pigs and hailfinder at 1,024 chains under the ownership
+              of a (2, 4) mesh: every round of one sweep, both from the
+              same pre-round values; lut_ky bit-equal, exact_ky reports the
+              share of differing labels per round; and one launch of the
+              one-position entry against its twin.
+10. k6      — K6 (one MRF half-step over every row slab of a mesh per
+              launch, words hashed inside the kernel) against its twin per
+              slab on the half-step's full words at 1,024 chains on the
+              (2, 4) mesh (4-way row split) of Penguin, Art and
+              Art-quadratic, random halo rows holding -1, both parities;
+              and a block of half the chains at an odd global row:
+              bit-equal.
 11. serve_sharded — the sharded main path.  Counters zeroed, then
               `compile_graph(query).run_sharded(key, make_mesh((2, 4)),
               n_chains=1024, n_iters=200, fused=True)` for the 4 pigs and 1
               hailfinder queries of `serve` (evidence baked, burn-in 50) and
               for Penguin, Art and Art-quadratic (evidence image at run
-              time); counters read right after: K5 launched rounds x 8 per
-              sweep and K6 2 x 8 per iteration, plus the first-use
-              cross-checks', and K3/K4 only in the cross-checks' single-
-              device legs.  Each query equals `run(fused=True)` bit for bit;
-              a pigs query sliced 100 sharded + 100 single-device equals the
-              whole run; the legacy `fused=False` route on asia (100
-              sweeps) is within TV 0.05 of exact variable elimination.
+              time); counters read right after: K5 launched once per round
+              (rounds per sweep) and K6 twice per iteration, plus the
+              first-use cross-checks', and K3/K4 only in the cross-checks'
+              single-device legs; the plain-torch generator
+              (`prng._raw_bits`) ran only for each query's chain init.  Each
+              query equals `run(fused=True)` bit for bit; a pigs query
+              sliced 100 sharded + 100 single-device, and 100 + 100 sharded,
+              equals the whole run, and so does Penguin 100 + 100 sharded,
+              the resumed halves making no word in plain torch; the legacy
+              `fused=False` route on asia (100 sweeps) is within TV 0.05 of
+              exact variable elimination.
 12. timing  — every kernel and its twin at the main paths' shapes: the
               kernel's device time (torch.profiler) and time per call (CUDA
-              events), the twin's time (for K3 and K4 with the key's words
+              events), the twin's time (for K3-K6 with the key's words
               generated, as the function's input is the key), and the least
-              time the card needs for the same bytes and operations (K3 and
-              K4 count the threefry calls their rows' walks need, each at
+              time the card needs for the same bytes and operations (K3-K6
+              count the threefry calls their rows' walks need, each at
               the instructions the threefry phase read from the SASS: its
               bit operations on 132 SMs x 64 ALU lanes, all of its integer
               instructions at 132 x 128 issue lanes, x the SM clock); K1
@@ -103,8 +113,10 @@ each printing one JSON line; any failure raises and exits non-zero:
               device and host time by part (key split, wrapper, histogram),
               and one Penguin half-step back to back with the card's busy
               share, beside the plain-torch word generation they no longer
-              run; K5 over one pigs sweep's 32 launches and
-              K6 over one Penguin half-step's 8.  Prints `{"kernels":
+              run; K5 per round launch of a pigs sweep and K6 per Penguin
+              half-step launch on the (2, 4) mesh; one sharded pigs sweep
+              and one sharded Penguin half-step by part (K5 and the psum
+              merge, K6 and the halo exchange).  Prints `{"kernels":
               [...]}` (K1-K6).
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
@@ -149,6 +161,10 @@ MRF_MODELS = {
 MRF_CHECK_ITERS = 20
 MRF_PINS = 64
 THREEFRY_COUNTERS = 1 << 24
+# the device kernels' names, for the profiler: K3 and K5 are one kernel,
+# and so are K4 and K6
+BN_KERNEL = "bn_rounds_kernel"
+MRF_KERNEL = "mrf_half_step_kernel"
 
 
 def emit(obj) -> None:
@@ -1047,80 +1063,94 @@ def _sharded_bn(torch, name: str):
     return prog.cbn, sfr, vals
 
 
-def _k5_sweep(torch, cbn, sfr, vals, sampler, key, kernel):
-    """One sweep of the sharded engine's rounds with `kernel` (K5 or its
-    twin) at every position, merged as the engine merges; yields (round,
-    position, chain block, output) before each merge."""
-    from repro_torch import prng
-    from repro_torch.core import distributed
-    from repro_torch.core import ky as ky_core
+def _k5_twin_round(torch, cbn, sfr, r, vals, key, sampler, p):
+    """K5's plain version as a function of the key: round r's stream in
+    plain torch, then the twin per (node position, chain block), stacked
+    as K5 stacks its planes."""
     from repro_torch.kernels import bn_gibbs
 
-    p = bn_gibbs.sweep_params(cbn, sampler)
-    b_loc = CHAINS // MESH[0]
-    outs = []
-    for r, k in enumerate(prng.split(key, len(sfr.n_c))):
-        words = ky_core.random_words(k, (CHAINS * sfr.n_c[r],), p.n_words,
-                                     vals.device).reshape(-1)
-        new = torch.empty_like(vals)
-        for ci in range(MESH[0]):
-            cs = slice(ci * b_loc, (ci + 1) * b_loc)
-            news = [kernel(cbn, sfr, d, r, vals[cs], words, cs.start,
-                           sampler, p) for d in range(MESH[1])]
-            outs.extend(news)
-            new[cs] = distributed._psum_merge(vals[cs], news)
-        vals = new
-    return vals, outs
+    words = bn_gibbs.round_stream(sfr, key, r, 0, vals.shape[0], p.n_words,
+                                  vals.device)
+    b_loc = vals.shape[0] // MESH[0]
+    return torch.stack([torch.cat([
+        bn_gibbs.fused_color_round_ref(cbn, sfr, d, r, vals[c0:c0 + b_loc],
+                                       words, c0, sampler, p)
+        for c0 in range(0, vals.shape[0], b_loc)])
+        for d in range(MESH[1])])
 
 
 def phase_k5(torch) -> dict:
+    """Every round of one sweep on the (2, 4) mesh: one K5 launch over all
+    positions against the twin per position on the round's full stream,
+    both from the same pre-round values (the run goes on from K5's merged
+    values); and one launch of the one-position entry."""
     from repro_torch import prng
+    from repro_torch.core import distributed
     from repro_torch.kernels import bn_gibbs
 
     errs = {}
     for name in ("pigs", "hailfinder"):
-        cbn, sfr, vals = _sharded_bn(torch, name)
+        cbn, sfr, vals0 = _sharded_bn(torch, name)
         out = {"phase": "k5", "model": name, "chains": CHAINS,
                "mesh": list(MESH), "rounds": len(sfr.n_c),
                "c_max": sfr.c_max, "owned_per_round_position":
                [list(row) for row in sfr.n_own]}
+        key = prng.key(2)
         for sampler in ("lut_ky", "exact_ky"):
-            got, outs_k = _k5_sweep(torch, cbn, sfr, vals, sampler,
-                                    prng.key(2), bn_gibbs.fused_color_round)
-            want, outs_t = _k5_sweep(torch, cbn, sfr, vals, sampler,
-                                     prng.key(2),
-                                     bn_gibbs.fused_color_round_ref)
-            torch.cuda.synchronize()
-            # each launch against the twin on the same input (the inputs
-            # agree while the outputs do; exact_ky's may drift apart)
-            bad = sum(int((a != b).sum()) for a, b in zip(outs_k, outs_t))
+            p = bn_gibbs.sweep_params(cbn, sampler)
+            vals, bad, err, differ = vals0, 0, 0, []
+            for r in range(len(sfr.n_c)):
+                got = bn_gibbs.fused_color_round_mesh(cbn, sfr, r, vals, key,
+                                                      sampler, p, MESH[0])
+                want = _k5_twin_round(torch, cbn, sfr, r, vals, key, sampler,
+                                      p)
+                torch.cuda.synchronize()
+                bad += int((got != want).sum())
+                err = max(err, int((got - want).abs().max()))
+                differ.append(float((got != want).float().mean()))
+                vals = distributed._psum_merge(vals, got)
             if sampler == "lut_ky":
                 out["lut_ky_mismatches"] = bad
                 out["lut_ky_changed_share"] = float(
-                    (got != vals).float().mean())
-                errs[name] = max(int((a - b).abs().max())
-                                 for a, b in zip(outs_k, outs_t))
-                check(bad == 0 and torch.equal(got, want),
-                      f"K5 lut_ky differs from its twin on {name} ({bad})")
+                    (vals != vals0).float().mean())
+                errs[name] = err
+                check(bad == 0, f"K5 lut_ky differs from its twin on {name} "
+                      f"({bad})")
+                # the one-position entry: node position 3, chain block 1
+                b_loc = CHAINS // MESH[0]
+                one = bn_gibbs.fused_color_round(
+                    cbn, sfr, MESH[1] - 1, 1, vals[b_loc:], key, b_loc,
+                    sampler, p)
+                twin = bn_gibbs.fused_color_round_ref(
+                    cbn, sfr, MESH[1] - 1, 1, vals[b_loc:],
+                    bn_gibbs.round_stream(sfr, key, 1, 0, CHAINS, p.n_words,
+                                          vals.device), b_loc, sampler, p)
+                one_bad = int((one != twin).sum())
+                out["one_position_mismatches"] = one_bad
+                check(one_bad == 0, f"K5's one-position entry differs from "
+                      f"its twin on {name} ({one_bad})")
             else:
-                out["exact_ky_differing_label_share"] = float(
-                    (got != want).float().mean())
-        out["launches_per_sweep"] = len(sfr.n_c) * MESH[0] * MESH[1]
+                out["exact_ky_differing_label_share_per_round"] = differ
+        out["launches_per_sweep"] = len(sfr.n_c)
         emit(out)
     return errs
 
 
 def phase_k6(torch) -> dict:
+    """One K6 launch over every row slab of the (2, 4) mesh (4-way row
+    split) against the twin per slab on the half-step's full words, with
+    random halo rows holding -1, both parities; and one block of chains
+    [512, 1024) and rows [h_loc + 1, 2 h_loc + 1) (an odd global row)."""
     from repro_torch import prng
     from repro_torch.kernels import mrf_gibbs
 
     dev = torch.device(DEVICE)
     tab, spec = exp_lut(dev)
     errs = {}
-    n_c, n_g = MESH
+    n_g = MESH[1]
     for name in MRF_MODELS:
         mrf, _, ev = _mrf_model(torch, name)
-        b_loc, h_loc = CHAINS // n_c, mrf.height // n_g
+        h_loc = mrf.height // n_g
         labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width),
                               0, mrf.n_labels, dev)
         # random halo rows, -1 (beyond the grid) among the labels
@@ -1132,27 +1162,37 @@ def phase_k6(torch) -> dict:
         out = {"phase": "k6", "model": name, "chains": CHAINS,
                "mesh": list(MESH), "slab_rows": h_loc,
                "grid": [mrf.height, mrf.width], "labels": mrf.n_labels,
-               "data_cost": mrf.data_cost, "mismatches": {}}
+               "data_cost": mrf.data_cost, "mismatches": {},
+               "odd_row_block_mismatches": {}}
         err = 0
+        half = CHAINS // 2
+        odd = slice(h_loc + 1, 2 * h_loc + 1)
         for parity in (0, 1):
-            words = mrf_gibbs.round_words(mrf, prng.key(2 + parity), CHAINS,
-                                          p, dev)
-            bad = 0
-            for ci in range(n_c):
-                cs = slice(ci * b_loc, (ci + 1) * b_loc)
-                for gi in range(n_g):
-                    rs = slice(gi * h_loc, (gi + 1) * h_loc)
-                    args = (mrf, labels[cs, rs], up[gi, cs], down[gi, cs],
-                            gi * h_loc, ev[rs], words[cs, rs], parity, tab,
-                            spec, p)
-                    got = mrf_gibbs.mrf_halo_half_step(*args)
-                    want = mrf_gibbs.mrf_halo_half_step_ref(*args)
-                    bad += int((got != want).sum())
-                    err = max(err, int((got - want).abs().max()))
+            key = prng.key(2 + parity)
+            got = mrf_gibbs.mrf_halo_half_step(mrf, labels, up, down, 0, ev,
+                                               key, parity, tab, spec, p)
+            words = mrf_gibbs.round_words(mrf, key, CHAINS, p, dev)
+            want = torch.cat([
+                mrf_gibbs.mrf_halo_half_step_ref(
+                    mrf, labels[:, g * h_loc:(g + 1) * h_loc], up[g], down[g],
+                    g * h_loc, ev[g * h_loc:(g + 1) * h_loc],
+                    words[:, g * h_loc:(g + 1) * h_loc], parity, tab, spec, p)
+                for g in range(n_g)], dim=1)
+            got_odd = mrf_gibbs.mrf_halo_half_step(
+                mrf, labels[half:, odd], up[:1, half:], down[:1, half:],
+                odd.start, ev[odd], key, parity, tab, spec, p, chain0=half)
+            want_odd = mrf_gibbs.mrf_halo_half_step_ref(
+                mrf, labels[half:, odd], up[0, half:], down[0, half:],
+                odd.start, ev[odd], words[half:, odd], parity, tab, spec, p)
             torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            bad_odd = int((got_odd != want_odd).sum())
+            err = max(err, int((got - want).abs().max()),
+                      int((got_odd - want_odd).abs().max()))
             out["mismatches"][str(parity)] = bad
-            check(bad == 0, f"K6 differs from its twin on {name}, parity "
-                  f"{parity} ({bad} labels)")
+            out["odd_row_block_mismatches"][str(parity)] = bad_odd
+            check(bad == 0 and bad_odd == 0, f"K6 differs from its twin on "
+                  f"{name}, parity {parity} ({bad}, {bad_odd} labels)")
         errs[name] = err
         emit(out)
     return errs
@@ -1165,13 +1205,14 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
 
     from repro_torch import prng
     from repro_torch.compile.program import compile_graph
+    from repro_torch.core import bayesnet as bnet
     from repro_torch.core import distributed
+    from repro_torch.core import mrf as mrf_mod
     from repro_torch.core.exact import ve_marginal
     from repro_torch.core.graphs import bn_repository_replica
 
     dev = torch.device(DEVICE)
     mesh = distributed.make_mesh(MESH, ("data", "model"), DEVICE)
-    n_pos = mesh.size
     nets = {m: bn_repository_replica(m) for m in ("pigs", "hailfinder")}
     queries = (_queries("pigs", 4, 11, nets["pigs"].cards)
                + _queries("hailfinder", 1, 12, nets["hailfinder"].cards))
@@ -1182,24 +1223,33 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
                  sampler="lut_ky", fused=True)
     mrf_kw = dict(n_chains=CHAINS, n_iters=ITERS, sampler="lut_ky",
                   fused=True)
+    # the plain-torch generator's calls for one chain init of each kind,
+    # the only words a fused sharded query may make outside K5 and K6
+    c0 = prng._raw_bits.calls
+    bnet.init_chain_values(progs[0].cbn, prng.key(0), CHAINS)
+    bn_init = prng._raw_bits.calls - c0
+    c0 = prng._raw_bits.calls
+    mrf_mod.init_labels(served_mrf["penguin"][0][0], prng.key(0), CHAINS,
+                        None, None, dev)
+    mrf_init = prng._raw_bits.calls - c0
 
     def wall(fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        c0 = prng._raw_bits.calls
         start.record()
         out = fn()
         end.record()
         end.synchronize()
-        return out, start.elapsed_time(end)
+        return out, start.elapsed_time(end), prng._raw_bits.calls - c0
 
     # ---- the main path: counters zeroed, queries served, counters read ----
     zero_launches()
     bn_out, mrf_out = [], {}
     for prog, (model, ev, seed) in zip(progs, queries):
         prog.ensure_fused_cross_check("lut_ky", sharded=True)
-        out, ms = wall(lambda: prog.run_sharded(prng.key(seed), mesh,
-                                                **bn_kw))
-        bn_out.append((out, ms))
+        bn_out.append(wall(lambda: prog.run_sharded(prng.key(seed), mesh,
+                                                    **bn_kw)))
     for name, ((mrf, clean, ev), prog, seed, _) in served_mrf.items():
         prog.ensure_fused_cross_check("lut_ky", sharded=True)
         mrf_out[name] = wall(lambda: prog.run_sharded(
@@ -1207,22 +1257,29 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
     launches = read_launches()
     # ---- end of the main path ----------------------------------------------
 
-    # cross-checks: eager + 3 single-device fused sweeps (K3) or half-step
-    # pairs (K4) + the same on a (1, 2) mesh (K5/K6, 2 positions)
-    want_k5 = sum(ITERS * r * n_pos + 3 * r * 2 for r in rounds)
-    want_k6 = len(served_mrf) * (2 * ITERS * n_pos + 2 * 3 * 2)
+    # one K5 launch per round and one K6 launch per half-step over every
+    # position; the cross-checks: eager + 3 single-device fused sweeps (K3)
+    # or half-step pairs (K4) + the same on a (1, 2) mesh (K5/K6)
+    want_k5 = sum(ITERS * r + 3 * r for r in rounds)
+    want_k6 = len(served_mrf) * (2 * ITERS + 2 * 3)
     want = {"fused_color_round": want_k5, "mrf_halo_half_step": want_k6,
             "bn_sweep": 3 * len(progs),
             "mrf_half_step": 2 * 3 * len(served_mrf),
             "ky_sample_kernel": 0, "interp_kernel": 0}
     check(launches == want, f"sharded path launches {launches}, expected "
           f"{want}")
+    raw_calls = [c for _, _, c in bn_out] + [c for _, _, c in
+                                             mrf_out.values()]
+    check(raw_calls == [bn_init] * len(bn_out) + [mrf_init] * len(mrf_out),
+          f"a fused sharded query called prng._raw_bits {raw_calls} times, "
+          f"its chain init {bn_init} (BN) or {mrf_init} (MRF): words were "
+          "made outside K5/K6")
 
     # ---- is what came out right? ------------------------------------------
-    for i, (prog, (model, ev, seed), ((marg, vals), ms)) in enumerate(
+    for i, (prog, (model, ev, seed), ((marg, vals), ms, _)) in enumerate(
             zip(progs, queries, bn_out)):
-        (m1, v1), ms1 = wall(lambda: prog.run(prng.key(seed), device=dev,
-                                              **bn_kw))
+        (m1, v1), ms1, _ = wall(lambda: prog.run(prng.key(seed), device=dev,
+                                                 **bn_kw))
         n = nets[model].n_nodes
         check(tuple(vals.shape) == (CHAINS, n) and bool(
             torch.isfinite(marg).all()), f"sharded query {i}: shapes/values")
@@ -1235,9 +1292,10 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
               "rounds": rounds[i], "wall_ms_sharded": ms,
               "wall_ms_single_device": ms1,
               "sweeps_per_s_sharded": ITERS / (ms / 1e3),
+              "plain_torch_generator_calls": raw_calls[i],
               "equals_single_device": True})
     for name, ((mrf, clean, ev), prog, seed, labels) in served_mrf.items():
-        got, ms = mrf_out[name]
+        got, ms, calls = mrf_out[name]
         check(torch.equal(got, labels), f"{name}: run_sharded differs from "
               "the served run(fused=True)")
         emit({"phase": "serve_sharded", "model": name, "mesh": list(MESH),
@@ -1245,25 +1303,43 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
               mrf.height // MESH[1], "wall_ms_sharded": ms,
               "iters_per_s_sharded": ITERS / (ms / 1e3),
               "chain0_error": float((got[0].cpu().numpy() != clean).mean()),
+              "plain_torch_generator_calls": calls,
               "equals_single_device": True})
 
     sharded_profile(torch, progs[0], queries[0][2], mesh, bn_kw)
-    # a pigs query: 100 sweeps sharded, then 100 single-device
-    prog, (_, ev, seed), ((marg, vals), _) = progs[0], queries[0], bn_out[0]
+    # a pigs query: 100 sweeps sharded, then 100 single-device, and then
+    # 100 sharded resumed from the same carry (no word in plain torch)
+    prog, (_, ev, seed), ((marg, vals), _, _) = progs[0], queries[0], \
+        bn_out[0]
     half = {**bn_kw, "n_iters": ITERS // 2}
     _, _, st = prog.run_sharded(prng.key(seed), mesh, return_state=True,
                                 **half)
     m_s, v_s = prog.run(None, carry_state=st, device=dev, **half)
     check(torch.equal(m_s, marg) and torch.equal(v_s, vals),
           "a pigs query sliced 100 sharded + 100 single-device differs")
+    (m_r, v_r), _, bn_resumed = wall(lambda: prog.run_sharded(
+        None, mesh, carry_state=st, **half))
+    check(torch.equal(m_r, marg) and torch.equal(v_r, vals),
+          "a pigs query sliced 100 + 100 sharded differs")
+    # Penguin: 100 iterations sharded, then 100 resumed
+    ((mrf, clean, ev), mprog, seed, labels) = served_mrf["penguin"]
+    mhalf = {**mrf_kw, "n_iters": ITERS // 2}
+    _, mst = mprog.run_sharded(prng.key(seed), mesh, evidence=ev,
+                               return_state=True, **mhalf)
+    lab_r, _, mrf_resumed = wall(lambda: mprog.run_sharded(
+        None, mesh, evidence=ev, carry_state=mst, **mhalf))
+    check(torch.equal(lab_r, labels),
+          "a Penguin query sliced 100 + 100 sharded differs")
+    check(bn_resumed == 0 and mrf_resumed == 0, f"resumed fused sharded "
+          f"runs called prng._raw_bits {bn_resumed} (pigs) and "
+          f"{mrf_resumed} (Penguin) times")
 
     # the legacy route (plain torch, keys folded per position) on asia
     asia = bn_repository_replica("asia")
     ev = {0: 1, 5: 0}
     asia_prog = compile_graph(asia, ev, device=dev)
-    # 100 sweeps: each position draws its own words every round, so the
-    # legacy route issues ~8x the word-generation launches of the fused one
-    legacy, ms = wall(lambda: asia_prog.run_sharded(
+    # 100 sweeps: each position draws its own words every round
+    legacy, ms, _ = wall(lambda: asia_prog.run_sharded(
         prng.key(4), mesh, n_chains=CHAINS, n_iters=100, burn_in=20,
         fused=False))
     tv = max(0.5 * float(np.abs(
@@ -1272,6 +1348,10 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
         for q in range(asia.n_nodes) if q not in ev)
     emit({"phase": "serve_sharded_checks", "sharded_equals_single_device":
           True, "sliced_across_routes_equals_whole": True,
+          "plain_torch_generator_calls_per_query": raw_calls,
+          "of_which_chain_init": {"bn": bn_init, "mrf": mrf_init},
+          "plain_torch_generator_calls_resumed_100": {
+              "pigs": bn_resumed, "penguin": mrf_resumed},
           "legacy_asia_max_node_tv_vs_exact": tv, "legacy_asia_wall_ms": ms,
           "launches": launches, "expected_launches": want})
     check(tv <= 0.05, f"legacy sharded asia marginals off exact VE: {tv}")
@@ -1307,7 +1387,7 @@ def sharded_profile(torch, prog, seed, mesh, run_kw):
     kw = {**run_kw, "n_iters": PROFILE_SWEEPS, "burn_in": 0}
     wall, total, rows = run_profile(
         torch, lambda: prog.run_sharded(prng.key(seed), mesh, **kw))
-    k5 = sum(ms for name, ms in rows if "bn_sweep_kernel" in name)
+    k5 = sum(ms for name, ms in rows if BN_KERNEL in name)
     n = PROFILE_SWEEPS
     emit({"phase": "serve_sharded_profile", "per_sweep": True,
           "mesh": list(MESH), "sweeps": n, "wall_ms": wall / n,
@@ -1326,7 +1406,7 @@ def sweep_profile(torch, prog, ev, seed, run_kw):
     kw = {**run_kw, "n_iters": PROFILE_SWEEPS, "burn_in": 0}
     wall, total, rows = run_profile(
         torch, lambda: prog.run(prng.key(seed), evidence=ev, **kw))
-    k3 = sum(ms for name, ms in rows if "bn_sweep_kernel" in name)
+    k3 = sum(ms for name, ms in rows if BN_KERNEL in name)
     n = PROFILE_SWEEPS
     emit({"phase": "serve_profile", "per_sweep": True, "sweeps": n,
           "wall_ms": wall / n, "device_ms": total / n,
@@ -1450,7 +1530,7 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     cbn, fr, vals, p, key = _k3_setup(torch, "pigs", "lut_ky")
     k3 = lambda: bn_gibbs.bn_sweep(cbn, fr, vals, key, "lut_ky", p)
     ms_events = time_ms(torch, k3, 50)
-    ms = device_ms(torch, k3, 50, "bn_sweep_kernel")
+    ms = device_ms(torch, k3, 50, BN_KERNEL)
     plain = time_ms(torch, lambda: _k3_twin(cbn, fr, vals, key, "lut_ky", p),
                     2)
     with WalkBits() as walks:
@@ -1557,7 +1637,8 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     emit({"phase": "timing_pigs_shapes", "rows": n_rows, "bins": p.v_max,
           **pigs})
     rows.append(timing_mrf(torch, mrf_launches, k4_err, per_call))
-    rows.extend(timing_sharded(torch, sharded_launches, k5_err, k6_err))
+    rows.extend(timing_sharded(torch, sharded_launches, k5_err, k6_err,
+                               per_call))
     emit({"kernels": rows})
 
 
@@ -1611,7 +1692,7 @@ def timing_mrf(torch, launches: dict, k4_err: dict,
         int_ms = hash_ms(calls, per_call)
         bms, by = bound(moved, ops, FP32_FLOPS, int_ms)
         shapes[name] = {
-            "ms": device_ms(torch, k4, 50, "mrf_half_step_kernel"),
+            "ms": device_ms(torch, k4, 50, MRF_KERNEL),
             "ms_per_call_events": time_ms(torch, k4, 50),
             "plain_ms": time_ms(torch, twin, 2), "bound_ms": bms,
             "bound_by": by, "bytes": moved, "ops": ops,
@@ -1656,11 +1737,17 @@ def timing_mrf(torch, launches: dict, k4_err: dict,
     }
 
 
-def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict):
-    """K5 over the 32 launches of one pigs sweep and K6 over the 8 launches
-    of one Penguin half-step, both on a (2, 4) mesh at 1,024 chains; times
-    and bounds per launch (averaged over the sweep's or half-step's
-    launches).  Returns K5's and K6's rows of the kernels line."""
+def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict,
+                   per_call: dict):
+    """K5 per round launch over every position of a pigs sweep on the
+    (2, 4) mesh, and K6 per half-step launch over every slab of Penguin,
+    at 1,024 chains: kernel device time, time per call, the twin's time
+    (with the key's words generated, as the function's input is the key)
+    and the bound (bytes: values or labels read once, the node positions'
+    planes or the labels written once; threefry calls the twins' walks
+    need, at the SASS's instructions).  Then one pigs sharded sweep and one
+    Penguin sharded half-step by part (`sharded_parts`).  Returns K5's and
+    K6's rows of the kernels line."""
     from repro_torch import prng
     from repro_torch.core import distributed
     from repro_torch.core import ky as ky_core
@@ -1670,46 +1757,46 @@ def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict):
     dev = torch.device(DEVICE)
     rows = []
 
-    # K5: every (round, chain block, node position) of one pigs sweep
+    # K5: the rounds of one pigs sweep, one launch each
     cbn, sfr, vals = _sharded_bn(torch, "pigs")
     p = bn_gibbs.sweep_params(cbn, "lut_ky")
-    b_loc = CHAINS // MESH[0]
-    words = [ky_core.random_words(k, (CHAINS * nc,), p.n_words,
-                                  dev).reshape(-1)
-             for k, nc in zip(prng.split(prng.key(2), len(sfr.n_c)),
-                              sfr.n_c)]
-    calls = [(d, r, ci * b_loc) for r in range(len(sfr.n_c))
-             for ci in range(MESH[0]) for d in range(MESH[1])]
+    key = prng.key(2)
+    n = len(sfr.n_c)
 
-    def sweep(kernel):
-        for d, r, c0 in calls:
-            kernel(cbn, sfr, d, r, vals[c0:c0 + b_loc], words[r], c0,
-                   "lut_ky", p)
+    def k5_sweep():
+        for r in range(n):
+            bn_gibbs.fused_color_round_mesh(cbn, sfr, r, vals, key, "lut_ky",
+                                            p, MESH[0])
 
-    n = len(calls)
-    ms_events = time_ms(torch, lambda: sweep(bn_gibbs.fused_color_round),
-                        20) / n
-    ms = device_ms(torch, lambda: sweep(bn_gibbs.fused_color_round), 20,
-                   "bn_sweep_kernel")
-    plain = time_ms(torch, lambda: sweep(bn_gibbs.fused_color_round_ref),
-                    2) / n
-    # per launch: the owned rows' words, the block's values read and
-    # written once, the position's table slice; the arena and LUT once
-    owned = sum(sfr.n_own[d][r] for d, r, _ in calls)
+    def twin_sweep():
+        for r in range(n):
+            _k5_twin_round(torch, cbn, sfr, r, vals, key, "lut_ky", p)
+
+    ms_events = time_ms(torch, k5_sweep, 20) / n
+    ms = device_ms(torch, k5_sweep, 20, BN_KERNEL)
+    plain = time_ms(torch, twin_sweep, 2) / n
+    with WalkBits() as walks:
+        twin_sweep()
+    # per launch: the values read once, each node position's plane written
+    # once, the position tables of one round, the arena and LUT; the
+    # factor sums' float ops; the threefry calls the owned rows' walks need
     table = nbytes(sfr.nodes, sfr.cards, sfr.base, sfr.stride,
-                   sfr.scope_var, sfr.is_self, sfr.word_pos) // (
-        MESH[1] * len(sfr.n_c))
-    moved = (b_loc * owned * p.n_words * 4
-             + n * (2 * b_loc * cbn.n_nodes * 4 + table
-                    + nbytes(cbn.log_flat, cbn.exp_table))) / n
-    flops = b_loc * owned * sfr.f_max * p.v_max / n
-    bms, by = bound(moved, flops)
+                   sfr.scope_var, sfr.is_self, sfr.word_pos) // n
+    moved = ((1 + MESH[1]) * nbytes(vals) + table
+             + nbytes(cbn.log_flat, cbn.exp_table))
+    owned_rows = CHAINS * sum(sfr.n_c) / n
+    flops = owned_rows * sfr.f_max * p.v_max
+    int_ms = hash_ms(walks.threefry_calls / n, per_call)
+    bms, by = bound(moved, flops, FP32_FLOPS, int_ms)
     emit({"phase": "timing_k5", "model": "pigs", "mesh": list(MESH),
           "launches_timed": n, "ms": ms and ms / n,
           "ms_per_call_events": ms_events, "plain_ms": plain,
-          "bound_ms": bms, "bound_by": by, "bytes_per_launch": moved})
+          "bound_ms": bms, "bound_by": by, "bytes_per_launch": moved,
+          "threefry_calls_per_launch": walks.threefry_calls / n,
+          "threefry_bound_ms": int_ms})
     rows.append({
-        "name": "K5 fused_color_round (pigs, (2, 4) mesh, B=1024, lut_ky)",
+        "name": "K5 fused_color_round_mesh (pigs, one round on every "
+                "position of a (2, 4) mesh, B=1024, lut_ky)",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bn_gibbs.cu",
         "replaces": "src/repro/kernels/bn_gibbs.py:316",
@@ -1717,69 +1804,169 @@ def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict):
         "max_abs_err": k5_err["pigs"],
         "ms": (ms / n) if ms else ms_events, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "ms_per_call_events": ms_events,
+        "ms_per_call_events": ms_events, "bytes": moved,
+        "threefry_calls": walks.threefry_calls / n,
+        "threefry_bound_ms": int_ms,
     })
 
-    # K6: every position's slab of one Penguin half-step
+    # K6: one Penguin half-step over every slab, one launch
     tab, spec = exp_lut(dev)
     mrf, _, ev = _mrf_model(torch, "penguin")
-    n_c, n_g = MESH
-    b_loc, h_loc = CHAINS // n_c, mrf.height // n_g
-    v = mrf.n_labels
+    n_g = MESH[1]
+    h_loc, v = mrf.height // n_g, mrf.n_labels
     labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width), 0, v,
                           dev)
     p = mrf_gibbs.half_step_params(mrf)
-    words = mrf_gibbs.round_words(mrf, prng.key(2), CHAINS, p, dev)
     up, down = distributed._halo_exchange(labels, n_g)
-    out = torch.empty_like(labels)
-    slabs = [(slice(ci * b_loc, (ci + 1) * b_loc),
-              slice(gi * h_loc, (gi + 1) * h_loc), gi)
-             for ci in range(n_c) for gi in range(n_g)]
+    k6 = lambda: mrf_gibbs.mrf_halo_half_step(mrf, labels, up, down, 0, ev,
+                                              key, 0, tab, spec, p)
 
-    def half_step(kernel, **kw):
-        # as the engine calls K6: each slab written into one output tensor
-        for cs, rs, gi in slabs:
-            kernel(mrf, labels[cs, rs], up[gi, cs], down[gi, cs],
-                   gi * h_loc, ev[rs], words[cs, rs], 0, tab, spec, p,
-                   **{k: t[cs, rs] for k, t in kw.items()})
+    def twin():
+        words = mrf_gibbs.round_words(mrf, key, CHAINS, p, dev)
+        return [mrf_gibbs.mrf_halo_half_step_ref(
+            mrf, labels[:, g * h_loc:(g + 1) * h_loc], up[g], down[g],
+            g * h_loc, ev[g * h_loc:(g + 1) * h_loc],
+            words[:, g * h_loc:(g + 1) * h_loc], 0, tab, spec, p)
+            for g in range(n_g)]
 
-    n = len(slabs)
-    k6 = lambda: half_step(mrf_gibbs.mrf_halo_half_step, out=out)
-    ms_events = time_ms(torch, k6, 50) / n
-    ms = device_ms(torch, k6, 50, "mrf_half_step_kernel")
-    plain = time_ms(torch, lambda: half_step(
-        mrf_gibbs.mrf_halo_half_step_ref), 2) / n
-    # per launch: the slab's active words, its labels read and written
-    # once, its two halo rows per chain, its evidence rows and the LUT;
-    # operations counted as for K4
+    ms_events = time_ms(torch, k6, 50)
+    ms = device_ms(torch, k6, 50, MRF_KERNEL)
+    plain = time_ms(torch, twin, 2)
+    # the labels read and written once, the halo rows, evidence and LUT;
+    # operations and threefry calls counted as for K4
     active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
     n_active = CHAINS * int(active.sum())
-    w = mrf_gibbs.site_weights(mrf, labels, ev, tab, spec)[:, active]
-    steps = float(ky_core.ky_sample_fast(
-        w.reshape(-1, v), words[:, active].reshape(-1, p.n_words),
-        n_bins=v, precision=p.precision)[1]["bits_used"].sum())
-    moved = (n_active * p.n_words * 4 + 2 * nbytes(labels)
-             + nbytes(up, down) + n_c * nbytes(ev) + n * nbytes(tab)) / n
-    ops = (n_active * v * 16 + steps * (4 * (v + 1) + 8)) / n
-    bms, by = bound(moved, ops)
+    words = mrf_gibbs.round_words(mrf, key, CHAINS, p, dev)
+    w = torch.cat([mrf_gibbs.site_weights(
+        mrf, labels[:, g * h_loc:(g + 1) * h_loc], ev[g * h_loc:(g + 1) *
+                                                       h_loc], tab, spec,
+        up[g], down[g]) for g in range(n_g)], dim=1)[:, active]
+    bits = ky_core.ky_sample_fast(
+        w.reshape(-1, v), words[:, active].reshape(-1, p.n_words), n_bins=v,
+        precision=p.precision)[1]["bits_used"]
+    del words
+    steps = float(bits.sum())
+    calls = int(((bits.long() + 31) // 32).sum())
+    moved = 2 * nbytes(labels) + nbytes(up, down, ev, tab)
+    ops = n_active * v * 16 + steps * (4 * (v + 1) + 8)
+    int_ms = hash_ms(calls, per_call)
+    bms, by = bound(moved, ops, FP32_FLOPS, int_ms)
     emit({"phase": "timing_k6", "model": "penguin", "mesh": list(MESH),
-          "slab_rows": h_loc, "launches_timed": n, "ms": ms and ms / n,
-          "ms_per_call_events": ms_events, "plain_ms": plain,
-          "bound_ms": bms, "bound_by": by, "bytes_per_launch": moved,
-          "ops_per_launch": ops})
+          "slab_rows": h_loc, "ms": ms, "ms_per_call_events": ms_events,
+          "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+          "bytes_per_launch": moved, "ops_per_launch": ops,
+          "threefry_calls": calls, "threefry_bound_ms": int_ms})
     rows.append({
-        "name": "K6 mrf_halo_half_step (penguin 16-row slabs, (2, 4) mesh, "
-                "B=1024)",
+        "name": "K6 mrf_halo_half_step (penguin, every 16-row slab of a "
+                "(2, 4) mesh, B=1024)",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mrf_gibbs.cu",
         "replaces": "src/repro/kernels/mrf_gibbs.py:280",
         "launches": launches["mrf_halo_half_step"],
         "max_abs_err": max(k6_err.values()),
-        "ms": (ms / n) if ms else ms_events, "plain_ms": plain,
+        "ms": ms or ms_events, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "ms_per_call_events": ms_events,
+        "ms_per_call_events": ms_events, "bytes": moved,
+        "threefry_calls": calls, "threefry_bound_ms": int_ms,
     })
+    sharded_parts(torch, cbn, sfr, vals, mrf, ev, labels)
     return rows
+
+
+def sharded_parts(torch, cbn, sfr, vals, mrf, ev, labels) -> None:
+    """One pigs sweep and one Penguin half-step of the fused sharded
+    engines on the (2, 4) mesh at 1,024 chains, by part.  `loop_*`: a
+    query through `run_sharded(fused=True)` (pigs: histogram every sweep;
+    Penguin: per iteration of two half-steps), wall and host issue time per
+    sweep or iteration (`per_sweep`) and the card's busy share
+    (torch.profiler, same slope).  `round_*` / `half_step_*`: one
+    round (K5 launch + psum merge) or half-step (halo exchange + K6
+    launch) back to back: wall (CUDA events), host issue time, device
+    time.  Parts: host and device time of the K5 wrapper, the psum merge
+    (`_psum_merge`), the key split and the histogram; of the halo exchange
+    (`_halo_exchange`) and the K6 wrapper."""
+    from repro_torch import prng
+    from repro_torch.compile.program import compile_graph
+    from repro_torch.core import distributed
+    from repro_torch.core.graphs import bn_repository_replica
+    from repro_torch.kernels import bn_gibbs, mrf_gibbs
+
+    mesh = distributed.make_mesh(MESH, ("data", "model"), DEVICE)
+    # the programs `_sharded_bn` and the MRF queries compile
+    prog = compile_graph(bn_repository_replica("pigs"), device=cbn.device)
+    mprog = compile_graph(mrf, device=cbn.device)
+    key = prng.key(7)
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    n = len(sfr.n_c)
+    hist = torch.zeros((cbn.n_nodes, cbn.max_card), dtype=torch.int32,
+                       device=vals.device)
+    v_range = torch.arange(cbn.max_card, dtype=torch.int32,
+                           device=vals.device)
+    k5 = lambda: bn_gibbs.fused_color_round_mesh(cbn, sfr, 0, vals, key,
+                                                 "lut_ky", p, MESH[0])
+    stack = k5()
+    merge = lambda: distributed._psum_merge(vals, stack)
+    rnd = lambda: distributed._psum_merge(vals, k5())
+
+    def bn_loop(iters):
+        return prog.run_sharded(key, mesh, n_chains=CHAINS, n_iters=iters,
+                                burn_in=0, fused=True)
+
+    bn = {"rounds_per_sweep": n}
+    bn["loop_ms"], bn["loop_host_ms"] = per_sweep(torch, bn_loop)
+    bn["loop_device_ms"] = (device_busy_ms(torch, lambda: bn_loop(250), 1)
+                            - device_busy_ms(torch, lambda: bn_loop(50), 1)
+                            ) / 200
+    bn["loop_busy_share"] = bn["loop_device_ms"] / bn["loop_ms"]
+    bn["round_ms"] = time_ms(torch, rnd, 200)
+    bn["round_host_ms"] = host_ms(torch, rnd, 200)
+    bn["round_device_ms"] = device_busy_ms(torch, rnd, 200)
+    bn["host_k5_wrapper_ms"] = host_ms(torch, k5, 200)
+    bn["host_psum_merge_ms"] = host_ms(torch, merge, 200)
+    bn["host_key_split_ms"] = host_ms(torch, lambda: prng.split(key), 200)
+    bn["host_hist_ms"] = host_ms(torch, lambda: hist + (
+        vals[..., None] == v_range).sum(0, dtype=torch.int32), 200)
+    bn["device_k5_ms"] = device_ms(torch, k5, 200, BN_KERNEL)
+    bn["device_psum_merge_ms"] = device_busy_ms(torch, merge, 200)
+    emit({"phase": "timing_sharded_bn_sweep", "model": "pigs",
+          "mesh": list(MESH), "chains": CHAINS, **bn})
+
+    tab, spec = exp_lut(labels.device)
+    n_g = MESH[1]
+    exchange = lambda: distributed._halo_exchange(labels, n_g)
+    up, down = exchange()
+    k6 = lambda: mrf_gibbs.mrf_sharded_round_step(
+        mrf, labels, ev, key, 0, tab, spec, n_chain_pos=MESH[0],
+        n_row_pos=n_g, up_halo=up, down_halo=down)
+
+    def half_step():
+        u, d = exchange()
+        return mrf_gibbs.mrf_sharded_round_step(
+            mrf, labels, ev, key, 0, tab, spec, n_chain_pos=MESH[0],
+            n_row_pos=n_g, up_halo=u, down_halo=d)
+
+    def mrf_loop(iters):
+        return mprog.run_sharded(key, mesh, evidence=ev, n_chains=CHAINS,
+                                 n_iters=iters, fused=True)
+
+    m = {}
+    m["loop_ms_per_iteration"], m["loop_host_ms_per_iteration"] = per_sweep(
+        torch, mrf_loop)
+    m["loop_device_ms_per_iteration"] = (
+        device_busy_ms(torch, lambda: mrf_loop(250), 1)
+        - device_busy_ms(torch, lambda: mrf_loop(50), 1)) / 200
+    m["loop_busy_share"] = (m["loop_device_ms_per_iteration"]
+                            / m["loop_ms_per_iteration"])
+    m["half_step_ms"] = time_ms(torch, half_step, 200)
+    m["half_step_host_ms"] = host_ms(torch, half_step, 200)
+    m["half_step_device_ms"] = device_busy_ms(torch, half_step, 200)
+    m["half_step_busy_share"] = m["half_step_device_ms"] / m["half_step_ms"]
+    m["host_halo_exchange_ms"] = host_ms(torch, exchange, 200)
+    m["host_k6_wrapper_ms"] = host_ms(torch, k6, 200)
+    m["device_halo_exchange_ms"] = device_busy_ms(torch, exchange, 200)
+    m["device_k6_ms"] = device_ms(torch, k6, 200, MRF_KERNEL)
+    emit({"phase": "timing_sharded_mrf_half_step", "model": "penguin",
+          "mesh": list(MESH), "chains": CHAINS, **m})
 
 
 if __name__ == "__main__":

@@ -18,9 +18,9 @@ the same observations.  MRF programs take the evidence image and
 optional pixel pins at `run()`.
 
 `run_sharded()` executes across a `core.distributed.Mesh` of positions on
-the program's device: the fused route runs K5 / K6 per position and is
-bit-exact with `run(fused=True)`, the legacy route folds keys per
-position.  The reference's profiler hook is left out with the rest of
+the program's device: the fused route runs one K5 / K6 launch per round
+over every position and is bit-exact with `run(fused=True)`, the legacy
+route folds keys per position.  The reference's profiler hook is left out with the rest of
 `obs/profile.py`.
 """
 
@@ -420,8 +420,8 @@ class CompiledProgram:
         its named collective; backend="eager" is the escape hatch.
 
         `fused=True` runs K5 (BN colour round) / K6 (MRF slab half-step)
-        once per position per round, with halo exchanges or psum merges
-        between rounds.  The draw stream is bit-identical to
+        once per round over every position, with halo exchanges or psum
+        merges between rounds.  The draw stream is bit-identical to
         `run(fused=True)` (asserted at first sharded use), so `thin`,
         `carry_state`, `return_state` and `diagnostics` keep the `run()`
         contracts, and a query may be sliced across the route boundary and

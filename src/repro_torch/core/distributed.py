@@ -21,13 +21,16 @@ tensor operations between those blocks (`_halo_exchange`, `_psum_merge`).
 Every position of a round reads the pre-round state, and the merge or the
 assembly of slabs happens after all of them, as on the reference's mesh.
 
-Fused engines (`mrf_fused_sharded`, `bn_fused_sharded`): every round
-launches K6 (`kernels/mrf_gibbs.py` `mrf_halo_half_step`) or K5
-(`kernels/bn_gibbs.py` `fused_color_round`) once per position.  A round's
-words are generated once over the full grid or round and every position
-reads its own rows of them, so the draws, and the chain states, carries
-and quality accumulators, are bit-identical to the single-device fused run
-whatever the mesh.  The run loops are the single-device ones
+Fused engines (`mrf_fused_sharded`, `bn_fused_sharded`): every round is
+one launch over every position of the mesh, K6 (`kernels/mrf_gibbs.py`
+`mrf_halo_half_step`, over all row slabs, their rows -1 and h_loc from the
+exchanged halos) or K5 (`kernels/bn_gibbs.py` `fused_color_round_mesh`,
+each node position's update in its own plane of a stack that
+`_psum_merge` then sums).  The kernels hash each position's words from
+the round's key at the counters of the round's full stream, so the draws,
+and the chain states, carries and quality accumulators, are bit-identical
+to the single-device fused run whatever the mesh, and no word is made in
+plain torch.  The run loops are the single-device ones
 (`compile/backend.mrf_rounds_core`, `bayesnet.gibbs_run_loop`) with the
 sharded round in place of the single-device one.
 
@@ -49,7 +52,6 @@ from repro_torch import device as device_mod
 from repro_torch import prng
 from repro_torch.compile import backend as backend_mod
 from repro_torch.core import bayesnet as bnet
-from repro_torch.core import ky as ky_core
 from repro_torch.core import mrf as mrf_mod
 from repro_torch.core.draws import draw_from_logits
 from repro_torch.core.graphs import GridMRF
@@ -165,11 +167,11 @@ def _halo_exchange(
     return up, down
 
 
-def _psum_merge(vals: torch.Tensor, news: list[torch.Tensor]) -> torch.Tensor:
+def _psum_merge(vals: torch.Tensor, news: torch.Tensor) -> torch.Tensor:
     """`vals + psum(new_d - vals)` over the node positions: the disjoint
-    updates of one round merged in exact int32."""
-    delta = torch.stack([new - vals for new in news])
-    return vals + delta.sum(0, dtype=torch.int32)
+    updates of one round, the planes of the (n_node_pos, *vals.shape)
+    stack `news`, merged in exact int32."""
+    return vals + (news - vals).sum(0, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -374,11 +376,11 @@ def bn_gibbs_sharded(
             keys[ci], sub = prng.split(keys[ci])
             vals = blocks[ci]
             for sg, k in zip(sgroups, prng.split(sub, len(sgroups))):
-                vals = _psum_merge(vals, [
+                vals = _psum_merge(vals, torch.stack([
                     _shard_group_update(cbn, sg, d, vals, prng.fold_in(k, d),
                                         sampler)
                     for d in range(n_dev)
-                ])
+                ]))
             blocks[ci] = vals
             if t >= burn_in:
                 hist = hist + (vals[..., None] == v_range).sum(
@@ -387,7 +389,7 @@ def bn_gibbs_sharded(
 
 
 # ---------------------------------------------------------------------------
-# Fused sharded engines: K5 / K6 per position per round
+# Fused sharded engines: one K5 / K6 launch per round over every position
 # ---------------------------------------------------------------------------
 
 
@@ -408,7 +410,7 @@ def mrf_fused_sharded(
     grid_axis: str = "model",
 ):
     """The fused MRF schedule rounds on a mesh: per round, the halo
-    exchange, then one K6 launch per position over its row slab
+    exchange, then one K6 launch over every position's row slab
     (`mrf_gibbs.mrf_sharded_round_step`).  Bit-exact with
     `compile/backend.run_mrf_schedule(fused=True)`: the same init, key
     splits and per-site words, so an `MRFChainState` carry (labels, key,
@@ -457,6 +459,7 @@ class ShardedFusedRounds:
     is_self: torch.Tensor  # (n_dev, R, C, F, S) int32 (0/1)
     word_pos: torch.Tensor  # (n_dev, R, C) int32
     n_own_t: torch.Tensor  # (n_dev, R) int32
+    n_c_t: torch.Tensor  # (R,) int32 full node count per round
     n_own: tuple[tuple[int, ...], ...]  # (n_dev, R) on the host
     n_c: tuple[int, ...]  # full node count per round
     c_max: int  # local lane envelope
@@ -510,6 +513,7 @@ def build_sharded_fused_rounds(
         nodes=dev(nodes), cards=dev(cards), base=dev(base),
         stride=dev(stride), scope_var=dev(scope_var), is_self=dev(is_self),
         word_pos=dev(word_pos), n_own_t=dev(n_own),
+        n_c_t=dev(np.array([len(h["nodes"]) for h in host], np.int32)),
         n_own=tuple(tuple(int(k) for k in row) for row in n_own),
         n_c=tuple(len(h["nodes"]) for h in host),
         c_max=c_max, f_max=f_max, s_max=s_max,
@@ -535,20 +539,22 @@ def bn_fused_sharded(
     chain_axis: str = "data",
     node_axis: str = "model",
 ):
-    """The fused BN colour rounds on a mesh: per round, one K5 launch per
-    position over its chain block and owned nodes, all reading the round's
-    input values, then `_psum_merge` of the node positions' updates.
-    Bit-exact with `compile/backend.run_bn_schedule(fused=True)`: the loop
-    is `bayesnet.gibbs_run_loop` (init, key splits, burn-in/thinning gate,
-    histogram, quality accumulator), and each round's words are the
-    single-device round's stream, read by K5 at each owned node's place.
-    Returns what `gibbs_run_loop` returns."""
+    """The fused BN colour rounds on a mesh: per round, one K5 launch over
+    every position (each its chain block and owned nodes, all reading the
+    round's input values, `bn_gibbs.fused_color_round_mesh`), then
+    `_psum_merge` of the node positions' planes.  Bit-exact with
+    `compile/backend.run_bn_schedule(fused=True)`: the loop is
+    `bayesnet.gibbs_run_loop` (init, key splits, burn-in/thinning gate,
+    histogram, quality accumulator), and K5 derives each round's key from
+    the sweep's and hashes every owned row's words at its counters in the
+    single-device round's stream.  Returns what `gibbs_run_loop`
+    returns."""
     bn_gibbs.check_fused_sampler(sampler)
     _on_mesh_device(mesh, cbn.device, "net")
     groups = cbn.groups if groups is None else groups
     n_dev = mesh.axis_size(node_axis)
     n_chain_dev = mesh.axis_size(chain_axis)
-    b_loc = _split(n_chains, n_chain_dev, "n_chains")
+    _split(n_chains, n_chain_dev, "n_chains")
     if carry is not None and carry.vals.shape[0] != n_chains:
         raise ValueError(f"the carry holds {carry.vals.shape[0]} chains, "
                          f"not n_chains={n_chains}")
@@ -556,20 +562,9 @@ def bn_fused_sharded(
     sfr = build_sharded_fused_rounds(cbn, groups, n_dev, placement)
 
     def sweep(vals, sub):
-        for r, k in enumerate(prng.split(sub, len(sfr.n_c))):
-            # the round's full stream, generated once for every position
-            words = ky_core.random_words(
-                k, (n_chains * sfr.n_c[r],), p.n_words, vals.device
-            ).reshape(-1)
-            new = torch.empty_like(vals)
-            for ci in range(n_chain_dev):
-                cs = slice(ci * b_loc, (ci + 1) * b_loc)
-                new[cs] = _psum_merge(vals[cs], [
-                    bn_gibbs.fused_color_round(
-                        cbn, sfr, d, r, vals[cs], words, cs.start, sampler, p)
-                    for d in range(n_dev)
-                ])
-            vals = new
+        for r in range(len(sfr.n_c)):
+            vals = _psum_merge(vals, bn_gibbs.fused_color_round_mesh(
+                cbn, sfr, r, vals, sub, sampler, p, n_chain_dev))
         return vals
 
     vals = None

@@ -1,5 +1,5 @@
 """K3: one whole Bayes-net Gibbs sweep per launch, and K5: one colour
-round over a mesh position's owned nodes per launch, as CUDA kernels.
+round over every position of a mesh per launch, as CUDA kernels.
 
 Replaces the reference's Pallas kernel `fused_gibbs_sweep`
 (src/repro/kernels/bn_gibbs.py:236; body `bn_round_step` :137, layout
@@ -43,17 +43,22 @@ with `fused_round_words` (rounds in order, unpadded: round r's rows are
 `bn_sweep_ref` on them.  `fused_gibbs_sweep` is the reference's drop-in
 entry point.
 
-K5 (`fused_color_round`, twin `fused_color_round_ref`, counter
-`fused_color_round.launches`) replaces the reference's
-`fused_color_round` (src/repro/kernels/bn_gibbs.py:316), which the sharded
-engine `core/distributed.py` `bn_fused_sharded` launches once per round
-per mesh position.  It is K3's template with one round, over the
-position's slice of a `core.distributed.ShardedFusedRounds` table (owned
-nodes first, pad lanes after them with node id -1, never processed), and
-it reads each owned row's words straight from the round's full stream
-(generated with torch, once per round for every position), so its draws
-are the single-device round's.  Bound: bytes (the owned rows' words, and
-the position's values read and written once).
+K5 (`fused_color_round_mesh`, `fused_color_round`, twin
+`fused_color_round_ref`, counter `fused_color_round.launches` for both)
+replaces the reference's `fused_color_round`
+(src/repro/kernels/bn_gibbs.py:316), which the reference's sharded engine
+calls once per round on every mesh device.  It is K3's kernel over one
+round and a range of mesh positions of a `core.distributed.
+ShardedFusedRounds` table (owned nodes first, pad lanes after them with
+node id -1, never processed): `fused_color_round_mesh` launches it once per
+round over every position of the mesh, `fused_color_round` over one
+position (what a mesh over several cards launches per card).  Like K3 it
+takes the sweep's key and hashes each owned row's words itself, at the
+row's counters in the round's full stream (`owned_row_word_index`), so its
+draws are the single-device round's.  For CPU tensors both build the
+round's stream (`round_stream`) and run the twin per position, which reads
+its rows out of the stream.  Bound: bytes (each node position's values
+read and written once).
 """
 
 from __future__ import annotations
@@ -191,17 +196,29 @@ def row_word_index(chain: int, n_c: int, c: int, n_words: int) -> int:
     return (chain * n_c + c) * n_words
 
 
+def round_stream(
+    sfr, key: prng.Key, r: int, chain0: int, n_chains: int, n_words: int,
+    device,
+) -> torch.Tensor:
+    """Round r's stream of the sweep `key` over chains [chain0, chain0 +
+    n_chains), flattened: the rows (chain, node) of
+    `ky.random_words(round_key(key, r), (B * n_c_r,), W)` for those chains,
+    for `fused_round_words` (K3) or a `ShardedFusedRounds` table (K5).
+    The twins' input; K3 and K5 hash the rows' words themselves."""
+    nc = sfr.n_c[r]
+    return prng.bits(round_key(key, r), (n_chains * nc * n_words,), device,
+                     start=row_word_index(chain0, nc, 0, n_words))
+
+
 def fused_round_words(
     fr: BNFusedRounds, key: prng.Key, n_chains: int, n_words: int, device
 ) -> torch.Tensor:
     """Every round's packed words, rounds in order, unpadded: round r's
-    block is `ky.random_words(keys[r], (B * n_c_r,), W)` flattened.  The
-    twin's input; K3 hashes the same words itself."""
-    keys = prng.split(key, len(fr.n_c))
-    return torch.cat([
-        ky_core.random_words(k, (n_chains * nc,), n_words, device).reshape(-1)
-        for k, nc in zip(keys, fr.n_c)
-    ])
+    block is `ky.random_words(keys[r], (B * n_c_r,), W)` flattened, with
+    `keys = prng.split(key, R)`.  The twin's input; K3 hashes the same
+    words itself."""
+    return torch.cat([round_stream(fr, key, r, 0, n_chains, n_words, device)
+                      for r in range(len(fr.n_c))])
 
 
 def bn_round_step(
@@ -379,6 +396,18 @@ def fused_gibbs_sweep(
     return bn_sweep(cbn, fr, vals, key, sampler, p)
 
 
+def owned_row_word_index(
+    sfr, d: int, r: int, c: int, chain: int, n_words: int
+) -> int:
+    """The counter of word 0 of owned lane c of mesh position d in round r
+    of `sfr`, for the run's chain `chain`: `row_word_index` at the owned
+    node's place in the round's full group (`word_pos`) over the round's
+    full node count, so the row draws the single-device round's words.
+    K5 computes the same index (bn_gibbs.cu, 64-bit)."""
+    return row_word_index(chain, sfr.n_c[r], int(sfr.word_pos[d, r, c]),
+                          n_words)
+
+
 def _check_color_round(cbn, sfr, d, r, vals, words, chain0, sampler, p):
     check_fused_sampler(sampler)
     if vals.dtype != torch.int32 or vals.dim() != 2 or (
@@ -400,8 +429,11 @@ def fused_color_round_ref(
     cbn: CompiledBayesNet, sfr, d: int, r: int, vals: torch.Tensor,
     words: torch.Tensor, chain0: int, sampler: str, p: SweepParams,
 ) -> torch.Tensor:
-    """Plain torch twin of K5: `round_update` over position d's owned
-    nodes of round r, with their rows gathered out of the full stream."""
+    """Plain torch twin of K5 over one position: `round_update` over
+    position d's owned nodes of round r, with their rows gathered out of
+    `words`, round r's stream from chain 0 (at least up to the block's
+    chains), for the (b_loc, n) chain block `vals` whose first chain is
+    chain `chain0` of the stream."""
     _check_color_round(cbn, sfr, d, r, vals, words, chain0, sampler, p)
     k = sfr.n_own[d][r]
     wr = words.reshape(-1, sfr.n_c[r], p.n_words)[chain0:chain0 + len(vals)]
@@ -413,53 +445,108 @@ def fused_color_round_ref(
     )
 
 
-def fused_color_round(
-    cbn: CompiledBayesNet, sfr, d: int, r: int, vals: torch.Tensor,
-    words: torch.Tensor, chain0: int, sampler: str, p: SweepParams,
-) -> torch.Tensor:
-    """One colour round over mesh position d's owned nodes of round r of
-    the `ShardedFusedRounds` table `sfr`: K5 for CUDA tensors, the twin for
-    CPU tensors.  `vals` is the position's (b_loc, n) chain block, whose
-    first chain is chain `chain0` of the run; `words` is round r's full
-    stream, `ky.random_words(keys[r], (B * n_c_r,), W)` over all B chains.
-    Returns the block's new values; nodes the position does not own keep
-    theirs."""
-    _check_color_round(cbn, sfr, d, r, vals, words, chain0, sampler, p)
-    if vals.device.type == "cpu":
-        return fused_color_round_ref(cbn, sfr, d, r, vals, words, chain0,
-                                     sampler, p)
+def _check_keyed_round(cbn, sfr, r, vals, key, sampler):
+    _check_vals(cbn, vals, sampler)
+    if not isinstance(key, prng.Key):
+        raise TypeError(f"K5 draws from a prng.Key, got {type(key)}")
+    if not 0 <= r < len(sfr.n_c):
+        raise ValueError(f"no round {r} in the table")
+
+
+def _color_round(cbn, sfr, r, vals, key, sampler, p, *, chain_base,
+                 n_chain_pos, d0, n_node_pos) -> torch.Tensor:
+    """Launch K5 over node positions d0 .. d0 + n_node_pos - 1 and
+    n_chain_pos equal chain blocks of `vals` (chain `chain_base` first).
+    Returns the (n_node_pos, B, n) stack of the positions' new values."""
     tab = cbn.exp_table
     _lib.require_cuda(
-        "fused_color_round", vals, words, cbn.log_flat, tab, sfr.nodes,
-        sfr.cards, sfr.base, sfr.stride, sfr.scope_var, sfr.is_self,
-        sfr.word_pos, sfr.n_own_t,
+        "fused_color_round", vals, cbn.log_flat, tab, sfr.nodes, sfr.cards,
+        sfr.base, sfr.stride, sfr.scope_var, sfr.is_self, sfr.word_pos,
+        sfr.n_own_t, sfr.n_c_t,
     )
     b, n = vals.shape
     spec = cbn.exp_spec
-    cpc = chains_per_block(b, n, spec.size)
-    out = torch.empty_like(vals)
-    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
+    # blocks from the launch's total (chain, node position) pairs, so the
+    # grid fills the card as K3's does, however the mesh splits it
+    cpc = chains_per_block(n_node_pos * b, n, spec.size)
+    out = torch.empty((n_node_pos, b, n), dtype=torch.int32,
+                      device=vals.device)
+    P, I, U, L, F = _lib.PTR, _lib.INT, _lib.UINT, _lib.LONG, _lib.FLOAT
     fn = _lib.function(
         "bn_gibbs", "aia_bn_color_round",
-        [P, P, I, I, I, P, I, I, I, P, P, P, P, P, P, P, P, I, I, I, P, P, I,
-         F, F, I, I, I, I, I, P],
+        [P, P, L, I, I, I, I, I, I, I, I, P, P, I, I, I, P, P, P, P, P, P, P,
+         U, U, I, P, P, I, F, F, I, I, I, I, I, P],
     )
     with torch.cuda.device(vals.device):
         code = fn(
-            vals.data_ptr(), out.data_ptr(), b, n, cpc,
-            sfr.n_own_t[d, r].data_ptr(), sfr.c_max, sfr.f_max, sfr.s_max,
-            sfr.nodes[d, r].data_ptr(), sfr.cards[d, r].data_ptr(),
-            sfr.base[d, r].data_ptr(), sfr.stride[d, r].data_ptr(),
-            sfr.scope_var[d, r].data_ptr(), sfr.is_self[d, r].data_ptr(),
-            sfr.word_pos[d, r].data_ptr(), words.data_ptr(), chain0,
-            sfr.n_c[r], p.n_words, cbn.log_flat.data_ptr(), tab.data_ptr(),
-            spec.size, spec.x0, inv_dx(spec), p.v_max,
-            int(sampler == "exact_ky"), p.weight_bits, p.precision,
-            p.total_steps, _lib.stream_of(vals),
+            vals.data_ptr(), out.data_ptr(), chain_base, n_chain_pos,
+            b // n_chain_pos, d0, n_node_pos, n, cpc, len(sfr.n_c), r,
+            sfr.n_own_t.data_ptr(), sfr.n_c_t.data_ptr(), sfr.c_max,
+            sfr.f_max, sfr.s_max, sfr.nodes.data_ptr(),
+            sfr.cards.data_ptr(), sfr.base.data_ptr(),
+            sfr.stride.data_ptr(), sfr.scope_var.data_ptr(),
+            sfr.is_self.data_ptr(), sfr.word_pos.data_ptr(), key.k1, key.k2,
+            p.n_words, cbn.log_flat.data_ptr(), tab.data_ptr(), spec.size,
+            spec.x0, inv_dx(spec), p.v_max, int(sampler == "exact_ky"),
+            p.weight_bits, p.precision, p.total_steps, _lib.stream_of(vals),
         )
     _lib.check("bn_gibbs", code, "fused_color_round")
     fused_color_round.launches += 1
     return out
+
+
+def fused_color_round_mesh(
+    cbn: CompiledBayesNet, sfr, r: int, vals: torch.Tensor, key: prng.Key,
+    sampler: str, p: SweepParams, n_chain_pos: int,
+) -> torch.Tensor:
+    """Round r of the sweep `key` on every position of an (n_chain_pos x
+    n_node_pos) mesh, n_node_pos the table's positions: one K5 launch for
+    CUDA tensors; for CPU tensors the twin on `round_stream` per position.
+    `vals` is the run's (B, n) values, chain block ci = chains [ci * b_loc,
+    (ci + 1) * b_loc).  Every position reads the pre-round values.  Returns
+    the (n_node_pos, B, n) stack whose plane d holds every chain's values
+    after node position d's update (the owned nodes' new labels, the rest
+    as they were): the input of `distributed._psum_merge`."""
+    _check_keyed_round(cbn, sfr, r, vals, key, sampler)
+    b = vals.shape[0]
+    if n_chain_pos < 1 or b % n_chain_pos:
+        raise ValueError(f"{b} chains do not split over {n_chain_pos} "
+                         "chain positions")
+    n_node_pos = len(sfr.n_own)
+    if vals.device.type == "cpu":
+        words = round_stream(sfr, key, r, 0, b, p.n_words, vals.device)
+        b_loc = b // n_chain_pos
+        return torch.stack([torch.cat([
+            fused_color_round_ref(cbn, sfr, d, r, vals[c0:c0 + b_loc], words,
+                                  c0, sampler, p)
+            for c0 in range(0, b, b_loc)]) for d in range(n_node_pos)])
+    return _color_round(cbn, sfr, r, vals, key, sampler, p, chain_base=0,
+                        n_chain_pos=n_chain_pos, d0=0, n_node_pos=n_node_pos)
+
+
+def fused_color_round(
+    cbn: CompiledBayesNet, sfr, d: int, r: int, vals: torch.Tensor,
+    key: prng.Key, chain0: int, sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """Round r of the sweep `key` over mesh position d's owned nodes of the
+    `ShardedFusedRounds` table `sfr`: K5 over that one position for CUDA
+    tensors, the twin on `round_stream` for CPU tensors.  `vals` is the
+    position's (b_loc, n) chain block, whose first chain is chain `chain0`
+    of the run.  Returns the block's new values; nodes the position does
+    not own keep theirs."""
+    _check_keyed_round(cbn, sfr, r, vals, key, sampler)
+    if not 0 <= d < len(sfr.n_own):
+        raise ValueError(f"no position {d} in the table")
+    if chain0 < 0:
+        raise ValueError(f"chain0 {chain0} < 0")
+    if vals.device.type == "cpu":
+        words = round_stream(sfr, key, r, chain0, len(vals), p.n_words,
+                             vals.device)
+        return fused_color_round_ref(cbn, sfr, d, r, vals, words, 0, sampler,
+                                     p)
+    return _color_round(cbn, sfr, r, vals, key, sampler, p,
+                        chain_base=chain0, n_chain_pos=1, d0=d,
+                        n_node_pos=1)[0]
 
 
 fused_color_round.launches = 0

@@ -15,9 +15,9 @@
 //     even, roundf rounds half away from zero);
 //   * random words are the uint32 bit patterns of jax.random.bits; bit t
 //     of a row is (word[t / 32] >> (t % 32)) & 1.  A walk takes them from
-//     a row of int32 words in device memory (K1, K5, K6) or hashes them
+//     a row of int32 words in device memory (K1) or hashes them
 //     from the stream's key and the row's counters when it reaches them
-//     (K3, K4: `threefry2x32`, `jax_word`, `WordsFromKey`).
+//     (K3-K6: `threefry2x32`, `jax_word`, `WordsFromKey`).
 //
 // Distributions live in per-thread register arrays of a compile-time
 // capacity VCAP >= n_bins + 1 (bins plus the rejection bin); every loop

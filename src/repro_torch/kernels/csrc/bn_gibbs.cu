@@ -1,6 +1,8 @@
-// K3: one whole Bayes-net Gibbs sweep (every colour round) per launch.
+// K3: one whole Bayes-net Gibbs sweep (every colour round) per launch, and
+// K5: one colour round over every position of a mesh per launch.  Both are
+// the one kernel below, `bn_rounds_kernel`, launched over other ranges.
 //
-// Replaces the reference's Pallas kernel `fused_gibbs_sweep`
+// K3 replaces the reference's Pallas kernel `fused_gibbs_sweep`
 // (src/repro/kernels/bn_gibbs.py:236, body `bn_round_step` :137), which
 // inlines K2's `interp_eval` and K1's `preprocess_lanes`, `ddg_walk` and
 // `argmax_fallback`.  Per round, for every (chain, node) row: CPT-address
@@ -42,25 +44,36 @@
 // phase).  The gather/lerp/walk arithmetic is tens of integer and float
 // ops per row.
 //
-// K5: one colour round over one mesh position's owned nodes per launch.
-//
-// Replaces the reference's Pallas kernel `fused_color_round`
+// K5 replaces the reference's Pallas kernel `fused_color_round`
 // (src/repro/kernels/bn_gibbs.py:316), which runs the same `bn_round_step`
-// body as a grid=(1,) call over a shard's slice of one round; the sharded
-// engine (`core/distributed.py` `bn_fused_sharded`) launches it once per
-// round per position, between the psum merges.  It is the template below
-// with R = 1, words read from device memory (KEYED = false), and two
-// differences:
+// body as a grid=(1,) call over one shard's slice of one round; the
+// reference's sharded engine calls it on every device of its mesh between
+// the psum merges.  Here one launch runs round r on every position of a
+// (chain positions x node positions) mesh:
+//   * the position is the block's outer index and its chain block is split
+//     into blocks of `chains_per_block` chains; every block stages its
+//     chains' pre-round values, as every device of the reference reads its
+//     own pre-round copy;
 //   * the round table is the position's slice of `ShardedFusedRounds`,
-//     whose pad lanes trail the n_c owned lanes (node id -1, cards 0) and
-//     are never processed, as K3 never processes its rounds' pad lanes;
-//   * a row's words are not packed per shard: the kernel reads them from
-//     the round's full stream (B_total chains x word_nc nodes, generated
-//     once per round for every position) at chain word_chain0 + b and node
-//     word_pos[c], the owned node's place in the round's full group.  The
-//     reference gathers the same rows with dynamic_slice and take.
-// Bound: bytes.  A launch reads the owned rows' words (b_loc x n_c rows of
-// n_words) and reads and writes the position's (b_loc, n) values once.
+//     (positions, rounds, lanes, ...), whose pad lanes trail the n_own
+//     owned lanes and are never processed;
+//   * a row draws from round r's key of the sweep key, like K3's, at the
+//     counters of the round's full stream: `owned_row_word_index`
+//     (bn_gibbs.py), the global chain times the round's full node count
+//     n_c[r] plus the owned node's place `word_pos` in the full group.  So
+//     the draws are the single-device round's, whatever the mesh;
+//   * each node position writes its chains' full values into its own plane
+//     of an (n_node_pos, B, n) stack: the collective stays outside the
+//     kernel (`distributed._psum_merge` sums the planes' deltas), where a
+//     mesh over several cards puts a cross-card all_reduce.
+// Bound: bytes.  Each node position reads and writes the (B, n) values
+// once (4 x 3.6 MB for pigs on a (2, 4) mesh); the hash is a quarter of
+// K3's (one round's rows).
+//
+// K3 is this kernel over one position (the whole batch) and all R rounds
+// of an unsplit table; K5 over one round and a range of positions.  The
+// template flag MESH compiles the position arithmetic out of K3's
+// instances, so K3 runs the code it ran before K5 shared it.
 
 #include "aia_common.cuh"
 
@@ -68,25 +81,26 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-struct SweepArgs {
-  const int* vals_in;
-  int* vals_out;
-  int B, n, chains_per_block, R;
-  const int* n_c;  // (R,) real node count per round
+struct RoundsArgs {
+  const int* vals_in;  // (n_chain_pos * b_loc, n): the launch's chains
+  int* vals_out;       // (n_node_pos, n_chain_pos * b_loc, n)
+  long long chain_base;  // global chain of vals_in's first row (counters)
+  int n_chain_pos, b_loc, d0, n_node_pos, n, chains_per_block;
+  int blocks_per_pos;
+  // tables of n_dev positions x R rounds; rounds r0 .. r0 + n_r - 1 run
+  int R, r0, n_r;
+  const int* n_rows;  // (n_dev, R) lanes processed per position and round
+  const int* n_full;  // (R,) the round's full node count (counter stride)
   int c_max, f_max, s_max;
-  const int* nodes;    // (R, c_max)
-  const int* cards;    // (R, c_max)
-  const int* base;     // (R, c_max * f_max)
-  const int* stride;   // (R, c_max * f_max * s_max)
-  const int* scope;    // (R, c_max * f_max * s_max)
-  const int* is_self;  // (R, c_max * f_max * s_max)
-  // K3 (KEYED): the sweep's key; round r draws from prng.split(key, R)[r]
-  unsigned k1, k2;
-  // K5 (not KEYED): the round's full stream of words, row
-  // (word_chain0 + chain) * word_nc + word_pos[c]
-  const int* words;
-  const int* word_pos;  // (c_max,)
-  int word_chain0, word_nc;
+  const int* nodes;     // (n_dev, R, c_max)
+  const int* cards;     // (n_dev, R, c_max)
+  const int* base;      // (n_dev, R, c_max * f_max)
+  const int* stride;    // (n_dev, R, c_max * f_max * s_max)
+  const int* scope;     // (n_dev, R, c_max * f_max * s_max)
+  const int* is_self;   // (n_dev, R, c_max * f_max * s_max)
+  const int* word_pos;  // (n_dev, R, c_max) lane's place in the full
+                        // group (K5; K3's lane is its place)
+  unsigned k1, k2;      // the sweep's key; round r draws from (0, r)'s hash
   int n_words;
   const float* logf;  // (T,) log-CPT arena
   const float* tab;   // (lut_size,) exp-weight LUT
@@ -95,156 +109,176 @@ struct SweepArgs {
   int v_max, exact, weight_bits, precision, total_steps;
 };
 
-template <int VCAP, bool KEYED>
-__global__ void bn_sweep_kernel(SweepArgs a) {
+// One (chain, lane) row of one round: gather, factor sum, weights, KY walk.
+template <int VCAP>
+__device__ __forceinline__ int draw_row(const RoundsArgs& a, const float* tab,
+                                        const int* vrow, long long t, int c,
+                                        const aia::WordsFromKey& words) {
+  const int fs = a.f_max * a.s_max;
+  const int* base = a.base + t * a.c_max * a.f_max;
+  const int* stride = a.stride + t * a.c_max * fs;
+  const int* scope = a.scope + t * a.c_max * fs;
+  const int* is_self = a.is_self + t * a.c_max * fs;
+  const int card = __ldg(a.cards + t * a.c_max + c);
+
+  // --- flat-CPT gather + f32 factor sum, left to right ---
+  float logp[VCAP];
+#pragma unroll
+  for (int v = 0; v < VCAP; ++v) logp[v] = 0.0f;
+  for (int f = 0; f < a.f_max; ++f) {
+    int fixed = __ldg(base + c * a.f_max + f);
+    int self_stride = 0;
+    const int slot = (c * a.f_max + f) * a.s_max;
+    for (int s = 0; s < a.s_max; ++s) {
+      const int st = __ldg(stride + slot + s);
+      if (st == 0) continue;  // padded scope slot: adds stride 0
+      if (__ldg(is_self + slot + s))
+        self_stride += st;
+      else
+        fixed += st * vrow[__ldg(scope + slot + s)];
+    }
+#pragma unroll
+    for (int v = 0; v < VCAP; ++v) {
+      if (v < card) {
+        float x = __ldg(a.logf + fixed + self_stride * v);
+        logp[v] = (f == 0) ? x : __fadd_rn(logp[v], x);
+      }
+    }
+  }
+  float mx = kNegInf;
+#pragma unroll
+  for (int v = 0; v < VCAP; ++v) {
+    if (v < a.v_max) {
+      if (v >= card) logp[v] = kNegInf;
+      mx = fmaxf(mx, logp[v]);
+    }
+  }
+
+  // --- C2: LUT-exp (or the exact-exp ablation) -> integer weights ---
+  int w[VCAP];
+  if (!a.exact) {
+#pragma unroll
+    for (int v = 0; v < VCAP; ++v) {
+      float y = aia::lut_interp(__fsub_rn(logp[v], mx), tab, a.x0, a.inv_dx,
+                                a.lut_size);
+      w[v] = (v < a.v_max) ? (int)fmaxf(rintf(y), 0.0f) : 0;
+    }
+  } else {
+    const float top = (float)((1 << a.weight_bits) - 1);
+    float p[VCAP];
+    float pmax = 0.0f;
+#pragma unroll
+    for (int v = 0; v < VCAP; ++v) {
+      p[v] = (v < a.v_max) ? expf(__fsub_rn(logp[v], mx)) : 0.0f;
+      pmax = fmaxf(pmax, p[v]);
+    }
+    const float scale = __fdiv_rn(top, fmaxf(pmax, 1e-30f));
+#pragma unroll
+    for (int v = 0; v < VCAP; ++v) {
+      float q = fminf(fmaxf(rintf(__fmul_rn(p[v], scale)), 0.0f), top);
+      w[v] = (v < a.v_max) ? (int)q : 0;
+    }
+  }
+
+  // --- C1: KY walk over v_max bins + the rejection bin ---
+  int m[VCAP];
+  aia::ky_prepare<VCAP>(w, a.v_max, a.precision, m);
+  int bits, rejs;
+  bool done;
+  int label = aia::ddg_walk<VCAP>(m, words, a.v_max, a.precision,
+                                  a.total_steps, bits, rejs, done);
+  if (!done) label = aia::argmax_fallback<VCAP>(w, a.v_max);
+  return label;
+}
+
+template <int VCAP, bool MESH>
+__global__ void bn_rounds_kernel(RoundsArgs a) {
   extern __shared__ int smem[];
   int* vals = smem;                                        // chains x n
   float* tab = (float*)(smem + a.chains_per_block * a.n);  // lut_size
-  const int chain0 = blockIdx.x * a.chains_per_block;
-  const int nch = min(a.chains_per_block, a.B - chain0);
-  const int* vin = a.vals_in + (long long)chain0 * a.n;
+  // block -> (position, chain block); a position is (chain pos, node pos)
+  const int pos = MESH ? blockIdx.x / a.blocks_per_pos : 0;
+  const int inner = MESH ? blockIdx.x - pos * a.blocks_per_pos : blockIdx.x;
+  const int ci = MESH ? pos / a.n_node_pos : 0;
+  const int dd = MESH ? pos - ci * a.n_node_pos : 0;
+  const int d = MESH ? a.d0 + dd : 0;
+  const int first = inner * a.chains_per_block;  // within the position
+  const int nch = min(a.chains_per_block, a.b_loc - first);
+  const long long row0 = (long long)ci * a.b_loc + first;  // launch row
+  const int* vin = a.vals_in + row0 * a.n;
   for (int i = threadIdx.x; i < nch * a.n; i += blockDim.x) vals[i] = vin[i];
   for (int i = threadIdx.x; i < a.lut_size; i += blockDim.x) tab[i] = a.tab[i];
   __syncthreads();
 
-  const int fs = a.f_max * a.s_max;
-  for (int r = 0; r < a.R; ++r) {
-    const int nc = a.n_c[r];
+  for (int r = a.r0; r < a.r0 + a.n_r; ++r) {
+    const long long t = (long long)d * a.R + r;  // the table's (d, r)
+    const int nc = a.n_rows[t];
+    const unsigned long long n_full = MESH ? (unsigned)a.n_full[r] : nc;
     // bn_gibbs.round_key: prng.split(key, R)[r] hashes the pair (0, r)
-    uint2 rk = make_uint2(0u, 0u);
-    if constexpr (KEYED) rk = aia::threefry2x32(a.k1, a.k2, 0u, (unsigned)r);
-    const int* nodes = a.nodes + (long long)r * a.c_max;
-    const int* cards = a.cards + (long long)r * a.c_max;
-    const int* base = a.base + (long long)r * a.c_max * a.f_max;
-    const int* stride = a.stride + (long long)r * a.c_max * fs;
-    const int* scope = a.scope + (long long)r * a.c_max * fs;
-    const int* is_self = a.is_self + (long long)r * a.c_max * fs;
+    const uint2 rk = aia::threefry2x32(a.k1, a.k2, 0u, (unsigned)r);
+    const int* nodes = a.nodes + t * a.c_max;
+    const int* wpos = MESH ? a.word_pos + t * a.c_max : nullptr;
     for (int row = threadIdx.x; row < nch * nc; row += blockDim.x) {
       const int b = row / nc;
       const int c = row - b * nc;
       int* vrow = vals + b * a.n;
-      const int card = cards[c];
-
-      // --- flat-CPT gather + f32 factor sum, left to right ---
-      float logp[VCAP];
-#pragma unroll
-      for (int v = 0; v < VCAP; ++v) logp[v] = 0.0f;
-      for (int f = 0; f < a.f_max; ++f) {
-        int fixed = __ldg(base + c * a.f_max + f);
-        int self_stride = 0;
-        const int slot = (c * a.f_max + f) * a.s_max;
-        for (int s = 0; s < a.s_max; ++s) {
-          const int st = __ldg(stride + slot + s);
-          if (st == 0) continue;  // padded scope slot: adds stride 0
-          if (__ldg(is_self + slot + s))
-            self_stride += st;
-          else
-            fixed += st * vrow[__ldg(scope + slot + s)];
-        }
-#pragma unroll
-        for (int v = 0; v < VCAP; ++v) {
-          if (v < card) {
-            float x = __ldg(a.logf + fixed + self_stride * v);
-            logp[v] = (f == 0) ? x : __fadd_rn(logp[v], x);
-          }
-        }
-      }
-      float mx = kNegInf;
-#pragma unroll
-      for (int v = 0; v < VCAP; ++v) {
-        if (v < a.v_max) {
-          if (v >= card) logp[v] = kNegInf;
-          mx = fmaxf(mx, logp[v]);
-        }
-      }
-
-      // --- C2: LUT-exp (or the exact-exp ablation) -> integer weights ---
-      int w[VCAP];
-      if (!a.exact) {
-#pragma unroll
-        for (int v = 0; v < VCAP; ++v) {
-          float y = aia::lut_interp(__fsub_rn(logp[v], mx), tab, a.x0, a.inv_dx,
-                                    a.lut_size);
-          w[v] = (v < a.v_max) ? (int)fmaxf(rintf(y), 0.0f) : 0;
-        }
-      } else {
-        const float top = (float)((1 << a.weight_bits) - 1);
-        float p[VCAP];
-        float pmax = 0.0f;
-#pragma unroll
-        for (int v = 0; v < VCAP; ++v) {
-          p[v] = (v < a.v_max) ? expf(__fsub_rn(logp[v], mx)) : 0.0f;
-          pmax = fmaxf(pmax, p[v]);
-        }
-        const float scale = __fdiv_rn(top, fmaxf(pmax, 1e-30f));
-#pragma unroll
-        for (int v = 0; v < VCAP; ++v) {
-          float q = fminf(fmaxf(rintf(__fmul_rn(p[v], scale)), 0.0f), top);
-          w[v] = (v < a.v_max) ? (int)q : 0;
-        }
-      }
-
-      // --- C1: KY walk over v_max bins + the rejection bin ---
-      int m[VCAP];
-      aia::ky_prepare<VCAP>(w, a.v_max, a.precision, m);
-      int bits, rejs, label;
-      bool done;
-      if constexpr (KEYED) {
-        // bn_gibbs.row_word_index: ((chain0 + b) * n_c[r] + c) * n_words
-        const aia::WordsFromKey src{
-            rk.x, rk.y,
-            ((unsigned long long)(chain0 + b) * nc + c) * a.n_words};
-        label = aia::ddg_walk<VCAP>(m, src, a.v_max, a.precision,
-                                    a.total_steps, bits, rejs, done);
-      } else {
-        const long long wr =
-            (long long)(a.word_chain0 + chain0 + b) * a.word_nc +
-            __ldg(a.word_pos + c);
-        const aia::WordsFromMemory src{a.words + wr * a.n_words};
-        label = aia::ddg_walk<VCAP>(m, src, a.v_max, a.precision,
-                                    a.total_steps, bits, rejs, done);
-      }
-      if (!done) label = aia::argmax_fallback<VCAP>(w, a.v_max);
-      vrow[nodes[c]] = label;
+      // bn_gibbs.row_word_index (K3) / owned_row_word_index (K5):
+      // (global chain * n_c[r] + the lane's place in the full group)
+      // * n_words, 64-bit
+      const unsigned long long chain =
+          MESH ? (unsigned long long)(a.chain_base + row0 + b) : row0 + b;
+      const unsigned long long place = MESH ? (unsigned)__ldg(wpos + c) : c;
+      const aia::WordsFromKey src{rk.x, rk.y,
+                                  (chain * n_full + place) * a.n_words};
+      vrow[nodes[c]] = draw_row<VCAP>(a, tab, vrow, t, c, src);
     }
     __syncthreads();
   }
 
-  int* vout = a.vals_out + (long long)chain0 * a.n;
+  const long long plane = (long long)a.n_chain_pos * a.b_loc * a.n;
+  int* vout = a.vals_out + dd * plane + row0 * a.n;
   for (int i = threadIdx.x; i < nch * a.n; i += blockDim.x) vout[i] = vals[i];
 }
 
-template <int VCAP, bool KEYED>
-int launch(const SweepArgs& a, cudaStream_t stream) {
+template <int VCAP, bool MESH>
+int launch(const RoundsArgs& a, cudaStream_t stream) {
   const int threads = 256;
-  const int blocks = (a.B + a.chains_per_block - 1) / a.chains_per_block;
+  const long long blocks =
+      (long long)a.n_chain_pos * a.n_node_pos * a.blocks_per_pos;
+  if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(int) * (size_t)a.chains_per_block * a.n +
       sizeof(float) * (size_t)a.lut_size;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        bn_sweep_kernel<VCAP, KEYED>,
+        bn_rounds_kernel<VCAP, MESH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bn_sweep_kernel<VCAP, KEYED><<<blocks, threads, smem, stream>>>(a);
+  bn_rounds_kernel<VCAP, MESH>
+      <<<(unsigned)blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool KEYED>
-int dispatch(const SweepArgs& a, cudaStream_t s) {
+template <bool MESH>
+int dispatch(RoundsArgs& a, cudaStream_t s) {
+  if (a.chains_per_block < 1 || a.b_loc < 1 || a.n_chain_pos < 1 ||
+      a.n_node_pos < 1)
+    return (int)cudaErrorInvalidValue;
+  a.blocks_per_pos = (a.b_loc + a.chains_per_block - 1) / a.chains_per_block;
   const int lanes = a.v_max + 1;
-  if (lanes <= 4) return launch<4, KEYED>(a, s);
-  if (lanes <= 8) return launch<8, KEYED>(a, s);
-  if (lanes <= 16) return launch<16, KEYED>(a, s);
-  if (lanes <= 32) return launch<32, KEYED>(a, s);
-  if (lanes <= 128) return launch<128, KEYED>(a, s);
+  if (lanes <= 4) return launch<4, MESH>(a, s);
+  if (lanes <= 8) return launch<8, MESH>(a, s);
+  if (lanes <= 16) return launch<16, MESH>(a, s);
+  if (lanes <= 32) return launch<32, MESH>(a, s);
+  if (lanes <= 128) return launch<128, MESH>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// K3: one sweep of R rounds, drawing from the sweep's key (k1, k2).
+// K3: one sweep of R rounds over B chains, drawing from the sweep's key
+// (k1, k2); the round tables are (R, c_max, ...) and n_c their node counts.
 extern "C" int aia_bn_sweep(
     const int* vals_in, int* vals_out, int B, int n, int chains_per_block,
     int R, const int* n_c, int c_max, int f_max, int s_max, const int* nodes,
@@ -253,30 +287,35 @@ extern "C" int aia_bn_sweep(
     const float* logf, const float* tab, int lut_size, float x0,
     float inv_dx, int v_max, int exact, int weight_bits, int precision,
     int total_steps, void* stream) {
-  SweepArgs a{vals_in, vals_out, B, n, chains_per_block, R, n_c,
-              c_max, f_max, s_max, nodes, cards, base, stride,
-              scope, is_self, k1, k2, nullptr, nullptr, 0, 0, n_words, logf,
-              tab, lut_size, x0, inv_dx, v_max, exact, weight_bits,
-              precision, total_steps};
-  return dispatch<true>(a, (cudaStream_t)stream);
+  RoundsArgs a{vals_in, vals_out, 0, 1, B, 0, 1, n, chains_per_block, 0,
+               R, 0, R, n_c, n_c, c_max, f_max, s_max, nodes, cards, base,
+               stride, scope, is_self, nullptr, k1, k2, n_words, logf, tab,
+               lut_size, x0, inv_dx, v_max, exact, weight_bits, precision,
+               total_steps};
+  return dispatch<false>(a, (cudaStream_t)stream);
 }
 
-// K5: one round (R = 1) over a mesh position's owned nodes; vals_in and
-// vals_out are the position's (B, n) chain block, words the round's full
-// stream, n_c a pointer to the position's owned-node count.
+// K5: round r of the sweep key (k1, k2) on node positions d0 .. d0 +
+// n_node_pos - 1 of n_chain_pos chain blocks of b_loc chains each.
+// vals_in holds the launch's n_chain_pos * b_loc chains, the first of which
+// is chain chain_base of the run; vals_out is (n_node_pos,
+// n_chain_pos * b_loc, n).  The tables are a `ShardedFusedRounds`
+// ((n_dev, R, c_max, ...), n_own (n_dev, R), n_c (R,)).
 extern "C" int aia_bn_color_round(
-    const int* vals_in, int* vals_out, int B, int n, int chains_per_block,
-    const int* n_c, int c_max, int f_max, int s_max, const int* nodes,
-    const int* cards, const int* base, const int* stride, const int* scope,
-    const int* is_self, const int* word_pos, const int* words,
-    int word_chain0, int word_nc, int n_words, const float* logf,
-    const float* tab, int lut_size, float x0, float inv_dx, int v_max,
-    int exact, int weight_bits, int precision, int total_steps,
-    void* stream) {
-  SweepArgs a{vals_in, vals_out, B, n, chains_per_block, 1, n_c,
-              c_max, f_max, s_max, nodes, cards, base, stride,
-              scope, is_self, 0u, 0u, words, word_pos, word_chain0, word_nc,
-              n_words, logf, tab, lut_size, x0, inv_dx, v_max, exact,
-              weight_bits, precision, total_steps};
-  return dispatch<false>(a, (cudaStream_t)stream);
+    const int* vals_in, int* vals_out, long long chain_base, int n_chain_pos,
+    int b_loc, int d0, int n_node_pos, int n, int chains_per_block, int R,
+    int r, const int* n_own, const int* n_c, int c_max, int f_max,
+    int s_max, const int* nodes, const int* cards, const int* base,
+    const int* stride, const int* scope, const int* is_self,
+    const int* word_pos, unsigned k1, unsigned k2, int n_words,
+    const float* logf, const float* tab, int lut_size, float x0,
+    float inv_dx, int v_max, int exact, int weight_bits, int precision,
+    int total_steps, void* stream) {
+  if (r < 0 || r >= R || d0 < 0) return (int)cudaErrorInvalidValue;
+  RoundsArgs a{vals_in, vals_out, chain_base, n_chain_pos, b_loc, d0,
+               n_node_pos, n, chains_per_block, 0, R, r, 1, n_own, n_c,
+               c_max, f_max, s_max, nodes, cards, base, stride, scope,
+               is_self, word_pos, k1, k2, n_words, logf, tab, lut_size, x0,
+               inv_dx, v_max, exact, weight_bits, precision, total_steps};
+  return dispatch<true>(a, (cudaStream_t)stream);
 }

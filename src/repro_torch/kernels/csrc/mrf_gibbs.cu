@@ -53,30 +53,35 @@
 // chip_smoke's threefry phase).  The rest is tens of integer and float ops
 // per site and lane.
 //
-// K6: K4 over one mesh position's row slab, per launch.
+// K6: one half-step over every row slab of a mesh per launch.
 //
 // Replaces the reference's Pallas kernel `mrf_halo_half_step_kernel`
 // (src/repro/kernels/mrf_gibbs.py:280; body `_mrf_halo_kernel` :123),
-// which the sharded engine (`core/distributed.py` `mrf_fused_sharded`)
-// launches once per half-step per position.  It is the template below
-// with four differences, all in its arguments:
-//   * the slab's rows -1 and h_loc are the chain's up and down halo rows
-//     (the neighbouring positions' border rows, exchanged before the
-//     round; -1 beyond the grid) where K4 stages -1;
-//   * the checkerboard is taken against the slab's global row offset
-//     row0: a site (r, c) of the slab is active when ((row0 + r) + c) % 2
-//     equals the parity, so an odd row0 works;
-//   * its words are read from device memory (KEYED = false): the round's
-//     full (B, H, W, n_words) stream, generated once for every position;
-//   * labels, output and words are addressed with a chain stride: a slab
-//     of the (B, H, W) labels and of the round's full (B, H, W, n_words)
-//     words is contiguous within a chain and strided across chains, so
-//     every position reads the one stream generated for the round and
-//     writes its slab of one output tensor, with no copies.
-// The ragged last tile stays: the reference needs h_loc % block_h == 0,
-// this kernel does not, and the labels are the same either way.
-// Bound: bytes: the slab's active words, its labels read and written
-// once, its halo rows.
+// which the reference's sharded engine (`core/distributed.py`
+// `mrf_fused_sharded`) calls on every device of its mesh, one row slab
+// each.  Here K4 and K6 are one kernel: K4 is the grid as one slab with
+// -1 beyond it; K6 a block of chains and rows split into n_slabs slabs of
+// slab_h rows, all in one launch:
+//   * blocks are (chain, tile), and a tile never crosses a slab boundary
+//     (the last tile of a slab is ragged when block_h does not divide
+//     slab_h: the reference needs h_loc % block_h == 0, this kernel does
+//     not, and the labels are the same either way);
+//   * a tile at a slab's border stages its row -1 or row slab_h from the
+//     slab's exchanged up and down halo rows ((n_slabs, B, W), -1 beyond
+//     the grid), never from the neighbouring slab's labels, so the halo
+//     exchange (`distributed._halo_exchange`) stays the data path;
+//   * the checkerboard is taken at the global row row0 + r, so a slab at
+//     an odd row works;
+//   * its words are hashed from the half-step's key like K4's, at the
+//     global site: `site_word_index(chain0 + chain, row0 + r, c, H_total,
+//     W, n_words)`, the counter of the single-device half-step's stream,
+//     so the labels are the single-device half-step's whatever the mesh;
+//   * the input may be a block of a larger tensor (strided across chains,
+//     dense within a chain); the output is its own (B, rows, W) tensor.
+// Bound: bytes: the labels read and written once, the halo rows; the
+// hash as K4's.  The template flag SLABS compiles the slab arithmetic,
+// the halo reads and the offsets out of K4's instances, so K4 runs the
+// code it ran before K6 shared it.
 
 #include <math.h>
 
@@ -85,45 +90,54 @@
 namespace {
 
 struct HalfStepArgs {
-  const int* labels_in;  // (B, H, W), chain stride lab_stride
-  int* labels_out;       // (B, H, W), chain stride lab_stride
-  const int* evidence;   // (H, W)
-  const int* words;      // K6: (B, H, W, n_words), chain stride word_stride
-  unsigned k1, k2;       // K4 (KEYED): the half-step's key
+  const int* labels_in;  // (B, rows, W), chain stride in_stride
+  int* labels_out;       // (B, rows, W), chain stride out_stride
+  const int* evidence;   // (rows, W)
+  const int* up;         // (n_slabs, B, W) row above each slab, or null: -1
+  const int* down;       // (n_slabs, B, W) row below each slab, or null: -1
+  long long in_stride, out_stride;
+  long long chain0;      // global chain of chain 0 (counters)
+  int row0;              // global row of row 0 (parity, counters)
+  int H_total;           // the grid's height (counters)
+  unsigned k1, k2;       // the half-step's key
   const float* tab;      // (lut_size,) exp-weight LUT
-  const int* up;         // (B, W) row above row 0, or null: -1 (K4)
-  const int* down;       // (B, W) row below row H - 1, or null: -1 (K4)
-  long long lab_stride, word_stride;
-  int row0;              // global row of row 0, for the parity
-  int B, H, W, block_h, tiles, n_labels, parity, quadratic;
+  int B, W, slab_h, n_slabs, block_h, tiles_per_slab, n_labels, parity;
+  int quadratic;
   float theta, h, neg_h;
   int lut_size;
   float x0, inv_dx;
   int n_words, precision, total_steps;
 };
 
-template <int VCAP, bool KEYED>
+template <int VCAP, bool SLABS>
 __global__ void mrf_half_step_kernel(HalfStepArgs a) {
   extern __shared__ int smem[];
   const int W = a.W;
-  const int chain = blockIdx.x / a.tiles;
-  const int r0 = (blockIdx.x - chain * a.tiles) * a.block_h;
-  const int rows = min(a.block_h, a.H - r0);
-  const long long plane = (long long)chain * a.lab_stride;
-  const int* lin = a.labels_in + plane;
-  int* lout = a.labels_out + plane;
+  const int tiles = SLABS ? a.n_slabs * a.tiles_per_slab : a.tiles_per_slab;
+  const int chain = blockIdx.x / tiles;
+  const int tile = blockIdx.x - chain * tiles;
+  const int g = SLABS ? tile / a.tiles_per_slab : 0;  // the slab
+  const int s0 = g * a.slab_h;                        // its first row
+  const int row0 = SLABS ? a.row0 : 0;
+  const long long chain0 = SLABS ? a.chain0 : 0;
+  const int r0 = s0 + (tile - g * a.tiles_per_slab) * a.block_h;
+  const int rows = min(a.block_h, s0 + a.slab_h - r0);
+  const int* lin = a.labels_in + (long long)chain * a.in_stride;
+  int* lout =
+      a.labels_out + (long long)chain * (SLABS ? a.out_stride : a.in_stride);
+  const long long halo = ((long long)g * a.B + chain) * W;
   int* lab = smem;                        // (rows + 2) x W, row 0 = r0 - 1
   int* ev = smem + (a.block_h + 2) * W;   // rows x W
   float* tab = reinterpret_cast<float*>(ev + a.block_h * W);
   for (int i = threadIdx.x; i < (rows + 2) * W; i += blockDim.x) {
     const int gr = r0 - 1 + i / W;
     const int c = i % W;
-    if (gr >= 0 && gr < a.H)
+    if (gr >= s0 && gr < s0 + a.slab_h)
       lab[i] = lin[(long long)gr * W + c];
-    else if (gr < 0)
-      lab[i] = a.up ? a.up[(long long)chain * W + c] : -1;
+    else if (gr < s0)
+      lab[i] = SLABS && a.up ? a.up[halo + c] : -1;
     else
-      lab[i] = a.down ? a.down[(long long)chain * W + c] : -1;
+      lab[i] = SLABS && a.down ? a.down[halo + c] : -1;
   }
   const int* evg = a.evidence + (long long)r0 * W;
   for (int i = threadIdx.x; i < rows * W; i += blockDim.x) ev[i] = evg[i];
@@ -134,7 +148,7 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
   for (int i = threadIdx.x; i < rows * W; i += blockDim.x) {
     const int r = i / W;
     const int c = i - r * W;
-    if (((a.row0 + r0 + r + c) & 1) != a.parity)
+    if (((row0 + r0 + r + c) & 1) != a.parity)
       lout[(long long)(r0 + r) * W + c] = lab[(r + 1) * W + c];
   }
 
@@ -142,7 +156,7 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
   for (int s = threadIdx.x; s < rows * half_w; s += blockDim.x) {
     const int r = s / half_w;
     const int gr = r0 + r;
-    const int c = ((a.parity + a.row0 + gr) & 1) + 2 * (s - r * half_w);
+    const int c = ((a.parity + row0 + gr) & 1) + 2 * (s - r * half_w);
     if (c >= W) continue;
     const int* row = lab + (r + 1) * W;
     const int up = row[c - W];
@@ -186,54 +200,51 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
     // --- C1: KY walk over n_labels bins + the rejection bin ---
     int m[VCAP];
     aia::ky_prepare<VCAP>(w, a.n_labels, a.precision, m);
-    int bits, rejs, label;
+    int bits, rejs;
     bool done;
-    if constexpr (KEYED) {
-      // mrf_gibbs.site_word_index: ((chain * H + r) * W + c) * n_words
-      const aia::WordsFromKey src{
-          a.k1, a.k2,
-          (((unsigned long long)chain * a.H + gr) * W + c) * a.n_words};
-      label = aia::ddg_walk<VCAP>(m, src, a.n_labels, a.precision,
-                                  a.total_steps, bits, rejs, done);
-    } else {
-      const aia::WordsFromMemory src{
-          a.words + (long long)chain * a.word_stride +
-          ((long long)gr * W + c) * a.n_words};
-      label = aia::ddg_walk<VCAP>(m, src, a.n_labels, a.precision,
-                                  a.total_steps, bits, rejs, done);
-    }
+    // mrf_gibbs.site_word_index at the global site:
+    // (((chain0 + chain) * H_total + row0 + gr) * W + c) * n_words
+    const aia::WordsFromKey src{
+        a.k1, a.k2,
+        ((((unsigned long long)(chain0 + chain)) * a.H_total + row0 + gr) *
+             W + c) * a.n_words};
+    int label = aia::ddg_walk<VCAP>(m, src, a.n_labels, a.precision,
+                                    a.total_steps, bits, rejs, done);
     if (!done) label = aia::argmax_fallback<VCAP>(w, a.n_labels);
     lout[(long long)gr * W + c] = label;
   }
 }
 
-template <int VCAP, bool KEYED>
+template <int VCAP, bool SLABS>
 int launch(const HalfStepArgs& a, cudaStream_t stream) {
   const int threads = 256;
-  const long long blocks = (long long)a.tiles * a.B;
-  if (a.row0 < 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)a.n_slabs * a.tiles_per_slab * a.B;
   const size_t smem = sizeof(int) * (size_t)(2 * a.block_h + 2) * a.W +
                       sizeof(float) * (size_t)a.lut_size;
   if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        mrf_half_step_kernel<VCAP, KEYED>,
+        mrf_half_step_kernel<VCAP, SLABS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  mrf_half_step_kernel<VCAP, KEYED>
+  mrf_half_step_kernel<VCAP, SLABS>
       <<<(unsigned)blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool KEYED>
-int dispatch(const HalfStepArgs& a, cudaStream_t s) {
+template <bool SLABS>
+int dispatch(HalfStepArgs& a, cudaStream_t s) {
+  if (a.block_h < 1 || a.slab_h < 1 || a.n_slabs < 1 || a.W < 1 ||
+      a.row0 < 0 || a.chain0 < 0)
+    return (int)cudaErrorInvalidValue;
+  a.tiles_per_slab = (a.slab_h + a.block_h - 1) / a.block_h;
   const int lanes = a.n_labels + 1;
-  if (lanes <= 4) return launch<4, KEYED>(a, s);
-  if (lanes <= 8) return launch<8, KEYED>(a, s);
-  if (lanes <= 16) return launch<16, KEYED>(a, s);
-  if (lanes <= 32) return launch<32, KEYED>(a, s);
-  if (lanes <= 128) return launch<128, KEYED>(a, s);
+  if (lanes <= 4) return launch<4, SLABS>(a, s);
+  if (lanes <= 8) return launch<8, SLABS>(a, s);
+  if (lanes <= 16) return launch<16, SLABS>(a, s);
+  if (lanes <= 32) return launch<32, SLABS>(a, s);
+  if (lanes <= 128) return launch<128, SLABS>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -246,35 +257,37 @@ extern "C" int aia_mrf_half_step(
     int n_labels, int parity, int quadratic, float theta, float h,
     float neg_h, int lut_size, float x0, float inv_dx, int n_words,
     int precision, int total_steps, void* stream) {
-  if (block_h < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const int tiles = (H + block_h - 1) / block_h;
   const long long plane = (long long)H * W;
-  HalfStepArgs a{labels_in, labels_out, evidence, nullptr,  k1,
-                 k2,        tab,        nullptr,  nullptr,  plane,
-                 0,         0,          B,        H,        W,
-                 block_h,   tiles,      n_labels, parity,   quadratic,
-                 theta,     h,          neg_h,    lut_size, x0,
-                 inv_dx,    n_words,    precision, total_steps};
-  return dispatch<true>(a, (cudaStream_t)stream);
+  HalfStepArgs a{labels_in, labels_out, evidence, nullptr,  nullptr,
+                 plane,     plane,      0,        0,        H,
+                 k1,        k2,         tab,      B,        W,
+                 H,         1,          block_h,  0,        n_labels,
+                 parity,    quadratic,  theta,    h,        neg_h,
+                 lut_size,  x0,         inv_dx,   n_words,  precision,
+                 total_steps};
+  return dispatch<false>(a, (cudaStream_t)stream);
 }
 
-// K6: a slab of H rows starting at global row row0, with its chains' up
-// and down halo rows ((B, W) each) and chain strides (in elements) for the
-// labels (in and out alike) and the words.
+// K6: B chains (the first is chain chain0 of the run) of n_slabs row
+// slabs of slab_h rows each, the first row global row row0 of a grid of
+// H_total rows; up and down are (n_slabs, B, W); in_stride and out_stride
+// the chain strides (in elements) of the labels in and out.
 extern "C" int aia_mrf_halo_half_step(
-    const int* labels_in, int* labels_out, const int* up, const int* down,
-    long long lab_stride, int row0, const int* evidence, const int* words,
-    long long word_stride, const float* tab, int B, int H, int W,
-    int block_h, int n_labels, int parity, int quadratic, float theta,
-    float h, float neg_h, int lut_size, float x0, float inv_dx, int n_words,
+    const int* labels_in, int* labels_out, long long in_stride,
+    long long out_stride, const int* up, const int* down, long long chain0,
+    int row0, int H_total, int slab_h, int n_slabs, const int* evidence,
+    unsigned k1, unsigned k2, const float* tab, int B, int W, int block_h,
+    int n_labels, int parity, int quadratic, float theta, float h,
+    float neg_h, int lut_size, float x0, float inv_dx, int n_words,
     int precision, int total_steps, void* stream) {
-  if (block_h < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const int tiles = (H + block_h - 1) / block_h;
-  HalfStepArgs a{labels_in, labels_out, evidence, words,    0u,
-                 0u,        tab,        up,       down,     lab_stride,
-                 word_stride, row0,     B,        H,        W,
-                 block_h,   tiles,      n_labels, parity,   quadratic,
-                 theta,     h,          neg_h,    lut_size, x0,
-                 inv_dx,    n_words,    precision, total_steps};
-  return dispatch<false>(a, (cudaStream_t)stream);
+  if ((long long)row0 + (long long)slab_h * n_slabs > H_total)
+    return (int)cudaErrorInvalidValue;
+  HalfStepArgs a{labels_in, labels_out, evidence, up,       down,
+                 in_stride, out_stride, chain0,   row0,     H_total,
+                 k1,        k2,         tab,      B,        W,
+                 slab_h,    n_slabs,    block_h,  0,        n_labels,
+                 parity,    quadratic,  theta,    h,        neg_h,
+                 lut_size,  x0,         inv_dx,   n_words,  precision,
+                 total_steps};
+  return dispatch<true>(a, (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 """K4: one checkerboard Gibbs half-step of a grid MRF, and K6: the same
-over one mesh position's row slab, as CUDA kernels.
+over every row slab of a mesh with the slabs' halo rows, as CUDA kernels.
 
 Replaces the reference's Pallas kernel `mrf_half_step_kernel`
 (src/repro/kernels/mrf_gibbs.py:159; body `_mrf_tile_body` :38, kernel
@@ -33,14 +33,17 @@ with `round_words` and runs the plain twin `mrf_half_step_ref` on them.
 
 K6 (`mrf_halo_half_step`, twin `mrf_halo_half_step_ref`, counter
 `mrf_halo_half_step.launches`) replaces the reference's
-`mrf_halo_half_step_kernel` (src/repro/kernels/mrf_gibbs.py:280): K4's
-template over a (b_loc, h_loc, W) row slab whose rows -1 and h_loc are
-halo rows from the neighbouring positions, with the checkerboard taken at
-the slab's global row offset.  `mrf_sharded_round_step` is the reference's
-caller (:363) over every position of a (chains x rows) mesh at once: one
-word stream per round (generated with torch, `round_words`), K6 per
-position reading its slab of it.  Bound: bytes (the slab's active words,
-its labels read and written once).
+`mrf_halo_half_step_kernel` (src/repro/kernels/mrf_gibbs.py:280), which
+the reference's sharded engine calls on every device of its mesh, one row
+slab each.  K4 and K6 are one CUDA kernel: K6 runs a block of chains and
+grid rows split into row slabs, each slab's rows -1 and h_loc taken from
+its exchanged halo rows, with the checkerboard and the words' counters at
+the global chain and row.  `mrf_sharded_round_step` is the reference's
+caller (:363): one K6 launch per round over every slab of a (chains x
+rows) mesh, hashing the words of the single-device half-step's stream
+(`site_word_index` at the global site).  For CPU tensors
+`mrf_halo_half_step` builds the stream's words of its block and runs the
+twin per slab.  Bound: bytes (the labels read and written once).
 """
 
 from __future__ import annotations
@@ -88,8 +91,8 @@ def half_step_params(
 def round_words(
     mrf: GridMRF, key: prng.Key, n_chains: int, p: SweepParams, device
 ) -> torch.Tensor:
-    """One half-step's packed words, (B, H, W, n_words) int32: the twin's
-    input, and K6's; K4 hashes the active sites' words itself."""
+    """One half-step's packed words, (B, H, W, n_words) int32: the twins'
+    input; K4 and K6 hash the active sites' words themselves."""
     return ky_core.random_words(
         key, (n_chains, mrf.height, mrf.width), p.n_words, device
     )
@@ -99,8 +102,9 @@ def site_word_index(
     chain: int, r: int, c: int, height: int, width: int, n_words: int
 ) -> int:
     """The counter of word 0 of site (chain, r, c) in its half-step's
-    stream, laid out (B, H, W, n_words); word j is this + j.  K4 computes
-    the same index (mrf_gibbs.cu, 64-bit)."""
+    stream, laid out (B, H, W, n_words); word j is this + j.  K4 and K6
+    compute the same index at the global chain and row (mrf_gibbs.cu,
+    64-bit)."""
     return ((chain * height + r) * width + c) * n_words
 
 
@@ -263,10 +267,9 @@ def mrf_round_step(
 
 
 def _check_slab(mrf, labels, up, down, row0, evidence, words, p) -> None:
-    """K6's inputs: a (b, h, W) int32 slab of rows [row0, row0 + h) of the
-    grid, each chain's rows contiguous (chains may be strided), (b, W)
-    halos, (h, W) evidence rows and (b, h, W, n_words) words laid out
-    like the labels."""
+    """K6's twin's inputs: a (b, h, W) int32 slab of rows [row0, row0 + h)
+    of the grid, (b, W) halos, (h, W) evidence rows and (b, h, W, n_words)
+    words laid out like the labels."""
     if labels.dtype != torch.int32 or labels.dim() != 3 or (
             labels.shape[2] != mrf.width):
         raise ValueError(f"labels must be (B, h, {mrf.width}) int32")
@@ -292,8 +295,9 @@ def mrf_halo_half_step_ref(
     words: torch.Tensor, parity: int, exp_table: torch.Tensor,
     exp_spec: LUTSpec, p: SweepParams,
 ) -> torch.Tensor:
-    """Plain torch twin of K6: `site_weights` with the halo rows, the KY
-    walk of every site, then the checkerboard select at global row row0."""
+    """Plain torch twin of K6 over one slab: `site_weights` with the halo
+    rows, the KY walk of every site, then the checkerboard select at
+    global row row0."""
     _check_slab(mrf, labels, up_halo, down_halo, row0, evidence, words, p)
     b, hh, ww = labels.shape
     w = site_weights(mrf, labels, evidence, exp_table, exp_spec, up_halo,
@@ -317,56 +321,87 @@ def _rows_contiguous(t: torch.Tensor) -> bool:
     return True
 
 
+def _check_slabs(mrf, labels, up, down, row0, chain0, evidence, key):
+    """K6's inputs: a (b, h, W) int32 block of chains [chain0, chain0 + b)
+    and grid rows [row0, row0 + h), dense within each chain, split into
+    n_slabs = up.shape[0] slabs; (n_slabs, b, W) halos, (h, W) evidence."""
+    if not isinstance(key, prng.Key):
+        raise TypeError(f"K6 draws from a prng.Key, got {type(key)}")
+    if labels.dtype != torch.int32 or labels.dim() != 3 or (
+            labels.shape[2] != mrf.width):
+        raise ValueError(f"labels must be (B, h, {mrf.width}) int32")
+    b, hh, ww = labels.shape
+    if not 0 <= row0 <= mrf.height - hh:
+        raise ValueError(f"rows [{row0}, {row0 + hh}) lie outside the "
+                         f"grid's {mrf.height}")
+    if chain0 < 0:
+        raise ValueError(f"chain0 {chain0} < 0")
+    if up.dim() != 3 or up.shape[0] < 1 or hh % up.shape[0]:
+        raise ValueError(f"halos must be (n_slabs, {b}, {ww}) with n_slabs "
+                         f"dividing {hh} rows")
+    n_slabs = up.shape[0]
+    for name, t in (("up_halo", up), ("down_halo", down)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (n_slabs, b, ww):
+            raise ValueError(f"{name} must be ({n_slabs}, {b}, {ww}) int32")
+    if evidence.dtype != torch.int32 or tuple(evidence.shape) != (hh, ww):
+        raise ValueError(f"evidence must be ({hh}, {ww}) int32")
+    if mrf.data_cost not in ("potts", "quadratic"):
+        raise ValueError(mrf.data_cost)
+    if not _rows_contiguous(labels):
+        raise ValueError("labels must be dense within each chain")
+
+
 def mrf_halo_half_step(
     mrf: GridMRF, labels: torch.Tensor, up_halo: torch.Tensor,
     down_halo: torch.Tensor, row0: int, evidence: torch.Tensor,
-    words: torch.Tensor, parity: int, exp_table: torch.Tensor,
-    exp_spec: LUTSpec, p: SweepParams, out: torch.Tensor | None = None,
+    key: prng.Key, parity: int, exp_table: torch.Tensor, exp_spec: LUTSpec,
+    p: SweepParams, chain0: int = 0,
 ) -> torch.Tensor:
-    """One half-step over a (b, h, W) slab of grid rows [row0, row0 + h):
-    K6 for CUDA tensors, the twin for CPU tensors.  `labels`, `words` and
-    `out` may be slabs of larger tensors (strided across chains, dense
-    within one); K6 writes into `out` (a new tensor when None), which must
-    not overlap `labels`.  Returns the slab's new labels."""
-    _check_slab(mrf, labels, up_halo, down_halo, row0, evidence, words, p)
-    if labels.device.type == "cpu":
-        new = mrf_halo_half_step_ref(mrf, labels, up_halo, down_halo, row0,
-                                     evidence, words, parity, exp_table,
-                                     exp_spec, p)
-        if out is None:
-            return new
-        out.copy_(new)
-        return out
-    tab = exp_table.reshape(-1)
-    if out is None:
-        out = torch.empty_strided(labels.shape, labels.stride(),
-                                  dtype=labels.dtype, device=labels.device)
+    """One half-step of the half-step `key` over a (b, h, W) block of
+    chains [chain0, chain0 + b) and grid rows [row0, row0 + h), split into
+    n_slabs = up_halo.shape[0] row slabs of h / n_slabs rows, slab g's
+    neighbour rows being up_halo[g] and down_halo[g] ((b, W), -1 beyond
+    the grid): one K6 launch for CUDA tensors (the input may be a block of
+    a larger tensor, strided across chains), the twin per slab on the
+    stream's words for CPU tensors.  The draws are the single-device
+    half-step's (`site_word_index` at the global site).  Returns the
+    block's new labels as a new tensor."""
+    _check_slabs(mrf, labels, up_halo, down_halo, row0, chain0, evidence,
+                 key)
     b, hh, ww = labels.shape
-    if (tuple(out.shape) != (b, hh, ww) or out.dtype != torch.int32
-            or out.stride(0) != labels.stride(0)):
-        raise ValueError("out must be shaped and strided like labels")
-    for name, t in (("labels", labels), ("words", words), ("out", out)):
-        if not _rows_contiguous(t):
-            raise ValueError(f"mrf_halo_half_step: {name} must be dense "
-                             "within each chain")
+    n_slabs = up_halo.shape[0]
+    h_loc = hh // n_slabs
+    if labels.device.type == "cpu":
+        words = prng.bits(
+            key, (b, mrf.height, ww, p.n_words), labels.device,
+            start=site_word_index(chain0, 0, 0, mrf.height, ww, p.n_words),
+        )[:, row0:row0 + hh]
+        slabs = [slice(g * h_loc, (g + 1) * h_loc) for g in range(n_slabs)]
+        return torch.cat([
+            mrf_halo_half_step_ref(
+                mrf, labels[:, rs], up_halo[g], down_halo[g],
+                row0 + rs.start, evidence[rs], words[:, rs], parity,
+                exp_table, exp_spec, p)
+            for g, rs in enumerate(slabs)], dim=1)
+    tab = exp_table.reshape(-1)
     _lib.require_cuda("mrf_halo_half_step", up_halo, down_halo, evidence,
                       tab)
-    for t in (labels, words, out):
-        if t.device != evidence.device:
-            raise ValueError("mrf_halo_half_step: every tensor must be on "
-                             f"{evidence.device}, got {t.device}")
-    P, I, L, F = _lib.PTR, _lib.INT, _lib.LONG, _lib.FLOAT
+    if labels.device != evidence.device:
+        raise ValueError("mrf_halo_half_step: every tensor must be on "
+                         f"{evidence.device}, got {labels.device}")
+    out = torch.empty((b, hh, ww), dtype=torch.int32, device=labels.device)
+    P, I, U, L, F = _lib.PTR, _lib.INT, _lib.UINT, _lib.LONG, _lib.FLOAT
     fn = _lib.function(
         "mrf_gibbs", "aia_mrf_halo_half_step",
-        [P, P, P, P, L, I, P, P, L, P, I, I, I, I, I, I, I, F, F, F, I, F, F,
-         I, I, I, P],
+        [P, P, L, L, P, P, L, I, I, I, I, P, U, U, P, I, I, I, I, I, I, F, F,
+         F, I, F, F, I, I, I, P],
     )
     with torch.cuda.device(labels.device):
         code = fn(
-            labels.data_ptr(), out.data_ptr(), up_halo.data_ptr(),
-            down_halo.data_ptr(), labels.stride(0), row0,
-            evidence.data_ptr(), words.data_ptr(), words.stride(0),
-            tab.data_ptr(), b, hh, ww, tile_rows(ww, exp_spec.size),
+            labels.data_ptr(), out.data_ptr(), labels.stride(0), hh * ww,
+            up_halo.data_ptr(), down_halo.data_ptr(), chain0, row0,
+            mrf.height, h_loc, n_slabs, evidence.data_ptr(), key.k1, key.k2,
+            tab.data_ptr(), b, ww, min(tile_rows(ww, exp_spec.size), h_loc),
             mrf.n_labels, parity, int(mrf.data_cost == "quadratic"),
             mrf.theta, mrf.h, -mrf.h, exp_spec.size, exp_spec.x0,
             inv_dx(exp_spec), p.n_words, p.precision, p.total_steps,
@@ -397,14 +432,14 @@ def mrf_sharded_round_step(
     max_retries: int = 8,
 ) -> torch.Tensor:
     """One schedule round on every position of an (n_chain_pos x n_row_pos)
-    mesh: chain block ci and row slab gi of the (B, H, W) labels go through
-    one K6 launch each.  The round's words are generated once over the full
-    (B, H, W) grid, the stream the single-device round draws, and each
-    position reads its slab of them, so the labels are bit-identical to
+    mesh: one K6 launch over the (B, H, W) labels split into n_row_pos row
+    slabs (a chain position is a block of whole chains, which K6 runs
+    independently).  Each slab's words are those of the single-device
+    round's stream at its global rows, so the labels are bit-identical to
     `mrf_round_step` whatever the mesh.  `up_halo`/`down_halo` are the
     (n_row_pos, B, W) rows the exchange delivered to each slab (-1 beyond
-    the grid).  Every position reads the pre-round labels and writes its
-    slab of a new tensor, as every device of the reference reads its own
+    the grid).  Every slab reads the pre-round labels and writes its rows
+    of a new tensor, as every device of the reference reads its own
     pre-round shard."""
     b, height, width = labels.shape
     if height % n_row_pos or b % n_chain_pos:
@@ -413,16 +448,5 @@ def mrf_sharded_round_step(
             f"{n_chain_pos} x {n_row_pos} positions"
         )
     p = half_step_params(mrf, precision, max_retries)
-    words = round_words(mrf, key, b, p, labels.device)
-    out = torch.empty_like(labels)
-    b_loc, h_loc = b // n_chain_pos, height // n_row_pos
-    for ci in range(n_chain_pos):
-        cs = slice(ci * b_loc, (ci + 1) * b_loc)
-        for gi in range(n_row_pos):
-            rs = slice(gi * h_loc, (gi + 1) * h_loc)
-            mrf_halo_half_step(
-                mrf, labels[cs, rs], up_halo[gi, cs], down_halo[gi, cs],
-                gi * h_loc, evidence[rs], words[cs, rs], parity, exp_table,
-                exp_spec, p, out=out[cs, rs],
-            )
-    return out
+    return mrf_halo_half_step(mrf, labels, up_halo, down_halo, 0, evidence,
+                              key, parity, exp_table, exp_spec, p)

@@ -11,6 +11,8 @@
     `compat.make_mesh`), bit for bit at lut_ky; the legacy engines'
     exact_ky, cdf and gumbel by per-node TV against variable elimination,
     under 0.05 (the repo's quickstart gate);
+  * on a card, the fused route makes words in plain torch
+    (`prng._raw_bits`) only for its chain init, never when resumed;
   * every argument check of the sharded route.
 
 Inputs come from numpy seeds; keys are the reference's keys carried
@@ -30,7 +32,9 @@ import torch
 from repro_torch import convert, prng
 from repro_torch.compile import ir as t_ir
 from repro_torch.compile import program as t_program
+from repro_torch.core import bayesnet as t_bn
 from repro_torch.core import distributed as t_dist
+from repro_torch.core import mrf as t_mrf
 from repro_torch.core.exact import ve_marginal
 from repro_torch.core.graphs import GridMRF, bn_repository_replica, \
     random_bayesnet
@@ -150,6 +154,51 @@ def test_mrf_carry_crosses_the_route_boundary_both_ways():
                             **kw)
     lab_b = prog.run(None, n_iters=4, carry_state=b, device="cpu", **kw)
     assert torch.equal(lab_a, whole) and torch.equal(lab_b, whole)
+
+
+@pytest.mark.cuda
+def test_fused_sharded_route_makes_words_only_for_the_chain_init():
+    """On a card, `run_sharded(fused=True)` on a (2, 4) mesh calls the
+    plain-torch generator only for its chain init (K5 and K6 hash their
+    words), not once when resumed from a carry, and equals the
+    single-device run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+    dev = torch.device("cuda")
+    mesh = t_dist.make_mesh((2, 4), ("data", "model"), device=dev)
+    bn = t_program.compile_graph(
+        t_ir.from_bayesnet(random_bayesnet(12, seed=3)), device=dev)
+    mrf = t_program.compile_graph(
+        t_ir.from_mrf(GridMRF(8, 16, 4, theta=1.1)), device=dev)
+    for prog in (bn, mrf):  # first-use checks draw in plain torch
+        prog.ensure_fused_cross_check("lut_ky", sharded=True)
+    bn_kw = dict(n_chains=8, burn_in=2, thin=2, fused=True)
+    mrf_kw = dict(n_chains=4, evidence=torch.from_numpy(_evidence()).to(dev),
+                  fused=True)
+
+    def calls(fn):
+        c0 = prng._raw_bits.calls
+        out = fn()
+        return out, prng._raw_bits.calls - c0
+
+    _, bn_init = calls(lambda: t_bn.init_chain_values(bn.cbn, prng.key(0),
+                                                      8))
+    _, mrf_init = calls(lambda: t_mrf.init_labels(mrf.mrf, prng.key(0), 4,
+                                                  None, None, dev))
+    (_, _, st), n_first = calls(lambda: bn.run_sharded(
+        prng.key(11), mesh, n_iters=3, return_state=True, **bn_kw))
+    (m, v), n_resumed = calls(lambda: bn.run_sharded(
+        None, mesh, n_iters=4, carry_state=st, **bn_kw))
+    assert (n_first, n_resumed) == (bn_init, 0)
+    m1, v1 = bn.run(prng.key(11), n_iters=7, device=dev, **bn_kw)
+    assert torch.equal(m, m1) and torch.equal(v, v1)
+    (_, st), n_first = calls(lambda: mrf.run_sharded(
+        prng.key(9), mesh, n_iters=2, return_state=True, **mrf_kw))
+    lab, n_resumed = calls(lambda: mrf.run_sharded(
+        None, mesh, n_iters=4, carry_state=st, **mrf_kw))
+    assert (n_first, n_resumed) == (mrf_init, 0)
+    assert torch.equal(lab, mrf.run(prng.key(9), n_iters=6, device=dev,
+                                    **mrf_kw))
 
 
 def _assert_snap_equal(a, b):

@@ -222,7 +222,7 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
         raise AssertionError("a CUDA tensor reached a plain twin")
 
     def words_made(*args, **kwargs):
-        raise AssertionError("K3/K4's words were made in plain torch")
+        raise AssertionError("K3-K6's words were made in plain torch")
 
     monkeypatch.setattr(interp_lut, "interp_kernel_ref", twin_called)
     monkeypatch.setattr(ky_sampler, "ky_sample_kernel_ref", twin_called)
@@ -245,24 +245,28 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
     grid = t_graphs.GridMRF(9, 7, 4)
     labels = torch.zeros((3, 9, 7), dtype=torch.int32, device=dev)
     evidence = torch.ones((9, 7), dtype=torch.int32, device=dev)
-    # K3 and K4 make their words inside the kernel: no word in plain torch
+    sfr = distributed.build_sharded_fused_rounds(cbn, cbn.groups, 2)
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    up, down = distributed._halo_exchange(labels, 3)
+    # K3-K6 make their words inside the kernel: no word in plain torch
     with monkeypatch.context() as m:
         m.setattr(prng, "_raw_bits", words_made)
         bn_gibbs.fused_gibbs_sweep(cbn, fr, vals, prng.key(3))
         mrf_gibbs.mrf_round_step(grid, labels, evidence, prng.key(4), 1,
                                  cbn.exp_table, cbn.exp_spec)
-    sfr = distributed.build_sharded_fused_rounds(cbn, cbn.groups, 2)
-    p = bn_gibbs.sweep_params(cbn, "lut_ky")
-    words = prng.bits(prng.key(5), (8 * sfr.n_c[0] * p.n_words,), dev)
-    bn_gibbs.fused_color_round(cbn, sfr, 1, 0, vals[4:], words, 4, "lut_ky",
-                               p)
-    up, down = distributed._halo_exchange(labels, 3)
-    mrf_gibbs.mrf_sharded_round_step(
-        grid, labels, evidence, prng.key(6), 0, cbn.exp_table, cbn.exp_spec,
-        n_chain_pos=1, n_row_pos=3, up_halo=up, down_halo=down)
+        bn_gibbs.fused_color_round(cbn, sfr, 1, 0, vals[4:], prng.key(5), 4,
+                                   "lut_ky", p)
+        bn_gibbs.fused_color_round_mesh(cbn, sfr, 0, vals, prng.key(5),
+                                        "lut_ky", p, 2)
+        mrf_gibbs.mrf_sharded_round_step(
+            grid, labels, evidence, prng.key(6), 0, cbn.exp_table,
+            cbn.exp_spec, n_chain_pos=1, n_row_pos=3, up_halo=up,
+            down_halo=down)
     torch.cuda.synchronize()
     after = [c.launches for c in counters]
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1, 3]
+    # K5: one position, then every position in one launch; K6: 3 slabs in
+    # one launch
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 2, 1]
 
 
 @pytest.mark.cuda

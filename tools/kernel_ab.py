@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Time one pigs sweep through K3 and one Penguin half-step through K4 at
-1,024 chains, through their entry points `bn_gibbs.fused_gibbs_sweep` and
-`mrf_gibbs.mrf_round_step`, from the checkout named on the command line,
-with that checkout's own sources and kernel build; prints one JSON line
-with the card's name and power limit.
+"""Time, at 1,024 chains, one pigs sweep through K3 and one Penguin
+half-step through K4 (entry points `bn_gibbs.fused_gibbs_sweep` and
+`mrf_gibbs.mrf_round_step`), and the same on a (2, 4) mesh of one card: a
+pigs sweep of `run_sharded(fused=True)` (K5 and the psum merges) and a
+Penguin half-step of the sharded engine (`distributed._halo_exchange`,
+then `mrf_gibbs.mrf_sharded_round_step`: K6), from the checkout named on
+the command line, with that checkout's own sources and kernel build;
+prints one JSON line with the card's name and power limit.
 
 The entry points take the key in every version of the port, so each time
 covers all the work of a sweep or half-step: the random words (made in
-plain torch before the launch, or inside the kernel) and the kernel.
+plain torch before the launch, or inside the kernel) and the kernels.
 `*_events_ms` is CUDA events around back-to-back calls (host cost
 included), `*_device_ms` the device time of every kernel per call and
-`*_kernel_ms` that of K3 or K4 alone (torch.profiler).
+`*_kernel_ms` that of K3-K6 alone (torch.profiler; K3 and K5 share one
+kernel since K5's redesign, whose name the profiler shows, and K4 and K6
+another).  The sharded sweep is the slope of a query's wall (and its
+host's issue time) between 50 and 250 sweeps (`chip_smoke.per_sweep`).
 
 To compare two commits on one card, unpack both (`git archive`) into
 directories that `.gitignore` lists and time them in turns in one call:
@@ -34,7 +40,9 @@ def main(tree: str) -> None:
 
     import chip_smoke as cs
     from repro_torch import prng
+    from repro_torch.compile.program import compile_graph
     from repro_torch.core import bayesnet as bnet
+    from repro_torch.core import distributed
     from repro_torch.core.graphs import bn_repository_replica
     from repro_torch.kernels import _lib, bn_gibbs, mrf_gibbs
 
@@ -56,16 +64,47 @@ def main(tree: str) -> None:
     def k4():
         mrf_gibbs.mrf_round_step(mrf, labels, ev, prng.key(2), 0, tab, spec)
 
+    mesh = distributed.make_mesh((2, 4), ("data", "model"), "cuda")
+    prog = compile_graph(bn_repository_replica("pigs"), device=dev)
+
+    def bn_sharded(n):
+        prog.run_sharded(prng.key(3), mesh, n_chains=1024, n_iters=n,
+                         burn_in=0, fused=True)
+
+    def k6():
+        up, down = distributed._halo_exchange(labels, 4)
+        mrf_gibbs.mrf_sharded_round_step(
+            mrf, labels, ev, prng.key(2), 0, tab, spec, n_chain_pos=2,
+            n_row_pos=4, up_halo=up, down_halo=down)
+
+    def kernel_ms(fn, reps, names):
+        # the first of the kernel's names in this checkout's build
+        for name in names:
+            ms = cs.device_ms(torch, fn, reps, name)
+            if ms is not None:
+                return ms
+        return None
+
+    bn_names = ("bn_rounds_kernel", "bn_sweep_kernel")
+    sweep_ms, sweep_host_ms = cs.per_sweep(torch, bn_sharded)
+    k5_ms = kernel_ms(lambda: bn_sharded(20), 1, bn_names)
     print(json.dumps({
         "tree": tree, "card": cs.nvidia_smi(),
         "k3_sweep_events_ms": cs.time_ms(torch, k3, 200),
         "k3_sweep_device_ms": cs.device_ms(torch, k3, 200, ""),
-        "k3_kernel_ms": cs.device_ms(torch, k3, 200, "bn_sweep_kernel"),
+        "k3_kernel_ms": kernel_ms(k3, 200, bn_names),
         "k4_half_step_events_ms": cs.time_ms(torch, k4, 50),
         "k4_half_step_device_ms": cs.device_ms(torch, k4, 50, ""),
         "k4_kernel_ms": cs.device_ms(torch, k4, 50, "mrf_half_step_kernel"),
+        "sharded_pigs_sweep_ms": sweep_ms,
+        "sharded_pigs_sweep_host_ms": sweep_host_ms,
+        "sharded_pigs_sweep_k5_kernel_ms": k5_ms and k5_ms / 20,
+        "sharded_penguin_half_step_events_ms": cs.time_ms(torch, k6, 50),
+        "sharded_penguin_half_step_device_ms": cs.device_ms(torch, k6, 50,
+                                                            ""),
+        "sharded_penguin_half_step_k6_kernel_ms": cs.device_ms(
+            torch, k6, 50, "mrf_half_step_kernel"),
     }), flush=True)
-
 
 if __name__ == "__main__":
     main(sys.argv[1])
