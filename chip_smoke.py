@@ -9,8 +9,9 @@ each printing one JSON line; any failure raises and exits non-zero:
  1. build   — nvcc builds the four kernel libraries (K1-K6) from
               `src/repro_torch/kernels/csrc/` (one process per source, in
               parallel); prints the build
-              time, ptxas' register/spill report and the card's name and
-              power limit.
+              time, ptxas' register/spill report (for K1 per instance:
+              registers, stack and spill bytes, and it fails if one
+              spills) and the card's name and power limit.
  1a. threefry — the device function K3-K6 hash their random words
               with (`aia::jax_word`, through its test entry
               `ops.device_bits`) against `prng.bits` on 2^24 counters under
@@ -24,9 +25,13 @@ each printing one JSON line; any failure raises and exits non-zero:
               where PyTorch's CUDA division by a Python scalar differs from
               a true division and from the reciprocal multiply the port
               uses (XLA's compiled form of the reference's `/ dx`).
- 3. k1      — K1 (KY draw) against its twin on 65,536 rows of V in
-              {3, 11, 127} random weights with shared words: labels and the
-              three stats bit-equal.
+ 3. k1      — K1 (KY draw), both entries (words read, and words hashed
+              in the kernel from a key), against its twin on the key's
+              words: 65,573 rows (a ragged last warp) of random weights
+              with edge rows first (all zero, one-hot, negative, all below
+              -1, multiples of 2^p, summing above 2^p, wrapping int32) at
+              1-127 bins, precision 16 and 21, 8 retries and 1 (bits run
+              out): labels and the three stats bit-equal.
  4. k3      — K3 (one BN sweep, words hashed inside the kernel from the
               sweep's key) against its twin on the same key's words for
               pigs and hailfinder at 1,024 chains: lut_ky bit-equal;
@@ -39,7 +44,8 @@ each printing one JSON line; any failure raises and exits non-zero:
               `compile_graph(...).run(key, n_chains=1024, n_iters=200,
               burn_in=50, fused=True)`, and one direct draw request (65,536
               rows of 32 log-potentials through `ops.lut_exp_weights` and
-              `ops.ky_sample`).  Counters are read right after.  Each query
+              `ops.ky_sample`, which makes no word in plain torch).
+              Counters are read right after.  Each query
               is bit-equal to `fused=False`; a run sliced 100 + 100 through
               `carry_state` equals the whole run; K3's launches equal the
               sweeps served plus the first-use cross-checks'; the plain-
@@ -108,8 +114,11 @@ each printing one JSON line; any failure raises and exits non-zero:
               the instructions the threefry phase read from the SASS: its
               bit operations on 132 SMs x 64 ALU lanes, all of its integer
               instructions at 132 x 128 issue lanes, x the SM clock); K1
-              and K2 also alone at the shapes their bodies take inside K3
-              on pigs; one pigs sweep alone and in the query loop, wall,
+              through both entries, beside `torch.multinomial` on the same
+              weights; K1 and K2 also alone at the shapes their bodies
+              take inside K3 on pigs; the draw request's wall by part
+              (timing_draw_request); one pigs sweep alone and in the query
+              loop, wall,
               device and host time by part (key split, wrapper, histogram),
               and one Penguin half-step back to back with the card's busy
               share, beside the plain-torch word generation they no longer
@@ -165,6 +174,11 @@ THREEFRY_COUNTERS = 1 << 24
 # and so are K4 and K6
 BN_KERNEL = "bn_rounds_kernel"
 MRF_KERNEL = "mrf_half_step_kernel"
+# K1's instances (ky_lanes_kernel, ky_planes_kernel) share this prefix
+K1_KERNEL = "ky_"
+K1_WIDTHS = (1, 2, 3, 4, 11, 15, 16, 31, 32, 33, 63, 64, 65, 127)
+K1_PRECISIONS = (16, 21)
+DRAW_ROWS, DRAW_BINS = 1 << 16, 32
 
 
 def emit(obj) -> None:
@@ -199,7 +213,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_all = time.perf_counter()
-    card = timed(phase_build, torch)
+    card, k1_ptxas = timed(phase_build, torch)
     per_call = timed(phase_threefry, torch)
     timed(phase_k2, torch)
     timed(phase_k1, torch)
@@ -212,7 +226,7 @@ def main() -> int:
     k6_err = timed(phase_k6, torch)
     sharded_launches = timed(phase_serve_sharded, torch, served)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
-          sharded_launches, k5_err, k6_err, per_call)
+          sharded_launches, k5_err, k6_err, per_call, k1_ptxas)
     for mod in sys.modules:
         check(not (mod == "jax" or mod.startswith("jax.")
                    or mod == "repro" or mod.startswith("repro.")),
@@ -433,6 +447,36 @@ def hash_ms(calls: int, per_call: dict) -> float:
     return max(bit, every) * 1e3
 
 
+def ptxas_entries(log: str, prefix: str) -> list[dict]:
+    """Registers, stack frame and spill bytes of each kernel template
+    instance `<prefix>..._kernel<N, Source>` in an `nvcc -Xptxas -v` log,
+    named from its mangled template arguments."""
+    entries, cur = [], None
+    name = re.compile(r"\d+(" + re.escape(prefix) + r"\w*?_kernel)ILi(\d+)"
+                      r"ENS_(\d+)")
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            t, cur = name.search(m.group(1)), None
+            if t:
+                source = m.group(1)[t.end():t.end() + int(t.group(3))]
+                cur = {"function": f"{t.group(1)}<{t.group(2)}, {source}>"}
+                entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return entries
+
+
 class WalkBits:
     """Records `bits_used` of every KY walk the twins run (through
     `ky.ky_sample_fast`) while active: `threefry_calls` is the sum over
@@ -484,13 +528,22 @@ def phase_build(torch) -> str:
                 ln.strip() for ln in log.read_text().splitlines()
                 if "registers" in ln or "spill" in ln
             ]
+    # K1's instances, one per layout and word source, from this build's log
+    k1_log = _lib.BUILD_DIR / "ky_sampler.log"
+    k1 = ptxas_entries(k1_log.read_text(), K1_KERNEL) if k1_log.exists() \
+        else []
     card = nvidia_smi()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_library_s": seconds, "ptxas": ptxas,
+          "per_library_s": seconds, "ptxas": ptxas, "k1_instances": k1,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvidia_smi": card})
     print(card, flush=True)
-    return card
+    check(len(k1) == 10, f"K1's build log names {len(k1)} instances, not "
+          f"10 (two word sources x five layouts)")
+    check(all(e.get("spill_store_bytes") == 0 and e.get("spill_load_bytes")
+              == 0 and e.get("stack_bytes") == 0 for e in k1),
+          f"a K1 instance spills or keeps a stack: {k1}")
+    return card, k1
 
 
 def phase_threefry(torch):
@@ -561,26 +614,63 @@ def phase_k2(torch):
     check(diff == 0, f"K2 differs from its twin in {diff} elements")
 
 
+def k1_rows(torch, n_bins: int, precision: int, rows: int, seed: int):
+    """`rows` random KY weights in [0, 256) on the card, the edge rows
+    first: all zero, one-hot, some negative, all below -1, all 2^p (a walk
+    past level p - 1), one bin of 2^p, a sum above 2^p, a sum that wraps
+    int32, all -1."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    w = rand(0, 256, (rows, n_bins))
+    w[0] = 0
+    w[1] = 0
+    w[1, -1] = 255
+    w[2] = rand(-300, 50, (n_bins,))
+    w[3] = rand(-1000, -1, (n_bins,))
+    w[4] = 1 << precision
+    w[5] = 0
+    w[5, 0] = 1 << precision
+    w[6] = (1 << precision) // 2 + rand(0, 1000, (n_bins,))
+    w[7] = 2**31 - 1
+    w[8] = -1
+    return w
+
+
 def phase_k1(torch):
+    """Both K1 entries against the twin on the key's words."""
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import ky_sampler
 
     dev = torch.device(DEVICE)
-    rows = 1 << 16
-    out = {"phase": "k1", "rows": rows, "mismatches": {}}
-    for v in (3, 11, 127):
-        g = torch.Generator(device=dev).manual_seed(v)
-        w = torch.randint(0, 256, (rows, v), generator=g, device=dev,
-                          dtype=torch.int32)
-        words = ky_core.random_words(prng.key(v), (rows,), 4, dev)
-        lab_k, st_k = ky_sampler.ky_sample_kernel(w, words, n_bins=v)
-        lab_t, st_t = ky_sampler.ky_sample_kernel_ref(w, words, n_bins=v)
-        bad = int((lab_k != lab_t).sum())
-        for name in ("bits_used", "rejections", "fallback"):
-            bad += int((st_k[name] != st_t[name]).sum())
-        out["mismatches"][str(v)] = bad
-        check(bad == 0, f"K1 differs from its twin at V={v} ({bad})")
+    rows = (1 << 16) + 37
+    out = {"phase": "k1", "rows": rows, "mismatches": {}, "fallbacks": {}}
+    for v in K1_WIDTHS:
+        for p in K1_PRECISIONS:
+            for retries in (8, 1):
+                w = k1_rows(torch, v, p, rows, 1000 * v + p)
+                key = prng.key(100 * v + p + retries)
+                kw = dict(n_bins=v, precision=p, max_retries=retries)
+                words = ky_core.random_words(
+                    key, (rows,), ky_sampler.n_words_for(p, retries), dev)
+                lab_t, st_t = ky_sampler.ky_sample_kernel_ref(w, words, **kw)
+                bad = []
+                for lab, st in (ky_sampler.ky_sample_kernel(w, words, **kw),
+                                ky_sampler.ky_sample_keyed(w, key, **kw)):
+                    n = int((lab != lab_t).sum())
+                    for name in ("bits_used", "rejections", "fallback"):
+                        n += int((st[name] != st_t[name]).sum())
+                    bad.append(n)
+                case = f"{v}/{p}/{retries}"
+                out["mismatches"][case] = bad
+                out["fallbacks"][case] = int(st_t["fallback"].sum())
+                check(bad == [0, 0], f"K1 differs from its twin at bins/"
+                      f"precision/retries {case}: words read, keyed {bad}")
     emit(out)
 
 
@@ -792,7 +882,9 @@ def phase_serve(torch) -> dict:
               "k3_launches": bn_gibbs.bn_sweep.launches - before,
               "plain_torch_generator_calls": raw_calls[-1]})
     weights = ops.lut_exp_weights(draw_logp, tab, spec)
+    c0 = prng._raw_bits.calls
     labels = ops.ky_sample(weights, prng.key(9))
+    draw_calls = prng._raw_bits.calls - c0
     torch.cuda.synchronize()
     launches = read_launches()
     # ---- end of the main path ----------------------------------------------
@@ -803,6 +895,8 @@ def phase_serve(torch) -> dict:
           f"{sweeps} sweeps + {checks} cross-check sweeps")
     check(launches["ky_sample_kernel"] == 1 and launches["interp_kernel"] == 1,
           f"draw request launches {launches}")
+    check(draw_calls == 0, f"the draw request called prng._raw_bits "
+          f"{draw_calls} times: its words were made outside K1")
     check(all(c == init_calls for c in raw_calls),
           f"a fused query called prng._raw_bits {raw_calls} times, its chain "
           f"init {init_calls}: words were made outside K3")
@@ -859,6 +953,7 @@ def phase_serve(torch) -> dict:
           "plain_torch_generator_calls_per_query": raw_calls,
           "of_which_chain_init": init_calls,
           "plain_torch_generator_calls_resumed_100_sweeps": resumed_calls,
+          "plain_torch_generator_calls_draw_request": draw_calls,
           "asia_max_node_tv_vs_exact": tvs, "launches": launches})
     check(max(tvs.values()) <= 0.05, f"asia marginals off exact VE: {tvs}")
     return launches
@@ -1517,7 +1612,7 @@ def sweep_parts(torch, cbn, fr, vals, key) -> dict:
 
 def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
                  k4_err: dict, sharded_launches: dict, k5_err: dict,
-                 k6_err: dict, per_call: dict):
+                 k6_err: dict, per_call: dict, k1_ptxas: list):
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
@@ -1577,31 +1672,7 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
         "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
     })
 
-    # K1 at the draw request's shape (65,536 rows of 32 bins)
-    w = ops.lut_exp_weights(x.reshape(1 << 16, 32), tab, spec)
-    words = ky_core.random_words(prng.key(9), (1 << 16,), 4, dev)
-    lab_k, st = ky_sampler.ky_sample_kernel(w, words, n_bins=32)
-    lab_t, _ = ky_sampler.ky_sample_kernel_ref(w, words, n_bins=32)
-    k1 = lambda: ky_sampler.ky_sample_kernel(w, words, n_bins=32)
-    ms_events = time_ms(torch, k1, 200)
-    ms = device_ms(torch, k1, 200, "ky_sample_kernel")
-    plain = time_ms(torch, lambda: ky_sampler.ky_sample_kernel_ref(
-        w, words, n_bins=32), 5)
-    steps = float(st["bits_used"].sum())
-    # per walk step: shift, mask, add and compare on 33 lanes, plus the
-    # step's own bookkeeping; counted at the float32 peak, the highest
-    # non-tensor rate of NVIDIA's H100 data sheet
-    bms, by = bound(nbytes(w, words) + 4 * 4 * w.shape[0],
-                    steps * (4 * 33 + 8), FP32_FLOPS)
-    rows.append({
-        "name": "K1 ky_sample_kernel (65,536 x 32)", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ky_sampler.cu",
-        "replaces": "src/repro/kernels/ky_sampler.py:159",
-        "launches": launches["ky_sample_kernel"],
-        "max_abs_err": int((lab_k - lab_t).abs().max()),
-        "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
-        "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
-    })
+    rows.append(timing_k1(torch, launches, per_call, k1_ptxas, x, tab, spec))
 
     # one pigs sweep alone and in the query loop, by part, beside the
     # plain-torch word generation the sweep ran before K3 made its words
@@ -1617,19 +1688,25 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     n_rows = b * sum(fr.n_c)
     z = -10.0 * torch.rand((n_rows, p.v_max), generator=g, device=dev)
     w3 = ops.lut_exp_weights(z, tab, spec)
-    words3 = ky_core.random_words(prng.key(8), (n_rows,), p.n_words, dev)
+    key3 = prng.key(8)
+    words3 = ky_core.random_words(key3, (n_rows,), p.n_words, dev)
+    bits3 = ky_sampler.ky_sample_kernel(w3, words3, n_bins=3)[1]["bits_used"]
+    ops3 = float(bits3.sum()) * (4 * 4 + 8)
     pigs = {}
-    for name, kern, twin, kernel, moved, ops_ in (
+    for name, kern, twin, kernel, moved, ops_, int_ms in (
         ("K2", lambda: interp_lut.interp_kernel(z, tab, spec),
          lambda: interp_lut.interp_kernel_ref(z, tab, spec), "interp_kernel",
-         2 * nbytes(z) + nbytes(tab), 8 * z.numel()),
+         2 * nbytes(z) + nbytes(tab), 8 * z.numel(), 0.0),
         ("K1", lambda: ky_sampler.ky_sample_kernel(w3, words3, n_bins=3),
          lambda: ky_sampler.ky_sample_kernel_ref(w3, words3, n_bins=3),
-         "ky_sample_kernel", nbytes(w3, words3) + 4 * 4 * n_rows,
-         float(ky_sampler.ky_sample_kernel(w3, words3, n_bins=3)[1][
-             "bits_used"].sum()) * (4 * 4 + 8)),
+         K1_KERNEL, nbytes(w3, words3) + 4 * 4 * n_rows, ops3, 0.0),
+        # the same draws with the words hashed in the kernel from key3
+        ("K1_keyed", lambda: ky_sampler.ky_sample_keyed(w3, key3, n_bins=3),
+         lambda: ky_sampler.ky_sample_kernel_ref(w3, words3, n_bins=3),
+         K1_KERNEL, nbytes(w3) + 4 * 4 * n_rows, ops3,
+         hash_ms(int(((bits3.long() + 31) // 32).sum()), per_call)),
     ):
-        bms, by = bound(moved, ops_)
+        bms, by = bound(moved, ops_, FP32_FLOPS, int_ms)
         pigs[name] = {"ms": device_ms(torch, kern, 50, kernel),
                       "ms_per_call_events": time_ms(torch, kern, 50),
                       "plain_ms": time_ms(torch, twin, 3),
@@ -1640,6 +1717,108 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     rows.extend(timing_sharded(torch, sharded_launches, k5_err, k6_err,
                                per_call))
     emit({"kernels": rows})
+
+
+def timing_k1(torch, launches: dict, per_call: dict, k1_ptxas: list, x,
+              tab, spec) -> dict:
+    """K1 at the draw request's shape (65,536 rows of 32 LUT-exp weights):
+    the words entry (the reference kernel's signature, the row's `ms`) and
+    the keyed entry the draw request runs, each against the twin; their
+    bounds; `torch.multinomial` on the same weights as float32, one draw
+    per row (the same distribution: KY with its rejection bin draws bin i
+    with probability w_i / sum(w)), which the port never calls.  Then the
+    draw request's wall by part (`timing_draw_request`).  Returns K1's row
+    of the kernels line."""
+    from repro_torch import prng
+    from repro_torch.core import ky as ky_core
+    from repro_torch.kernels import ky_sampler, ops
+
+    dev = torch.device(DEVICE)
+    w = ops.lut_exp_weights(x.reshape(DRAW_ROWS, DRAW_BINS), tab, spec)
+    key = prng.key(9)
+    words = ky_core.random_words(key, (DRAW_ROWS,), 4, dev)
+    lab_t, st_t = ky_sampler.ky_sample_kernel_ref(w, words, n_bins=DRAW_BINS)
+    err = 0
+    for lab, _ in (ky_sampler.ky_sample_kernel(w, words, n_bins=DRAW_BINS),
+                   ky_sampler.ky_sample_keyed(w, key, n_bins=DRAW_BINS)):
+        err = max(err, int((lab - lab_t).abs().max()))
+    k1 = lambda: ky_sampler.ky_sample_kernel(w, words, n_bins=DRAW_BINS)
+    keyed = lambda: ky_sampler.ky_sample_keyed(w, key, n_bins=DRAW_BINS)
+    wf = w.float()
+    library = lambda: torch.multinomial(wf, 1)
+    ms_events = time_ms(torch, k1, 200)
+    ms = device_ms(torch, k1, 200, K1_KERNEL)
+    keyed_events = time_ms(torch, keyed, 200)
+    keyed_ms = device_ms(torch, keyed, 200, K1_KERNEL)
+    library_events = time_ms(torch, library, 200)
+    library_ms = device_busy_ms(torch, library, 200)
+    plain = time_ms(torch, lambda: ky_sampler.ky_sample_kernel_ref(
+        w, words, n_bins=DRAW_BINS), 5)
+    bits = st_t["bits_used"]
+    calls = int(((bits.long() + 31) // 32).sum())
+    # per walk step: shift, mask, add and compare on 33 lanes, plus the
+    # step's own bookkeeping, at the float32 peak, the highest non-tensor
+    # rate of NVIDIA's H100 data sheet; the keyed entry reads no words but
+    # hashes one threefry call per 32 bits its walks use (`hash_ms`)
+    ops_ = float(bits.sum()) * (4 * (DRAW_BINS + 1) + 8)
+    outs = 4 * 4 * DRAW_ROWS
+    bms, by = bound(nbytes(w, words) + outs, ops_)
+    keyed_bms, keyed_by = bound(nbytes(w) + outs, ops_, FP32_FLOPS,
+                                hash_ms(calls, per_call))
+    timing_draw_request(torch, tab, spec)
+    return {
+        "name": "K1 ky_sample_kernel (65,536 x 32)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ky_sampler.cu",
+        "replaces": "src/repro/kernels/ky_sampler.py:159",
+        "launches": launches["ky_sample_kernel"], "max_abs_err": err,
+        "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": library_ms or library_events,
+        "library": "torch.multinomial(weights.float(), 1)",
+        "library_ms_per_call_events": library_events,
+        "ms_per_call_events": ms_events,
+        "keyed_ms": keyed_ms or keyed_events,
+        "keyed_ms_per_call_events": keyed_events,
+        "keyed_bound_ms": keyed_bms, "keyed_bound_by": keyed_by,
+        "threefry_calls": calls, "walk_steps_per_row": float(bits.sum())
+        / DRAW_ROWS, "ptxas": k1_ptxas,
+    }
+
+
+def timing_draw_request(torch, tab, spec) -> None:
+    """The main path's draw request (65,536 rows of 32 log-potentials
+    through `ops.lut_exp_weights`, then `ops.ky_sample`), back to back:
+    wall (CUDA events), host issue time and device time of the whole draw
+    and of each part, beside the plain-torch generation of the draw's
+    words that `ky_sample` no longer runs."""
+    from repro_torch import prng
+    from repro_torch.core import ky as ky_core
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(5)
+    logp = torch.log(torch.rand((DRAW_ROWS, DRAW_BINS), generator=g,
+                                device=dev) * 200.0 + 1.0)
+    key = prng.key(9)
+    w = ops.lut_exp_weights(logp, tab, spec)
+    parts = {
+        "draw": lambda: ops.ky_sample(ops.lut_exp_weights(logp, tab, spec),
+                                      key),
+        "lut_exp_weights": lambda: ops.lut_exp_weights(logp, tab, spec),
+        "ky_sample": lambda: ops.ky_sample(w, key),
+    }
+    out = {"phase": "timing_draw_request", "rows": DRAW_ROWS,
+           "bins": DRAW_BINS}
+    for name, fn in parts.items():
+        out[f"{name}_ms"] = time_ms(torch, fn, 200)
+        out[f"{name}_host_ms"] = host_ms(torch, fn, 200)
+        out[f"{name}_device_ms"] = device_busy_ms(torch, fn, 200)
+    out["draw_busy_share"] = out["draw_device_ms"] / out["draw_ms"]
+    c0 = prng._raw_bits.calls
+    ops.ky_sample(w, key)
+    out["plain_torch_generator_calls"] = prng._raw_bits.calls - c0
+    out["plain_torch_word_generation_ms_not_run"] = time_ms(
+        torch, lambda: ky_core.random_words(key, (DRAW_ROWS,), 4, dev), 50)
+    emit(out)
 
 
 def timing_mrf(torch, launches: dict, k4_err: dict,

@@ -15,15 +15,18 @@
 //     even, roundf rounds half away from zero);
 //   * random words are the uint32 bit patterns of jax.random.bits; bit t
 //     of a row is (word[t / 32] >> (t % 32)) & 1.  A walk takes them from
-//     a row of int32 words in device memory (K1) or hashes them
-//     from the stream's key and the row's counters when it reaches them
-//     (K3-K6: `threefry2x32`, `jax_word`, `WordsFromKey`).
+//     a row of int32 words in device memory (K1's words entry) or hashes
+//     them from the stream's key and the row's counters when it reaches
+//     them (K1's keyed entry and K3-K6: `threefry2x32`, `jax_word`,
+//     `WordsFromKey`).
 //
-// Distributions live in per-thread register arrays of a compile-time
-// capacity VCAP >= n_bins + 1 (bins plus the rejection bin); every loop
-// over them is unrolled with a runtime mask so the arrays stay in
-// registers.  Lanes past n_bins + 1 play the part of the reference's zero
-// lanes up to 128.
+// K3-K6 walk with `ky_prepare`/`ddg_walk` below; K1 walks bit planes of
+// the bins (ky_sampler.cu) and shares only the word sources and
+// `argmax_fallback`.  Here distributions live in per-thread register
+// arrays of a compile-time capacity VCAP >= n_bins + 1 (bins plus the
+// rejection bin); every loop over them is unrolled with a runtime mask so
+// the arrays stay in registers.  Lanes past n_bins + 1 play the part of
+// the reference's zero lanes up to 128.
 
 #pragma once
 

@@ -3,13 +3,24 @@
 Replaces the reference's Pallas kernel `ky_sample_kernel`
 (src/repro/kernels/ky_sampler.py:159, body `_ky_kernel` :140, helpers
 `preprocess_lanes` :58, `ddg_walk` :74, `argmax_fallback` :128).  The CUDA
-source is `csrc/ky_sampler.cu`; the device functions it shares with K3 are
-in `csrc/aia_common.cuh`.
+source is `csrc/ky_sampler.cu`.
 
-Bound on the H100: bytes (weights and words in, four ints out per row).
-The TPU's lane cumsum, a triangular MXU matmul over 128 lanes, becomes a
-running sum over the row's n_bins + 1 lanes in one thread's registers, and
-the lock-step early-exit loop becomes each thread's own exit.
+Bound on the H100: bytes (weights in, four ints out per row, and the words
+when they are read).  The TPU's lane cumsum, a triangular MXU matmul over
+128 lanes, becomes a bit plane per DDG level over the row's bins: a
+popcount, and the (d+1)-th set bit on the level that accepts, with the
+rejection bin held apart.  Rows of up to 8 bins form each level's plane
+from registers; wider rows are copied into shared memory with coalesced
+loads and transposed into planes once (see the source's header).
+
+Two entries launch the one kernel body, both counted in
+`ky_sample_kernel.launches`:
+
+  * `ky_sample_kernel(weights, words)` reads (B, n_words) words, the
+    reference kernel's signature;
+  * `ky_sample_keyed(weights, key)` hashes row r's word j, counter
+    r * n_words + j of `key`'s stream (`random_words(key, (B,), n_words)`),
+    when its walk reaches it: the draw request's path (`ops.ky_sample`).
 
 The TPU kernel takes weights padded to 128 lanes; here `weights` is
 (B, n_bins), the lane padding being a TPU layout.  The twin is the plain
@@ -21,10 +32,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import ky as ky_core
 from repro_torch.kernels import _lib
 
 LANES = 128  # the widest alphabet the KY kernels take is LANES - 1 bins
+MAX_PRECISION = 30  # 2^precision and the row sums stay in int32
+
+
+def n_words_for(precision: int, max_retries: int) -> int:
+    """Words a row's walk may read: one bit per step, precision x
+    max_retries steps."""
+    return -(-precision * max_retries // 32)
 
 
 def argmax_fallback(
@@ -40,14 +59,24 @@ def argmax_fallback(
     return torch.where(done, labels, amax)
 
 
-def _check(weights, words, n_bins, precision, max_retries):
+def _check_weights(weights, n_bins, precision, max_retries) -> int:
     if weights.dim() != 2 or weights.shape[1] != n_bins:
         raise ValueError(f"weights must be (B, n_bins={n_bins})")
     if not 1 <= n_bins < LANES:
         raise ValueError(f"n_bins {n_bins} needs a free rejection lane")
-    if weights.dtype != torch.int32 or words.dtype != torch.int32:
-        raise ValueError("weights and words are int32 tensors")
-    total_steps = precision * max_retries
+    if weights.dtype != torch.int32:
+        raise ValueError("weights are an int32 tensor")
+    if not 1 <= precision <= MAX_PRECISION:
+        raise ValueError(f"precision {precision} is not in 1..{MAX_PRECISION}")
+    if max_retries < 1:
+        raise ValueError(f"max_retries {max_retries} < 1")
+    return precision * max_retries
+
+
+def _check(weights, words, n_bins, precision, max_retries):
+    total_steps = _check_weights(weights, n_bins, precision, max_retries)
+    if words.dtype != torch.int32:
+        raise ValueError("words are an int32 tensor")
     if words.dim() != 2 or words.shape[0] != weights.shape[0]:
         raise ValueError("words must be (B, n_words)")
     if words.shape[1] * 32 < total_steps:
@@ -72,6 +101,32 @@ def ky_sample_kernel_ref(
     return argmax_fallback(weights, labels, done, n_bins), stats
 
 
+def _launch(entry: str, weights, source, source_types, n_words, n_bins,
+            precision, total_steps):
+    """Launch `entry` (the words' source first, then the shapes) and count
+    it; an empty batch launches nothing."""
+    b = weights.shape[0]
+    outs = torch.empty((4, b), dtype=torch.int32, device=weights.device)
+    if b:
+        fn = _lib.function(
+            "ky_sampler", entry,
+            [_lib.PTR, *source_types, _lib.INT, _lib.INT, _lib.INT,
+             _lib.INT, _lib.INT, _lib.PTR, _lib.PTR, _lib.PTR, _lib.PTR,
+             _lib.PTR],
+        )
+        with torch.cuda.device(weights.device):
+            code = fn(weights.data_ptr(), *source, b, n_bins, n_words,
+                      precision, total_steps, outs[0].data_ptr(),
+                      outs[1].data_ptr(), outs[2].data_ptr(),
+                      outs[3].data_ptr(), _lib.stream_of(weights))
+        _lib.check("ky_sampler", code, entry)
+        ky_sample_kernel.launches += 1
+    return outs[0], {
+        "bits_used": outs[1], "rejections": outs[2],
+        "fallback": outs[3] != 0,
+    }
+
+
 def ky_sample_kernel(
     weights: torch.Tensor, words: torch.Tensor, *, n_bins: int,
     precision: int = 16, max_retries: int = 8,
@@ -85,24 +140,33 @@ def ky_sample_kernel(
                                     precision=precision,
                                     max_retries=max_retries)
     _lib.require_cuda("ky_sample_kernel", weights, words)
-    b = weights.shape[0]
-    outs = torch.empty((4, b), dtype=torch.int32, device=weights.device)
-    fn = _lib.function(
-        "ky_sampler", "aia_ky_sample",
-        [_lib.PTR, _lib.PTR, _lib.INT, _lib.INT, _lib.INT, _lib.INT, _lib.INT,
-         _lib.PTR, _lib.PTR, _lib.PTR, _lib.PTR, _lib.PTR],
-    )
-    with torch.cuda.device(weights.device):
-        code = fn(weights.data_ptr(), words.data_ptr(), b, n_bins,
-                  words.shape[1], precision, total_steps, outs[0].data_ptr(),
-                  outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(),
-                  _lib.stream_of(weights))
-    _lib.check("ky_sampler", code, "ky_sample_kernel")
-    ky_sample_kernel.launches += 1
-    return outs[0], {
-        "bits_used": outs[1], "rejections": outs[2],
-        "fallback": outs[3] != 0,
-    }
+    return _launch("aia_ky_sample", weights, [words.data_ptr()], [_lib.PTR],
+                   words.shape[1], n_bins, precision, total_steps)
 
 
 ky_sample_kernel.launches = 0
+
+
+def ky_sample_keyed(
+    weights: torch.Tensor, key: prng.Key, *, n_bins: int,
+    precision: int = 16, max_retries: int = 8,
+):
+    """`ky_sample_kernel(weights, random_words(key, (B,), n_words))`, with
+    the words hashed inside the kernel, only those each row's walk reaches:
+    the CUDA kernel for CUDA tensors (counted in
+    `ky_sample_kernel.launches`), the twin on the key's words for CPU
+    tensors."""
+    if not isinstance(key, prng.Key):
+        raise TypeError(f"key must be a prng.Key, got {type(key).__name__}")
+    total_steps = _check_weights(weights, n_bins, precision, max_retries)
+    n_words = n_words_for(precision, max_retries)
+    if weights.device.type == "cpu":
+        words = ky_core.random_words(key, (weights.shape[0],), n_words,
+                                     weights.device)
+        return ky_sample_kernel_ref(weights, words, n_bins=n_bins,
+                                    precision=precision,
+                                    max_retries=max_retries)
+    _lib.require_cuda("ky_sample_keyed", weights)
+    return _launch("aia_ky_sample_keyed", weights, [key.k1, key.k2],
+                   [_lib.UINT, _lib.UINT], n_words, n_bins, precision,
+                   total_steps)

@@ -1,7 +1,7 @@
 """Public entry points for the kernels (port of `repro/kernels/ops.py`).
 
-These wrappers own the layout plumbing (flattening, random-word generation)
-so callers see clean shapes.  They run where their input tensors live: the
+These wrappers own the layout plumbing (flattening, the random words'
+key) so callers see clean shapes.  They run where their input tensors live: the
 CUDA kernels for tensors on the card, the plain torch twins for CPU
 tensors, which only a caller that made CPU tensors gets.
 """
@@ -12,7 +12,6 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch import prng
-from repro_torch.core import ky as ky_core
 from repro_torch.core.interp import LUTSpec
 from repro_torch.kernels import _lib
 from repro_torch.kernels import interp_lut as _interp_lut
@@ -30,17 +29,16 @@ def ky_sample(
     return_stats: bool = False,
 ):
     """Draw one exact sample per row from unnormalized int32 weights
-    (B, N), N < 128, with the reference's random words for `key`.  Returns
-    labels (B,) int32 [, stats]."""
-    b, n_bins = weights.shape
+    (B, N), N < 128, with the reference's random words for `key`
+    (`random_words(key, (B,), n_words)`), which K1 hashes itself on the
+    card (`ky_sample_keyed`).  Returns labels (B,) int32 [, stats]."""
+    n_bins = weights.shape[1]
     if n_bins >= LANES:  # raised, not asserted: must hold under `python -O`
         raise ValueError(
             f"KY kernel handles <={LANES - 1} bins, got {n_bins}"
         )
-    n_words = -(-precision * max_retries // 32)
-    words = ky_core.random_words(key, (b,), n_words, weights.device)
-    labels, stats = _ky.ky_sample_kernel(
-        weights.to(torch.int32).contiguous(), words, n_bins=n_bins,
+    labels, stats = _ky.ky_sample_keyed(
+        weights.to(torch.int32).contiguous(), key, n_bins=n_bins,
         precision=precision, max_retries=max_retries,
     )
     if return_stats:

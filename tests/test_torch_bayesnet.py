@@ -22,7 +22,9 @@ from repro_torch.core import bayesnet as t_bn
 from repro_torch.core import graphs as t_graphs
 from repro_torch.kernels import bn_gibbs as t_fused
 
-MODELS = ["survey", "asia", "cancer", "alarm", "hailfinder"]
+# the whole bench zoo (`bn_repository_names()`)
+MODELS = ["survey", "asia", "cancer", "alarm", "hailfinder", "sachs",
+          "insurance", "water", "hepar2", "win95pts", "pigs"]
 
 _r_sweep = jax.jit(r_bn.gibbs_sweep, static_argnames=("sampler",))
 
@@ -73,7 +75,8 @@ def test_init_and_one_lut_ky_sweep_match_reference(name):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("name", ["survey", "alarm"])
+@pytest.mark.parametrize("name", ["survey", "alarm", "sachs", "insurance",
+                                  "water"])
 def test_k3_twin_matches_reference_fused_kernel(name):
     """The K3 twin (what `bn_sweep` runs on CPU tensors) against the
     reference's `fused_gibbs_sweep` Pallas kernel in interpret mode."""

@@ -98,3 +98,33 @@ def test_bound_names_what_sets_it():
     assert (ms, by) == (2.0, "operations")
     ms, by = cs.bound(0.0, 67e9)  # 1 ms of float32 operations
     assert (ms, by) == (pytest.approx(1.0), "operations")
+
+
+# the shape of `nvcc -Xptxas -v` output: K1's template instances in the
+# anonymous namespace of ky_sampler.cu, and a plain kernel beside them
+PTXAS_LOG = """
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__496cbd7e_13_ky_sampler_cu_03bb7e9716ky_planes_kernelILi4ENS_7FromKeyEEEvPKiT0_iiiiNS_3OutE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__496cbd7e_13_ky_sampler_cu_03bb7e9716ky_planes_kernelILi4ENS_7FromKeyEEEvPKiT0_iiiiNS_3OutE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 87 registers, used 0 barriers, 32384 bytes smem
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__496cbd7e_13_ky_sampler_cu_03bb7e9715ky_lanes_kernelILi8ENS_10FromMemoryEEEvPKiT0_iiiiNS_3OutE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__496cbd7e_13_ky_sampler_cu_03bb7e9715ky_lanes_kernelILi8ENS_10FromMemoryEEEvPKiT0_iiiiNS_3OutE
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__496cbd7e_13_ky_sampler_cu_03bb7e9721threefry_words_kernelEjjyyPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__496cbd7e_13_ky_sampler_cu_03bb7e9721threefry_words_kernelEjjyyPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 14 registers, used 0 barriers
+"""
+
+
+def test_ptxas_entries_names_k1_instances_and_their_spills():
+    cs = _chip_smoke()
+    assert cs.ptxas_entries(PTXAS_LOG, cs.K1_KERNEL) == [
+        {"function": "ky_planes_kernel<4, FromKey>", "stack_bytes": 0,
+         "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 87},
+        {"function": "ky_lanes_kernel<8, FromMemory>", "stack_bytes": 16,
+         "spill_store_bytes": 8, "spill_load_bytes": 4, "registers": 255},
+    ]
+    assert cs.ptxas_entries(PTXAS_LOG, "bn_") == []

@@ -222,7 +222,8 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
         raise AssertionError("a CUDA tensor reached a plain twin")
 
     def words_made(*args, **kwargs):
-        raise AssertionError("K3-K6's words were made in plain torch")
+        raise AssertionError("K1's or K3-K6's words were made in plain "
+                             "torch")
 
     monkeypatch.setattr(interp_lut, "interp_kernel_ref", twin_called)
     monkeypatch.setattr(ky_sampler, "ky_sample_kernel_ref", twin_called)
@@ -239,7 +240,6 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
     before = [c.launches for c in counters]
     w = ops.lut_exp_weights(torch.randn(64, 5, device=dev), cbn.exp_table,
                             cbn.exp_spec)
-    ops.ky_sample(w, prng.key(1))
     vals, _ = t_bn.init_chain_values(cbn, prng.key(2), 8)
     fr = bn_gibbs.build_fused_rounds(cbn.groups)
     grid = t_graphs.GridMRF(9, 7, 4)
@@ -248,9 +248,11 @@ def test_cuda_tensors_never_reach_the_twins(monkeypatch):
     sfr = distributed.build_sharded_fused_rounds(cbn, cbn.groups, 2)
     p = bn_gibbs.sweep_params(cbn, "lut_ky")
     up, down = distributed._halo_exchange(labels, 3)
-    # K3-K6 make their words inside the kernel: no word in plain torch
+    # K1 and K3-K6 make their words inside the kernel: no word in plain
+    # torch
     with monkeypatch.context() as m:
         m.setattr(prng, "_raw_bits", words_made)
+        ops.ky_sample(w, prng.key(1))
         bn_gibbs.fused_gibbs_sweep(cbn, fr, vals, prng.key(3))
         mrf_gibbs.mrf_round_step(grid, labels, evidence, prng.key(4), 1,
                                  cbn.exp_table, cbn.exp_spec)
