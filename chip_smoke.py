@@ -126,7 +126,45 @@ each printing one JSON line; any failure raises and exits non-zero:
               half-step launch on the (2, 4) mesh; one sharded pigs sweep
               and one sharded Penguin half-step by part (K5 and the psum
               merge, K6 and the halo exchange).  Prints `{"kernels":
-              [...]}` (K1-K6).
+              [...]}` (K1-K6, and K3's and K4's lane entries).
+13. k3_lanes / k4_lanes (run before `timing`) — K3's lane entry
+              (`bn_sweep_lanes`: one sweep over the chains of Q queries,
+              each with its own key read from device memory) on pigs, and
+              K4's (`mrf_half_step_lanes`: one half-step over Q queries,
+              each with its own key and evidence plane) on Penguin and
+              Art, at Q = 3 x 1,024 chains, and K3's on hailfinder at the
+              runtime bucket's Q = 2: bit-equal to their twins and to the
+              one-query kernels run query by query (exact_ky too); 1,024
+              chains are no multiple of K3's chains per block on pigs, so
+              every query's last block is partial.
+14. serve_runtime (run before `timing`) — the serving runtime's main
+              path: `Engine(fused=True, max_batch=8, n_workers=4,
+              shard_width=4, shard_min_sites=4096, slice_iters=100)` over
+              8 pigs queries sharing one observed-node set (own values and
+              seeds), 2 hailfinder queries and 4 Penguin queries (2 pinned:
+              the vmap route; 2 unpinned: the sharded route), all 1,024
+              chains x 200 sweeps, programs cold.  Counters zeroed before
+              `run()` and read after: K3's lane entry launched once per
+              sweep of each BN bucket (not once per query), K4's twice per
+              iteration of the pinned Penguin bucket, K6 twice per
+              iteration of each sharded query, plus the first-use
+              cross-checks'.  Every answer equals the standalone
+              `program.run(key, ..., fused=True)` and the unsliced
+              engine's, bit for bit; pins hold.  Then each bucket's wall
+              (WALL_REPS warm runs; CUDA events around each dispatch,
+              which ends in the answers' copy to the host) beside the sum
+              of its queries' standalone walls (WALL_REPS runs each,
+              answers copied to the host too), as medians with their
+              least and largest, with queries per wall-second, and
+              `engine.calibrate()`'s medians beside the line model's
+              predictions.  `timing` adds the lane entries' rows: K3's at
+              the pigs bucket (8 x 1,024), K4's at the pinned Penguin
+              bucket (2 x 1,024), each held against its twin on the same
+              inputs, and the bucket loops per sweep or iteration
+              (timing_runtime_bucket_sweep: pigs by part, batched key
+              split, K3 lane wrapper, histogram, the card's busy share;
+              timing_lane_loops: the pigs and pinned Penguin bucket loops
+              at their served Q and at Q = 1 beside the one-query loop).
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -137,6 +175,7 @@ from __future__ import annotations
 
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -225,8 +264,11 @@ def main() -> int:
     k5_err = timed(phase_k5, torch)
     k6_err = timed(phase_k6, torch)
     sharded_launches = timed(phase_serve_sharded, torch, served)
+    lanes_err = timed(phase_lanes, torch)
+    runtime = timed(phase_serve_runtime, torch)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
-          sharded_launches, k5_err, k6_err, per_call, k1_ptxas)
+          sharded_launches, k5_err, k6_err, per_call, k1_ptxas, runtime,
+          lanes_err)
     for mod in sys.modules:
         check(not (mod == "jax" or mod.startswith("jax.")
                    or mod == "repro" or mod.startswith("repro.")),
@@ -327,6 +369,8 @@ def _wrappers() -> dict:
         "mrf_half_step": mrf_gibbs.mrf_half_step,
         "fused_color_round": bn_gibbs.fused_color_round,
         "mrf_halo_half_step": mrf_gibbs.mrf_halo_half_step,
+        "bn_sweep_lanes": bn_gibbs.bn_sweep_lanes,
+        "mrf_half_step_lanes": mrf_gibbs.mrf_half_step_lanes,
     }
 
 
@@ -1360,7 +1404,8 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
     want = {"fused_color_round": want_k5, "mrf_halo_half_step": want_k6,
             "bn_sweep": 3 * len(progs),
             "mrf_half_step": 2 * 3 * len(served_mrf),
-            "ky_sample_kernel": 0, "interp_kernel": 0}
+            "ky_sample_kernel": 0, "interp_kernel": 0,
+            "bn_sweep_lanes": 0, "mrf_half_step_lanes": 0}
     check(launches == want, f"sharded path launches {launches}, expected "
           f"{want}")
     raw_calls = [c for _, _, c in bn_out] + [c for _, _, c in
@@ -1612,7 +1657,8 @@ def sweep_parts(torch, cbn, fr, vals, key) -> dict:
 
 def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
                  k4_err: dict, sharded_launches: dict, k5_err: dict,
-                 k6_err: dict, per_call: dict, k1_ptxas: list):
+                 k6_err: dict, per_call: dict, k1_ptxas: list, runtime: dict,
+                 lanes_err: dict):
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
@@ -1716,6 +1762,7 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     rows.append(timing_mrf(torch, mrf_launches, k4_err, per_call))
     rows.extend(timing_sharded(torch, sharded_launches, k5_err, k6_err,
                                per_call))
+    rows.extend(timing_lanes(torch, runtime, lanes_err, per_call))
     emit({"kernels": rows})
 
 
@@ -2147,6 +2194,627 @@ def sharded_parts(torch, cbn, sfr, vals, mrf, ev, labels) -> None:
     emit({"phase": "timing_sharded_mrf_half_step", "model": "penguin",
           "mesh": list(MESH), "chains": CHAINS, **m})
 
+
+# ---------------------------------------------------------------------------
+# the serving runtime: K3's and K4's lane entries, and a bucket per launch
+# ---------------------------------------------------------------------------
+
+LANES_Q = 3  # queries of the lane-entry checks
+WALL_REPS = 5  # timed runs of each runtime bucket and standalone query
+RUNTIME_SLICE = 100  # the runtime phase's slice_iters
+RUNTIME_SEED = 17
+
+
+def phase_lanes(torch) -> dict:
+    """K3's lane entry (`bn_sweep_lanes`) on pigs and K4's
+    (`mrf_half_step_lanes`) on Penguin and Art, LANES_Q queries of 1,024
+    chains each, and K3's on hailfinder at the runtime bucket's 2 queries,
+    against their twins (bit-equal, lut_ky) and against the one-query
+    kernels run query by query with the same keys (bit-equal, exact_ky
+    included).  `timing_lanes` holds the runtime's other bucket shapes
+    (pigs at 8 queries, Penguin at 2) against the twins.  K3's blocks hold `chains_per_block` chains of one
+    query, and 1,024 is no multiple of it: each query's last block is
+    partial."""
+    from repro_torch import prng
+    from repro_torch.core import bayesnet as bnet
+    from repro_torch.core import mrf as mrf_mod
+    from repro_torch.core.graphs import bn_repository_replica
+    from repro_torch.kernels import bn_gibbs, mrf_gibbs
+
+    dev = torch.device(DEVICE)
+    errs = {"k3": 0}
+    # pigs at LANES_Q, whose queries end in partial blocks, and the
+    # runtime's hailfinder bucket (2 queries) at its own shape
+    for name, q, seed in (("pigs", LANES_Q, 20), ("hailfinder", 2, 90)):
+        cbn = bnet.compile_bayesnet(bn_repository_replica(name), device=dev)
+        fr = bn_gibbs.build_fused_rounds(cbn.groups)
+        vals = torch.cat([bnet.init_chain_values(cbn, prng.key(seed + i),
+                                                 CHAINS)[0]
+                          for i in range(q)])
+        keys = [prng.key(seed + 10 + i) for i in range(q - 1)] + [
+            prng.Key(0xFFFFFFFF, 0x89ABCDEF)]
+        kt = prng.key_tensor(keys, dev)
+        cpc = min(bn_gibbs.chains_per_block(q * CHAINS, cbn.n_nodes,
+                                            cbn.exp_spec.size), CHAINS)
+        if name == "pigs":
+            check(CHAINS % cpc != 0, f"{cpc} chains per block divide "
+                  f"{CHAINS}: no partial block to check")
+        out = {"phase": "k3_lanes", "model": name, "queries": q,
+               "chains": CHAINS, "chains_per_block": cpc,
+               "partial_block_chains": CHAINS % cpc}
+        for sampler in ("lut_ky", "exact_ky"):
+            p = bn_gibbs.sweep_params(cbn, sampler)
+            got = bn_gibbs.bn_sweep_lanes(cbn, fr, vals, kt, sampler, p)
+            one = torch.cat([
+                bn_gibbs.bn_sweep(cbn, fr, vals[i * CHAINS:(i + 1) * CHAINS],
+                                  k, sampler, p) for i, k in enumerate(keys)])
+            torch.cuda.synchronize()
+            bad = int((got != one).sum())
+            out[f"{sampler}_mismatches_vs_one_query_kernel"] = bad
+            check(bad == 0, f"K3 lanes differ from K3 run query by query "
+                  f"({name}, {sampler}, {bad} labels)")
+            if sampler == "lut_ky":
+                want = bn_gibbs.bn_sweep_lanes_ref(cbn, fr, vals, kt, sampler,
+                                                   p)
+                bad = int((got != want).sum())
+                errs["k3"] = max(errs["k3"], int((got - want).abs().max()))
+                out["lut_ky_mismatches_vs_twin"] = bad
+                out["lut_ky_changed_share"] = float(
+                    (got != vals).float().mean())
+                check(bad == 0, f"K3 lanes differ from their twin on {name} "
+                      f"({bad})")
+        emit(out)
+
+    tab, spec = exp_lut(dev)
+    errs["k4"] = 0
+    for name in ("penguin", "art"):
+        mrf, _, _ = _mrf_model(torch, name)
+        hh, ww, v = mrf.height, mrf.width, mrf.n_labels
+        evs = torch.stack([torch.as_tensor(mrf_mod.make_denoising_problem(
+            hh, ww, v, 0.25, seed=s)[1]) for s in range(LANES_Q)]).to(dev)
+        labels = prng.randint(prng.key(1), (LANES_Q * CHAINS, hh, ww), 0, v,
+                              dev)
+        p = mrf_gibbs.half_step_params(mrf)
+        out = {"phase": "k4_lanes", "model": name, "queries": LANES_Q,
+               "chains": CHAINS, "mismatches_vs_twin": {},
+               "mismatches_vs_one_query_kernel": {}}
+        for parity in (0, 1):
+            keys = [prng.key(40 + 3 * parity + i) for i in range(LANES_Q)]
+            kt = prng.key_tensor(keys, dev)
+            got = mrf_gibbs.mrf_half_step_lanes(mrf, labels, evs, kt, parity,
+                                                tab, spec, p)
+            one = torch.cat([mrf_gibbs.mrf_half_step(
+                mrf, labels[i * CHAINS:(i + 1) * CHAINS], evs[i], k, parity,
+                tab, spec, p) for i, k in enumerate(keys)])
+            want = mrf_gibbs.mrf_half_step_lanes_ref(mrf, labels, evs, kt,
+                                                     parity, tab, spec, p)
+            torch.cuda.synchronize()
+            b1, b2 = int((got != one).sum()), int((got != want).sum())
+            errs["k4"] = max(errs["k4"], int((got - want).abs().max()))
+            out["mismatches_vs_one_query_kernel"][str(parity)] = b1
+            out["mismatches_vs_twin"][str(parity)] = b2
+            check(b1 == 0 and b2 == 0, f"K4 lanes differ on {name}, parity "
+                  f"{parity}: {b1} labels from K4 query by query, {b2} "
+                  "from the twin")
+        emit(out)
+    return errs
+
+
+def _runtime_trace():
+    """The runtime phase's models and queries, all at 1,024 chains x 200
+    sweeps, arriving within one microbatch window: 8 pigs queries sharing
+    one observed-node set (5-20 nodes) with their own values and seeds, 2
+    hailfinder queries likewise, and 4 Penguin denoising queries, the
+    first 2 with MRF_PINS pixels pinned at their clean labels (the vmap
+    route) and 2 unpinned (the sharded route)."""
+    import numpy as np
+
+    from repro_torch.core import mrf as mrf_mod
+    from repro_torch.core.graphs import GridMRF, bn_repository_replica
+    from repro_torch.runtime import Query
+
+    nets = {m: bn_repository_replica(m) for m in ("pigs", "hailfinder")}
+    h, w, v, _ = MRF_MODELS["penguin"]
+    models = {**nets, "penguin": GridMRF(h, w, v, theta=1.2, h=2.0,
+                                         name="penguin")}
+    rng = np.random.default_rng(RUNTIME_SEED)
+    queries = []
+
+    def add(model, **kw):
+        queries.append(Query(
+            qid=len(queries), model=model, n_chains=CHAINS, n_iters=ITERS,
+            seed=int(rng.integers(0, 2**31 - 1)),
+            arrival_s=1e-6 * len(queries), **kw))
+
+    for model, n_q in (("pigs", 8), ("hailfinder", 2)):
+        cards = nets[model].cards
+        nodes = rng.choice(len(cards), size=int(rng.integers(5, 21)),
+                           replace=False)
+        for _ in range(n_q):
+            add(model, burn_in=BURN_IN, evidence={
+                int(x): int(rng.integers(0, cards[x])) for x in nodes})
+    for i in range(4):
+        clean, noisy = mrf_mod.make_denoising_problem(h, w, v, 0.25,
+                                                      seed=40 + i)
+        pins = None
+        if i < 2:
+            sites = rng.choice(h * w, size=MRF_PINS, replace=False)
+            pins = {int(s): int(clean.flat[s]) for s in sites}
+        add("penguin", evidence=pins, image=noisy, burn_in=0)
+    return models, queries
+
+
+def _to_host(out):
+    """A standalone run's answer copied to the host: BN (marginals, final
+    values), MRF final labels."""
+    if isinstance(out, tuple):
+        return [t.cpu() for t in out]
+    return out.cpu()
+
+
+def wall_ms(torch, fn) -> float:
+    """The wall of one call of `fn` (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def spread(xs) -> dict:
+    """The median, least and largest of a few timed runs."""
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def _runtime_config(**kw):
+    from repro_torch.runtime import EngineConfig
+
+    return EngineConfig(fused=True, max_batch=8, n_workers=4, shard_width=4,
+                        shard_min_sites=4096, **kw)
+
+
+class DispatchWalls:
+    """While active, records every executor dispatch's wall from CUDA
+    events around `Executor.execute` (which ends in the results' copy to
+    the host): (model, route, queries, resumed, ms)."""
+
+    def __init__(self, torch):
+        self.torch, self.rows = torch, []
+
+    def __enter__(self):
+        from repro_torch.runtime import executor
+
+        torch, rows = self.torch, self.rows
+        self._cls, self._orig = executor.Executor, executor.Executor.execute
+        orig = self._orig
+
+        def execute(ex, program, key, qs, route, return_state=False):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(ex, program, key, qs, route, return_state)
+            end.record()
+            end.synchronize()
+            rows.append((qs[0].model, route, len(qs), key.resumed,
+                         start.elapsed_time(end)))
+            return out
+
+        self._cls.execute = execute
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.execute = self._orig
+
+
+def phase_serve_runtime(torch) -> dict:
+    """The serving runtime's main path: `Engine(fused=True, max_batch=8,
+    n_workers=4, shard_width=4, shard_min_sites=4096, slice_iters=100)`
+    over `_runtime_trace`, programs compiled cold, counters zeroed before
+    `run()` and read after.  Every BN bucket sweep is one launch of K3's
+    lane entry and every pinned Penguin half-step one launch of K4's, over
+    all of the bucket's queries; the unpinned Penguin queries take the
+    sharded route (K6).  Then: every answer equals the standalone
+    `program.run(key, ..., fused=True)` and the unsliced engine's, bit for
+    bit; each bucket's wall (a warm run, CUDA events) beside the sum of
+    its queries' standalone walls; `engine.calibrate()`'s medians beside
+    the line model's predictions."""
+    from repro_torch import prng
+    from repro_torch.compile.program import clear_program_cache
+    from repro_torch.runtime import Engine
+
+    dev = torch.device(DEVICE)
+    models, queries = _runtime_trace()
+    clear_program_cache()
+    eng = Engine(models, _runtime_config(slice_iters=RUNTIME_SLICE),
+                 device=dev)
+    eng.submit(queries)
+
+    # ---- the main path: counters zeroed, the trace served, counters read --
+    zero_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = read_launches()
+    # ---- end of the main path ----------------------------------------------
+
+    recs = eng.metrics.batch_records
+    n_bn = sum(1 for q in queries if q.model != "penguin")
+    bn_recs = [r for r in recs if r.kind == "bn"]
+    vmap_mrf = [r for r in recs if r.kind == "mrf" and r.route == "vmap"]
+    sharded = [r for r in recs if r.route == "sharded"]
+    n_sharded_q = sum(r.n_real for r in sharded)
+    # a BN bucket: one K3 lane launch per sweep of its slice, whatever its
+    # queries; a pinned Penguin bucket: two K4 lane launches per iteration;
+    # a sharded Penguin query: two K6 launches per iteration; the
+    # cross-checks: 3 one-query K3 sweeps per BN program, 3 K4
+    # half-step pairs for the vmap route's and 3 more for the sharded
+    # route's single-device leg, and 3 K6 pairs on its (1, 2) mesh
+    want = {
+        "bn_sweep_lanes": RUNTIME_SLICE * len(bn_recs),
+        "mrf_half_step_lanes": 2 * RUNTIME_SLICE * len(vmap_mrf),
+        "bn_sweep": 3 * 2, "mrf_half_step": 2 * 3 * 2,
+        "mrf_halo_half_step": n_sharded_q * 2 * RUNTIME_SLICE + 2 * 3,
+        "fused_color_round": 0, "ky_sample_kernel": 0, "interp_kernel": 0,
+    }
+    dispatches = [{"model": r.model, "route": r.route, "queries": r.n_real,
+                   "n_padded": r.n_padded, "workers": r.n_workers,
+                   "measured_s": r.measured_s} for r in recs]
+    emit({"phase": "serve_runtime", "queries": len(queries),
+          "slice_iters": RUNTIME_SLICE, "chains": CHAINS, "sweeps": ITERS,
+          "served": len(res), "dispatches": dispatches,
+          "launches": launches, "expected_launches": want,
+          "wall_s_cold": cold_s})
+    check(len(res) == len(queries), f"served {len(res)} of {len(queries)}")
+    check(sorted(r.n_real for r in bn_recs) == [2, 2, 8, 8],
+          f"BN buckets {[(r.model, r.n_real) for r in bn_recs]}: the pigs "
+          "queries should share one bucket per slice, hailfinder's another")
+    check(sum(r.n_real for r in vmap_mrf) == 2 * 2 and n_sharded_q == 2 * 2,
+          f"Penguin dispatches {dispatches}")
+    check(launches == want, f"runtime launches {launches}, expected {want}")
+
+    # ---- is what came out right? ------------------------------------------
+    walls = {}
+    for q in queries:
+        prog = eng._program(q.model)
+        if q.model == "penguin":
+            kw = dict(evidence=q.image, pins=q.evidence)
+        else:
+            kw = dict(evidence=q.evidence, burn_in=BURN_IN)
+        run = lambda: prog.run(prng.key(q.seed), n_chains=CHAINS,
+                               n_iters=ITERS, fused=True, device=dev, **kw)
+        out = run()
+        # the standalone query's answer reaches the host, as a served
+        # bucket's does (`execute_bucket` ends in the copy)
+        walls[q.qid] = [wall_ms(torch, lambda: _to_host(run()))
+                        for _ in range(WALL_REPS)]
+        r = res[q.qid]
+        if q.model == "penguin":
+            same = (r.final_state == out.cpu().numpy()).all()
+            w = models["penguin"].width
+            pinned = all((r.final_state[:, s // w, s % w] == lab).all()
+                         for s, lab in (q.evidence or {}).items())
+            check(pinned, f"query {q.qid}: a pinned pixel moved")
+        else:
+            same = ((r.final_state == out[1].cpu().numpy()).all()
+                    and (r.marginals == out[0].cpu().numpy()).all())
+        check(bool(same), f"query {q.qid} ({q.model}) differs from its "
+              "standalone run")
+    whole_eng = Engine(models, _runtime_config(), device=dev)
+    whole_eng.submit(queries)
+    whole = whole_eng.run()
+    for q in queries:
+        a, b = res[q.qid], whole[q.qid]
+        check((a.final_state == b.final_state).all() and (
+            a.marginals is None or (a.marginals == b.marginals).all()),
+            f"query {q.qid}: sliced and unsliced answers differ")
+
+    # ---- walls: each bucket (warm) against its queries' standalone walls --
+    runs = []
+    for _ in range(WALL_REPS):
+        warm = Engine(models, _runtime_config(slice_iters=RUNTIME_SLICE),
+                      device=dev)
+        warm.submit(queries)
+        with DispatchWalls(torch) as dw:
+            warm.run()
+        runs.append(dw.rows)
+    routes = {q.qid: ("sharded" if q.model == "penguin" and not q.evidence
+                      else "vmap") for q in queries}
+    buckets = []
+    for model in models:
+        for route in ("vmap", "sharded"):
+            per_run = [[x[4] for x in rows if x[0] == model and x[1] == route]
+                       for rows in runs]
+            if not per_run[0]:
+                continue
+            qids = [q.qid for q in queries
+                    if q.model == model and routes[q.qid] == route]
+            bucket = spread([sum(x) for x in per_run])
+            alone = {"median": sum(statistics.median(walls[i])
+                                   for i in qids),
+                     "min": sum(min(walls[i]) for i in qids),
+                     "max": sum(max(walls[i]) for i in qids)}
+            buckets.append({
+                "model": model, "route": route, "queries": len(qids),
+                "dispatches": len(per_run[0]), "runs": WALL_REPS,
+                "dispatch_ms": per_run, "bucket_ms": bucket,
+                "standalone_ms_sum": alone,
+                "standalone_ms": {i: walls[i] for i in qids},
+                "speedup_of_medians": alone["median"] / bucket["median"],
+                "queries_per_wall_s": len(qids) / (bucket["median"] / 1e3),
+                "standalone_queries_per_wall_s": len(qids) / (
+                    alone["median"] / 1e3),
+            })
+    emit({"phase": "serve_runtime_walls", "card": nvidia_smi(),
+          "buckets": buckets})
+
+    # ---- calibration: measured medians beside the line model --------------
+    cal = warm.calibrate(queries)
+    names = {g.ir_key: m for m, g in warm.graphs.items()}
+    sigs = []
+    for sig, (pad, median_s) in cal.measured.items():
+        prog = warm._program(names[sig.program_key])
+        width = warm.config.shard_width if sig.route == "sharded" else 1
+        sigs.append({"model": names[sig.program_key], "route": sig.route,
+                     "n_iters": sig.n_iters, "resumed": sig.resumed,
+                     "n_padded": pad, "median_s": median_s,
+                     "line_s": cal.line_s(prog, sig, pad, width)})
+    emit({"phase": "serve_runtime_calibration", "signatures": sigs})
+    check(len(sigs) >= 4, f"calibrated {len(sigs)} signatures")
+    return {"launches": launches}
+
+
+def _k4_lane_calls(torch, mrf, labels, evs, keys, b, per_call):
+    """The threefry calls K4's lane entry hashes for one half-step (parity
+    0): the words the active sites' walks consume, lane by lane."""
+    from repro_torch.core import ky as ky_core
+    from repro_torch.core.mrf import checkerboard_mask
+    from repro_torch.kernels import mrf_gibbs
+
+    dev = labels.device
+    tab, spec = exp_lut(dev)
+    p = mrf_gibbs.half_step_params(mrf)
+    active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
+    calls, steps = 0, 0.0
+    for i, k in enumerate(keys):
+        lab = labels[i * b:(i + 1) * b]
+        words = mrf_gibbs.round_words(mrf, k, b, p, dev)
+        w = mrf_gibbs.site_weights(mrf, lab, evs[i], tab, spec)[:, active]
+        bits = ky_core.ky_sample_fast(
+            w.reshape(-1, mrf.n_labels),
+            words[:, active].reshape(-1, p.n_words), n_bins=mrf.n_labels,
+            precision=p.precision)[1]["bits_used"]
+        steps += float(bits.sum())
+        calls += int(((bits.long() + 31) // 32).sum())
+    return calls, steps, int(active.sum()) * b * len(keys)
+
+
+def runtime_parts(torch, cbn, vals, kt, q: int) -> None:
+    """The runtime's pigs bucket loop (`backend.bn_rounds_lanes`, Q = 8 x
+    1,024 chains, every sweep kept), per sweep: wall and host issue time
+    (`per_sweep`, the slope between 50 and 250 sweeps), the card's busy
+    share (torch.profiler, same slope), and its parts issued back to back:
+    the batched key split (numpy), K3's lane wrapper and launch, the
+    (Q, n, V) histogram update (host and device time)."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.compile import backend
+    from repro_torch.kernels import bn_gibbs
+
+    keys = [prng.key(80 + i) for i in range(q)]
+    fr = bn_gibbs.build_fused_rounds(cbn.groups)
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    hist = torch.zeros((q, cbn.n_nodes, cbn.max_card), dtype=torch.int32,
+                       device=vals.device)
+    v_range = torch.arange(cbn.max_card, dtype=torch.int32,
+                           device=vals.device)
+    arr = prng.key_array(keys)
+
+    def loop(n):
+        return backend.bn_rounds_lanes(cbn, cbn.groups, keys,
+                                       n_chains=CHAINS, n_iters=n, burn_in=0,
+                                       sampler="lut_ky")
+
+    k3 = lambda: bn_gibbs.bn_sweep_lanes(cbn, fr, vals, kt, "lut_ky", p)
+    hist_update = lambda: hist + (vals.view(q, CHAINS, -1)[..., None]
+                                  == v_range).sum(1, dtype=torch.int32)
+    out = {"queries": q, "chains": CHAINS}
+    out["loop_ms"], out["loop_host_ms"] = per_sweep(torch, loop)
+    out["loop_device_ms"] = (device_busy_ms(torch, lambda: loop(250), 1)
+                             - device_busy_ms(torch, lambda: loop(50), 1)
+                             ) / 200
+    out["loop_busy_share"] = out["loop_device_ms"] / out["loop_ms"]
+    out["loop_ms_per_query_sweep"] = out["loop_ms"] / q
+    out["host_split_many_ms"] = host_ms(
+        torch, lambda: prng.split_many(arr, 2), 200)
+    out["host_k3_lanes_wrapper_ms"] = host_ms(torch, k3, 200)
+    out["host_hist_ms"] = host_ms(torch, hist_update, 200)
+    out["device_k3_lanes_ms"] = device_ms(torch, k3, 50, BN_KERNEL)
+    out["device_hist_ms"] = device_busy_ms(torch, hist_update, 50)
+    out["split_many_equals_split"] = bool(np.array_equal(
+        prng.split_many(arr, 2)[:, 1],
+        prng.key_array([prng.split(k)[1] for k in keys])))
+    emit({"phase": "timing_runtime_bucket_sweep", "model": "pigs", **out})
+
+
+def loop_row(torch, fn) -> dict:
+    """Wall, host issue and card time per sweep of a loop `fn(n)`
+    (`per_sweep` and torch.profiler, the slope between 50 and 250)."""
+    ms, host = per_sweep(torch, fn)
+    d250 = device_busy_ms(torch, lambda: fn(250), 1)
+    d50 = device_busy_ms(torch, lambda: fn(50), 1)
+    dev = (d250 - d50) / 200
+    return {"ms": ms, "host_ms": host, "device_ms": dev,
+            "busy_share": dev / ms, "device_ms_of_250_and_50": [d250, d50]}
+
+
+def timing_lane_loops(torch) -> None:
+    """The runtime's fused bucket loops per sweep (pigs, hailfinder, every
+    sweep kept) or per iteration (Penguin with MRF_PINS pixels pinned):
+    `backend.bn_rounds_lanes` / `mrf_rounds_lanes` at the served bucket's
+    Q (hailfinder and Penguin: 2; pigs' 8 is `runtime_parts`') and at
+    Q = 1, beside the one-query loop a fused
+    `program.run` takes (`bn_rounds_core` / `mrf_rounds_core`, fused) on
+    the first lane's key, all at 1,024 chains per query, in one call."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.compile import backend
+    from repro_torch.core import bayesnet as bnet
+    from repro_torch.core import mrf as mrf_mod
+    from repro_torch.core.graphs import GridMRF, bn_repository_replica
+
+    dev = torch.device(DEVICE)
+    kw = dict(n_chains=CHAINS, burn_in=0, sampler="lut_ky")
+    out = {"phase": "timing_lane_loops", "card": nvidia_smi(),
+           "chains": CHAINS}
+    keys = [prng.key(110 + i) for i in range(8)]
+    for name, qs in (("pigs", (1,)), ("hailfinder", (2, 1))):
+        cbn = bnet.compile_bayesnet(bn_repository_replica(name), device=dev)
+        row = out[f"{name}_per_sweep"] = {}
+        for q in qs:
+            row[f"lanes_q{q}"] = loop_row(
+                torch, lambda n: backend.bn_rounds_lanes(
+                    cbn, cbn.groups, keys[:q], n_iters=n, **kw))
+        row["one_query"] = loop_row(
+            torch, lambda n: backend.bn_rounds_core(
+                cbn, cbn.groups, keys[0], n_iters=n, fused=True, **kw))
+
+    h, w, v, _ = MRF_MODELS["penguin"]
+    mrf = GridMRF(h, w, v, theta=1.2, h=2.0, name="penguin")
+    rng = np.random.default_rng(RUNTIME_SEED)
+    evs, masks, pvals = [], [], []
+    for i in range(2):
+        clean, noisy = mrf_mod.make_denoising_problem(h, w, v, 0.25,
+                                                      seed=40 + i)
+        sites = rng.choice(h * w, size=MRF_PINS, replace=False)
+        m, pv = backend.pin_arrays(
+            mrf, {int(x): int(clean.flat[x]) for x in sites}, dev)
+        evs.append(torch.as_tensor(noisy, dtype=torch.int32))
+        masks.append(m)
+        pvals.append(pv)
+    ev = torch.stack(evs).to(dev)
+    pm, pv = torch.stack(masks), torch.stack(pvals)
+    mkw = dict(n_chains=CHAINS, sampler="lut_ky")
+    out["penguin_per_iter"] = {}
+    for q in (2, 1):
+        out["penguin_per_iter"][f"lanes_q{q}"] = loop_row(
+            torch, lambda n: backend.mrf_rounds_lanes(
+                mrf, (0, 1), ev[:q], keys[:q], n_iters=n, pin_mask=pm[:q],
+                pin_vals=pv[:q], **mkw))
+    out["penguin_per_iter"]["one_query"] = loop_row(
+        torch, lambda n: backend.mrf_rounds_core(
+            mrf, (0, 1), ev[0], keys[0], n_iters=n, fused=True,
+            pin_mask=pm[0], pin_vals=pv[0], **mkw))
+    emit(out)
+
+
+def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict):
+    """K3's lane entry at the runtime's pigs bucket (8 queries x 1,024
+    chains, lut_ky) and K4's at its pinned Penguin bucket (2 x 1,024),
+    one launch each: held against the twin on the same inputs (bit-equal;
+    `max_abs_err` is the largest of these and `phase_lanes`'), kernel
+    device time (torch.profiler), time per call
+    (CUDA events), the twin's time (the lanes' words generated in plain
+    torch, then the per-key twin query by query) and the bound (bytes: the
+    Q * B chains' values or labels read and written once, the tables; the
+    threefry calls the walks need, at the SASS's instructions).  Returns
+    the two rows of the kernels line."""
+    from repro_torch import prng
+    from repro_torch.core import bayesnet as bnet
+    from repro_torch.core import mrf as mrf_mod
+    from repro_torch.core.graphs import bn_repository_replica
+    from repro_torch.kernels import bn_gibbs, mrf_gibbs
+
+    dev = torch.device(DEVICE)
+    launches = runtime["launches"]
+    rows = []
+    q = 8
+    cbn = bnet.compile_bayesnet(bn_repository_replica("pigs"), device=dev)
+    fr = bn_gibbs.build_fused_rounds(cbn.groups)
+    vals = torch.cat([bnet.init_chain_values(cbn, prng.key(50 + i),
+                                             CHAINS)[0] for i in range(q)])
+    kt = prng.key_tensor([prng.key(60 + i) for i in range(q)], dev)
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    k3 = lambda: bn_gibbs.bn_sweep_lanes(cbn, fr, vals, kt, "lut_ky", p)
+    twin = lambda: bn_gibbs.bn_sweep_lanes_ref(cbn, fr, vals, kt, "lut_ky",
+                                               p)
+    got, want = k3(), twin()
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    err = max(errs["k3"], int((got - want).abs().max()))
+    check(bad == 0, f"K3 lanes differ from their twin at the runtime's pigs "
+          f"bucket (Q={q}, {bad} labels)")
+    ms_events = time_ms(torch, k3, 50)
+    ms = device_ms(torch, k3, 50, BN_KERNEL)
+    with WalkBits() as walks:
+        plain = time_ms(torch, twin, 1)
+    calls = walks.threefry_calls // 2  # the warm-up's and the timed call's
+    moved = (2 * nbytes(vals) + nbytes(kt, cbn.log_flat, cbn.exp_table,
+                                       fr.nodes, fr.cards, fr.base,
+                                       fr.stride, fr.scope_var, fr.is_self))
+    flops = q * CHAINS * sum(fr.n_c) * fr.f_max * p.v_max
+    int_ms = hash_ms(calls, per_call)
+    bms, by = bound(moved, flops, FP32_FLOPS, int_ms)
+    rows.append({
+        "name": "K3 bn_sweep_lanes (pigs, Q=8 x B=1024, lut_ky)",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/bn_gibbs.cu",
+        "replaces": "src/repro/kernels/bn_gibbs.py:236",
+        "launches": launches["bn_sweep_lanes"], "max_abs_err": err,
+        "mismatches_vs_twin": bad,
+        "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
+        "bytes": moved, "threefry_calls": calls, "threefry_bound_ms": int_ms,
+        "per_query_ms": (ms or ms_events) / q,
+    })
+    runtime_parts(torch, cbn, vals, kt, q)
+    timing_lane_loops(torch)
+
+    q = 2
+    mrf, _, _ = _mrf_model(torch, "penguin")
+    hh, ww, v = mrf.height, mrf.width, mrf.n_labels
+    evs = torch.stack([torch.as_tensor(mrf_mod.make_denoising_problem(
+        hh, ww, v, 0.25, seed=40 + i)[1]) for i in range(q)]).to(dev)
+    labels = prng.randint(prng.key(1), (q * CHAINS, hh, ww), 0, v, dev)
+    keys = [prng.key(70 + i) for i in range(q)]
+    kt = prng.key_tensor(keys, dev)
+    tab, spec = exp_lut(dev)
+    p = mrf_gibbs.half_step_params(mrf)
+    k4 = lambda: mrf_gibbs.mrf_half_step_lanes(mrf, labels, evs, kt, 0, tab,
+                                               spec, p)
+    twin = lambda: mrf_gibbs.mrf_half_step_lanes_ref(mrf, labels, evs, kt,
+                                                     0, tab, spec, p)
+    got, want = k4(), twin()
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    err = max(errs["k4"], int((got - want).abs().max()))
+    check(bad == 0, f"K4 lanes differ from their twin at the runtime's "
+          f"Penguin bucket (Q={q}, {bad} labels)")
+    ms_events = time_ms(torch, k4, 50)
+    ms = device_ms(torch, k4, 50, MRF_KERNEL)
+    plain = time_ms(torch, twin, 1)
+    calls, steps, n_active = _k4_lane_calls(torch, mrf, labels, evs, keys,
+                                            CHAINS, per_call)
+    moved = 2 * nbytes(labels) + nbytes(evs, kt, tab)
+    ops = n_active * v * 16 + steps * (4 * (v + 1) + 8)
+    int_ms = hash_ms(calls, per_call)
+    bms, by = bound(moved, ops, FP32_FLOPS, int_ms)
+    rows.append({
+        "name": "K4 mrf_half_step_lanes (penguin 64x64x4, Q=2 x B=1024)",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/mrf_gibbs.cu",
+        "replaces": "src/repro/kernels/mrf_gibbs.py:159",
+        "launches": launches["mrf_half_step_lanes"],
+        "max_abs_err": err, "mismatches_vs_twin": bad,
+        "ms": ms or ms_events, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "ms_per_call_events": ms_events, "bytes": moved,
+        "threefry_calls": calls, "threefry_bound_ms": int_ms,
+        "per_query_ms": (ms or ms_events) / q,
+    })
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -79,6 +79,13 @@ RULES: dict[str, tuple[str, str]] = {
         "recorded cost diagnostics disagree with the cost recomputed from "
         "the schedule",
     ),
+    # -- observability (runtime CLI) -----------------------------------------
+    "obs-trace-dropped": (
+        "warning",
+        "the tracer ring buffer overflowed during the run (dropped events "
+        "silently skew attribution coverage; re-run with "
+        "obs.enable(capacity=...) raised)",
+    ),
 }
 
 SEVERITIES = ("error", "warning", "info")

@@ -178,6 +178,188 @@ def bn_rounds_core(
     )
 
 
+# ---------------------------------------------------------------------------
+# A serving bucket's queries in one loop: one launch per sweep / half-step
+# ---------------------------------------------------------------------------
+
+
+# iterations whose key splits are made (on the host) and copied to the card
+# together; the next chunk's split overlaps the launches queued before it
+SPLIT_CHUNK = 8
+
+
+def _split_chunk(keys: np.ndarray, n: int, num: int, device):
+    """The key splits of the next `n` iterations of Q lanes, each
+    iteration one `prng.split_many` of every lane's key into `num`:
+    returns the (n, num - 1, Q, 2) int32 subkeys on `device` (splits
+    1 .. num - 1, each (Q, 2) slice contiguous; the copy does not wait for
+    the card) and the (Q, 2) keys after the n-th iteration."""
+    subs = np.zeros((n, num - 1) + keys.shape, np.int64)
+    for i in range(n):
+        ks = prng.split_many(keys, num)
+        subs[i] = ks[:, 1:].transpose(1, 0, 2)
+        keys = ks[:, 0]
+    return prng.key_tensor(subs, device), keys
+
+
+def bn_rounds_lanes(
+    cbn, round_groups, keys, *, n_chains, n_iters, burn_in, sampler,
+    thin=1, clamp_vals=None, clamp_mask=None, carries=None,
+    diag_totals=None, diag_batch=diag_accum.DEFAULT_BATCH_LEN,
+):
+    """`bn_rounds_core(fused=True)` for Q queries at once, the serving
+    runtime's bucket: each sweep is one batched key split and one launch of
+    K3's lane entry (`bn_sweep_lanes`) over the Q * B chains, then one
+    (Q, n, V) histogram update.  The splits are made `SPLIT_CHUNK` sweeps
+    at a time inside the loop, so the host splits while the card runs the
+    sweeps already queued.  Lane q equals `bn_rounds_core` run alone
+    with `keys[q]`, `clamp_vals[q]` ((Q, n)) and the shared `clamp_mask`,
+    or resumed from `carries[q]`, bit for bit.
+
+    Lanes keep their own sweep count `t`, so a resumed bucket may mix
+    lanes at different points of their runs: the burn-in/thinning gate is
+    a (Q,) mask per sweep.  `diag_totals` (per lane, fresh buckets) switch
+    the quality accumulators on; they are updated lane by lane.  Returns
+    (marginals (Q, n, V), vals (Q, B, n), per-lane `BNChainState`s)."""
+    from repro_torch.kernels import bn_gibbs
+
+    bn_gibbs.check_fused_sampler(sampler)
+    dev = cbn.device
+    fr = bn_gibbs.build_fused_rounds(round_groups)
+    p = bn_gibbs.sweep_params(cbn, sampler)
+    if carries is None:
+        lanes = [
+            bnet.init_chain_values(
+                cbn, k, n_chains,
+                clamp_vals=None if clamp_vals is None else clamp_vals[i],
+                clamp_mask=clamp_mask)
+            for i, k in enumerate(keys)
+        ]
+        vals = torch.cat([v for v, _ in lanes])
+        key_arr = prng.key_array([k for _, k in lanes])
+        q = len(lanes)
+        hist = torch.zeros((q, cbn.n_nodes, cbn.max_card), dtype=torch.int32,
+                           device=dev)
+        t0 = np.zeros(q, np.int64)
+        quality = [None] * q
+        if diag_totals is not None:
+            kept = [diag_accum.kept_count(n, burn_in, thin)
+                    for n in diag_totals]
+            quality = [diag_accum.make_accum(
+                n_chains, cbn.n_nodes, cbn.max_card, k, diag_batch, dev)
+                for k in kept]
+    else:
+        q = len(carries)
+        vals = torch.cat([c.vals for c in carries])
+        key_arr = prng.key_array([c.key for c in carries])
+        hist = torch.stack([c.hist for c in carries])
+        t0 = np.array([c.t for c in carries], np.int64)
+        quality = [c.quality for c in carries]
+    b = vals.shape[0] // q
+    tt = t0[None] + np.arange(n_iters)[:, None]  # (n_iters, Q)
+    keep = (tt >= burn_in) & ((tt - burn_in) % thin == 0)
+    keep_dev = torch.from_numpy(keep).to(dev)
+    v_range = torch.arange(cbn.max_card, dtype=torch.int32, device=dev)
+    track = any(x is not None for x in quality)
+    for i in range(n_iters):
+        if i % SPLIT_CHUNK == 0:
+            subs_dev, key_arr = _split_chunk(
+                key_arr, min(SPLIT_CHUNK, n_iters - i), 2, dev)
+        vals = bn_gibbs.bn_sweep_lanes(cbn, fr, vals,
+                                       subs_dev[i % SPLIT_CHUNK, 0], sampler,
+                                       p)
+        if keep[i].any() or track:
+            onehot = vals.view(q, b, -1)[..., None] == v_range
+        if keep[i].all():
+            hist = hist + onehot.sum(1, dtype=torch.int32)
+        elif keep[i].any():
+            hist = hist + torch.where(
+                keep_dev[i][:, None, None], onehot.sum(1, dtype=torch.int32),
+                torch.zeros((), dtype=torch.int32, device=dev))
+        if track:
+            quality = [
+                None if a is None else diag_accum.update(
+                    a, onehot[j], bool(keep[i, j]))
+                for j, a in enumerate(quality)
+            ]
+    marginals = bnet.hist_marginals(cbn, hist)
+    vals = vals.view(q, b, -1)
+    states = [
+        bnet.BNChainState(vals=vals[j], key=k, hist=hist[j],
+                          t=int(t0[j]) + n_iters, quality=quality[j])
+        for j, k in enumerate(prng.keys_of(key_arr))
+    ]
+    return marginals, vals, states
+
+
+def mrf_rounds_lanes(
+    mrf, parities, evidence, keys, *, n_chains, n_iters, sampler,
+    pin_mask=None, pin_vals=None, carries=None, diag_totals=None,
+    diag_batch=diag_accum.DEFAULT_BATCH_LEN,
+):
+    """`mrf_rounds_core(fused=True)` for Q queries at once: each iteration
+    is one batched key split, then per round one launch of K4's lane entry
+    (`mrf_half_step_lanes`) over the Q * B chains with each query's
+    evidence plane (`evidence`, (Q, H, W) int32) and one masked select
+    restoring the pins ((Q, H, W) `pin_mask`/`pin_vals`).  Lane q equals
+    `mrf_rounds_core` run alone with `keys[q]`, or resumed from
+    `carries[q]`, bit for bit.  `diag_totals` switch the per-lane quality
+    accumulators on (updated lane by lane).  Returns (labels (Q, B, H, W),
+    per-lane `MRFChainState`s)."""
+    mrf_kernels.check_fused_sampler(sampler)
+    dev = evidence.device
+    exp_table, exp_spec = build_exp_weight_lut(device=dev)
+    p = mrf_kernels.half_step_params(mrf)
+    if carries is None:
+        lanes = [
+            mrf_mod.init_labels(
+                mrf, k, n_chains,
+                None if pin_mask is None else pin_mask[i],
+                None if pin_vals is None else pin_vals[i], dev)
+            for i, k in enumerate(keys)
+        ]
+        labels = torch.cat([lab for lab, _ in lanes])
+        key_arr = prng.key_array([k for _, k in lanes])
+        quality = [None] * len(lanes)
+        if diag_totals is not None:
+            quality = [diag_accum.make_accum(
+                n_chains, mrf.height * mrf.width, mrf.n_labels, n,
+                diag_batch, dev) for n in diag_totals]
+    else:
+        labels = torch.cat([c.labels for c in carries])
+        key_arr = prng.key_array([c.key for c in carries])
+        quality = [c.quality for c in carries]
+    q = len(quality)
+    b = labels.shape[0] // q
+    for i in range(n_iters):
+        if i % SPLIT_CHUNK == 0:
+            subs_dev, key_arr = _split_chunk(
+                key_arr, min(SPLIT_CHUNK, n_iters - i), 1 + len(parities),
+                dev)
+        for r, parity in enumerate(parities):
+            labels = mrf_kernels.mrf_half_step_lanes(
+                mrf, labels, evidence, subs_dev[i % SPLIT_CHUNK, r], parity,
+                exp_table, exp_spec, p)
+            if pin_mask is not None:
+                labels = torch.where(
+                    pin_mask[:, None], pin_vals[:, None],
+                    labels.view(q, b, mrf.height, mrf.width),
+                ).view(q * b, mrf.height, mrf.width)
+        if any(a is not None for a in quality):
+            quality = [
+                None if a is None else diag_accum.update(
+                    a, mrf_mod.site_onehot(labels[j * b:(j + 1) * b],
+                                           mrf.n_labels), True)
+                for j, a in enumerate(quality)
+            ]
+    labels = labels.view(q, b, mrf.height, mrf.width)
+    states = [
+        mrf_mod.MRFChainState(labels=labels[j], key=k, quality=quality[j])
+        for j, k in enumerate(prng.keys_of(key_arr))
+    ]
+    return labels, states
+
+
 def run_bn_schedule(
     ex: BNScheduleExec,
     key: prng.Key | None,

@@ -37,7 +37,11 @@ and a label is stored straight into shared memory where the TPU scattered
 with a one-hot matmul.
 
 `bn_sweep` launches the kernel for CUDA tensors (counted in
-`bn_sweep.launches`).  For CPU tensors it generates the same key's words
+`bn_sweep.launches`).  `bn_sweep_lanes` (counted in
+`bn_sweep_lanes.launches`) is K3's lane entry: one sweep over the chains of
+Q queries of a serving bucket, each query with its own sweep key, read from
+a (Q, 2) int32 tensor on the card; its twin `bn_sweep_lanes_ref` runs the
+per-key twin query by query.  For CPU tensors it generates the same key's words
 with `fused_round_words` (rounds in order, unpadded: round r's rows are
 (chain, node) = chain * n_c_r + node) and runs the plain twin
 `bn_sweep_ref` on them.  `fused_gibbs_sweep` is the reference's drop-in
@@ -394,6 +398,79 @@ def fused_gibbs_sweep(
     `FUSED_BN_SAMPLERS`."""
     p = sweep_params(cbn, sampler, precision, max_retries)
     return bn_sweep(cbn, fr, vals, key, sampler, p)
+
+
+def _check_lanes(cbn, vals, keys, sampler):
+    _check_vals(cbn, vals, sampler)
+    if keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError("keys must be (Q, 2) int32 key words")
+    q = keys.shape[0]
+    if q < 1 or vals.shape[0] % q:
+        raise ValueError(f"{vals.shape[0]} chains do not split into {q} "
+                         "queries")
+    return q, vals.shape[0] // q
+
+
+def bn_sweep_lanes_ref(
+    cbn: CompiledBayesNet, fr: BNFusedRounds, vals: torch.Tensor,
+    keys: torch.Tensor, sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """Plain torch twin of K3's lane entry: the per-key twin over each
+    query's (B, n) block of `vals` with its own key, query by query."""
+    q, b = _check_lanes(cbn, vals, keys, sampler)
+    return torch.cat([
+        bn_sweep_ref(cbn, fr, vals[i * b:(i + 1) * b],
+                     fused_round_words(fr, k, b, p.n_words, vals.device),
+                     sampler, p)
+        for i, k in enumerate(prng.keys_of(keys))])
+
+
+def bn_sweep_lanes(
+    cbn: CompiledBayesNet, fr: BNFusedRounds, vals: torch.Tensor,
+    keys: torch.Tensor, sampler: str, p: SweepParams,
+) -> torch.Tensor:
+    """One sweep over the chains of Q queries, (Q * B, n) int32 `vals`
+    whose rows [q B, (q + 1) B) are query q's, each query drawing from its
+    own sweep key, row q of the (Q, 2) int32 `keys`: one launch of K3's
+    lane entry for CUDA tensors, with each query's words those of its
+    standalone `bn_sweep`; the twin for CPU tensors."""
+    q, b = _check_lanes(cbn, vals, keys, sampler)
+    if vals.device.type == "cpu":
+        return bn_sweep_lanes_ref(cbn, fr, vals, keys, sampler, p)
+    tab = cbn.exp_table
+    _lib.require_cuda(
+        "bn_sweep_lanes", vals, keys, cbn.log_flat, tab, fr.nodes,
+        fr.cards, fr.base, fr.stride, fr.scope_var, fr.is_self, fr.n_c_t,
+    )
+    n = vals.shape[1]
+    spec = cbn.exp_spec
+    # blocks from the launch's Q * B chains, so the grid fills the card as
+    # K3's does; a block holds chains of one query only
+    cpc = min(chains_per_block(q * b, n, spec.size), b)
+    out = torch.empty_like(vals)
+    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
+    fn = _lib.function(
+        "bn_gibbs", "aia_bn_sweep_lanes",
+        [P, P, I, I, I, I, I, P, I, I, I, P, P, P, P, P, P, P, I, P, P, I, F,
+         F, I, I, I, I, I, P],
+    )
+    with torch.cuda.device(vals.device):
+        code = fn(
+            vals.data_ptr(), out.data_ptr(), q, b, n, cpc, len(fr.n_c),
+            fr.n_c_t.data_ptr(), fr.c_max, fr.f_max, fr.s_max,
+            fr.nodes.data_ptr(), fr.cards.data_ptr(), fr.base.data_ptr(),
+            fr.stride.data_ptr(), fr.scope_var.data_ptr(),
+            fr.is_self.data_ptr(), keys.data_ptr(), p.n_words,
+            cbn.log_flat.data_ptr(), tab.data_ptr(), spec.size, spec.x0,
+            inv_dx(spec), p.v_max, int(sampler == "exact_ky"), p.weight_bits,
+            p.precision, p.total_steps, _lib.stream_of(vals),
+        )
+    _lib.check("bn_gibbs", code, "bn_sweep_lanes")
+    bn_sweep_lanes.launches += 1
+    return out
+
+
+bn_sweep_lanes.launches = 0
 
 
 def owned_row_word_index(

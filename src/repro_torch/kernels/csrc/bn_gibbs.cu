@@ -70,9 +70,24 @@
 // once (4 x 3.6 MB for pigs on a (2, 4) mesh); the hash is a quarter of
 // K3's (one round's rows).
 //
+// K3's lane entry (`aia_bn_sweep_lanes`) runs one sweep over the chains of
+// Q queries at once, the serving runtime's bucket, where the reference
+// vmaps `fused_gibbs_sweep` over the queries (src/repro/runtime/
+// batcher.py:236).  The values are (Q * B, n), query q's chains the rows
+// [q B, (q + 1) B), and each query has its own sweep key, read from a
+// (Q, 2) int32 array in device memory (the wrapper copies a bucket's keys
+// up once).  A chain position is a query here:
+//   * a block never straddles two queries, because it hashes one round key
+//     per round: each query's chains split into ceil(B / chains_per_block)
+//     blocks, the last one partial when chains_per_block does not divide B;
+//   * a row's words are counted from its chain within its query (the local
+//     chain), so every query draws the words of its standalone sweep.
+// Bound: bytes, as K3's, for Q * B chains.
+//
 // K3 is this kernel over one position (the whole batch) and all R rounds
-// of an unsplit table; K5 over one round and a range of positions.  The
-// template flag MESH compiles the position arithmetic out of K3's
+// of an unsplit table; K5 over one round and a range of positions; K3's
+// lane entry over all R rounds and Q chain positions with a key each.  The
+// template parameter MODE compiles the position arithmetic out of K3's
 // instances, so K3 runs the code it ran before K5 shared it.
 
 #include "aia_common.cuh"
@@ -80,6 +95,11 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// What a launch covers (bn_rounds_kernel's MODE).
+constexpr int kSweep = 0;  // K3: one position, every round
+constexpr int kMesh = 1;   // K5: one round, a range of mesh positions
+constexpr int kLanes = 2;  // K3 lanes: every round, Q queries, a key each
 
 struct RoundsArgs {
   const int* vals_in;  // (n_chain_pos * b_loc, n): the launch's chains
@@ -107,6 +127,7 @@ struct RoundsArgs {
   int lut_size;
   float x0, inv_dx;
   int v_max, exact, weight_bits, precision, total_steps;
+  const int* lane_keys;  // (n_chain_pos, 2) a key per query (kLanes only)
 };
 
 // One (chain, lane) row of one round: gather, factor sum, weights, KY walk.
@@ -191,15 +212,18 @@ __device__ __forceinline__ int draw_row(const RoundsArgs& a, const float* tab,
   return label;
 }
 
-template <int VCAP, bool MESH>
+template <int VCAP, int MODE>
 __global__ void bn_rounds_kernel(RoundsArgs a) {
+  constexpr bool MESH = MODE == kMesh;
+  constexpr bool LANES = MODE == kLanes;
   extern __shared__ int smem[];
   int* vals = smem;                                        // chains x n
   float* tab = (float*)(smem + a.chains_per_block * a.n);  // lut_size
   // block -> (position, chain block); a position is (chain pos, node pos)
-  const int pos = MESH ? blockIdx.x / a.blocks_per_pos : 0;
-  const int inner = MESH ? blockIdx.x - pos * a.blocks_per_pos : blockIdx.x;
-  const int ci = MESH ? pos / a.n_node_pos : 0;
+  const int pos = MESH || LANES ? blockIdx.x / a.blocks_per_pos : 0;
+  const int inner =
+      MESH || LANES ? blockIdx.x - pos * a.blocks_per_pos : blockIdx.x;
+  const int ci = MESH ? pos / a.n_node_pos : (LANES ? pos : 0);
   const int dd = MESH ? pos - ci * a.n_node_pos : 0;
   const int d = MESH ? a.d0 + dd : 0;
   const int first = inner * a.chains_per_block;  // within the position
@@ -208,6 +232,9 @@ __global__ void bn_rounds_kernel(RoundsArgs a) {
   const int* vin = a.vals_in + row0 * a.n;
   for (int i = threadIdx.x; i < nch * a.n; i += blockDim.x) vals[i] = vin[i];
   for (int i = threadIdx.x; i < a.lut_size; i += blockDim.x) tab[i] = a.tab[i];
+  // the sweep's key: the launch's, or (K3 lanes) the block's query's
+  const unsigned k1 = LANES ? (unsigned)__ldg(a.lane_keys + 2 * ci) : a.k1;
+  const unsigned k2 = LANES ? (unsigned)__ldg(a.lane_keys + 2 * ci + 1) : a.k2;
   __syncthreads();
 
   for (int r = a.r0; r < a.r0 + a.n_r; ++r) {
@@ -215,7 +242,7 @@ __global__ void bn_rounds_kernel(RoundsArgs a) {
     const int nc = a.n_rows[t];
     const unsigned long long n_full = MESH ? (unsigned)a.n_full[r] : nc;
     // bn_gibbs.round_key: prng.split(key, R)[r] hashes the pair (0, r)
-    const uint2 rk = aia::threefry2x32(a.k1, a.k2, 0u, (unsigned)r);
+    const uint2 rk = aia::threefry2x32(k1, k2, 0u, (unsigned)r);
     const int* nodes = a.nodes + t * a.c_max;
     const int* wpos = MESH ? a.word_pos + t * a.c_max : nullptr;
     for (int row = threadIdx.x; row < nch * nc; row += blockDim.x) {
@@ -224,9 +251,10 @@ __global__ void bn_rounds_kernel(RoundsArgs a) {
       int* vrow = vals + b * a.n;
       // bn_gibbs.row_word_index (K3) / owned_row_word_index (K5):
       // (global chain * n_c[r] + the lane's place in the full group)
-      // * n_words, 64-bit
+      // * n_words, 64-bit.  K3's chain is first + b (row0 = first), and
+      // so is the lane entry's: the chain within its query
       const unsigned long long chain =
-          MESH ? (unsigned long long)(a.chain_base + row0 + b) : row0 + b;
+          MESH ? (unsigned long long)(a.chain_base + row0 + b) : first + b;
       const unsigned long long place = MESH ? (unsigned)__ldg(wpos + c) : c;
       const aia::WordsFromKey src{rk.x, rk.y,
                                   (chain * n_full + place) * a.n_words};
@@ -240,7 +268,7 @@ __global__ void bn_rounds_kernel(RoundsArgs a) {
   for (int i = threadIdx.x; i < nch * a.n; i += blockDim.x) vout[i] = vals[i];
 }
 
-template <int VCAP, bool MESH>
+template <int VCAP, int MODE>
 int launch(const RoundsArgs& a, cudaStream_t stream) {
   const int threads = 256;
   const long long blocks =
@@ -251,27 +279,27 @@ int launch(const RoundsArgs& a, cudaStream_t stream) {
       sizeof(float) * (size_t)a.lut_size;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        bn_rounds_kernel<VCAP, MESH>,
+        bn_rounds_kernel<VCAP, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bn_rounds_kernel<VCAP, MESH>
+  bn_rounds_kernel<VCAP, MODE>
       <<<(unsigned)blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool MESH>
+template <int MODE>
 int dispatch(RoundsArgs& a, cudaStream_t s) {
   if (a.chains_per_block < 1 || a.b_loc < 1 || a.n_chain_pos < 1 ||
       a.n_node_pos < 1)
     return (int)cudaErrorInvalidValue;
   a.blocks_per_pos = (a.b_loc + a.chains_per_block - 1) / a.chains_per_block;
   const int lanes = a.v_max + 1;
-  if (lanes <= 4) return launch<4, MESH>(a, s);
-  if (lanes <= 8) return launch<8, MESH>(a, s);
-  if (lanes <= 16) return launch<16, MESH>(a, s);
-  if (lanes <= 32) return launch<32, MESH>(a, s);
-  if (lanes <= 128) return launch<128, MESH>(a, s);
+  if (lanes <= 4) return launch<4, MODE>(a, s);
+  if (lanes <= 8) return launch<8, MODE>(a, s);
+  if (lanes <= 16) return launch<16, MODE>(a, s);
+  if (lanes <= 32) return launch<32, MODE>(a, s);
+  if (lanes <= 128) return launch<128, MODE>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -292,7 +320,27 @@ extern "C" int aia_bn_sweep(
                stride, scope, is_self, nullptr, k1, k2, n_words, logf, tab,
                lut_size, x0, inv_dx, v_max, exact, weight_bits, precision,
                total_steps};
-  return dispatch<false>(a, (cudaStream_t)stream);
+  return dispatch<kSweep>(a, (cudaStream_t)stream);
+}
+
+// K3 lanes: one sweep of R rounds over Q queries of B chains each, vals
+// (Q * B, n), query q drawing from its key keys[2 q], keys[2 q + 1].
+extern "C" int aia_bn_sweep_lanes(
+    const int* vals_in, int* vals_out, int Q, int B, int n,
+    int chains_per_block, int R, const int* n_c, int c_max, int f_max,
+    int s_max, const int* nodes, const int* cards, const int* base,
+    const int* stride, const int* scope, const int* is_self,
+    const int* keys, int n_words, const float* logf, const float* tab,
+    int lut_size, float x0, float inv_dx, int v_max, int exact,
+    int weight_bits, int precision, int total_steps, void* stream) {
+  if (keys == nullptr || chains_per_block > B)
+    return (int)cudaErrorInvalidValue;
+  RoundsArgs a{vals_in, vals_out, 0, Q, B, 0, 1, n, chains_per_block, 0,
+               R, 0, R, n_c, n_c, c_max, f_max, s_max, nodes, cards, base,
+               stride, scope, is_self, nullptr, 0u, 0u, n_words, logf, tab,
+               lut_size, x0, inv_dx, v_max, exact, weight_bits, precision,
+               total_steps, keys};
+  return dispatch<kLanes>(a, (cudaStream_t)stream);
 }
 
 // K5: round r of the sweep key (k1, k2) on node positions d0 .. d0 +
@@ -317,5 +365,5 @@ extern "C" int aia_bn_color_round(
                c_max, f_max, s_max, nodes, cards, base, stride, scope,
                is_self, word_pos, k1, k2, n_words, logf, tab, lut_size, x0,
                inv_dx, v_max, exact, weight_bits, precision, total_steps};
-  return dispatch<true>(a, (cudaStream_t)stream);
+  return dispatch<kMesh>(a, (cudaStream_t)stream);
 }

@@ -79,9 +79,22 @@
 //   * the input may be a block of a larger tensor (strided across chains,
 //     dense within a chain); the output is its own (B, rows, W) tensor.
 // Bound: bytes: the labels read and written once, the halo rows; the
-// hash as K4's.  The template flag SLABS compiles the slab arithmetic,
-// the halo reads and the offsets out of K4's instances, so K4 runs the
-// code it ran before K6 shared it.
+// hash as K4's.
+//
+// K4's lane entry (`aia_mrf_half_step_lanes`) runs one half-step over the
+// chains of Q queries at once, the serving runtime's bucket, where the
+// reference vmaps `mrf_round_step` over the queries (src/repro/runtime/
+// batcher.py:291).  The labels are (Q * B, H, W), query q's chains the
+// rows [q B, (q + 1) B); each query has its own evidence plane ((Q, H, W))
+// and its own half-step key, read from a (Q, 2) int32 array in device
+// memory.  A block is still one (chain, row tile) and so never straddles
+// two queries; a site's words are counted from its chain within its query
+// (the local chain), so every query draws the words of its standalone
+// half-step.  Bound: bytes, as K4's, for Q * B chains.
+//
+// The template parameter MODE compiles the slab arithmetic, the halo
+// reads, the offsets and the per-query keys out of K4's instances, so K4
+// runs the code it ran before K6 and the lane entry shared it.
 
 #include <math.h>
 
@@ -107,15 +120,28 @@ struct HalfStepArgs {
   int lut_size;
   float x0, inv_dx;
   int n_words, precision, total_steps;
+  const int* lane_keys;  // (Q, 2) a key per query (kLanes only)
+  int lane_chains;       // B, the chains of one query (kLanes only)
 };
 
-template <int VCAP, bool SLABS>
+// What a launch covers (mrf_half_step_kernel's MODE).
+constexpr int kGrid = 0;   // K4: a whole grid, one key
+constexpr int kSlabs = 1;  // K6: row slabs with halos
+constexpr int kLanes = 2;  // K4 lanes: Q queries' grids, a key and an
+                           // evidence plane each
+
+template <int VCAP, int MODE>
 __global__ void mrf_half_step_kernel(HalfStepArgs a) {
+  constexpr bool SLABS = MODE == kSlabs;
+  constexpr bool LANES = MODE == kLanes;
   extern __shared__ int smem[];
   const int W = a.W;
   const int tiles = SLABS ? a.n_slabs * a.tiles_per_slab : a.tiles_per_slab;
   const int chain = blockIdx.x / tiles;
   const int tile = blockIdx.x - chain * tiles;
+  // K4 lanes: the chain's query, and the chain within it (counters)
+  const int q = LANES ? chain / a.lane_chains : 0;
+  const int lchain = LANES ? chain - q * a.lane_chains : chain;
   const int g = SLABS ? tile / a.tiles_per_slab : 0;  // the slab
   const int s0 = g * a.slab_h;                        // its first row
   const int row0 = SLABS ? a.row0 : 0;
@@ -139,7 +165,10 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
     else
       lab[i] = SLABS && a.down ? a.down[halo + c] : -1;
   }
-  const int* evg = a.evidence + (long long)r0 * W;
+  const int* evg =
+      a.evidence + ((LANES ? (long long)q * a.H_total : 0) + r0) * W;
+  const unsigned k1 = LANES ? (unsigned)__ldg(a.lane_keys + 2 * q) : a.k1;
+  const unsigned k2 = LANES ? (unsigned)__ldg(a.lane_keys + 2 * q + 1) : a.k2;
   for (int i = threadIdx.x; i < rows * W; i += blockDim.x) ev[i] = evg[i];
   for (int i = threadIdx.x; i < a.lut_size; i += blockDim.x) tab[i] = a.tab[i];
   __syncthreads();
@@ -203,10 +232,11 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
     int bits, rejs;
     bool done;
     // mrf_gibbs.site_word_index at the global site:
-    // (((chain0 + chain) * H_total + row0 + gr) * W + c) * n_words
+    // (((chain0 + chain) * H_total + row0 + gr) * W + c) * n_words, the
+    // chain being the local one in the lane entry
     const aia::WordsFromKey src{
-        a.k1, a.k2,
-        ((((unsigned long long)(chain0 + chain)) * a.H_total + row0 + gr) *
+        k1, k2,
+        ((((unsigned long long)(chain0 + lchain)) * a.H_total + row0 + gr) *
              W + c) * a.n_words};
     int label = aia::ddg_walk<VCAP>(m, src, a.n_labels, a.precision,
                                     a.total_steps, bits, rejs, done);
@@ -215,7 +245,7 @@ __global__ void mrf_half_step_kernel(HalfStepArgs a) {
   }
 }
 
-template <int VCAP, bool SLABS>
+template <int VCAP, int MODE>
 int launch(const HalfStepArgs& a, cudaStream_t stream) {
   const int threads = 256;
   const long long blocks = (long long)a.n_slabs * a.tiles_per_slab * a.B;
@@ -224,27 +254,27 @@ int launch(const HalfStepArgs& a, cudaStream_t stream) {
   if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        mrf_half_step_kernel<VCAP, SLABS>,
+        mrf_half_step_kernel<VCAP, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  mrf_half_step_kernel<VCAP, SLABS>
+  mrf_half_step_kernel<VCAP, MODE>
       <<<(unsigned)blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool SLABS>
+template <int MODE>
 int dispatch(HalfStepArgs& a, cudaStream_t s) {
   if (a.block_h < 1 || a.slab_h < 1 || a.n_slabs < 1 || a.W < 1 ||
       a.row0 < 0 || a.chain0 < 0)
     return (int)cudaErrorInvalidValue;
   a.tiles_per_slab = (a.slab_h + a.block_h - 1) / a.block_h;
   const int lanes = a.n_labels + 1;
-  if (lanes <= 4) return launch<4, SLABS>(a, s);
-  if (lanes <= 8) return launch<8, SLABS>(a, s);
-  if (lanes <= 16) return launch<16, SLABS>(a, s);
-  if (lanes <= 32) return launch<32, SLABS>(a, s);
-  if (lanes <= 128) return launch<128, SLABS>(a, s);
+  if (lanes <= 4) return launch<4, MODE>(a, s);
+  if (lanes <= 8) return launch<8, MODE>(a, s);
+  if (lanes <= 16) return launch<16, MODE>(a, s);
+  if (lanes <= 32) return launch<32, MODE>(a, s);
+  if (lanes <= 128) return launch<128, MODE>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -265,7 +295,27 @@ extern "C" int aia_mrf_half_step(
                  parity,    quadratic,  theta,    h,        neg_h,
                  lut_size,  x0,         inv_dx,   n_words,  precision,
                  total_steps};
-  return dispatch<false>(a, (cudaStream_t)stream);
+  return dispatch<kGrid>(a, (cudaStream_t)stream);
+}
+
+// K4 lanes: Q queries of B chains each, labels (Q * B, H, W), evidence
+// (Q, H, W); query q draws from its key keys[2 q], keys[2 q + 1].
+extern "C" int aia_mrf_half_step_lanes(
+    const int* labels_in, int* labels_out, const int* evidence,
+    const int* keys, const float* tab, int Q, int B, int H, int W,
+    int block_h, int n_labels, int parity, int quadratic, float theta,
+    float h, float neg_h, int lut_size, float x0, float inv_dx, int n_words,
+    int precision, int total_steps, void* stream) {
+  if (keys == nullptr || Q < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const long long plane = (long long)H * W;
+  HalfStepArgs a{labels_in, labels_out, evidence, nullptr,  nullptr,
+                 plane,     plane,      0,        0,        H,
+                 0u,        0u,         tab,      Q * B,    W,
+                 H,         1,          block_h,  0,        n_labels,
+                 parity,    quadratic,  theta,    h,        neg_h,
+                 lut_size,  x0,         inv_dx,   n_words,  precision,
+                 total_steps, keys,     B};
+  return dispatch<kLanes>(a, (cudaStream_t)stream);
 }
 
 // K6: B chains (the first is chain chain0 of the run) of n_slabs row
@@ -289,5 +339,5 @@ extern "C" int aia_mrf_halo_half_step(
                  parity,    quadratic,  theta,    h,        neg_h,
                  lut_size,  x0,         inv_dx,   n_words,  precision,
                  total_steps};
-  return dispatch<true>(a, (cudaStream_t)stream);
+  return dispatch<kSlabs>(a, (cudaStream_t)stream);
 }

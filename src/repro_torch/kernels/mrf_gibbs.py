@@ -29,7 +29,12 @@ lanes, ~5 us; counts from the SASS, chip_smoke's threefry phase).
 `mrf_half_step` launches the kernel for CUDA tensors (counted in
 `mrf_half_step.launches`).  For CPU tensors it generates the key's words
 with `round_words` and runs the plain twin `mrf_half_step_ref` on them.
-`mrf_round_step` is the reference's entry point.
+`mrf_round_step` is the reference's entry point.  `mrf_half_step_lanes`
+(counted in `mrf_half_step_lanes.launches`) is K4's lane entry: one
+half-step over the chains of Q queries of a serving bucket, each query with
+its own evidence plane and half-step key (a (Q, 2) int32 tensor on the
+card); its twin `mrf_half_step_lanes_ref` runs the per-key twin query by
+query.
 
 K6 (`mrf_halo_half_step`, twin `mrf_halo_half_step_ref`, counter
 `mrf_halo_half_step.launches`) replaces the reference's
@@ -242,6 +247,84 @@ def mrf_half_step(
 
 
 mrf_half_step.launches = 0
+
+
+def _check_lanes(mrf, labels, evidence, keys):
+    if labels.dtype != torch.int32 or labels.dim() != 3 or tuple(
+            labels.shape[1:]) != (mrf.height, mrf.width):
+        raise ValueError(
+            f"labels must be (Q * B, {mrf.height}, {mrf.width}) int32")
+    if keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError("keys must be (Q, 2) int32 key words")
+    q = keys.shape[0]
+    if evidence.dtype != torch.int32 or tuple(evidence.shape) != (
+            q, mrf.height, mrf.width):
+        raise ValueError(
+            f"evidence must be ({q}, {mrf.height}, {mrf.width}) int32")
+    if q < 1 or labels.shape[0] % q:
+        raise ValueError(f"{labels.shape[0]} chains do not split into {q} "
+                         "queries")
+    if mrf.data_cost not in ("potts", "quadratic"):
+        raise ValueError(mrf.data_cost)
+    return q, labels.shape[0] // q
+
+
+def mrf_half_step_lanes_ref(
+    mrf: GridMRF, labels: torch.Tensor, evidence: torch.Tensor,
+    keys: torch.Tensor, parity: int, exp_table: torch.Tensor,
+    exp_spec: LUTSpec, p: SweepParams,
+) -> torch.Tensor:
+    """Plain torch twin of K4's lane entry: the per-key twin over each
+    query's (B, H, W) block with its evidence plane and key, query by
+    query."""
+    q, b = _check_lanes(mrf, labels, evidence, keys)
+    return torch.cat([
+        mrf_half_step_ref(mrf, labels[i * b:(i + 1) * b], evidence[i],
+                          round_words(mrf, k, b, p, labels.device), parity,
+                          exp_table, exp_spec, p)
+        for i, k in enumerate(prng.keys_of(keys))])
+
+
+def mrf_half_step_lanes(
+    mrf: GridMRF, labels: torch.Tensor, evidence: torch.Tensor,
+    keys: torch.Tensor, parity: int, exp_table: torch.Tensor,
+    exp_spec: LUTSpec, p: SweepParams,
+) -> torch.Tensor:
+    """One half-step over the chains of Q queries, (Q * B, H, W) int32
+    `labels` whose rows [q B, (q + 1) B) are query q's, with query q's
+    evidence plane `evidence[q]` ((Q, H, W) int32) and half-step key, row q
+    of the (Q, 2) int32 `keys`: one launch of K4's lane entry for CUDA
+    tensors, each query drawing the words of its standalone
+    `mrf_half_step`; the twin for CPU tensors."""
+    q, b = _check_lanes(mrf, labels, evidence, keys)
+    if labels.device.type == "cpu":
+        return mrf_half_step_lanes_ref(mrf, labels, evidence, keys, parity,
+                                       exp_table, exp_spec, p)
+    tab = exp_table.reshape(-1)
+    _lib.require_cuda("mrf_half_step_lanes", labels, evidence, keys, tab)
+    hh, ww = labels.shape[1:]
+    out = torch.empty_like(labels)
+    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
+    fn = _lib.function(
+        "mrf_gibbs", "aia_mrf_half_step_lanes",
+        [P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, I, F, F, I, I, I,
+         P],
+    )
+    with torch.cuda.device(labels.device):
+        code = fn(
+            labels.data_ptr(), out.data_ptr(), evidence.data_ptr(),
+            keys.data_ptr(), tab.data_ptr(), q, b, hh, ww,
+            tile_rows(ww, exp_spec.size), mrf.n_labels, parity,
+            int(mrf.data_cost == "quadratic"), mrf.theta, mrf.h, -mrf.h,
+            exp_spec.size, exp_spec.x0, inv_dx(exp_spec), p.n_words,
+            p.precision, p.total_steps, _lib.stream_of(labels),
+        )
+    _lib.check("mrf_gibbs", code, "mrf_half_step_lanes")
+    mrf_half_step_lanes.launches += 1
+    return out
+
+
+mrf_half_step_lanes.launches = 0
 
 
 def mrf_round_step(

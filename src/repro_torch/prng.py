@@ -89,6 +89,46 @@ def split(k: Key, num: int = 2) -> tuple[Key, ...]:
     return tuple(Key(int(a), int(b)) for a, b in zip(b1, b2))
 
 
+def key_array(keys) -> np.ndarray:
+    """Keys -> a (Q, 2) int64 array of their words, the form `split_many`
+    splits."""
+    return np.array([(k.k1, k.k2) for k in keys], np.int64).reshape(-1, 2)
+
+
+def keys_of(words) -> list[Key]:
+    """(Q, 2) key words -> Q `Key`s: a numpy array of uint32 values, or a
+    `key_tensor` (int32 bit patterns, on any device)."""
+    if isinstance(words, torch.Tensor):
+        words = words.cpu().numpy()
+    arr = np.asarray(words).astype(np.int64) & MASK
+    return [Key(int(a), int(b)) for a, b in arr.reshape(-1, 2)]
+
+
+def key_tensor(words, device="cuda") -> torch.Tensor:
+    """Key words ((..., 2) numpy array of uint32 values, or a list of
+    `Key`s) -> an int32 tensor of their bit patterns on `device`: the key
+    arrays the kernels' lane entries read, one row per query.  The copy
+    to a card does not wait for the work queued there: the words come from
+    pageable memory, which the copy stages before it returns, and the
+    kernels that read them run after it on the same stream."""
+    if not isinstance(words, np.ndarray):
+        words = key_array(words)
+    bits = np.ascontiguousarray(words.astype(np.uint32).view(np.int32))
+    return torch.from_numpy(bits).to(device_mod.resolve(device),
+                                     non_blocking=True)
+
+
+def split_many(keys: np.ndarray, num: int = 2) -> np.ndarray:
+    """`split` over Q keys in one numpy call: (Q, 2) key words -> (Q, num,
+    2), row q being `split(Key(*keys[q]), num)`.  A batch of Q chains
+    splits its sweep keys with one call instead of Q."""
+    keys = np.asarray(keys, np.int64).reshape(-1, 2)
+    counts = np.arange(num, dtype=np.int64)[None]
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], counts >> 32,
+                          counts & MASK)
+    return np.stack([b1, b2], axis=-1)
+
+
 def fold_in(k: Key, data: int) -> Key:
     """`jax.random.fold_in(k, data)` for a uint32 `data`: the threefry hash
     of the counter pair `(0, data)` (jax's `threefry_seed` of a 32-bit

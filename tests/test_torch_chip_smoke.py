@@ -1,7 +1,8 @@
 """The arithmetic of `chip_smoke.py`'s bounds, on the CPU: the SASS loop
 counter that reads a threefry call's instructions, the least time of a
-number of calls, and the bound's choice between bytes and operations.
-The script itself runs only on a card."""
+number of calls, and the bound's choice between bytes and operations;
+and the buckets its runtime phase's queries form.  The script itself
+runs only on a card."""
 
 import importlib.util
 from pathlib import Path
@@ -128,3 +129,38 @@ def test_ptxas_entries_names_k1_instances_and_their_spills():
          "spill_store_bytes": 8, "spill_load_bytes": 4, "registers": 255},
     ]
     assert cs.ptxas_entries(PTXAS_LOG, "bn_") == []
+
+
+def test_runtime_trace_forms_the_four_buckets():
+    """The serve_runtime phase's queries: 8 pigs queries sharing one
+    observed-node set, 2 hailfinder, 2 pinned and 2 unpinned Penguin, all
+    at 1,024 chains x 200 sweeps; under the phase's engine config they
+    fall into 4 fused buckets, the unpinned Penguin one on the sharded
+    route."""
+    from repro_torch.compile import ir
+    from repro_torch.runtime import bucket_key
+
+    cs = _chip_smoke()
+    models, queries = cs._runtime_trace()
+    cfg = cs._runtime_config(slice_iters=cs.RUNTIME_SLICE)
+    assert cfg.fused and cfg.max_batch == 8
+    assert len(queries) == 14
+    assert all(q.n_chains == 1024 and q.n_iters == 200 for q in queries)
+    graphs = {m: ir.canonicalize(g, evidence_mode="runtime")
+              for m, g in models.items()}
+    keys = {}
+    for q in queries:
+        k = bucket_key(q, graphs[q.model], cfg.backend, cfg.slice_iters,
+                       fused=True)
+        assert k.fused and k.n_iters == cs.RUNTIME_SLICE
+        keys.setdefault(k, []).append(q)
+    sizes = sorted((qs[0].model, len(qs), k.has_pins)
+                   for k, qs in keys.items())
+    assert sizes == [("hailfinder", 2, False), ("penguin", 2, False),
+                     ("penguin", 2, True), ("pigs", 8, False)]
+    pigs = [q for q in queries if q.model == "pigs"]
+    assert len({tuple(sorted(q.evidence)) for q in pigs}) == 1
+    assert 5 <= len(pigs[0].evidence) <= 20
+    assert len({q.seed for q in queries}) == len(queries)
+    pinned = [q for q in queries if q.model == "penguin" and q.evidence]
+    assert [len(q.evidence) for q in pinned] == [cs.MRF_PINS] * 2

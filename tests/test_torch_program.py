@@ -187,8 +187,16 @@ def test_port_imports_neither_jax_nor_the_reference():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                             "triton"))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        # the serving runtime and the tracer are walked too
+        want = {"repro_torch.runtime." + m for m in (
+            "admission", "batcher", "calibrate", "engine", "executor",
+            "metrics", "trace", "__main__")} | {
+            "repro_torch.obs." + m for m in (
+                "tracer", "timeseries", "export", "attrib")} | {
+            "repro_torch.analysis.kernel_lint"}
+        missing = sorted(want - set(names))
+        print(len(names), bad, missing)
+        sys.exit(1 if bad or missing or len(names) < 20 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
