@@ -110,7 +110,9 @@ each printing one JSON line; any failure raises and exits non-zero:
               events), the twin's time (for K3-K6 with the key's words
               generated, as the function's input is the key), and the least
               time the card needs for the same bytes and operations (K3-K6
-              count the threefry calls their rows' walks need, each at
+              take their bytes and threefry calls from `launch.
+              kernel_cost`, which `profile` held against this run's
+              walks; each call at
               the instructions the threefry phase read from the SASS: its
               bit operations on 132 SMs x 64 ALU lanes, all of its integer
               instructions at 132 x 128 issue lanes, x the SM clock); K1
@@ -165,6 +167,19 @@ each printing one JSON line; any failure raises and exits non-zero:
               split, K3 lane wrapper, histogram, the card's busy share;
               timing_lane_loops: the pigs and pinned Penguin bucket loops
               at their served Q and at Q = 1 beside the one-query loop).
+15. profile (after serve_runtime, before `timing`) — the profiler
+              (`repro_torch.obs.profile`): the runtime phase's engine and
+              14 queries replayed with profiling on; `profile.json`
+              (build/profile/) validates, every dispatch (the sharded ones
+              included) joins to a static cost from `launch.kernel_cost`
+              whose roofline is at most 1.05x its measured wall, and every
+              answer equals the replay without profiling.  `kernel_cost`'s
+              per-launch bytes and threefry calls of K3, K4, both lane
+              entries, K5 and K6 agree within 1% with the counts of this
+              run's data (the twins' walks), and `timing` takes its bounds
+              from them.  `python -m repro_torch.obs --profile` and
+              `python -m repro_torch.diag --quick` exit 0; the engine's
+              wall with profiling on and off, medians of 3 runs.
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -266,9 +281,10 @@ def main() -> int:
     sharded_launches = timed(phase_serve_sharded, torch, served)
     lanes_err = timed(phase_lanes, torch)
     runtime = timed(phase_serve_runtime, torch)
+    counts = timed(phase_profile, torch)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
           sharded_launches, k5_err, k6_err, per_call, k1_ptxas, runtime,
-          lanes_err)
+          lanes_err, counts)
     for mod in sys.modules:
         check(not (mod == "jax" or mod.startswith("jax.")
                    or mod == "repro" or mod.startswith("repro.")),
@@ -1658,33 +1674,30 @@ def sweep_parts(torch, cbn, fr, vals, key) -> dict:
 def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
                  k4_err: dict, sharded_launches: dict, k5_err: dict,
                  k6_err: dict, per_call: dict, k1_ptxas: list, runtime: dict,
-                 lanes_err: dict):
+                 lanes_err: dict, counts: dict):
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
+    from repro_torch.launch import kernel_cost
 
     dev = torch.device(DEVICE)
     rows = []
 
     # K3 at the pigs main-path shape (B = 1024, lut_ky); its input is the
     # sweep's key, so its plain version generates the key's words too
-    cbn, fr, vals, p, key = _k3_setup(torch, "pigs", "lut_ky")
+    c = counts["k3"]
+    cbn, fr, vals, p, key = c["inputs"]
     k3 = lambda: bn_gibbs.bn_sweep(cbn, fr, vals, key, "lut_ky", p)
     ms_events = time_ms(torch, k3, 50)
     ms = device_ms(torch, k3, 50, BN_KERNEL)
     plain = time_ms(torch, lambda: _k3_twin(cbn, fr, vals, key, "lut_ky", p),
                     2)
-    with WalkBits() as walks:
-        _k3_twin(cbn, fr, vals, key, "lut_ky", p)
     b = vals.shape[0]
-    # the values read and written once, the tables, arena and LUT; the
-    # factor sums' float ops and the threefry calls the rows' walks need
-    moved = (nbytes(vals, cbn.log_flat, cbn.exp_table, fr.nodes, fr.cards,
-                    fr.base, fr.stride, fr.scope_var, fr.is_self)
-             + nbytes(vals))
-    flops = b * sum(fr.n_c) * fr.f_max * p.v_max
-    int_ms = hash_ms(walks.threefry_calls, per_call)
-    bms, by = bound(moved, flops, FP32_FLOPS, int_ms)
+    # bytes, the factor sums' float ops and the threefry calls from
+    # kernel_cost (the profile phase held them against this data's)
+    cost = c["cost"]
+    int_ms = hash_ms(cost.hash_calls, per_call)
+    bms, by = bound(cost.hbm_bytes, cost.flops, FP32_FLOPS, int_ms)
     rows.append({
         "name": "K3 bn_sweep (pigs, B=1024, lut_ky)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bn_gibbs.cu",
@@ -1692,7 +1705,9 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
         "launches": launches["bn_sweep"], "max_abs_err": k3_err["pigs"],
         "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
         "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
-        "bytes": moved, "threefry_calls": walks.threefry_calls,
+        "bytes": cost.hbm_bytes, "threefry_calls_model": cost.hash_calls,
+        "bytes_counted": c["bytes"],
+        "threefry_calls": c["threefry_calls"],
         "threefry_bound_ms": int_ms,
     })
 
@@ -1707,7 +1722,8 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     ms = device_ms(torch, k2, 200, "interp_kernel")
     plain = time_ms(torch, lambda: interp_lut.interp_kernel_ref(x, tab, spec),
                     50)
-    bms, by = bound(2 * nbytes(x) + nbytes(tab), 8 * x.numel(), FP32_FLOPS)
+    k2 = kernel_cost.lut_exp(x.numel(), tab.numel())
+    bms, by = bound(k2.hbm_bytes, k2.flops, FP32_FLOPS)
     rows.append({
         "name": "K2 interp_kernel (65,536 x 32)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/interp_lut.cu",
@@ -1742,14 +1758,16 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     for name, kern, twin, kernel, moved, ops_, int_ms in (
         ("K2", lambda: interp_lut.interp_kernel(z, tab, spec),
          lambda: interp_lut.interp_kernel_ref(z, tab, spec), "interp_kernel",
-         2 * nbytes(z) + nbytes(tab), 8 * z.numel(), 0.0),
+         kernel_cost.lut_exp(z.numel(), tab.numel()).hbm_bytes,
+         kernel_cost.lut_exp(z.numel(), tab.numel()).flops, 0.0),
         ("K1", lambda: ky_sampler.ky_sample_kernel(w3, words3, n_bins=3),
          lambda: ky_sampler.ky_sample_kernel_ref(w3, words3, n_bins=3),
-         K1_KERNEL, nbytes(w3, words3) + 4 * 4 * n_rows, ops3, 0.0),
+         K1_KERNEL, kernel_cost.ky_sample(n_rows, 3, p.n_words).hbm_bytes,
+         ops3, 0.0),
         # the same draws with the words hashed in the kernel from key3
         ("K1_keyed", lambda: ky_sampler.ky_sample_keyed(w3, key3, n_bins=3),
          lambda: ky_sampler.ky_sample_kernel_ref(w3, words3, n_bins=3),
-         K1_KERNEL, nbytes(w3) + 4 * 4 * n_rows, ops3,
+         K1_KERNEL, kernel_cost.ky_sample_keyed(n_rows, 3).hbm_bytes, ops3,
          hash_ms(int(((bits3.long() + 31) // 32).sum()), per_call)),
     ):
         bms, by = bound(moved, ops_, FP32_FLOPS, int_ms)
@@ -1759,10 +1777,10 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
                       "bound_ms": bms, "bound_by": by}
     emit({"phase": "timing_pigs_shapes", "rows": n_rows, "bins": p.v_max,
           **pigs})
-    rows.append(timing_mrf(torch, mrf_launches, k4_err, per_call))
+    rows.append(timing_mrf(torch, mrf_launches, k4_err, per_call, counts))
     rows.extend(timing_sharded(torch, sharded_launches, k5_err, k6_err,
-                               per_call))
-    rows.extend(timing_lanes(torch, runtime, lanes_err, per_call))
+                               per_call, counts))
+    rows.extend(timing_lanes(torch, runtime, lanes_err, per_call, counts))
     emit({"kernels": rows})
 
 
@@ -1779,6 +1797,7 @@ def timing_k1(torch, launches: dict, per_call: dict, k1_ptxas: list, x,
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import ky_sampler, ops
+    from repro_torch.launch import kernel_cost
 
     dev = torch.device(DEVICE)
     w = ops.lut_exp_weights(x.reshape(DRAW_ROWS, DRAW_BINS), tab, spec)
@@ -1808,10 +1827,13 @@ def timing_k1(torch, launches: dict, per_call: dict, k1_ptxas: list, x,
     # rate of NVIDIA's H100 data sheet; the keyed entry reads no words but
     # hashes one threefry call per 32 bits its walks use (`hash_ms`)
     ops_ = float(bits.sum()) * (4 * (DRAW_BINS + 1) + 8)
-    outs = 4 * 4 * DRAW_ROWS
-    bms, by = bound(nbytes(w, words) + outs, ops_)
-    keyed_bms, keyed_by = bound(nbytes(w) + outs, ops_, FP32_FLOPS,
-                                hash_ms(calls, per_call))
+    # bytes from kernel_cost: weights (and words) read once, the labels
+    # and three stats written once
+    bms, by = bound(kernel_cost.ky_sample(
+        DRAW_ROWS, DRAW_BINS, words.shape[1]).hbm_bytes, ops_)
+    keyed_bms, keyed_by = bound(
+        kernel_cost.ky_sample_keyed(DRAW_ROWS, DRAW_BINS).hbm_bytes, ops_,
+        FP32_FLOPS, hash_ms(calls, per_call))
     timing_draw_request(torch, tab, spec)
     return {
         "name": "K1 ky_sample_kernel (65,536 x 32)", "route": "cuda",
@@ -1868,28 +1890,22 @@ def timing_draw_request(torch, tab, spec) -> None:
     emit(out)
 
 
-def timing_mrf(torch, launches: dict, k4_err: dict,
-               per_call: dict) -> dict:
+def timing_mrf(torch, launches: dict, k4_err: dict, per_call: dict,
+               counts: dict) -> dict:
     """K4 at the Penguin and Art shapes (1,024 chains, parity 0), one MRF
     half-step through the entry point back to back with the card's busy
     share, beside the plain-torch word generation it no longer runs.
     Returns K4's row of the kernels line (Penguin, the first served
     model)."""
     from repro_torch import prng
-    from repro_torch.core import ky as ky_core
-    from repro_torch.core.mrf import checkerboard_mask
     from repro_torch.kernels import mrf_gibbs
 
     dev = torch.device(DEVICE)
-    tab, spec = exp_lut(dev)
     shapes = {}
     for name in ("penguin", "art"):
-        mrf, _, ev = _mrf_model(torch, name)
-        b, v = CHAINS, mrf.n_labels
-        labels = prng.randint(prng.key(1), (b, mrf.height, mrf.width), 0, v,
-                              dev)
-        p = mrf_gibbs.half_step_params(mrf)
-        key = prng.key(2)
+        c = counts["k4"] if name == "penguin" else count_mrf(torch, name)
+        mrf, ev, labels, p, key, tab, spec = c["inputs"]
+        b = labels.shape[0]
         k4 = lambda: mrf_gibbs.mrf_half_step(mrf, labels, ev, key, 0, tab,
                                              spec, p)
         # its input is the half-step's key: the plain version generates
@@ -1897,40 +1913,35 @@ def timing_mrf(torch, launches: dict, k4_err: dict,
         twin = lambda: mrf_gibbs.mrf_half_step_ref(
             mrf, labels, ev, mrf_gibbs.round_words(mrf, key, b, p, dev), 0,
             tab, spec, p)
-        # the bytes K4 must move: the labels read once and written once,
-        # the evidence and the table; the operations its sites' data need:
-        # ~16 float ops per site and value (counts, energy, max, lerp) and,
-        # per walk step, shift, mask, add and compare on V + 1 lanes plus
-        # the step's bookkeeping, at the float32 rate; one threefry call
-        # per 32 walk steps of every active site (`hash_ms`)
-        active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
-        n_active = b * int(active.sum())
-        words = mrf_gibbs.round_words(mrf, key, b, p, dev)
-        w = mrf_gibbs.site_weights(mrf, labels, ev, tab, spec)[:, active]
-        bits = ky_core.ky_sample_fast(
-            w.reshape(-1, v), words[:, active].reshape(-1, p.n_words),
-            n_bins=v, precision=p.precision)[1]["bits_used"]
-        steps = float(bits.sum())
-        calls = int(((bits.long() + 31) // 32).sum())
-        del words
-        moved = 2 * nbytes(labels) + nbytes(ev, tab)
+        # the bytes and threefry calls from kernel_cost (the labels read
+        # and written once, the evidence and the table; one call per
+        # active site, held against this data's walks in `profile`); the
+        # operations this data's sites need: ~16 float ops per site and
+        # value (counts, energy, max, lerp) and, per walk step, shift,
+        # mask, add and compare on V + 1 lanes plus the step's
+        # bookkeeping, at the float32 rate
+        cost, v, n_active = c["cost"], mrf.n_labels, c["active_sites"]
+        steps = c["walk_steps"]
         ops = n_active * v * 16 + steps * (4 * (v + 1) + 8)
-        int_ms = hash_ms(calls, per_call)
-        bms, by = bound(moved, ops, FP32_FLOPS, int_ms)
+        int_ms = hash_ms(cost.hash_calls, per_call)
+        bms, by = bound(cost.hbm_bytes, ops, FP32_FLOPS, int_ms)
         shapes[name] = {
             "ms": device_ms(torch, k4, 50, MRF_KERNEL),
             "ms_per_call_events": time_ms(torch, k4, 50),
             "plain_ms": time_ms(torch, twin, 2), "bound_ms": bms,
-            "bound_by": by, "bytes": moved, "ops": ops,
+            "bound_by": by, "bytes": cost.hbm_bytes, "ops": ops,
+            "bytes_counted": c["bytes"],
             "walk_steps_per_site": steps / n_active,
-            "active_sites": n_active, "threefry_calls": calls,
-            "threefry_calls_per_site": calls / n_active,
+            "active_sites": n_active, "threefry_calls_model": cost.hash_calls,
+            "threefry_calls": c["threefry_calls"],
+            "threefry_calls_per_site": c["threefry_calls"] / n_active,
             "threefry_bound_ms": int_ms,
         }
 
     # one half-step of the served Penguin query through the entry point,
     # and how busy the card is over a run of them
     mrf, _, ev = _mrf_model(torch, "penguin")
+    tab, spec = exp_lut(dev)
     labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width), 0,
                           mrf.n_labels, dev)
     p = mrf_gibbs.half_step_params(mrf)
@@ -1958,36 +1969,34 @@ def timing_mrf(torch, launches: dict, k4_err: dict,
         "ms": pg["ms"] or pg["ms_per_call_events"], "plain_ms": pg["plain_ms"],
         "bound_ms": pg["bound_ms"], "bound_by": pg["bound_by"],
         "library_ms": None, "ms_per_call_events": pg["ms_per_call_events"],
-        "bytes": pg["bytes"], "threefry_calls": pg["threefry_calls"],
+        "bytes": pg["bytes"],
+        "threefry_calls_model": pg["threefry_calls_model"],
+        "bytes_counted": pg["bytes_counted"],
+        "threefry_calls": pg["threefry_calls"],
         "threefry_bound_ms": pg["threefry_bound_ms"],
     }
 
 
 def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict,
-                   per_call: dict):
+                   per_call: dict, counts: dict):
     """K5 per round launch over every position of a pigs sweep on the
     (2, 4) mesh, and K6 per half-step launch over every slab of Penguin,
     at 1,024 chains: kernel device time, time per call, the twin's time
     (with the key's words generated, as the function's input is the key)
-    and the bound (bytes: values or labels read once, the node positions'
-    planes or the labels written once; threefry calls the twins' walks
-    need, at the SASS's instructions).  Then one pigs sharded sweep and one
-    Penguin sharded half-step by part (`sharded_parts`).  Returns K5's and
-    K6's rows of the kernels line."""
-    from repro_torch import prng
-    from repro_torch.core import distributed
-    from repro_torch.core import ky as ky_core
-    from repro_torch.core.mrf import checkerboard_mask
+    and the bound (bytes and threefry calls from `kernel_cost`: values or
+    labels read once, the node positions' planes or the labels written
+    once; one call per drawn row or active site, held against the twins'
+    walks in `profile`; the calls at the SASS's instructions).  Then one
+    pigs sharded sweep and one Penguin sharded half-step by part
+    (`sharded_parts`).  Returns K5's and K6's rows of the kernels line."""
     from repro_torch.kernels import bn_gibbs, mrf_gibbs
 
     dev = torch.device(DEVICE)
     rows = []
 
     # K5: the rounds of one pigs sweep, one launch each
-    cbn, sfr, vals = _sharded_bn(torch, "pigs")
-    p = bn_gibbs.sweep_params(cbn, "lut_ky")
-    key = prng.key(2)
-    n = len(sfr.n_c)
+    c5 = counts["k5"]
+    cbn, sfr, vals, p, key, n = c5["inputs"]
 
     def k5_sweep():
         for r in range(n):
@@ -2001,24 +2010,20 @@ def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict,
     ms_events = time_ms(torch, k5_sweep, 20) / n
     ms = device_ms(torch, k5_sweep, 20, BN_KERNEL)
     plain = time_ms(torch, twin_sweep, 2) / n
-    with WalkBits() as walks:
-        twin_sweep()
-    # per launch: the values read once, each node position's plane written
-    # once, the position tables of one round, the arena and LUT; the
-    # factor sums' float ops; the threefry calls the owned rows' walks need
-    table = nbytes(sfr.nodes, sfr.cards, sfr.base, sfr.stride,
-                   sfr.scope_var, sfr.is_self, sfr.word_pos) // n
-    moved = ((1 + MESH[1]) * nbytes(vals) + table
-             + nbytes(cbn.log_flat, cbn.exp_table))
-    owned_rows = CHAINS * sum(sfr.n_c) / n
-    flops = owned_rows * sfr.f_max * p.v_max
-    int_ms = hash_ms(walks.threefry_calls / n, per_call)
-    bms, by = bound(moved, flops, FP32_FLOPS, int_ms)
+    # per launch, averaged over the sweep's rounds: the values read once,
+    # each node position's plane written once, the position tables of one
+    # round, the arena and LUT; the factor sums' float ops; the threefry
+    # calls of the owned rows
+    cost = c5["cost"]
+    int_ms = hash_ms(cost.hash_calls, per_call)
+    bms, by = bound(cost.hbm_bytes, cost.flops, FP32_FLOPS, int_ms)
     emit({"phase": "timing_k5", "model": "pigs", "mesh": list(MESH),
           "launches_timed": n, "ms": ms and ms / n,
           "ms_per_call_events": ms_events, "plain_ms": plain,
-          "bound_ms": bms, "bound_by": by, "bytes_per_launch": moved,
-          "threefry_calls_per_launch": walks.threefry_calls / n,
+          "bound_ms": bms, "bound_by": by,
+          "bytes_per_launch": cost.hbm_bytes,
+          "threefry_calls_model_per_launch": cost.hash_calls,
+          "threefry_calls_per_launch": c5["threefry_calls"],
           "threefry_bound_ms": int_ms})
     rows.append({
         "name": "K5 fused_color_round_mesh (pigs, one round on every "
@@ -2030,20 +2035,18 @@ def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict,
         "max_abs_err": k5_err["pigs"],
         "ms": (ms / n) if ms else ms_events, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "ms_per_call_events": ms_events, "bytes": moved,
-        "threefry_calls": walks.threefry_calls / n,
+        "ms_per_call_events": ms_events, "bytes": cost.hbm_bytes,
+        "threefry_calls_model": cost.hash_calls,
+        "bytes_counted": c5["bytes"],
+        "threefry_calls": c5["threefry_calls"],
         "threefry_bound_ms": int_ms,
     })
 
     # K6: one Penguin half-step over every slab, one launch
-    tab, spec = exp_lut(dev)
-    mrf, _, ev = _mrf_model(torch, "penguin")
+    c6 = counts["k6"]
+    mrf, ev, labels, up, down, p, key, tab, spec = c6["inputs"]
     n_g = MESH[1]
     h_loc, v = mrf.height // n_g, mrf.n_labels
-    labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width), 0, v,
-                          dev)
-    p = mrf_gibbs.half_step_params(mrf)
-    up, down = distributed._halo_exchange(labels, n_g)
     k6 = lambda: mrf_gibbs.mrf_halo_half_step(mrf, labels, up, down, 0, ev,
                                               key, 0, tab, spec, p)
 
@@ -2058,30 +2061,20 @@ def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict,
     ms_events = time_ms(torch, k6, 50)
     ms = device_ms(torch, k6, 50, MRF_KERNEL)
     plain = time_ms(torch, twin, 2)
-    # the labels read and written once, the halo rows, evidence and LUT;
-    # operations and threefry calls counted as for K4
-    active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
-    n_active = CHAINS * int(active.sum())
-    words = mrf_gibbs.round_words(mrf, key, CHAINS, p, dev)
-    w = torch.cat([mrf_gibbs.site_weights(
-        mrf, labels[:, g * h_loc:(g + 1) * h_loc], ev[g * h_loc:(g + 1) *
-                                                       h_loc], tab, spec,
-        up[g], down[g]) for g in range(n_g)], dim=1)[:, active]
-    bits = ky_core.ky_sample_fast(
-        w.reshape(-1, v), words[:, active].reshape(-1, p.n_words), n_bins=v,
-        precision=p.precision)[1]["bits_used"]
-    del words
-    steps = float(bits.sum())
-    calls = int(((bits.long() + 31) // 32).sum())
-    moved = 2 * nbytes(labels) + nbytes(up, down, ev, tab)
+    # bytes and threefry calls from kernel_cost (the labels read and
+    # written once, the halo rows, evidence and LUT); operations counted
+    # from this data's walks as for K4
+    cost, n_active, steps = c6["cost"], c6["active_sites"], c6["walk_steps"]
     ops = n_active * v * 16 + steps * (4 * (v + 1) + 8)
-    int_ms = hash_ms(calls, per_call)
-    bms, by = bound(moved, ops, FP32_FLOPS, int_ms)
+    int_ms = hash_ms(cost.hash_calls, per_call)
+    bms, by = bound(cost.hbm_bytes, ops, FP32_FLOPS, int_ms)
     emit({"phase": "timing_k6", "model": "penguin", "mesh": list(MESH),
           "slab_rows": h_loc, "ms": ms, "ms_per_call_events": ms_events,
           "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-          "bytes_per_launch": moved, "ops_per_launch": ops,
-          "threefry_calls": calls, "threefry_bound_ms": int_ms})
+          "bytes_per_launch": cost.hbm_bytes, "ops_per_launch": ops,
+          "threefry_calls_model": cost.hash_calls,
+          "threefry_calls": c6["threefry_calls"],
+          "threefry_bound_ms": int_ms})
     rows.append({
         "name": "K6 mrf_halo_half_step (penguin, every 16-row slab of a "
                 "(2, 4) mesh, B=1024)",
@@ -2092,8 +2085,10 @@ def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict,
         "max_abs_err": max(k6_err.values()),
         "ms": ms or ms_events, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "ms_per_call_events": ms_events, "bytes": moved,
-        "threefry_calls": calls, "threefry_bound_ms": int_ms,
+        "ms_per_call_events": ms_events, "bytes": cost.hbm_bytes,
+        "threefry_calls_model": cost.hash_calls, "bytes_counted": c6["bytes"],
+        "threefry_calls": c6["threefry_calls"],
+        "threefry_bound_ms": int_ms,
     })
     sharded_parts(torch, cbn, sfr, vals, mrf, ev, labels)
     return rows
@@ -2566,7 +2561,346 @@ def phase_serve_runtime(torch) -> dict:
     return {"launches": launches}
 
 
-def _k4_lane_calls(torch, mrf, labels, evs, keys, b, per_call):
+# ---------------------------------------------------------------------------
+# profile: every served dispatch joined to its static cost and roofline
+# ---------------------------------------------------------------------------
+
+PROFILE_WALL_RUNS = 3  # engine runs with profiling on, and off, for walls
+RATIO_LIMIT = 1.05  # a bound above the wall: work the card did not do
+COUNT_TOLERANCE = 0.01  # kernel_cost against the counts of this run's data
+
+
+def count_k3(torch) -> dict:
+    """K3 at the pigs main-path shape (B = 1,024, lut_ky), as `timing`
+    times it: its inputs, the bytes it must move (the values read and
+    written once, the tables, arena and LUT), the threefry calls the rows'
+    walks need (the twin's walks), and `kernel_cost`'s count of the same
+    launch."""
+    from repro_torch.launch import kernel_cost
+
+    cbn, fr, vals, p, key = _k3_setup(torch, "pigs", "lut_ky")
+    with WalkBits() as walks:
+        _k3_twin(cbn, fr, vals, key, "lut_ky", p)
+    return {
+        "inputs": (cbn, fr, vals, p, key),
+        "bytes": (nbytes(vals, cbn.log_flat, cbn.exp_table, fr.nodes,
+                         fr.cards, fr.base, fr.stride, fr.scope_var,
+                         fr.is_self) + nbytes(vals)),
+        "threefry_calls": walks.threefry_calls,
+        "cost": kernel_cost.bn_sweep(kernel_cost.bn_shape(cbn, cbn.groups),
+                                     vals.shape[0]),
+    }
+
+
+def _mrf_walk(torch, mrf, w, words, active, p) -> tuple[float, int]:
+    """The walk steps and threefry calls of the active sites' draws from
+    weights `w` ((B, H, W, V)) and words ((B, H, W, n_words))."""
+    from repro_torch.core import ky as ky_core
+
+    v = mrf.n_labels
+    bits = ky_core.ky_sample_fast(
+        w[:, active].reshape(-1, v), words[:, active].reshape(-1, p.n_words),
+        n_bins=v, precision=p.precision)[1]["bits_used"]
+    return float(bits.sum()), int(((bits.long() + 31) // 32).sum())
+
+
+def count_mrf(torch, name: str) -> dict:
+    """K4 at a served MRF shape (1,024 chains, parity 0), as `timing_mrf`
+    times it: its inputs, the bytes it must move (the labels read and
+    written once, the evidence and table), the walk steps and threefry
+    calls of the active sites, and `kernel_cost`'s count."""
+    from repro_torch import prng
+    from repro_torch.core.mrf import checkerboard_mask
+    from repro_torch.kernels import mrf_gibbs
+    from repro_torch.launch import kernel_cost
+
+    dev = torch.device(DEVICE)
+    tab, spec = exp_lut(dev)
+    mrf, _, ev = _mrf_model(torch, name)
+    b, v = CHAINS, mrf.n_labels
+    labels = prng.randint(prng.key(1), (b, mrf.height, mrf.width), 0, v, dev)
+    p = mrf_gibbs.half_step_params(mrf)
+    key = prng.key(2)
+    active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
+    steps, calls = _mrf_walk(
+        torch, mrf, mrf_gibbs.site_weights(mrf, labels, ev, tab, spec),
+        mrf_gibbs.round_words(mrf, key, b, p, dev), active, p)
+    return {
+        "inputs": (mrf, ev, labels, p, key, tab, spec),
+        "bytes": 2 * nbytes(labels) + nbytes(ev, tab),
+        "threefry_calls": calls, "walk_steps": steps,
+        "active_sites": b * int(active.sum()),
+        "cost": kernel_cost.mrf_half_step(
+            kernel_cost.mrf_shape(mrf, tab.numel()), b, 0),
+    }
+
+
+def count_k3_lanes(torch) -> dict:
+    """K3's lane entry at the runtime's pigs bucket (8 queries x 1,024
+    chains, lut_ky), as `timing_lanes` times it: the Q * B chains' values
+    read and written once, the key array and tables; the twin's walks."""
+    from repro_torch import prng
+    from repro_torch.core import bayesnet as bnet
+    from repro_torch.core.graphs import bn_repository_replica
+    from repro_torch.kernels import bn_gibbs
+    from repro_torch.launch import kernel_cost
+
+    dev = torch.device(DEVICE)
+    q = 8
+    cbn = bnet.compile_bayesnet(bn_repository_replica("pigs"), device=dev)
+    fr = bn_gibbs.build_fused_rounds(cbn.groups)
+    vals = torch.cat([bnet.init_chain_values(cbn, prng.key(50 + i),
+                                             CHAINS)[0] for i in range(q)])
+    kt = prng.key_tensor([prng.key(60 + i) for i in range(q)], dev)
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    with WalkBits() as walks:
+        bn_gibbs.bn_sweep_lanes_ref(cbn, fr, vals, kt, "lut_ky", p)
+    return {
+        "inputs": (cbn, fr, vals, kt, p, q),
+        "bytes": (2 * nbytes(vals) + nbytes(kt, cbn.log_flat, cbn.exp_table,
+                                            fr.nodes, fr.cards, fr.base,
+                                            fr.stride, fr.scope_var,
+                                            fr.is_self)),
+        "threefry_calls": walks.threefry_calls,
+        "cost": kernel_cost.bn_sweep_lanes(
+            kernel_cost.bn_shape(cbn, cbn.groups), q, CHAINS),
+    }
+
+
+def count_k4_lanes(torch) -> dict:
+    """K4's lane entry at the runtime's pinned Penguin bucket (2 queries x
+    1,024 chains, parity 0), as `timing_lanes` times it: the labels read
+    and written once, the evidence planes, keys and table; the active
+    sites' walks, lane by lane."""
+    from repro_torch import prng
+    from repro_torch.core import mrf as mrf_mod
+    from repro_torch.kernels import mrf_gibbs
+    from repro_torch.launch import kernel_cost
+
+    dev = torch.device(DEVICE)
+    q = 2
+    mrf, _, _ = _mrf_model(torch, "penguin")
+    hh, ww, v = mrf.height, mrf.width, mrf.n_labels
+    evs = torch.stack([torch.as_tensor(mrf_mod.make_denoising_problem(
+        hh, ww, v, 0.25, seed=40 + i)[1]) for i in range(q)]).to(dev)
+    labels = prng.randint(prng.key(1), (q * CHAINS, hh, ww), 0, v, dev)
+    keys = [prng.key(70 + i) for i in range(q)]
+    kt = prng.key_tensor(keys, dev)
+    tab, spec = exp_lut(dev)
+    p = mrf_gibbs.half_step_params(mrf)
+    calls, steps, n_active = _k4_lane_calls(torch, mrf, labels, evs, keys,
+                                            CHAINS)
+    return {
+        "inputs": (mrf, labels, evs, kt, tab, spec, p, q),
+        "bytes": 2 * nbytes(labels) + nbytes(evs, kt, tab),
+        "threefry_calls": calls, "walk_steps": steps,
+        "active_sites": n_active,
+        "cost": kernel_cost.mrf_half_step_lanes(
+            kernel_cost.mrf_shape(mrf, tab.numel()), q, CHAINS, 0),
+    }
+
+
+def count_k5(torch) -> dict:
+    """K5 per round launch of one pigs sweep on the (2, 4) mesh, as
+    `timing_sharded` times it, averaged over the sweep's rounds: the
+    values read once, each node position's plane written once, a round's
+    position tables, the arena and LUT; the twin's walks."""
+    from repro_torch import prng
+    from repro_torch.compile.program import compile_graph
+    from repro_torch.core.graphs import bn_repository_replica
+    from repro_torch.kernels import bn_gibbs
+    from repro_torch.launch import kernel_cost
+
+    cbn, sfr, vals = _sharded_bn(torch, "pigs")
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    key = prng.key(2)
+    n = len(sfr.n_c)
+    with WalkBits() as walks:
+        for r in range(n):
+            _k5_twin_round(torch, cbn, sfr, r, vals, key, "lut_ky", p)
+    table = nbytes(sfr.nodes, sfr.cards, sfr.base, sfr.stride,
+                   sfr.scope_var, sfr.is_self, sfr.word_pos) // n
+    groups = compile_graph(bn_repository_replica("pigs"),
+                           device=DEVICE).schedule_executable().round_groups
+    shape = kernel_cost.bn_shape(cbn, groups)
+    sweep = kernel_cost.total(
+        kernel_cost.bn_color_round_mesh(shape, r, CHAINS, MESH[1], sfr.c_max)
+        for r in range(n))
+    return {
+        "inputs": (cbn, sfr, vals, p, key, n),
+        "bytes": ((1 + MESH[1]) * nbytes(vals) + table
+                  + nbytes(cbn.log_flat, cbn.exp_table)),
+        "threefry_calls": walks.threefry_calls / n,
+        "cost": sweep * (1.0 / n),
+    }
+
+
+def count_k6(torch) -> dict:
+    """K6 per Penguin half-step launch over every slab of the (2, 4) mesh
+    (parity 0), as `timing_sharded` times it: the labels read and written
+    once, the halo rows, evidence and table; the active sites' walks over
+    the slabs."""
+    from repro_torch import prng
+    from repro_torch.core import distributed
+    from repro_torch.core.mrf import checkerboard_mask
+    from repro_torch.kernels import mrf_gibbs
+    from repro_torch.launch import kernel_cost
+
+    dev = torch.device(DEVICE)
+    tab, spec = exp_lut(dev)
+    mrf, _, ev = _mrf_model(torch, "penguin")
+    n_g = MESH[1]
+    h_loc, v = mrf.height // n_g, mrf.n_labels
+    labels = prng.randint(prng.key(1), (CHAINS, mrf.height, mrf.width), 0, v,
+                          dev)
+    p = mrf_gibbs.half_step_params(mrf)
+    key = prng.key(2)
+    up, down = distributed._halo_exchange(labels, n_g)
+    active = checkerboard_mask(mrf.height, mrf.width, 0, dev)
+    w = torch.cat([mrf_gibbs.site_weights(
+        mrf, labels[:, g * h_loc:(g + 1) * h_loc],
+        ev[g * h_loc:(g + 1) * h_loc], tab, spec, up[g], down[g])
+        for g in range(n_g)], dim=1)
+    steps, calls = _mrf_walk(torch, mrf, w,
+                             mrf_gibbs.round_words(mrf, key, CHAINS, p, dev),
+                             active, p)
+    return {
+        "inputs": (mrf, ev, labels, up, down, p, key, tab, spec),
+        "bytes": 2 * nbytes(labels) + nbytes(up, down, ev, tab),
+        "threefry_calls": calls, "walk_steps": steps,
+        "active_sites": CHAINS * int(active.sum()),
+        "cost": kernel_cost.mrf_halo_half_step(
+            kernel_cost.mrf_shape(mrf, tab.numel()), CHAINS, n_g, 0),
+    }
+
+
+COUNTS = {"k3": count_k3, "k4": lambda torch: count_mrf(torch, "penguin"),
+          "k3_lanes": count_k3_lanes, "k4_lanes": count_k4_lanes,
+          "k5": count_k5, "k6": count_k6}
+
+
+def _replay(torch, models, queries, profiled: bool):
+    """One engine run of the runtime phase's configuration and queries;
+    with `profiled`, under the tracer and the profiler, whose events and
+    registry it returns.  Returns (results, wall s, events, registry)."""
+    from repro_torch import obs
+    from repro_torch.obs import export, profile
+    from repro_torch.runtime import Engine
+
+    if profiled:
+        obs.enable()
+        profile.enable()
+    eng = Engine(models, _runtime_config(slice_iters=RUNTIME_SLICE),
+                 device=torch.device(DEVICE))
+    eng.submit(queries)
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = reg = None
+    if profiled:
+        events = export.events_as_dicts(list(obs.get().events))
+        reg = profile.get()
+        profile.disable()
+        obs.disable()
+    return res, wall, events, reg
+
+
+def phase_profile(torch) -> dict:
+    """The profiler (`repro_torch.obs.profile`) over the runtime phase's
+    engine and 14 queries, replayed once with profiling on: every dispatch,
+    the sharded ones included, joins to a static cost (`launch.
+    kernel_cost`) whose roofline is at most RATIO_LIMIT of its measured
+    wall; `profile.json` (under build/profile/) validates; every answer
+    equals the same replay's without profiling, bit for bit.  Then
+    `kernel_cost`'s per-launch bytes and threefry calls of K3, K4, their
+    lane entries, K5 and K6 against the counts of this run's data
+    (`COUNTS`, what `timing` bounds them with), within COUNT_TOLERANCE;
+    `python -m repro_torch.obs --profile` and `python -m repro_torch.diag
+    --quick` as subprocesses (exit 0); and the engine's wall with
+    profiling on against off, medians of PROFILE_WALL_RUNS runs.  Returns
+    the counts, which `timing` reuses."""
+    import os
+
+    from repro_torch.launch import report
+    from repro_torch.obs import profile
+
+    models, queries = _runtime_trace()
+    off, _, _, _ = _replay(torch, models, queries, False)
+    on, _, events, reg = _replay(torch, models, queries, True)
+    for q in queries:
+        a, b = on[q.qid], off[q.qid]
+        check((a.final_state == b.final_state).all() and (
+            a.marginals is None or (a.marginals == b.marginals).all()),
+            f"query {q.qid}: profiling changed its answer")
+    out_dir = ROOT / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "profile.json"
+    rec = profile.write_profile(path, reg, events)
+    joined = rec["joined"]
+    problems = profile.validate_profile(rec)
+    print(report.profile_table(joined["rows"], joined["comm"]), flush=True)
+    ratios = {row["sig"]: row["roofline_s"] / row["measured_mean_s"]
+              for row in joined["rows"]}
+    rows = [{k: row[k] for k in ("sig", "meta", "n_dispatches", "flops",
+                                 "hbm_bytes", "hash_calls",
+                                 "collective_bytes", "bottleneck",
+                                 "roofline_s", "measured_mean_s")}
+            | {"roofline_over_measured": ratios[row["sig"]]}
+            for row in joined["rows"]]
+    emit({"phase": "profile", "card": nvidia_smi(), "path": str(path),
+          "signatures": len(rec["buckets"]),
+          "dispatches": joined["n_dispatches"],
+          "sharded_dispatches": joined["n_sharded"],
+          "unattributed": joined["unattributed"], "problems": problems,
+          "rows": rows, "comm": joined["comm"]})
+    check(problems == [], f"profile.json has problems: {problems}")
+    check(joined["unattributed"] == [] and joined["n_sharded"] > 0,
+          f"unattributed {joined['unattributed']}, "
+          f"{joined['n_sharded']} sharded dispatches")
+    bad = {s: r for s, r in ratios.items() if not r <= RATIO_LIMIT}
+    check(not bad, f"roofline above {RATIO_LIMIT} x the measured wall: {bad}")
+
+    counts = {name: fn(torch) for name, fn in COUNTS.items()}
+    agree = {}
+    for name, c in counts.items():
+        cost = c["cost"]
+        agree[name] = {
+            "bytes": c["bytes"], "kernel_cost_bytes": cost.hbm_bytes,
+            "threefry_calls": c["threefry_calls"],
+            "kernel_cost_threefry_calls": cost.hash_calls,
+        }
+        for ours, theirs in ((cost.hbm_bytes, c["bytes"]),
+                             (cost.hash_calls, c["threefry_calls"])):
+            check(abs(ours - theirs) <= COUNT_TOLERANCE * theirs,
+                  f"{name}: kernel_cost counts {ours}, the data {theirs}")
+    emit({"phase": "profile_counts", "tolerance": COUNT_TOLERANCE,
+          "entries": agree})
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    clis = {}
+    for name, args in (("obs", ["repro_torch.obs", "--profile", str(path)]),
+                       ("diag", ["repro_torch.diag", "--quick"])):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        clis[name] = {"rc": out.returncode,
+                      "s": time.perf_counter() - t0,
+                      "tail": out.stdout.splitlines()[-3:]}
+        check(out.returncode == 0, f"python -m {' '.join(args)} exited "
+              f"{out.returncode}: {out.stdout[-2000:]} {out.stderr[-2000:]}")
+    walls = {"on": [], "off": []}
+    for _ in range(PROFILE_WALL_RUNS):
+        walls["on"].append(_replay(torch, models, queries, True)[1])
+        walls["off"].append(_replay(torch, models, queries, False)[1])
+    emit({"phase": "profile_walls", "card": nvidia_smi(), "clis": clis,
+          "engine_wall_s_profiled": spread(walls["on"]),
+          "engine_wall_s_unprofiled": spread(walls["off"])})
+    return counts
+
+
+def _k4_lane_calls(torch, mrf, labels, evs, keys, b):
     """The threefry calls K4's lane entry hashes for one half-step (parity
     0): the words the active sites' walks consume, lane by lane."""
     from repro_torch.core import ky as ky_core
@@ -2712,33 +3046,25 @@ def timing_lane_loops(torch) -> None:
     emit(out)
 
 
-def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict):
+def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict,
+                 counts: dict):
     """K3's lane entry at the runtime's pigs bucket (8 queries x 1,024
     chains, lut_ky) and K4's at its pinned Penguin bucket (2 x 1,024),
     one launch each: held against the twin on the same inputs (bit-equal;
     `max_abs_err` is the largest of these and `phase_lanes`'), kernel
     device time (torch.profiler), time per call
     (CUDA events), the twin's time (the lanes' words generated in plain
-    torch, then the per-key twin query by query) and the bound (bytes: the
-    Q * B chains' values or labels read and written once, the tables; the
-    threefry calls the walks need, at the SASS's instructions).  Returns
-    the two rows of the kernels line."""
-    from repro_torch import prng
-    from repro_torch.core import bayesnet as bnet
-    from repro_torch.core import mrf as mrf_mod
-    from repro_torch.core.graphs import bn_repository_replica
+    torch, then the per-key twin query by query) and the bound (bytes and
+    threefry calls from `kernel_cost`: the Q * B chains' values or labels
+    read and written once, the tables; one call per drawn row or active
+    site, held against the walks in `profile`; the calls at the SASS's
+    instructions).  Returns the two rows of the kernels line."""
     from repro_torch.kernels import bn_gibbs, mrf_gibbs
 
-    dev = torch.device(DEVICE)
     launches = runtime["launches"]
     rows = []
-    q = 8
-    cbn = bnet.compile_bayesnet(bn_repository_replica("pigs"), device=dev)
-    fr = bn_gibbs.build_fused_rounds(cbn.groups)
-    vals = torch.cat([bnet.init_chain_values(cbn, prng.key(50 + i),
-                                             CHAINS)[0] for i in range(q)])
-    kt = prng.key_tensor([prng.key(60 + i) for i in range(q)], dev)
-    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    c = counts["k3_lanes"]
+    cbn, fr, vals, kt, p, q = c["inputs"]
     k3 = lambda: bn_gibbs.bn_sweep_lanes(cbn, fr, vals, kt, "lut_ky", p)
     twin = lambda: bn_gibbs.bn_sweep_lanes_ref(cbn, fr, vals, kt, "lut_ky",
                                                p)
@@ -2750,15 +3076,10 @@ def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict):
           f"bucket (Q={q}, {bad} labels)")
     ms_events = time_ms(torch, k3, 50)
     ms = device_ms(torch, k3, 50, BN_KERNEL)
-    with WalkBits() as walks:
-        plain = time_ms(torch, twin, 1)
-    calls = walks.threefry_calls // 2  # the warm-up's and the timed call's
-    moved = (2 * nbytes(vals) + nbytes(kt, cbn.log_flat, cbn.exp_table,
-                                       fr.nodes, fr.cards, fr.base,
-                                       fr.stride, fr.scope_var, fr.is_self))
-    flops = q * CHAINS * sum(fr.n_c) * fr.f_max * p.v_max
-    int_ms = hash_ms(calls, per_call)
-    bms, by = bound(moved, flops, FP32_FLOPS, int_ms)
+    plain = time_ms(torch, twin, 1)
+    cost = c["cost"]
+    int_ms = hash_ms(cost.hash_calls, per_call)
+    bms, by = bound(cost.hbm_bytes, cost.flops, FP32_FLOPS, int_ms)
     rows.append({
         "name": "K3 bn_sweep_lanes (pigs, Q=8 x B=1024, lut_ky)",
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/bn_gibbs.cu",
@@ -2767,22 +3088,17 @@ def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict):
         "mismatches_vs_twin": bad,
         "ms": ms or ms_events, "plain_ms": plain, "bound_ms": bms,
         "bound_by": by, "library_ms": None, "ms_per_call_events": ms_events,
-        "bytes": moved, "threefry_calls": calls, "threefry_bound_ms": int_ms,
-        "per_query_ms": (ms or ms_events) / q,
+        "bytes": cost.hbm_bytes, "threefry_calls_model": cost.hash_calls,
+        "bytes_counted": c["bytes"],
+        "threefry_calls": c["threefry_calls"],
+        "threefry_bound_ms": int_ms, "per_query_ms": (ms or ms_events) / q,
     })
     runtime_parts(torch, cbn, vals, kt, q)
     timing_lane_loops(torch)
 
-    q = 2
-    mrf, _, _ = _mrf_model(torch, "penguin")
-    hh, ww, v = mrf.height, mrf.width, mrf.n_labels
-    evs = torch.stack([torch.as_tensor(mrf_mod.make_denoising_problem(
-        hh, ww, v, 0.25, seed=40 + i)[1]) for i in range(q)]).to(dev)
-    labels = prng.randint(prng.key(1), (q * CHAINS, hh, ww), 0, v, dev)
-    keys = [prng.key(70 + i) for i in range(q)]
-    kt = prng.key_tensor(keys, dev)
-    tab, spec = exp_lut(dev)
-    p = mrf_gibbs.half_step_params(mrf)
+    c = counts["k4_lanes"]
+    mrf, labels, evs, kt, tab, spec, p, q = c["inputs"]
+    v = mrf.n_labels
     k4 = lambda: mrf_gibbs.mrf_half_step_lanes(mrf, labels, evs, kt, 0, tab,
                                                spec, p)
     twin = lambda: mrf_gibbs.mrf_half_step_lanes_ref(mrf, labels, evs, kt,
@@ -2796,12 +3112,10 @@ def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict):
     ms_events = time_ms(torch, k4, 50)
     ms = device_ms(torch, k4, 50, MRF_KERNEL)
     plain = time_ms(torch, twin, 1)
-    calls, steps, n_active = _k4_lane_calls(torch, mrf, labels, evs, keys,
-                                            CHAINS, per_call)
-    moved = 2 * nbytes(labels) + nbytes(evs, kt, tab)
+    cost, n_active, steps = c["cost"], c["active_sites"], c["walk_steps"]
     ops = n_active * v * 16 + steps * (4 * (v + 1) + 8)
-    int_ms = hash_ms(calls, per_call)
-    bms, by = bound(moved, ops, FP32_FLOPS, int_ms)
+    int_ms = hash_ms(cost.hash_calls, per_call)
+    bms, by = bound(cost.hbm_bytes, ops, FP32_FLOPS, int_ms)
     rows.append({
         "name": "K4 mrf_half_step_lanes (penguin 64x64x4, Q=2 x B=1024)",
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/mrf_gibbs.cu",
@@ -2810,11 +3124,13 @@ def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict):
         "max_abs_err": err, "mismatches_vs_twin": bad,
         "ms": ms or ms_events, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "ms_per_call_events": ms_events, "bytes": moved,
-        "threefry_calls": calls, "threefry_bound_ms": int_ms,
-        "per_query_ms": (ms or ms_events) / q,
+        "ms_per_call_events": ms_events, "bytes": cost.hbm_bytes,
+        "threefry_calls_model": cost.hash_calls, "bytes_counted": c["bytes"],
+        "threefry_calls": c["threefry_calls"],
+        "threefry_bound_ms": int_ms, "per_query_ms": (ms or ms_events) / q,
     })
     return rows
+
 
 if __name__ == "__main__":
     sys.exit(main())

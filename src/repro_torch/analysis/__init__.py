@@ -1,9 +1,11 @@
-"""`repro_torch.analysis` — the finding model the schedule verifier reports in.
+"""`repro_torch.analysis` — the finding model every analyzer reports in.
 
 Copied from the reference package's `repro.analysis` (`Finding`, `Report`
-and the rule catalog of the schedule verifier, `analysis/verify.py`).  The
-kernel linter and the source lint are not part of the port yet.  Plain
-Python and numpy: nothing here touches a device.
+and the rule catalog): the schedule verifier (`analysis/verify.py`), the
+kernel lint on Hopper shared memory (`kernel_lint.py`), the port's source
+lint (`source_lint.py`), the quality CLI (`python -m repro_torch.diag`)
+and the observability CLIs.  `python -m repro_torch.analysis` runs the
+three analyzers.  Plain Python and numpy: nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -78,6 +80,69 @@ RULES: dict[str, tuple[str, str]] = {
         "error",
         "recorded cost diagnostics disagree with the cost recomputed from "
         "the schedule",
+    ),
+    # -- kernel lint (analysis/kernel_lint.py): the reference's vmem-budget
+    # and vmem-pressure, judged on a block's shared memory ------------------
+    "smem-budget": (
+        "error",
+        "a fused kernel's block needs more shared memory than Hopper's "
+        "227 KB per block (the launch would fail; demote to unfused)",
+    ),
+    "smem-pressure": (
+        "warning",
+        "a fused kernel's block needs more than 75% of the shared-memory "
+        "budget",
+    ),
+    "ky-lanes": (
+        "error",
+        "a model's widest alphabet exceeds the KY walk's 127 bins (the "
+        "fused kernels reject it; demote to unfused)",
+    ),
+    # -- sampling-quality CLI (python -m repro_torch.diag) -------------------
+    "diag-threshold-breach": (
+        "error",
+        "a run's sampling-quality diagnostic (split R-hat, TV-vs-exact "
+        "marginal error, ESS floor) breached its threshold — the posterior "
+        "is not converged/faithful at this budget",
+    ),
+    "diag-oracle-unavailable": (
+        "warning",
+        "the exact-inference oracle is intractable for this model "
+        "(min-fill VE cost above the limit); marginal error went unaudited, "
+        "not silently passed",
+    ),
+    "diag-accum-overflow": (
+        "error",
+        "the quality accumulator's kept-draw count approached the int32/"
+        "float32 exactness headroom (statistics no longer trustworthy)",
+    ),
+    # -- source lint (analysis/source_lint.py) -------------------------------
+    "wallclock-in-sim": (
+        "error",
+        "wall-clock call (time.time/perf_counter/monotonic, datetime.now) "
+        "inside a deterministic-simulation module",
+    ),
+    "bare-assert": (
+        "error",
+        "bare `assert` guarding a compile-pipeline invariant (stripped "
+        "under python -O; raise ScheduleVerificationError instead)",
+    ),
+    "port-import": (
+        "error",
+        "the port imports jax or the reference package `repro`, or imports "
+        "triton at module level (it must import on a host without them)",
+    ),
+    "torch-random-unkeyed": (
+        "error",
+        "a torch random call without an explicit `generator=` (the port "
+        "draws from the threefry key streams; a global-RNG draw is neither "
+        "reproducible nor the reference's)",
+    ),
+    "twin-float-division": (
+        "error",
+        "a tensor divided by a Python float in a twin (CUDA rounds "
+        "`tensor / float` differently; pass a 0-dim float32 tensor, "
+        "core/interp.py `scalar`)",
     ),
     # -- observability (runtime CLI) -----------------------------------------
     "obs-trace-dropped": (

@@ -20,8 +20,10 @@ optional pixel pins at `run()`.
 `run_sharded()` executes across a `core.distributed.Mesh` of positions on
 the program's device: the fused route runs one K5 / K6 launch per round
 over every position and is bit-exact with `run(fused=True)`, the legacy
-route folds keys per position.  The reference's profiler hook is left out with the rest of
-`obs/profile.py`.
+route folds keys per position.
+
+While profiling is on (`obs.profile`), an unsliced schedule run records
+its static cost and roofline under its `program_signature` before it runs.
 """
 
 from __future__ import annotations
@@ -48,7 +50,12 @@ from repro_torch.core.graphs import DiscreteBayesNet, GridMRF
 from repro_torch.core.mapping import MeshPlacement
 from repro_torch.diag import accum as diag_accum
 from repro_torch.kernels import mrf_gibbs as mrf_kernels
+from repro_torch.obs import profile as profile_mod
 from repro_torch.obs import tracer
+
+
+def _fused_tag(sampler: str, sharded: bool):
+    return (sampler, "sharded") if sharded else sampler
 
 
 @dataclasses.dataclass
@@ -102,6 +109,12 @@ class CompiledProgram:
             self._schedule_exec = ex
         return self._schedule_exec
 
+    def fused_check_pending(self, sampler: str, *,
+                            sharded: bool = False) -> bool:
+        """Whether the first fused use with `sampler` (on the sharded
+        route: `sharded=True`) still has its cross-check to run."""
+        return _fused_tag(sampler, sharded) not in self._fused_checked
+
     def ensure_fused_cross_check(
         self, sampler: str, *, sharded: bool = False
     ) -> None:
@@ -111,7 +124,7 @@ class CompiledProgram:
         sharded engines (their bits must match the single-device fused
         run's too) and is checked at first sharded use.  Cached per
         (sampler, route)."""
-        tag = (sampler, "sharded") if sharded else sampler
+        tag = _fused_tag(sampler, sharded)
         if tag in self._fused_checked:
             return
         with tracer.span(
@@ -310,8 +323,16 @@ class CompiledProgram:
             )
         if fused:
             backend_mod.check_fused_sampler(sampler)
-            self.ensure_fused_cross_check(sampler)
         burn_in = 50 if burn_in is None else burn_in
+        if (profile_mod.enabled() and evidence is None
+                and backend == "schedule" and carry_state is None
+                and diag_total is None):
+            profile_mod.capture_program(
+                self, n_chains=n_chains, n_iters=n_iters, burn_in=burn_in,
+                thin=thin, sampler=sampler, fused=fused,
+            )
+        if fused:
+            self.ensure_fused_cross_check(sampler)
         kw = dict(n_chains=n_chains, n_iters=n_iters, burn_in=burn_in,
                   sampler=sampler, thin=thin, carry=carry_state,
                   return_state=return_state, diag_total=diag_total)
@@ -381,6 +402,13 @@ class CompiledProgram:
         if backend == "schedule":
             if fused:
                 mrf_kernels.check_fused_sampler(sampler)
+            if (profile_mod.enabled() and carry_state is None
+                    and diag_total is None and pin_mask is None):
+                profile_mod.capture_program(
+                    self, n_chains=n_chains, n_iters=n_iters,
+                    sampler=sampler, fused=fused,
+                )
+            if fused:
                 self.ensure_fused_cross_check(sampler)
             out = backend_mod.run_mrf_schedule(
                 self.schedule_executable(), evidence, key, fused=fused, **kw)

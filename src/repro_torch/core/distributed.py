@@ -272,6 +272,14 @@ def _owners(nodes: np.ndarray, n_dev: int,
     return [np.where(owner == d)[0] for d in range(n_dev)]
 
 
+def local_lanes(groups: list[bnet.ColorGroup], n_dev: int,
+                placement: MeshPlacement | None = None) -> int:
+    """The local lane envelope of `build_sharded_fused_rounds`: the most
+    nodes one of `n_dev` node positions owns in one round (at least 1)."""
+    return max(1, max(len(p) for g in groups for p in _owners(
+        g.nodes.cpu().numpy(), n_dev, placement)))
+
+
 @dataclasses.dataclass
 class ShardedGroup:
     """One colour group split over n_dev node positions, padded to equal
@@ -481,7 +489,7 @@ def build_sharded_fused_rounds(
              ("nodes", "cards", "base", "stride", "scope_var", "is_self")}
             for g in groups]
     parts = [_owners(h["nodes"], n_dev, placement) for h in host]
-    c_max = max(1, max(len(p) for ps in parts for p in ps))
+    c_max = local_lanes(groups, n_dev, placement)
     f_max = max(h["base"].shape[1] for h in host)
     s_max = max(h["stride"].shape[2] for h in host)
     lead = (n_dev, len(groups), c_max)

@@ -10,6 +10,9 @@
     permits (declared "n/a" where it does not), plus the per-node
     KY-quantization TV floor that attributes error to quantization vs
     mixing.
+  * `python -m repro_torch.diag` — the quality CLI: sweeps the bench zoo
+    on both variants, audits against the oracle, and exits nonzero on an
+    R-hat/ESS/TV threshold breach (`diag-*` rule ids).
 
 Entry point elsewhere: `CompiledProgram.run(diagnostics=True)`.
 """

@@ -1,5 +1,5 @@
-"""`repro_torch.obs` — structured tracing for the port (a copy of the
-reference's `repro.obs`, minus its XLA-HLO profiler).
+"""`repro_torch.obs` — structured tracing and profiling for the port (a
+port of the reference's `repro.obs`).
 
 Spans and counters from the compile chain, the serving runtime (flush,
 admission and dispatch on the deterministic simulated clock, one lane per
@@ -24,9 +24,11 @@ instrumented path; enable with `REPRO_TRACE=1` or:
 
 `python -m repro_torch.runtime --trace-out trace.json` wires all of that
 into the serving CLI.  `obs.timeseries` holds the deterministic sim-clock
-metrics series the engine always records into `metrics.series`.  The
-reference's `obs.profile` (static HLO costs per bucket executable) has no
-port yet (ROADMAP.md).
+metrics series the engine always records into `metrics.series`.
+`obs.profile` counts each dispatch's work from its launch shapes and joins
+it against the measured dispatch walls on an H100 roofline
+(`--profile-out`); `python -m repro_torch.obs` validates the saved
+artifacts.
 """
 
 from repro_torch.obs import attrib, export, timeseries, tracer

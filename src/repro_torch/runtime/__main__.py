@@ -5,12 +5,16 @@
         --device cpu
     PYTHONPATH=src python -m repro_torch.runtime --trace bursty --quick \\
         --workers 4 --fused
+    PYTHONPATH=src python -m repro_torch.runtime --trace zipf --quick \\
+        --device cpu --fused --profile-out profile.json
 
 Replays a synthetic query trace through the engine and prints the serving
 dashboard (latency percentiles in simulated time, throughput, per-worker
 utilization, shed/defer counters, cache and recompile behavior).  Runs on
-the card unless `--device cpu` asks for the kernels' plain twins.  The
-reference CLI's `--profile-out` waits for a port of `obs/profile`.
+the card unless `--device cpu` asks for the kernels' plain twins.
+`--profile-out` records every dispatch's static cost and roofline
+(`obs.profile`), joins them against the measured dispatch walls, and fails
+on a dispatch no profile covers.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ import json
 import os
 
 from repro_torch import obs
+from repro_torch.launch.report import attribution_table, profile_table
 from repro_torch.obs import attrib as attrib_mod
 from repro_torch.obs import export as export_mod
+from repro_torch.obs import profile as profile_mod
 from repro_torch.runtime.admission import AdmissionConfig
 from repro_torch.runtime.engine import Engine, EngineConfig
 from repro_torch.runtime.trace import TRACES
@@ -79,10 +85,20 @@ def main(argv=None) -> int:
                          "(.jsonl), and the predicted-vs-measured "
                          "attribution (.attrib.json); prints the "
                          "attribution table and fails on coverage gaps")
+    ap.add_argument("--profile-out", default=None, metavar="PATH",
+                    help="count each dispatch signature's static cost + "
+                         "roofline bottleneck before it first runs, join "
+                         "them against measured dispatch spans, and write "
+                         "profile.json to PATH plus the deterministic "
+                         "metrics time-series (.series.jsonl); prints the "
+                         "profile table and fails on unattributed "
+                         "dispatches")
     args = ap.parse_args(argv)
 
-    if args.trace_out:
+    if args.trace_out or args.profile_out:
         obs.enable()
+    if args.profile_out:
+        profile_mod.enable()
 
     models, queries = TRACES[args.trace](
         args.queries, quick=args.quick, seed=args.seed
@@ -123,10 +139,12 @@ def main(argv=None) -> int:
     s = engine.metrics.summary()
 
     gaps = []
-    if args.trace_out:
+    unattributed = []
+    if args.trace_out or args.profile_out:
         tr = obs.get()
         events = list(tr.events)
         dicts = export_mod.events_as_dicts(events)
+    if args.trace_out:
         base = os.path.splitext(args.trace_out)[0]
         export_mod.write_perfetto(args.trace_out, events)
         export_mod.write_jsonl(base + ".jsonl", events)
@@ -138,7 +156,23 @@ def main(argv=None) -> int:
             }, f, indent=1, sort_keys=True)
         print(f"[runtime] trace: {args.trace_out} ({len(events)} events, "
               f"{tr.dropped} dropped) + {base}.jsonl + {base}.attrib.json")
-        print(attrib_mod.attribution_table(rows))
+        print(attribution_table(rows))
+    if args.profile_out:
+        pbase = os.path.splitext(args.profile_out)[0]
+        rec = profile_mod.write_profile(
+            args.profile_out, profile_mod.get(), dicts
+        )
+        engine.metrics.series.write_jsonl(pbase + ".series.jsonl")
+        joined = rec["joined"]
+        unattributed = joined["unattributed"]
+        print(f"[runtime] profile: {args.profile_out} "
+              f"({len(rec['buckets'])} signatures, "
+              f"{joined['n_dispatches']} dispatches, "
+              f"{joined['n_sharded']} sharded) "
+              f"+ {pbase}.series.jsonl")
+        print(profile_table(joined["rows"], joined["comm"]))
+        profile_mod.disable()
+    if args.trace_out or args.profile_out:
         obs.disable()
     print(f"[runtime] trace={args.trace} backend={args.backend} "
           f"fused={args.fused} workers={args.workers} models={len(models)} "
@@ -173,6 +207,12 @@ def main(argv=None) -> int:
             print(f"[runtime] ERROR: attribution gap — program "
                   f"{g['program'][:16]} dispatched {g['n_dispatches']}x "
                   "with no recorded round costs")
+        return 1
+    if unattributed:
+        for u in unattributed:
+            print(f"[runtime] ERROR: unattributed dispatches — "
+                  f"sig={str(u['sig'])[:48]!r} x{u['n_dispatches']} "
+                  "never captured by the profiler")
         return 1
     return 0
 

@@ -37,6 +37,7 @@ from repro_torch.compile import backend as backend_mod
 from repro_torch.core import mrf as mrf_mod
 from repro_torch.diag import accum as diag_accum
 from repro_torch.kernels.bn_gibbs import FUSED_BN_SAMPLERS
+from repro_torch.obs import profile as profile_mod
 from repro_torch.obs import tracer
 
 PAD_SIZES = (1, 2, 4, 8, 16, 32)
@@ -231,9 +232,14 @@ def execute_bucket(
 
     A `diagnostics` bucket additionally threads the streaming quality
     accumulator through every lane and summarizes it into
-    `QueryResult.quality`."""
+    `QueryResult.quality`.  While profiling is on, the bucket's static
+    cost is recorded under its signature before it runs
+    (`obs.profile.capture_bucket`)."""
     n_real = len(queries)
     n_pad = pad_size(n_real, pad_sizes)
+    if profile_mod.enabled():
+        profile_mod.capture_bucket(program, key, n_pad, pad_sizes,
+                                   model=queries[0].model)
     with tracer.span(
         "execute_bucket", cat="batch",
         kind=key.kind, sampler=key.sampler, fused=key.fused,

@@ -46,6 +46,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core import distributed as dist_mod
 from repro_torch.diag import accum as diag_accum
+from repro_torch.obs import profile as profile_mod
 from repro_torch.obs import tracer
 from repro_torch.runtime import batcher as batcher_mod
 from repro_torch.runtime import calibrate as calibrate_mod
@@ -308,6 +309,9 @@ class Executor:
             n_iters=key.n_iters, n_chains=key.n_chains,
             resumed=key.resumed, program=program.program_key,
             service_s=service_s, service_src=service_src,
+            # joins the span against obs.profile's cached static costs;
+            # pure string math, stamped whether or not profiling is on
+            profile_sig=self._profile_sig(key, n_padded, route),
         )
         tracer.sim_span(
             "dispatch", start, finish, cat="runtime",
@@ -320,6 +324,12 @@ class Executor:
                 track=f"worker{w}", model=qs[0].model, route=route,
                 lead_worker=workers[0],
             )
+
+    def _profile_sig(self, key: BucketKey, n_padded: int, route: str) -> str:
+        width = self.config.shard_width if route == "sharded" else 1
+        return profile_mod.bucket_signature(
+            key, n_padded, route=route, shard_width=width
+        )
 
     def _run_sharded(
         self, program, key: BucketKey, qs: list[Query],
@@ -335,8 +345,17 @@ class Executor:
         carries and the quality accumulator cross the route boundary
         freely.  Non-fused buckets keep the legacy engines, whose
         per-position key folding legitimately draws different bits — the
-        route is part of the engine config, not a hidden fallback."""
+        route is part of the engine config, not a hidden fallback.
+
+        While profiling is on, the dispatch's static cost (its queries'
+        runs over the mesh, collectives included) is recorded under its
+        route-qualified signature before it runs, on both engines."""
         mesh = self._shard_mesh(program.device)
+        if profile_mod.enabled():
+            profile_mod.capture_bucket(
+                program, key, batcher_mod.pad_size(len(qs), self.pad_sizes),
+                self.pad_sizes, route="sharded",
+                shard_width=self.config.shard_width, model=qs[0].model)
         if not key.fused:
             out = []
             for q in qs:

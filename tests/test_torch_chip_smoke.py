@@ -1,8 +1,10 @@
 """The arithmetic of `chip_smoke.py`'s bounds, on the CPU: the SASS loop
 counter that reads a threefry call's instructions, the least time of a
-number of calls, and the bound's choice between bytes and operations;
-and the buckets its runtime phase's queries form.  The script itself
-runs only on a card."""
+number of calls (the same as `launch.roofline`'s at the same counts), the
+bound's choice between bytes and operations, and the counts its
+`profile` phase holds `launch.kernel_cost` against (here at a few
+chains); and the buckets its runtime phase's queries form.  The script
+itself runs only on a card."""
 
 import importlib.util
 from pathlib import Path
@@ -89,6 +91,42 @@ def test_hash_ms_takes_the_binding_pipe(bit, add, want_cycles):
     calls = 132 * 1000
     want = calls * want_cycles / 132 / 2e9 * 1e3
     assert cs.hash_ms(calls, per_call) == pytest.approx(want, rel=1e-12)
+
+
+def test_hash_ms_is_the_roofline_hash_term():
+    """At the SASS counts the library assumes, chip_smoke's hash time and
+    `launch.roofline`'s are one number, so both give one bound."""
+    from repro_torch.launch import roofline
+
+    cs = _chip_smoke()
+    per_call = {"bit_ops_per_call": roofline.HASH_BIT_OPS,
+                "add_ops_per_call": roofline.HASH_ADD_OPS,
+                "sm_clock_hz": roofline.SM_CLOCK_HZ}
+    assert (cs.SMS, cs.ALU_LANES, cs.ISSUE_LANES) == (
+        roofline.SMS, roofline.ALU_LANES, roofline.ISSUE_LANES)
+    assert (cs.HBM_BYTES_PER_S, cs.FP32_FLOPS) == (roofline.HBM_BW,
+                                                   roofline.PEAK_FLOPS)
+    for calls in (451_584, 3_612_672):
+        assert cs.hash_ms(calls, per_call) == pytest.approx(
+            roofline.hash_seconds(calls) * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("entry", ["k3", "k4", "k3_lanes", "k4_lanes", "k5",
+                                   "k6"])
+def test_profile_counts_agree_with_kernel_cost(entry, monkeypatch):
+    """The profile phase's check at 8 chains on the CPU twins: the bytes
+    `timing` counts from the tensors and the threefry calls the twins'
+    walks need equal `kernel_cost`'s counts of the same launch."""
+    import torch
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "CHAINS", 8)
+    c = cs.COUNTS[entry](torch)
+    cost = c["cost"]
+    assert cost.hbm_bytes == c["bytes"]
+    assert cost.hash_calls == pytest.approx(c["threefry_calls"], rel=0.01)
+    assert c["threefry_calls"] > 0
 
 
 def test_bound_names_what_sets_it():

@@ -187,13 +187,19 @@ def test_port_imports_neither_jax_nor_the_reference():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                             "triton"))
-        # the serving runtime and the tracer are walked too
+        # the serving runtime, the tracer, the profiler and the CLIs are
+        # walked too
         want = {"repro_torch.runtime." + m for m in (
             "admission", "batcher", "calibrate", "engine", "executor",
             "metrics", "trace", "__main__")} | {
             "repro_torch.obs." + m for m in (
-                "tracer", "timeseries", "export", "attrib")} | {
-            "repro_torch.analysis.kernel_lint"}
+                "tracer", "timeseries", "export", "attrib", "profile",
+                "__main__")} | {
+            "repro_torch.launch." + m for m in (
+                "roofline", "kernel_cost", "report")} | {
+            "repro_torch.analysis." + m for m in (
+                "kernel_lint", "source_lint", "__main__")} | {
+            "repro_torch.diag.__main__"}
         missing = sorted(want - set(names))
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 20 else 0)
