@@ -30,8 +30,9 @@ each printing one JSON line; any failure raises and exits non-zero:
               words: 65,573 rows (a ragged last warp) of random weights
               with edge rows first (all zero, one-hot, negative, all below
               -1, multiples of 2^p, summing above 2^p, wrapping int32) at
-              1-127 bins, precision 16 and 21, 8 retries and 1 (bits run
-              out): labels and the three stats bit-equal.
+              1-128 bins, precision 16 and 21 (and 17, 24 and 30 at 128
+              bins, the token sampler's tree levels), 8 retries and 1
+              (bits run out): labels and the three stats bit-equal.
  4. k3      — K3 (one BN sweep, words hashed inside the kernel from the
               sweep's key) against its twin on the same key's words for
               pigs and hailfinder at 1,024 chains: lut_ky bit-equal;
@@ -128,7 +129,8 @@ each printing one JSON line; any failure raises and exits non-zero:
               half-step launch on the (2, 4) mesh; one sharded pigs sweep
               and one sharded Penguin half-step by part (K5 and the psum
               merge, K6 and the halo exchange).  Prints `{"kernels":
-              [...]}` (K1-K6, and K3's and K4's lane entries).
+              [...]}` (K1-K6, K3's and K4's lane entries, and K1 and K2
+              at the token draw's shapes from serve_lm).
 13. k3_lanes / k4_lanes (run before `timing`) — K3's lane entry
               (`bn_sweep_lanes`: one sweep over the chains of Q queries,
               each with its own key read from device memory) on pigs, and
@@ -180,6 +182,30 @@ each printing one JSON line; any failure raises and exits non-zero:
               from them.  `python -m repro_torch.obs --profile` and
               `python -m repro_torch.diag --quick` exit 0; the engine's
               wall with profiling on and off, medians of 3 runs.
+16. serve_lm (after profile, before `timing`) — LM serving at yi-9b's
+              full width (48 layers, d 4,096, 8.83 B parameters held in
+              bf16, random weights from a seeded generator): caches freed,
+              then 8 prompts of 128 tokens (seeded) through
+              `launch.serve.generate(..., 32, sampler="ky")` after a
+              warm-up, counters zeroed before and read after: K1 launched
+              3 times (the tree's levels, 128 bins each) and K2 once per
+              token, nothing else, and no word made in plain torch.  Every
+              token in [0, 64,000); the steps run again through
+              `steps.make_serve_step` give the same tokens, each equal to
+              the twin's draw (`ky_token_sample` on the CPU) on the same
+              float32 logits and key; the last step's logits within 5% of
+              the largest |logit| of a full forward over the 160 tokens
+              (bf16); greedy decoding twice gives equal tokens.  Then
+              (timing_serve_lm) prefill of 8 x 128 tokens and decode per
+              token (medians over the 31 steps, CUDA events) beside their
+              bounds (bf16 operations at 989 TFLOP/s; bytes at 3.35 TB/s),
+              a step split into the model and the draw with the card's
+              busy share, the draw beside `torch.multinomial(softmax)`,
+              and K2 at (8, 64,000) and K1 at each level's (8, 128) against
+              their twins and bounds: the kernels line's token-draw rows.
+              The model is freed and the serve CLI runs in a subprocess
+              (`python -m repro_torch.launch.serve --arch yi-9b --batch 8
+              --prompt-len 128 --gen 32 --sampler ky`), which must exit 0.
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -230,8 +256,10 @@ BN_KERNEL = "bn_rounds_kernel"
 MRF_KERNEL = "mrf_half_step_kernel"
 # K1's instances (ky_lanes_kernel, ky_planes_kernel) share this prefix
 K1_KERNEL = "ky_"
-K1_WIDTHS = (1, 2, 3, 4, 11, 15, 16, 31, 32, 33, 63, 64, 65, 127)
+K1_WIDTHS = (1, 2, 3, 4, 11, 15, 16, 31, 32, 33, 63, 64, 65, 127, 128)
 K1_PRECISIONS = (16, 21)
+# the token sampler's tree levels: 128 bins at precisions 17, 24 and 30
+K1_LEVEL_CASES = tuple((128, p) for p in (17, 24, 30))
 DRAW_ROWS, DRAW_BINS = 1 << 16, 32
 
 
@@ -282,9 +310,10 @@ def main() -> int:
     lanes_err = timed(phase_lanes, torch)
     runtime = timed(phase_serve_runtime, torch)
     counts = timed(phase_profile, torch)
+    lm_rows = timed(phase_serve_lm, torch, per_call)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
           sharded_launches, k5_err, k6_err, per_call, k1_ptxas, runtime,
-          lanes_err, counts)
+          lanes_err, counts, lm_rows)
     for mod in sys.modules:
         check(not (mod == "jax" or mod.startswith("jax.")
                    or mod == "repro" or mod.startswith("repro.")),
@@ -366,6 +395,21 @@ def device_busy_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
     return sum(e.device_time_total
                for e in kernel_events(torch, prof)) / 1e3 / reps
+
+
+def device_kernels_per_call(torch, fn, reps: int) -> float:
+    """Device kernels `fn` launches per call (torch.profiler's count of
+    kernel rows), the work a host issues one launch at a time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in kernel_events(torch, prof)) / reps
 
 
 def kernel_events(torch, prof):
@@ -710,27 +754,27 @@ def phase_k1(torch):
     dev = torch.device(DEVICE)
     rows = (1 << 16) + 37
     out = {"phase": "k1", "rows": rows, "mismatches": {}, "fallbacks": {}}
-    for v in K1_WIDTHS:
-        for p in K1_PRECISIONS:
-            for retries in (8, 1):
-                w = k1_rows(torch, v, p, rows, 1000 * v + p)
-                key = prng.key(100 * v + p + retries)
-                kw = dict(n_bins=v, precision=p, max_retries=retries)
-                words = ky_core.random_words(
-                    key, (rows,), ky_sampler.n_words_for(p, retries), dev)
-                lab_t, st_t = ky_sampler.ky_sample_kernel_ref(w, words, **kw)
-                bad = []
-                for lab, st in (ky_sampler.ky_sample_kernel(w, words, **kw),
-                                ky_sampler.ky_sample_keyed(w, key, **kw)):
-                    n = int((lab != lab_t).sum())
-                    for name in ("bits_used", "rejections", "fallback"):
-                        n += int((st[name] != st_t[name]).sum())
-                    bad.append(n)
-                case = f"{v}/{p}/{retries}"
-                out["mismatches"][case] = bad
-                out["fallbacks"][case] = int(st_t["fallback"].sum())
-                check(bad == [0, 0], f"K1 differs from its twin at bins/"
-                      f"precision/retries {case}: words read, keyed {bad}")
+    cases = [(v, p) for v in K1_WIDTHS for p in K1_PRECISIONS]
+    for v, p in cases + list(K1_LEVEL_CASES):
+        for retries in (8, 1):
+            w = k1_rows(torch, v, p, rows, 1000 * v + p)
+            key = prng.key(100 * v + p + retries)
+            kw = dict(n_bins=v, precision=p, max_retries=retries)
+            words = ky_core.random_words(
+                key, (rows,), ky_sampler.n_words_for(p, retries), dev)
+            lab_t, st_t = ky_sampler.ky_sample_kernel_ref(w, words, **kw)
+            bad = []
+            for lab, st in (ky_sampler.ky_sample_kernel(w, words, **kw),
+                            ky_sampler.ky_sample_keyed(w, key, **kw)):
+                n = int((lab != lab_t).sum())
+                for name in ("bits_used", "rejections", "fallback"):
+                    n += int((st[name] != st_t[name]).sum())
+                bad.append(n)
+            case = f"{v}/{p}/{retries}"
+            out["mismatches"][case] = bad
+            out["fallbacks"][case] = int(st_t["fallback"].sum())
+            check(bad == [0, 0], f"K1 differs from its twin at bins/"
+                  f"precision/retries {case}: words read, keyed {bad}")
     emit(out)
 
 
@@ -1674,7 +1718,7 @@ def sweep_parts(torch, cbn, fr, vals, key) -> dict:
 def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
                  k4_err: dict, sharded_launches: dict, k5_err: dict,
                  k6_err: dict, per_call: dict, k1_ptxas: list, runtime: dict,
-                 lanes_err: dict, counts: dict):
+                 lanes_err: dict, counts: dict, lm_rows: list):
     from repro_torch import prng
     from repro_torch.core import ky as ky_core
     from repro_torch.kernels import bn_gibbs, interp_lut, ky_sampler, ops
@@ -1781,6 +1825,7 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     rows.extend(timing_sharded(torch, sharded_launches, k5_err, k6_err,
                                per_call, counts))
     rows.extend(timing_lanes(torch, runtime, lanes_err, per_call, counts))
+    rows.extend(lm_rows)
     emit({"kernels": rows})
 
 
@@ -2898,6 +2943,392 @@ def phase_profile(torch) -> dict:
           "engine_wall_s_profiled": spread(walls["on"]),
           "engine_wall_s_unprofiled": spread(walls["off"])})
     return counts
+
+
+# ---------------------------------------------------------------------------
+# LM serving: yi-9b at full width, the KY token sampler on K2 and K1
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "yi-9b"  # the widest dense config one H100 holds in bf16
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
+LM_SEED = 0
+# decode against forward, bf16: at most 5% of the largest |logit|, the
+# reference's own bound for two execution orders (0.15 on its logits of
+# ~3, tests/test_models_smoke.py), taken relative to the logits' scale
+LM_FORWARD_RTOL = 0.05
+LM_REPS = 5  # timed calls of each part, medians
+BF16_FLOPS = 989e12  # H100 SXM, dense tensor cores
+
+
+def lm_matmul_params(cfg) -> int:
+    """Weights of the layers' projections (attention and SwiGLU), the ones
+    every token multiplies; the head and the embedding table apart."""
+    d, hd = cfg.d_model, cfg.hd
+    return cfg.n_layers * (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                           + 3 * d * cfg.d_ff)
+
+
+def lm_attention_flops(cfg, batch: int, pairs: int) -> float:
+    """The two attention products (q.k and p.v, 2 x hd operations each)
+    over `pairs` (query, key) pairs per head, every layer, every row."""
+    return 4.0 * cfg.hd * cfg.n_heads * cfg.n_layers * pairs * batch
+
+
+def lm_prefill_flops(cfg, batch: int, seq: int) -> float:
+    """Operations a prefill's outputs need: every token through the layers'
+    projections, the causal attention (a query reads its own and earlier
+    keys), and the head at the last position only (the one logit row the
+    step returns)."""
+    return (2.0 * lm_matmul_params(cfg) * batch * seq
+            + lm_attention_flops(cfg, batch, seq * (seq + 1) // 2)
+            + 2.0 * cfg.d_model * cfg.vocab * batch)
+
+
+def lm_decode_flops(cfg, batch: int, n_keys: int) -> float:
+    """Operations of one decode step: one token per row through the
+    projections and the head, attending over `n_keys` keys."""
+    return (2.0 * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) * batch
+            + lm_attention_flops(cfg, batch, n_keys))
+
+
+def lm_step_bytes(weight_bytes: int, embed_bytes: int, cfg, tokens: int,
+                  kv_read: int, kv_written: int, logit_rows: int) -> int:
+    """Bytes a prefill or decode step must move: every weight but the
+    embedding table read once (of the table only the tokens' bf16 rows),
+    the K/V cache read and written, the float32 logit rows written."""
+    return (weight_bytes - embed_bytes + 2 * tokens * cfg.d_model + kv_read
+            + kv_written + 4 * logit_rows * cfg.vocab)
+
+
+def event_ms(torch, fn) -> tuple[float, object]:
+    """(ms, fn()) of one call with an empty queue before it: CUDA events
+    around the call, so the time counts the host's launches and the
+    card's work."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def phase_serve_lm(torch, per_call: dict) -> list:
+    """LM serving at yi-9b's full width; returns the token-level K1 and K2
+    rows of the kernels line.  The model is freed before the serve CLI
+    runs in a subprocess."""
+    import gc
+    import os
+
+    torch.cuda.empty_cache()
+    rows = _serve_lm(torch, per_call)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmd = ["repro_torch.launch.serve", "--arch", LM_ARCH, "--batch",
+           str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen",
+           str(LM_GEN), "--sampler", "ky"]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *cmd], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=600)
+    emit({"phase": "serve_lm_cli", "cmd": "python -m " + " ".join(cmd),
+          "rc": out.returncode, "s": time.perf_counter() - t0,
+          "tail": out.stdout.splitlines()[-2:]})
+    check(out.returncode == 0, f"the serve CLI exited {out.returncode}: "
+          f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    return rows
+
+
+def _serve_lm(torch, per_call: dict) -> list:
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.interp import build_exp_weight_lut
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import sampling
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device(DEVICE)
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tfm.init_model(cfg, seed=LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=dev, dtype=torch.int32)
+    key = prng.key(LM_SEED)
+    serve.generate(cfg, model, prompts, 2, sampler="ky", key=key)  # warm-up
+
+    # ---- the main path: counters zeroed, a batch served, counters read ----
+    zero_launches()
+    c0 = prng._raw_bits.calls
+    toks, times = serve.generate(cfg, model, prompts, LM_GEN, sampler="ky",
+                                 key=key)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    raw_calls = prng._raw_bits.calls - c0
+    # ---- end of the main path ----------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+
+    n_levels = 3  # 64,000 -> 512 -> 128
+    check(tuple(toks.shape) == (LM_BATCH, LM_PROMPT + LM_GEN),
+          f"generate gave {tuple(toks.shape)} tokens")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "a token lies outside the vocabulary")
+    check(torch.equal(toks[:, :LM_PROMPT], prompts), "the prompt moved")
+    check(launches["ky_sample_kernel"] == n_levels * LM_GEN
+          and launches["interp_kernel"] == LM_GEN,
+          f"{LM_GEN} tokens launched K1 {launches['ky_sample_kernel']} and "
+          f"K2 {launches['interp_kernel']} times, not {n_levels} and 1 each")
+    check(all(n == 0 for name, n in launches.items()
+              if name not in ("ky_sample_kernel", "interp_kernel")),
+          f"the LM path launched another kernel: {launches}")
+    check(raw_calls == 0, f"the token sampler called prng._raw_bits "
+          f"{raw_calls} times: words were made outside K1")
+
+    # ---- every step's tokens against the twin on the same logits ----------
+    tab, spec = build_exp_weight_lut(device=dev)
+    tab_cpu, spec_cpu = build_exp_weight_lut(device="cpu")
+    batch = {"tokens": prompts}
+    logits, caches = steps.make_prefill_step(cfg)(model, batch)
+    caches = tfm.grow_attn_caches(caches, cfg, LM_GEN)
+    step = steps.make_serve_step(cfg, sampler="ky", exp_table=tab,
+                                 exp_spec=spec)
+    k = key
+    tok = sampling.ky_token_sample(logits, k, exp_table=tab, exp_spec=spec)
+    step_logits, twin_bad = [logits], 0
+    twin_bad += int((tok.cpu() != sampling.ky_token_sample(
+        logits.cpu(), k, exp_table=tab_cpu, exp_spec=spec_cpu)).sum())
+    mine = [tok]
+    for t in range(LM_GEN - 1):
+        k, sub = prng.split(k)
+        tok, logits, caches = step(model, tok[:, None], caches,
+                                   LM_PROMPT + t, sub)
+        twin = sampling.ky_token_sample(logits.cpu(), sub,
+                                        exp_table=tab_cpu, exp_spec=spec_cpu)
+        twin_bad += int((tok.cpu() != twin).sum())
+        mine.append(tok)
+        step_logits.append(logits)
+    mine = torch.stack(mine, dim=1)
+    check(twin_bad == 0, f"{twin_bad} of {LM_BATCH * LM_GEN} tokens differ "
+          f"from the twin's draw on the same logits and keys")
+    check(torch.equal(mine, toks[:, LM_PROMPT:]),
+          "the steps run again gave other tokens than generate")
+
+    # ---- the last decode step against a full forward ----------------------
+    # all 160 tokens (the KV loop's chunks divide 160; 159 would take
+    # chunks of one): position 158's logits see tokens 0..158 only
+    full, _ = tfm.forward(model, cfg, {"tokens": toks})
+    fwd = full[:, -2]
+    err = float((step_logits[-1] - fwd).abs().max())
+    scale = float(fwd.abs().max())
+    same_argmax = float((step_logits[-1].argmax(-1) == fwd.argmax(-1))
+                        .float().mean())
+    del full
+    check(bool(torch.isfinite(fwd).all()), "forward logits are not finite")
+    check(err <= LM_FORWARD_RTOL * scale, f"decode differs from forward by "
+          f"{err} (largest |logit| {scale})")
+
+    # ---- greedy twice ------------------------------------------------------
+    g1, _ = serve.generate(cfg, model, prompts, LM_GEN, sampler="greedy")
+    g2, _ = serve.generate(cfg, model, prompts, LM_GEN, sampler="greedy")
+    check(torch.equal(g1, g2), "greedy decoding run twice differs")
+
+    emit({"phase": "serve_lm", "arch": LM_ARCH, "batch": LM_BATCH,
+          "prompt_len": LM_PROMPT, "gen": LM_GEN,
+          "params": sum(p.numel() for p in model.parameters()),
+          "weight_bytes": weight_bytes, "init_s": init_s,
+          "peak_bytes": peak, "launches": launches,
+          "plain_torch_generator_calls": raw_calls,
+          "tokens_vs_twin_mismatches": twin_bad,
+          "decode_vs_forward_max_abs": err, "forward_max_abs_logit": scale,
+          "decode_vs_forward_same_argmax": same_argmax,
+          "greedy_twice_equal": True, "sample_row": toks[0, -16:].tolist()})
+
+    return timing_serve_lm(torch, cfg, model, prompts, caches, times,
+                           step_logits[-1], launches, per_call, weight_bytes,
+                           (tab, spec))
+
+
+def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
+                    launches, per_call, weight_bytes, lut) -> list:
+    """Prefill and decode on the card beside their bounds, the decode step
+    split into the model and the token draw, K2 at (8, 64,000) and K1 at
+    (8, 128) beside theirs, and the whole draw beside `torch.multinomial`
+    on the softmax.  Returns the token-level K1 and K2 rows."""
+    from repro_torch import prng
+    from repro_torch.core import ky as ky_core
+    from repro_torch.kernels import interp_lut, ky_sampler, ops
+    from repro_torch.launch import kernel_cost, steps
+    from repro_torch.models import sampling
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device(DEVICE)
+    tab, spec = lut
+    med = statistics.median
+    batch = {"tokens": prompts}
+    prefill = steps.make_prefill_step(cfg)
+    prefill_ms = med(event_ms(torch, lambda: prefill(model, batch))[0]
+                     for _ in range(LM_REPS))
+    pos = LM_PROMPT + LM_GEN - 2  # the last step's slot, rewritten alike
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    key = prng.key(1)
+    step = steps.make_serve_step(cfg, sampler="ky", exp_table=tab,
+                                 exp_spec=spec)
+    step_ms = med(event_ms(torch, lambda: step(model, tok, caches, pos,
+                                                key))[0]
+                  for _ in range(LM_REPS))
+    model_ms = med(event_ms(torch, lambda: tfm.decode_step(
+        model, cfg, tok, caches, pos))[0] for _ in range(LM_REPS))
+    draw = lambda: sampling.ky_token_sample(logits, key, exp_table=tab,
+                                            exp_spec=spec)
+    draw_ms = med(event_ms(torch, draw)[0] for _ in range(LM_REPS))
+    g = torch.Generator(device=dev).manual_seed(3)
+    multinomial = lambda: torch.multinomial(torch.softmax(logits, -1), 1,
+                                            generator=g)
+    multinomial_ms = med(event_ms(torch, multinomial)[0]
+                         for _ in range(LM_REPS))
+    step_busy = device_busy_ms(torch, lambda: step(model, tok, caches, pos,
+                                                   key), LM_REPS)
+    step_kernels = device_kernels_per_call(
+        torch, lambda: step(model, tok, caches, pos, key), 2)
+    draw_kernels = device_kernels_per_call(torch, lambda: sampling
+                                           .ky_token_sample(
+                                               logits, key, exp_table=tab,
+                                               exp_spec=spec), 5)
+    prefill_busy = device_busy_ms(torch, lambda: prefill(model, batch), 2)
+    model_busy = device_busy_ms(torch, lambda: tfm.decode_step(
+        model, cfg, tok, caches, pos), LM_REPS)
+    draw_busy = device_busy_ms(torch, draw, 20)
+    draw_host = host_ms(torch, draw, 20)
+
+    kv_bytes = sum(c[n].numel() * c[n].element_size() for c in caches
+                   for n in ("k", "v"))
+    kv_row = kv_bytes // caches[0]["k"].shape[1]  # one position, all layers
+    embed_bytes = model["embed"].numel() * model["embed"].element_size()
+    n_keys = pos + 1
+    dec_bytes = lm_step_bytes(weight_bytes, embed_bytes, cfg, LM_BATCH,
+                              kv_row * n_keys, kv_row, LM_BATCH)
+    dec_flops = lm_decode_flops(cfg, LM_BATCH, n_keys)
+    dec_bound, dec_by = bound(dec_bytes, dec_flops, BF16_FLOPS)
+    pre_bytes = lm_step_bytes(weight_bytes, embed_bytes, cfg,
+                              LM_BATCH * LM_PROMPT, 0, kv_row * LM_PROMPT,
+                              LM_BATCH)
+    pre_flops = lm_prefill_flops(cfg, LM_BATCH, LM_PROMPT)
+    pre_bound, pre_by = bound(pre_bytes, pre_flops, BF16_FLOPS)
+    decode_ms = med(1e3 * s for s in times)
+    emit({"phase": "timing_serve_lm", "card": nvidia_smi(),
+          "prefill_ms": prefill_ms, "prefill_tokens": LM_BATCH * LM_PROMPT,
+          "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+          "prefill_flops": pre_flops, "prefill_bytes": pre_bytes,
+          "prefill_busy_ms": prefill_busy,
+          "prefill_busy_share": prefill_busy / prefill_ms,
+          "decode_ms_per_token_median": decode_ms,
+          "decode_ms_spread": spread([1e3 * s for s in times]),
+          "decode_tokens_per_s": LM_BATCH / (decode_ms / 1e3),
+          "decode_bound_ms": dec_bound, "decode_bound_by": dec_by,
+          "decode_bytes": dec_bytes, "decode_flops": dec_flops,
+          "kv_cache_bytes": kv_bytes,
+          "serve_step_ms": step_ms, "serve_step_busy_ms": step_busy,
+          "serve_step_kernels": step_kernels, "draw_kernels": draw_kernels,
+          "serve_step_busy_share": step_busy / step_ms,
+          "model_ms": model_ms, "model_busy_ms": model_busy,
+          "model_busy_share": model_busy / model_ms,
+          "draw_ms": draw_ms, "draw_busy_ms": draw_busy,
+          "draw_host_ms": draw_host, "draw_busy_share": draw_busy / draw_ms,
+          "multinomial_softmax_ms": multinomial_ms,
+          "draw_over_multinomial": draw_ms / multinomial_ms})
+
+    # K2 at the draw's shape: the last step's max-subtracted logits
+    z = (logits - logits.amax(-1, keepdim=True)).contiguous().reshape(-1)
+    k2 = lambda: interp_lut.interp_kernel(z, tab, spec)
+    y_k, y_t = k2(), interp_lut.interp_kernel_ref(z, tab, spec)
+    torch.cuda.synchronize()
+    k2_bad = int((y_k.view(torch.int32) != y_t.view(torch.int32)).sum())
+    check(k2_bad == 0, f"K2 differs from its twin at the token shape in "
+          f"{k2_bad} elements")
+    cost = kernel_cost.lut_exp(z.numel(), tab.numel())
+    k2_bound, k2_by = bound(cost.hbm_bytes, cost.flops)
+    k2_events = time_ms(torch, k2, 200)
+    k2_row = {
+        "name": f"K2 interp_kernel (token draw, {LM_BATCH} x "
+                f"{cfg.vocab:,})", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/interp_lut.cu",
+        "replaces": "src/repro/kernels/interp_lut.py:50",
+        "launches": launches["interp_kernel"],
+        "max_abs_err": float((y_k - y_t).abs().max()),
+        "ms": device_ms(torch, k2, 200, "interp_kernel") or k2_events,
+        "plain_ms": time_ms(torch, lambda: interp_lut.interp_kernel_ref(
+            z, tab, spec), 20),
+        "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+        "ms_per_call_events": k2_events, "launches_per_token": 1,
+    }
+
+    # K1 at each tree level's shape (B, 128): the rows the last step's
+    # draw reads, the levels walked root to leaf as `ky_token_sample` does
+    levels = sampling.weight_pyramid(ops.lut_exp_weights(logits, tab, spec))
+    level_rows, k1_row, idx = [], None, None
+    for li in range(len(levels) - 1, -1, -1):
+        wl = levels[li] if idx is None else sampling.take_row(levels[li],
+                                                              idx)
+        p = sampling.level_precision(li)
+        kw = dict(n_bins=sampling.BRANCH, precision=p, max_retries=8)
+        lkey = prng.key(20 + li)
+        words = ky_core.random_words(lkey, (LM_BATCH,),
+                                     ky_sampler.n_words_for(p, 8), dev)
+        lab_t, st_t = ky_sampler.ky_sample_kernel_ref(wl, words, **kw)
+        lab_k, st_k = ky_sampler.ky_sample_keyed(wl, lkey, **kw)
+        bad = int((lab_k != lab_t).sum()) + sum(
+            int((st_k[n] != st_t[n]).sum())
+            for n in ("bits_used", "rejections", "fallback"))
+        check(bad == 0, f"K1 differs from its twin at tree level {li} "
+              f"(precision {p}, 128 bins): {bad}")
+        keyed = lambda: ky_sampler.ky_sample_keyed(wl, lkey, **kw)
+        bits = st_t["bits_used"]
+        calls = int(((bits.long() + 31) // 32).sum())
+        ops_ = float(bits.sum()) * (4 * (sampling.BRANCH + 1) + 8)
+        cost = kernel_cost.ky_sample_keyed(LM_BATCH, sampling.BRANCH)
+        bms, by = bound(cost.hbm_bytes, ops_, FP32_FLOPS,
+                        hash_ms(calls, per_call))
+        wf = wl.float()
+        library = lambda: torch.multinomial(wf, 1, generator=g)
+        events = time_ms(torch, keyed, 200)
+        row = {"level": li, "precision": p,
+               "ms": device_ms(torch, keyed, 200, K1_KERNEL) or events,
+               "ms_per_call_events": events, "bound_ms": bms,
+               "bound_by": by, "walk_bits": int(bits.sum()),
+               "threefry_calls": calls,
+               "plain_ms": time_ms(torch, lambda: ky_sampler
+                                   .ky_sample_kernel_ref(wl, words, **kw),
+                                   5),
+               "library_ms": device_busy_ms(torch, library, 200),
+               "library_ms_per_call_events": time_ms(torch, library, 200),
+               "max_abs_err": int((lab_k - lab_t).abs().max())}
+        level_rows.append(row)
+        idx = lab_t if idx is None else idx * sampling.BRANCH + lab_t
+        if k1_row is None:  # the top level, at precision 30
+            k1_row = {
+                "name": f"K1 ky_sample_keyed (token draw, {LM_BATCH} x 128, "
+                        f"p={p})", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ky_sampler.cu",
+                "replaces": "src/repro/kernels/ky_sampler.py:159",
+                "launches": launches["ky_sample_kernel"],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": bms,
+                "bound_by": by, "library_ms": row["library_ms"],
+                "library": "torch.multinomial(weights.float(), 1)",
+                "ms_per_call_events": events,
+                "launches_per_token": len(levels)}
+    emit({"phase": "timing_serve_lm_kernels", "k1_levels": level_rows,
+          "k2": {n: k2_row[n] for n in ("ms", "ms_per_call_events",
+                                        "bound_ms", "plain_ms")}})
+    return [k1_row, k2_row]
 
 
 def _k4_lane_calls(torch, mrf, labels, evs, keys, b):

@@ -1,0 +1,18 @@
+"""yi-9b [dense] — llama-arch GQA kv=4.  [arXiv:2403.04652; hf]"""
+
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("yi-9b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="yi-9b",
+        family="dense",
+        n_layers=48,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=4,
+        head_dim=128,
+        d_ff=11008,
+        vocab=64000,
+    )

@@ -7,7 +7,9 @@ reference package or JAX:
   * `from_reference_bn(arrays, meta)` builds a port `CompiledBayesNet` from
     the leaves of a reference `CompiledBayesNet` (`reference_bn_arrays`
     reads them off the reference object by attribute);
-  * `key_from_reference(key_data)` takes `jax.random.key_data(k)`.
+  * `key_from_reference(key_data)` takes `jax.random.key_data(k)`;
+  * `lm_params_from_reference(tree, cfg)` builds the port's language model
+    from the reference's `init_model` parameters.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from repro_torch import device as device_mod
 from repro_torch import prng
 from repro_torch.core.bayesnet import ColorGroup, CompiledBayesNet
 from repro_torch.core.interp import LUTSpec
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import Params
 
 GROUP_FIELDS = ("nodes", "cards", "base", "stride", "scope_var", "is_self")
 NET_FIELDS = ("log_flat", "cards", "init_vals", "free_mask", "exp_table")
@@ -90,3 +94,56 @@ def key_from_reference(key_data: np.ndarray) -> prng.Key:
     """`jax.random.key_data(k)` (two uint32 words) -> `prng.Key`."""
     k1, k2 = (int(w) for w in np.asarray(key_data, np.uint32).reshape(2))
     return prng.Key(k1, k2)
+
+
+def lm_params_from_reference(tree, cfg, device="cuda") -> Params:
+    """The port's model (`transformer.init_model`'s tree) holding the
+    weights of the reference's `init_model(key, cfg)` tree, given as
+    nested dicts of numpy arrays.  The reference stacks its layers over
+    the `n_super` axis of `"super"` (layer i = slot i % period of
+    superblock i // period); its (d, H, hd) `wq`/`wk`/`wv` and (H, hd, d)
+    `wo` become the port's (d, H * hd) and (H * hd, d) matrices.  Weights
+    the reference casts to the activation type at every use are cast once
+    to `cfg.dtype`; the norm weights stay float32."""
+    tfm.check_supported(cfg)
+    dev = device_mod.resolve(device)
+    dt = cfg.act_dtype
+
+    def t(x, dtype=dt, shape=None):
+        x = torch.tensor(np.asarray(x, np.float32), device=dev)
+        return (x if shape is None else x.reshape(shape)).to(dtype)
+
+    period = len(cfg.pattern)
+    blocks = []
+    for i in range(cfg.n_layers):
+        b = {k: _leaf(v, i // period)
+             for k, v in tree["super"][f"b{i % period}"].items()}
+        d = cfg.d_model
+        core = {
+            "wq": t(b["core"]["wq"], shape=(d, -1)),
+            "wk": t(b["core"]["wk"], shape=(d, -1)),
+            "wv": t(b["core"]["wv"], shape=(d, -1)),
+            "wo": t(b["core"]["wo"], shape=(-1, d)),
+        }
+        for name in ("bq", "bk", "bv"):
+            if name in b["core"]:
+                core[name] = t(b["core"][name], shape=(-1,))
+        blk = {"norm1": t(b["norm1"], torch.float32), "core": Params(**core)}
+        if "ffn" in b:
+            blk["norm2"] = t(b["norm2"], torch.float32)
+            blk["ffn"] = Params(**{k: t(b["ffn"][k])
+                                   for k in ("wg", "wu", "wd")})
+        blocks.append(Params(**blk))
+    p = {"embed": t(tree["embed"]), "blocks": torch.nn.ModuleList(blocks),
+         "final_norm": t(tree["final_norm"], torch.float32)}
+    for name in ("head", "frontend_proj"):
+        if name in tree:
+            p[name] = t(tree[name])
+    return Params(**p)
+
+
+def _leaf(tree, i: int):
+    """Superblock i of a stacked sub-tree."""
+    if isinstance(tree, dict):
+        return {k: _leaf(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]

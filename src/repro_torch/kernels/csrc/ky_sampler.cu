@@ -24,19 +24,27 @@
 //   * up to 8 bins (`ky_lanes_kernel<CAP>`): a thread loads its row into
 //     registers and forms each level's column from them when the walk
 //     reaches it, CAP shifts and masks for the few levels a walk visits;
-//   * 9-127 bins (`ky_planes_kernel<NW>`, NW = 1, 2, 4 words a plane): a
+//   * 9-128 bins (`ky_planes_kernel<NW>`, NW = 1, 2, 4 words a plane): a
 //     warp copies its 32 rows into shared memory with coalesced loads;
 //     each thread prepares its row, transposes each 32-bin word of scaled
 //     weights into 32 bit planes in registers (five rounds of masked
 //     swaps), and keeps the p + 1 planes its walk can reach in shared
 //     memory, where the walk reads the plane of its level by index (a
 //     register array read at a runtime index would live in local memory).
+//
+// The TPU kernel keeps its rejection bin in a lane of its 128, so it takes
+// at most 127 bins.  With the rejection bin apart, 128 bins fill the four
+// words of `ky_planes_kernel<4>` exactly: the token sampler's tree levels
+// (models/sampling.py) draw from rows of 128 group sums.  A row of 128
+// bins has no padding lane, so its bit-exhaustion fallback is the plain
+// argmax of the reference's `ky_sample_ref`.
 
 #include "aia_common.cuh"
 
 namespace {
 
 constexpr int MAX_PRECISION = 30;          // 2^p and every sum fit in int32
+constexpr int MAX_BINS = 128;              // 4 words of a plane
 constexpr int PLANES = MAX_PRECISION + 1;  // levels 0..p-1 and the sign
 
 // The bit of a weight that the reference's `(m >> (p - 1 - level)) & 1`
@@ -237,7 +245,7 @@ __device__ __forceinline__ void transpose32(unsigned (&a)[32]) {
   transpose_round<1, 0x55555555u>(a);
 }
 
-// 9-127 bins: a warp per 32 rows, the planes in shared memory.
+// 9-128 bins: a warp per 32 rows, the planes in shared memory.
 template <int NW, class Source>
 __global__ void __launch_bounds__(128 / NW)
     ky_planes_kernel(const int* __restrict__ weights, Source source, int B,
@@ -252,7 +260,8 @@ __global__ void __launch_bounds__(128 / NW)
   const int rows = (int)min(32LL, (long long)B - first);
   // The warp's rows are contiguous in memory: copy them with coalesced
   // loads, each row at an odd stride so that the threads' row reads below
-  // fall in 32 banks.  f / n_bins as a multiply: exact for f < 2^12.
+  // fall in 32 banks (128 bins: stride 129 = ROW).  f / n_bins as a
+  // multiply: exact for f < 2^12, and f < 32 * n_bins <= 2^12.
   const int stride = n_bins | 1;
   const unsigned magic = ((1u << 20) + n_bins - 1) / n_bins;
   int* tw = tile[warp];
@@ -302,13 +311,14 @@ __global__ void __launch_bounds__(128 / NW)
   if (!done) {
     // argmax_fallback: the first bin of the largest raw weight, or lane
     // n_bins (the reference's -1 padding) when every weight is below -1
+    // and the row has a padding lane (fewer than 128 bins)
     int mx = INT_MIN, amax = 0;
     for (int i = 0; i < n_bins; ++i)
       if (w[i] > mx) {
         mx = w[i];
         amax = i;
       }
-    label = mx < -1 ? n_bins : amax;
+    label = mx < -1 && n_bins < MAX_BINS ? n_bins : amax;
   }
   out.put(row, label, bits, rejs, done);
 }
@@ -334,7 +344,7 @@ void launch_planes(const int* weights, Source src, int B, int n_bins,
 template <class Source>
 int launch(const int* weights, Source src, int B, int n_bins, int precision,
            int total_steps, Out out, void* stream) {
-  if (n_bins < 1 || n_bins > 127 || precision < 1 ||
+  if (n_bins < 1 || n_bins > MAX_BINS || precision < 1 ||
       precision > MAX_PRECISION || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

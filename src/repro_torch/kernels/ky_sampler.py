@@ -22,10 +22,14 @@ Two entries launch the one kernel body, both counted in
     r * n_words + j of `key`'s stream (`random_words(key, (B,), n_words)`),
     when its walk reaches it: the draw request's path (`ops.ky_sample`).
 
-The TPU kernel takes weights padded to 128 lanes; here `weights` is
-(B, n_bins), the lane padding being a TPU layout.  The twin is the plain
-early-exit walk of `core/ky.py` on n_bins + 1 lanes (the padded lanes are
-zero and change no sum) with the kernel's argmax fallback.
+The TPU kernel takes weights padded to 128 lanes, one of them free for the
+rejection bin, so at most 127 bins; here `weights` is (B, n_bins), the
+lane padding being a TPU layout, and the rejection bin is held apart, so
+a row may have 128 bins (the token sampler's tree levels).  The twin is
+the plain early-exit walk of `core/ky.py` on n_bins + 1 lanes (the padded
+lanes are zero and change no sum) with the kernel's argmax fallback,
+which at 128 bins, with no padding lane, is `core.ky.ky_sample_ref`'s
+plain argmax.
 """
 
 from __future__ import annotations
@@ -36,7 +40,10 @@ from repro_torch import prng
 from repro_torch.core import ky as ky_core
 from repro_torch.kernels import _lib
 
-LANES = 128  # the widest alphabet the KY kernels take is LANES - 1 bins
+# K3-K6 walk n_bins + 1 register lanes (bins and the rejection bin), so
+# they take at most LANES - 1 bins; K1 holds its rejection bin apart and
+# takes up to LANES
+LANES = 128
 MAX_PRECISION = 30  # 2^precision and the row sums stay in int32
 
 
@@ -50,20 +57,22 @@ def argmax_fallback(
     w: torch.Tensor, labels: torch.Tensor, done: torch.Tensor, n_bins: int
 ) -> torch.Tensor:
     """Bit-exhaustion fallback: the first lane of the largest raw weight.
-    The reference's lanes n_bins..127 hold -1, so rows whose weights are
-    all below -1 fall back to lane n_bins."""
+    The reference kernel's lanes n_bins..127 hold -1, so rows whose weights
+    are all below -1 fall back to lane n_bins; a row of 128 bins has no
+    such lane and takes the plain argmax, as `ky_sample_ref` does."""
     w = w[:, :n_bins]
     amax = torch.argmax(w, dim=-1).to(torch.int32)
-    below = w.amax(-1) < -1
-    amax = torch.where(below, torch.full_like(amax, n_bins), amax)
+    if n_bins < LANES:
+        below = w.amax(-1) < -1
+        amax = torch.where(below, torch.full_like(amax, n_bins), amax)
     return torch.where(done, labels, amax)
 
 
 def _check_weights(weights, n_bins, precision, max_retries) -> int:
     if weights.dim() != 2 or weights.shape[1] != n_bins:
         raise ValueError(f"weights must be (B, n_bins={n_bins})")
-    if not 1 <= n_bins < LANES:
-        raise ValueError(f"n_bins {n_bins} needs a free rejection lane")
+    if not 1 <= n_bins <= LANES:
+        raise ValueError(f"n_bins {n_bins} is not in 1..{LANES}")
     if weights.dtype != torch.int32:
         raise ValueError("weights are an int32 tensor")
     if not 1 <= precision <= MAX_PRECISION:

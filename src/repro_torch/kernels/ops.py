@@ -29,14 +29,14 @@ def ky_sample(
     return_stats: bool = False,
 ):
     """Draw one exact sample per row from unnormalized int32 weights
-    (B, N), N < 128, with the reference's random words for `key`
+    (B, N), N <= 128, with the reference's random words for `key`
     (`random_words(key, (B,), n_words)`), which K1 hashes itself on the
-    card (`ky_sample_keyed`).  Returns labels (B,) int32 [, stats]."""
+    card (`ky_sample_keyed`).  Returns labels (B,) int32 [, stats].  The
+    reference's Pallas K1 takes N < 128; at N = 128 this is the draw of
+    its plain `ky_sample_ref`."""
     n_bins = weights.shape[1]
-    if n_bins >= LANES:  # raised, not asserted: must hold under `python -O`
-        raise ValueError(
-            f"KY kernel handles <={LANES - 1} bins, got {n_bins}"
-        )
+    if n_bins > LANES:  # raised, not asserted: must hold under `python -O`
+        raise ValueError(f"KY kernel handles <={LANES} bins, got {n_bins}")
     labels, stats = _ky.ky_sample_keyed(
         weights.to(torch.int32).contiguous(), key, n_bins=n_bins,
         precision=precision, max_retries=max_retries,

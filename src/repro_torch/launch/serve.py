@@ -1,0 +1,132 @@
+"""Batched serving driver: prefill a batch of prompts, then decode with the
+paper's normalization-free KY token sampler (C1+C2) inside the step.
+
+Port of `repro/launch/serve.py` for one device.  On the card, the token
+draw runs K2 once and K1 once per tree level for every token.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
+        --batch 8 --prompt-len 128 --gen 32 --sampler ky
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
+        --reduced --device cpu --batch 2 --prompt-len 8 --gen 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch import prng
+from repro_torch.configs import get_config
+from repro_torch.core.interp import build_exp_weight_lut
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import transformer as tfm
+from repro_torch.models.sampling import sample_tokens
+
+
+def _timed(fn, dev: torch.device):
+    """(fn(), its seconds): CUDA events around the call on the card, whose
+    queue is empty when it starts, so the time counts the host's launches
+    and the card's work; the host clock on the CPU."""
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+@torch.inference_mode()
+def generate(cfg, params, prompts, gen_len, sampler="ky", mesh=None,
+             features=None, key=None):
+    """prompts (B, S0) int -> (B, S0 + gen_len) int32 tokens (the prompt
+    echoed, then the sampled continuation).  Returns (tokens, seconds of
+    each decode step after the first token).
+
+    The first token is drawn from the prefill's logits with `key` itself;
+    each later step splits `key, sub = split(key)` and draws with `sub`, at
+    position total0 + t (total0: prompt plus frontend positions)."""
+    key = key if key is not None else prng.key(0)
+    dev = prompts.device
+    b, s0 = prompts.shape
+    prompts = prompts.to(torch.int32)
+    batch = {"tokens": prompts}
+    if cfg.frontend:
+        batch["features"] = features
+    total0 = s0 + (cfg.frontend_len if cfg.frontend else 0)
+
+    prefill_fn = steps_lib.make_prefill_step(cfg, mesh)
+    logits, caches = prefill_fn(params, batch)
+    caches = tfm.grow_attn_caches(caches, cfg, gen_len)
+
+    # one LUT-exp table for every token (a new table's copy to the card
+    # waits for the card's stream)
+    kw = {}
+    if sampler == "ky":
+        kw["exp_table"], kw["exp_spec"] = build_exp_weight_lut(device=dev)
+    serve_fn = steps_lib.make_serve_step(cfg, mesh, sampler=sampler, **kw)
+    tok = sample_tokens(logits, key, sampler, **kw)[:, None]
+    out = [prompts, tok]
+    times = []
+    for t in range(gen_len - 1):
+        key, sub = prng.split(key)
+        (tok_next, _, caches), sec = _timed(
+            lambda: serve_fn(params, tok, caches, total0 + t, sub), dev)
+        times.append(sec)
+        tok = tok_next[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1), times
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--sampler", default="ky",
+                    choices=["ky", "gumbel", "greedy"])
+    ap.add_argument("--device", default=device_mod.DEFAULT,
+                    help="cuda (default) or cpu (the plain torch twins)")
+    args = ap.parse_args(argv)
+
+    dev = device_mod.resolve(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = tfm.init_model(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.tensor(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
+        dtype=torch.int32, device=dev)
+    features = None
+    if cfg.frontend:
+        features = torch.tensor(rng.normal(
+            0, 1, (args.batch, cfg.frontend_len, tfm.FRONTEND_DIM)
+        ), dtype=torch.float32, device=dev)
+
+    toks, times = generate(cfg, params, prompts, args.gen,
+                           sampler=args.sampler, features=features)
+    # the first timed step includes the kernels' first use (build and
+    # load); with --gen too short to leave any steady-state step, report
+    # n/a rather than a bogus 0.0
+    tput = f"{args.batch / np.mean(times[1:]):.1f} tok/s" \
+        if len(times) > 1 else "n/a"
+    print(f"[serve] arch={cfg.name} sampler={args.sampler} "
+          f"generated {tuple(toks.shape)} tokens; "
+          f"decode throughput {tput} (batch {args.batch})")
+    print("[serve] sample row:", toks[0, : args.prompt_len + 8].cpu().numpy())
+    return toks
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,370 @@
+"""Transformer substrate: RMSNorm, RoPE, flash attention (plain torch, online
+softmax over KV chunks), GQA attention blocks (prefill and decode), SwiGLU.
+
+Port of `repro/models/layers.py`, forward only (the flash backward waits
+for the training slice).  Attention is not a Pallas kernel in the
+reference: it is a jnp `custom_vjp`, and it stays plain torch here, as do
+the projections.  The port follows the reference's algorithm (the same
+chunked online softmax, float32 scores, running max and sum, the same
+casts), so that the tests can hold it tightly against the reference.
+
+Weights live in `Params` modules, read as `p["wq"]` and `"bq" in p`, the
+reference's dict idiom.  Layout: the reference keeps `wq` as (d, H, hd)
+and `wo` as (H, hd, d); here they are the 2-D matrices (d, H * hd) and
+(H * hd, d) of the same contraction, so each projection is one matmul.
+The weights a layer casts to the activation type at every use in the
+reference (`.astype(dt)`) are held once in that type; the norm weights,
+which the reference reads in float32, stay float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+NEG_INF = -1e30
+
+
+class Params(nn.Module):
+    """Named frozen weights and sub-trees of one part of a model: tensors
+    become parameters (`requires_grad=False`), modules sub-modules.  Read
+    as `p["wq"]`; `"bq" in p` says whether an optional weight exists."""
+
+    def __init__(self, **entries):
+        super().__init__()
+        for name, value in entries.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def init_dense(gen: torch.Generator | None, in_dim: int,
+               out_shape: tuple[int, ...], dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """A float32 normal (in_dim, *out_shape) draw times 1/sqrt(in_dim), cast
+    to `dtype` (the reference's `init_dense`, with a torch generator: the
+    two packages' random streams differ, so tests hand both the same
+    weights through `convert.lm_params_from_reference`).  On the `meta`
+    device, an empty tensor of the shape."""
+    shape = (in_dim, *out_shape)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x (..., S, H, D), positions (..., S) -> rotated x (half-split layout),
+    computed in float32."""
+    d_half = x.shape[-1] // 2
+    exponent = -torch.arange(0, d_half, dtype=torch.float32,
+                             device=x.device) / d_half
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), exponent)
+    angles = positions[..., None].float() * freqs  # (..., S, d/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1f, x2f = x[..., :d_half].float(), x[..., d_half:].float()
+    return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (plain torch): a loop over KV chunks with online softmax
+# ---------------------------------------------------------------------------
+
+
+def _pick_chunk(s: int, target: int) -> int:
+    """Largest power-of-two divisor of s, capped at target."""
+    c = 1
+    while c < target and s % (2 * c) == 0:
+        c *= 2
+    return c if s % c == 0 else s
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D), already scaled & roped
+    k: torch.Tensor,  # (B, Skv, KVH, D)
+    v: torch.Tensor,  # (B, Skv, KVH, D)
+    q_offset: int = 0,  # absolute position of q[0]
+    window: int = 0,  # >0: chunked-local attention (same-chunk mask)
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+) -> torch.Tensor:
+    """Online-softmax attention, the forward of the reference's
+    `flash_attention`: a loop over KV chunks carrying the float32 running
+    max, sum and output, so the (Sq, Skv) scores never exist whole.  The
+    query heads are grouped over the KV heads (group-major), as the
+    reference's (kvh, g) reshape groups them."""
+    out, _ = _flash_fwd_impl(q, k, v, q_offset, window, q_chunk, kv_chunk)
+    return out
+
+
+def _flash_geom(q, k, q_chunk, kv_chunk):
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qc = _pick_chunk(sq, min(q_chunk, sq))
+    kc = _pick_chunk(skv, min(kv_chunk, skv))
+    return b, sq, h, d, skv, kvh, g, qc, kc
+
+
+def _mask_for(q_pos, k_pos, window):
+    """q_pos (nq, qc), k_pos (kc,) -> (nq, qc, kc) bool."""
+    mask = q_pos[:, :, None] >= k_pos[None, None, :]
+    if window:
+        mask &= (q_pos[:, :, None] // window) == (k_pos[None, None, :]
+                                                  // window)
+    return mask
+
+
+def _flash_fwd_impl(q, k, v, q_offset, window, q_chunk, kv_chunk):
+    b, sq, h, d, skv, kvh, g, qc, kc = _flash_geom(q, k, q_chunk, kv_chunk)
+    nq, nk = sq // qc, skv // kc
+    dev = q.device
+    # float32 operands: the reference's products of the working type with
+    # float32 accumulation and output (preferred_element_type=float32)
+    qr = q.reshape(b, nq, qc, kvh, g, d).float()
+    kr = k.reshape(b, nk, kc, kvh, d).float()
+    vr = v.reshape(b, nk, kc, kvh, d)
+    q_pos = q_offset + torch.arange(sq, device=dev).reshape(nq, qc)
+    m = torch.full((b, nq, qc, kvh, g), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, nq, qc, kvh, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, nq, qc, kvh, g, d), dtype=torch.float32,
+                      device=dev)
+    for j in range(nk):
+        k_c, v_c = kr[:, j], vr[:, j]
+        kpos = torch.arange(j * kc, (j + 1) * kc, device=dev)
+        s = torch.einsum("bnqhgd,bkhd->bnqhgk", qr, k_c)
+        mask = _mask_for(q_pos, kpos, window)
+        s = torch.where(mask[None, :, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bnqhgk,bkhd->bnqhgd", p.to(v.dtype).float(),
+                          v_c.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    lse = m + torch.log(torch.clamp(l, min=1e-30))  # (b, nq, qc, kvh, g)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, sq, h, d).to(q.dtype), lse
+
+
+def attention_reference(q, k, v, *, q_offset=0, window=0):
+    """Naive oracle for flash_attention (test use only)."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qr = q.reshape(b, sq, kvh, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k).float()
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    mask = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= (q_pos[:, None] // window) == (k_pos[None, :] // window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    return o.reshape(b, sq, h, d)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+
+def head_geometry(cfg: ModelConfig, device="cpu"):
+    """(hp, kvp, g_pad, q_head_mask) — the reference's padded-head layout.
+
+    With attn_pad_heads set, query heads are padded group-major (each KV
+    group gains pad slots) so GQA group assignment is unchanged; pad heads
+    are masked to zero after attention, keeping the math identical to the
+    unpadded architecture.  The mask is a bool tensor on `device`."""
+    h, kvh, pad = cfg.n_heads, cfg.n_kv_heads, cfg.attn_pad_heads
+    if not pad or pad == h:
+        return h, kvh, h // kvh, None
+    if kvh == h:  # MHA: pad q and kv together
+        return pad, pad, 1, torch.arange(pad, device=device) < h
+    if pad % kvh:
+        raise ValueError("attn_pad_heads must preserve KV grouping")
+    g, g_pad = h // kvh, pad // kvh
+    return pad, kvh, g_pad, (torch.arange(pad, device=device) % g_pad) < g
+
+
+def init_attention(gen, cfg: ModelConfig, device: torch.device) -> Params:
+    d, hd = cfg.d_model, cfg.hd
+    hp, kvp, _, _ = head_geometry(cfg)
+    dt = cfg.act_dtype
+    p = {
+        "wq": init_dense(gen, d, (hp * hd,), dt, device),
+        "wk": init_dense(gen, d, (kvp * hd,), dt, device),
+        "wv": init_dense(gen, d, (kvp * hd,), dt, device),
+        "wo": init_dense(gen, hp * hd, (d,), dt, device),
+    }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", hp), ("bk", kvp), ("bv", kvp)):
+            p[name] = torch.zeros(heads * hd, dtype=dt, device=device)
+    return Params(**p)
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.view(b, s, -1, hd), k.view(b, s, -1, hd),
+            v.view(b, s, -1, hd))
+
+
+def _scale_queries(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """q * 1/sqrt(hd), the constant in q's type first, as jnp rounds a
+    weakly typed Python float to the array's type."""
+    return q * torch.full((), 1.0 / math.sqrt(cfg.hd), dtype=q.dtype,
+                          device=q.device)
+
+
+def attention_apply(
+    p: Params,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    kind: str,
+    positions: torch.Tensor,  # (S,)
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, dict]:
+    """Prefill path.  Returns (out, cache) — cache holds the roped k and raw
+    v for decode continuation.  K/V are not repeated to the query heads as
+    the reference repeats them for its tensor-parallel mesh: the grouped
+    flash loop reads each KV head once and computes the same products."""
+    q, k, v = _qkv(p, x, cfg)
+    if kind == "attn_chunked" or cfg.rope_on_global:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q = _scale_queries(q, cfg)
+    window = cfg.chunk_size if kind == "attn_chunked" else 0
+    _, _, _, qmask = head_geometry(cfg, x.device)
+    o = flash_attention(q, k, v, q_offset, window)
+    if qmask is not None:
+        o = o * qmask[None, None, :, None].to(o.dtype)
+    b, s = x.shape[:2]
+    return o.reshape(b, s, -1) @ p["wo"], {"k": k, "v": v}
+
+
+def attention_decode(
+    p: Params,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: dict,  # {"k","v": (B, S_max, KVH, D)}
+    pos: int,  # absolute position of the new token
+    cfg: ModelConfig,
+    *,
+    kind: str,
+) -> tuple[torch.Tensor, dict]:
+    """One new token against the cache.  The cache is written in place at
+    `pos` (`pos % window` for `attn_chunked`), where the reference returns
+    an updated copy (its step donates the old one); the masked direct
+    attention then runs over the whole cache."""
+    q, k, v = _qkv(p, x, cfg)
+    if kind == "attn_chunked" or cfg.rope_on_global:
+        pos_arr = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = rope(q, pos_arr, cfg.rope_theta)
+        k = rope(k, pos_arr, cfg.rope_theta)
+    q = _scale_queries(q, cfg)
+
+    ck, cv = cache["k"], cache["v"]
+    s_max = ck.shape[1]
+    slot = pos % s_max if kind == "attn_chunked" else pos
+    if not 0 <= slot < s_max:
+        raise ValueError(f"position {pos} is outside the cache of {s_max}")
+    ck[:, slot] = k[:, 0]
+    cv[:, slot] = v[:, 0]
+
+    _, _, _, qmask = head_geometry(cfg, x.device)
+    b, _, h, d = q.shape
+    kvh = ck.shape[2]
+    g = h // kvh
+    qr = q.reshape(b, kvh, g, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qr.float(), ck.float())
+    k_idx = torch.arange(s_max, device=x.device)
+    if kind == "attn_chunked":
+        # ring cache of one window; valid entries share the query's chunk
+        k_pos = pos - ((pos - k_idx) % s_max)
+        mask = (k_pos >= 0) & (k_pos // cfg.chunk_size
+                               == pos // cfg.chunk_size)
+    else:
+        mask = k_idx <= pos
+    s = torch.where(mask[None, None, None, :], s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bhgk,bkhd->bhgd", pattn, cv)
+    if qmask is not None:
+        o = o * qmask.reshape(kvh, g, 1).to(o.dtype)[None]
+    return o.reshape(b, 1, h * d) @ p["wo"], cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int, kind: str,
+                    device: torch.device) -> dict:
+    if kind == "attn_chunked":
+        s_max = min(s_max, cfg.chunk_size)
+    kvp = head_geometry(cfg)[1]
+    shape = (batch, s_max, kvp, cfg.hd)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+    }
+
+
+def ring_from_prefill(kv: torch.Tensor, w: int, axis: int = 1
+                      ) -> torch.Tensor:
+    """Arrange the last min(S, w) prefilled K/V entries into the ring-cache
+    slot order used by attention_decode (slot = pos % w)."""
+    s = kv.shape[axis]
+    if s <= w:
+        shape = list(kv.shape)
+        shape[axis] = w - s
+        return torch.cat([kv, kv.new_zeros(shape)], dim=axis)
+    tail = kv.narrow(axis, s - w, w)
+    return torch.roll(tail, shifts=(s - w) % w, dims=axis)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, cfg: ModelConfig, device: torch.device,
+             d_ff: int | None = None) -> Params:
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    dt = cfg.act_dtype
+    return Params(
+        wg=init_dense(gen, d, (ff,), dt, device),
+        wu=init_dense(gen, d, (ff,), dt, device),
+        wd=init_dense(gen, ff, (d,), dt, device),
+    )
+
+
+def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    gate = torch.nn.functional.silu(x @ p["wg"])
+    return (gate * (x @ p["wu"])) @ p["wd"]

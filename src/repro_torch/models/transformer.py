@@ -1,0 +1,208 @@
+"""Model assembly: blocks, embedding and frontends, prefill and decode.
+
+Port of `repro/models/transformer.py` for the dense attention blocks
+(`attn`, `attn_chunked`) with the SwiGLU FFN, forward only.  The reference
+runs `lax.scan` over `n_super` stacked superblocks of the config's
+pattern; here the layer stack is a Python loop over a per-layer
+`nn.ModuleList` (layer i is slot i % period of superblock i // period),
+and the caches are one `{"k", "v"}` per layer.  Mamba, mLSTM and sLSTM
+mixers and the MoE FFN are not ported yet (ROADMAP §1 item 3) and raise
+`NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch import device as device_mod
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+from repro_torch.models.layers import Params
+
+FRONTEND_DIM = 1024  # feature dim delivered by the (stubbed) modality encoder
+ATTN_KINDS = ("attn", "attn_chunked")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP §1 item 3: "
+        "the LM stack's MoE, SSM and xLSTM blocks come after the dense "
+        "serving path)"
+    )
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise `NotImplementedError` for a config this port cannot run: a
+    mixer other than attention, or an MoE FFN."""
+    for slot, kind in enumerate(cfg.pattern):
+        if kind not in ATTN_KINDS:
+            raise _not_ported(f"{cfg.name}: the {kind!r} mixer")
+        if cfg.moe_for(slot) is not None:
+            raise _not_ported(f"{cfg.name}: the MoE FFN")
+
+
+# ---------------------------------------------------------------------------
+# single block (attention mixer + optional FFN)
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen, cfg: ModelConfig, slot: int, device) -> Params:
+    check_supported(cfg)
+    p = {
+        "norm1": torch.ones(cfg.d_model, dtype=torch.float32, device=device),
+        "core": layers.init_attention(gen, cfg, device),
+    }
+    if cfg.d_ff:
+        p["norm2"] = torch.ones(cfg.d_model, dtype=torch.float32,
+                                device=device)
+        p["ffn"] = layers.init_mlp(gen, cfg, device)
+    return Params(**p)
+
+
+def block_apply(p: Params, x, cfg: ModelConfig, slot: int, positions,
+                q_offset: int = 0):
+    """(x, cache) after one block over a whole sequence."""
+    kind = cfg.pattern[slot]
+    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    mix, cache = layers.attention_apply(p["core"], h, cfg, kind=kind,
+                                        positions=positions,
+                                        q_offset=q_offset)
+    x = x + mix
+    if "ffn" in p:
+        h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + layers.mlp_apply(p["ffn"], h, cfg)
+    return x, cache
+
+
+def block_decode(p: Params, x, cache, pos: int, cfg: ModelConfig,
+                 slot: int):
+    kind = cfg.pattern[slot]
+    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    mix, cache = layers.attention_decode(p["core"], h, cache, pos, cfg,
+                                         kind=kind)
+    x = x + mix
+    if "ffn" in p:
+        h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + layers.mlp_apply(p["ffn"], h, cfg)
+    return x, cache
+
+
+def _slot(cfg: ModelConfig, layer: int) -> int:
+    return layer % len(cfg.pattern)
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
+    """Random weights from a seeded `torch.Generator` on `device`: each
+    weight drawn in float32 and cast to `cfg.dtype` one tensor at a time,
+    so the peak is the model in its working type plus one float32 tensor.
+    On the `meta` device, the shapes alone."""
+    check_supported(cfg)
+    dev = torch.device(device)
+    if dev.type != "meta":  # shapes only on meta; else the card by default
+        dev = device_mod.resolve(device)
+    gen = None if dev.type == "meta" else torch.Generator(
+        device=dev).manual_seed(seed)
+    dt = cfg.act_dtype
+    if dev.type == "meta":
+        embed = torch.empty((cfg.vocab, cfg.d_model), dtype=dt, device=dev)
+    else:
+        embed = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                             dtype=torch.float32, device=dev) * 0.02).to(dt)
+    p: dict[str, Any] = {
+        "embed": embed,
+        "blocks": nn.ModuleList(
+            init_block(gen, cfg, _slot(cfg, i), dev)
+            for i in range(cfg.n_layers)),
+        "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
+                                 device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = layers.init_dense(gen, cfg.d_model, (cfg.vocab,), dt,
+                                      dev)
+    if cfg.frontend:
+        p["frontend_proj"] = layers.init_dense(gen, FRONTEND_DIM,
+                                               (cfg.d_model,), dt, dev)
+    return Params(**p)
+
+
+def embed_inputs(p: Params, cfg: ModelConfig, batch: dict[str, Any]):
+    """tokens (B, S_tok) [+ features (B, S_f, FRONTEND_DIM)] -> (B, S, d)."""
+    x = p["embed"][batch["tokens"]]
+    if cfg.frontend:
+        feats = batch["features"].to(cfg.act_dtype) @ p["frontend_proj"]
+        x = torch.cat([feats, x], dim=1)
+    return x
+
+
+def _logits(p: Params, cfg: ModelConfig, x):
+    x = layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    head = p["embed"].T if cfg.tie_embeddings else p["head"]
+    return (x @ head).float()
+
+
+@torch.no_grad()
+def forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
+            collect_cache: bool = False):
+    """Full forward (prefill).  Returns (logits (B, S, V) float32, caches:
+    one {"k", "v"} per layer, or None)."""
+    x = embed_inputs(p, cfg, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    caches = []
+    for i, blk in enumerate(p["blocks"]):
+        x, cache = block_apply(blk, x, cfg, _slot(cfg, i), positions)
+        caches.append(cache)
+    return _logits(p, cfg, x), caches if collect_cache else None
+
+
+def prefill(p: Params, cfg: ModelConfig, batch):
+    """Returns (last-position logits (B, V), decode-ready caches);
+    chunked-attention slots are rearranged into decode's ring layout."""
+    logits, caches = forward(p, cfg, batch, collect_cache=True)
+    for i, cache in enumerate(caches):
+        if cfg.pattern[_slot(cfg, i)] == "attn_chunked":
+            for name in ("k", "v"):
+                cache[name] = layers.ring_from_prefill(cache[name],
+                                                       cfg.chunk_size)
+    return logits[:, -1], caches
+
+
+def grow_attn_caches(caches, cfg: ModelConfig, extra: int):
+    """Pad full-attention K/V caches by `extra` positions (decode headroom).
+    Chunked slots are fixed-size and pass through."""
+    out = []
+    for i, cache in enumerate(caches):
+        if cfg.pattern[_slot(cfg, i)] == "attn":
+            cache = {name: torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, extra))
+                     for name, kv in cache.items()}
+        out.append(cache)
+    return out
+
+
+@torch.no_grad()
+def decode_step(p: Params, cfg: ModelConfig, tokens, caches, pos: int):
+    """One token for every sequence.  tokens (B, 1); caches as from
+    prefill/init_decode_caches, updated in place; pos the new token's
+    absolute position.  Returns (logits (B, V) float32, caches)."""
+    x = p["embed"][tokens]
+    for i, blk in enumerate(p["blocks"]):
+        x, caches[i] = block_decode(blk, x, caches[i], pos, cfg,
+                                    _slot(cfg, i))
+    return _logits(p, cfg, x)[:, 0], caches
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, s_max: int,
+                       device="cuda"):
+    """One zeroed {"k", "v"} per layer, for decode from scratch."""
+    check_supported(cfg)
+    dev = device_mod.resolve(device)
+    return [layers.init_attn_cache(cfg, batch, s_max,
+                                   cfg.pattern[_slot(cfg, i)], dev)
+            for i in range(cfg.n_layers)]

@@ -202,3 +202,34 @@ def test_runtime_trace_forms_the_four_buckets():
     assert len({q.seed for q in queries}) == len(queries)
     pinned = [q for q in queries if q.model == "penguin" and q.evidence]
     assert [len(q.evidence) for q in pinned] == [cs.MRF_PINS] * 2
+
+
+def test_lm_bounds_count_yi_9b():
+    """The serve_lm phase's bounds at yi-9b, B = 8, worked by hand: the
+    projections, head, table and norms make the model's 8,829,407,232
+    parameters; a prefill of 128 tokens needs 1.7064e13 operations
+    (17.25 ms at the bf16 peak), a decode step at position 158 moves
+    17,263,263,744 bytes (5.15 ms at 3.35 TB/s)."""
+    from repro_torch.configs import get_config
+
+    cs = _chip_smoke()
+    cfg = get_config("yi-9b")
+    proj = 48 * (4096 * 128 * (2 * 32 + 2 * 4) + 3 * 4096 * 11008)
+    assert cs.lm_matmul_params(cfg) == proj == 8_304_721_920
+    assert proj + 2 * 4096 * 64000 + 97 * 4096 == 8_829_407_232
+    # projections for 1,024 tokens, causal attention over 8,256 pairs a
+    # head, the head for the 8 last positions
+    attn = 4 * 128 * 32 * 48 * (128 * 129 // 2) * 8
+    head = 2 * 4096 * 64000 * 8
+    assert cs.lm_prefill_flops(cfg, 8, 128) == 2 * proj * 1024 + attn + head
+    assert cs.lm_prefill_flops(cfg, 8, 128) == 17_064_207_056_896
+    weight_bytes = 2 * (proj + 2 * 4096 * 64000) + 4 * 97 * 4096
+    kv_row = 48 * 2 * 8 * 4 * 128 * 2  # one position of K and V, bf16
+    got = cs.lm_step_bytes(weight_bytes, 2 * 64000 * 4096, cfg, 8,
+                           kv_row * 159, kv_row, 8)
+    assert got == 17_263_263_744
+    ms, by = cs.bound(got, cs.lm_decode_flops(cfg, 8, 159), cs.BF16_FLOPS)
+    assert by == "bytes" and ms == pytest.approx(5.1532, abs=1e-4)
+    ms, by = cs.bound(weight_bytes, cs.lm_prefill_flops(cfg, 8, 128),
+                      cs.BF16_FLOPS)
+    assert by == "operations" and ms == pytest.approx(17.254, abs=1e-3)

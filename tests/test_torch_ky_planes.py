@@ -12,6 +12,9 @@ Pallas `ky_sample_kernel` (interpret mode), its `core.ky.ky_sample_ref`
 and the port's twin, at 1-127 bins, precision 16 and 21, on rows that are
 all zero, one-hot, negative, all below -1, multiples of 2^p, summing above
 2^p or wrapping in int32, and with `max_retries=1`, where bits run out.
+At 128 bins (the token sampler's tree levels), which the Pallas kernel
+does not take, the model is held against `ky_sample_ref` and the twin at
+the levels' precisions 17, 24 and 30.
 The keyed entry's counters are held against the reference's
 `ops.ky_sample`; a CUDA-marked test holds both entries of the kernel
 against the twin on the card.  Tolerance: bit-equal."""
@@ -31,6 +34,7 @@ from repro_torch.kernels import ky_sampler as t_ks
 from repro_torch.kernels import ops as t_ops
 
 WIDTHS = [1, 2, 3, 4, 15, 16, 31, 32, 33, 63, 64, 65, 127]
+MAX_BINS = 128  # K1's widest row: the rejection bin is held apart
 PRECISIONS = [16, 21]
 M32 = 0xFFFFFFFF
 LANES_MAX = 8  # rows up to this many bins take the register layout
@@ -144,11 +148,14 @@ def plane_walk(column, rej, word_of, p, total_steps, width):
 
 
 def argmax_fallback(w) -> int:
+    """The first bin of the largest weight, or lane n_bins (the Pallas
+    kernel's -1 padding) when every weight is below -1 and the row has a
+    padding lane."""
     mx, amax = int(w[0]), 0
     for i, v in enumerate(w):
         if v > mx:
             mx, amax = int(v), i
-    return len(w) if mx < -1 else amax
+    return len(w) if mx < -1 and len(w) < MAX_BINS else amax
 
 
 def model_draw(weights, words, p, max_retries):
@@ -245,13 +252,13 @@ def test_nth_set_bit_and_the_row_index_multiply():
                     for r in range(len(pos))] == pos
     # the staging copy's f / n_bins = (f * ceil(2^20 / n_bins)) >> 20 for
     # every element f of a warp's 32 rows
-    for n in range(1, 128):
+    for n in range(1, MAX_BINS + 1):
         magic = ((1 << 20) + n - 1) // n
         f = np.arange(32 * n, dtype=np.int64)
         np.testing.assert_array_equal((f * magic) >> 20, f // n)
 
 
-@pytest.mark.parametrize("n_bins", [9, 32, 33, 127])
+@pytest.mark.parametrize("n_bins", [9, 32, 33, 127, 128])
 def test_planes_hold_every_column_the_walk_reads(n_bins):
     """The stored planes equal the reference's column `(m >> (p-1-level))
     & 1` over the bins at every level, levels past p - 1 (the sign fill of
@@ -304,6 +311,31 @@ def test_plane_walk_matches_reference(n_bins, precision):
         if max_retries == 1 and n_bins == 1:
             # an all-below--1 row out of bits falls back to lane n_bins
             assert want[0][3] == 1 and want[3][3] == 1
+
+
+@pytest.mark.parametrize("precision", [17, 24, 30])
+def test_plane_walk_at_128_bins_matches_ky_sample_ref(precision):
+    """128 bins fill the four plane words of `ky_planes_kernel<4>`; the
+    model equals the reference's plain walk (whose fallback is the argmax
+    the model takes at 128 bins) and the port's twin, bit for bit."""
+    for max_retries in (8, 1):
+        w = edge_rows(MAX_BINS, precision)
+        words = random_words(w.shape[0], -(-precision * max_retries // 32),
+                             seed=precision + max_retries)
+        lab, st = r_ky.ky_sample_ref(jnp.asarray(w), jnp.asarray(words),
+                                     n_bins=MAX_BINS, precision=precision,
+                                     max_retries=max_retries)
+        want = np.stack([np.asarray(lab), np.asarray(st["bits_used"]),
+                         np.asarray(st["rejections"]),
+                         np.asarray(st["fallback"]).astype(np.int32)])
+        np.testing.assert_array_equal(
+            model_draw(w, words, precision, max_retries), want)
+        twin = t_ks.ky_sample_kernel(
+            torch.from_numpy(w), torch.from_numpy(words.view(np.int32)),
+            n_bins=MAX_BINS, precision=precision, max_retries=max_retries)
+        np.testing.assert_array_equal(_stack(*twin), want)
+        fb = want[3] == 1  # out of bits: the plain argmax, no -1 lane
+        np.testing.assert_array_equal(want[0][fb], np.argmax(w[fb], -1))
 
 
 # ---------------------------------------------------------------------------
@@ -366,14 +398,14 @@ def test_keyed_entry_refuses_what_the_kernel_does_not_take():
 
 @pytest.mark.cuda
 def test_k1_entries_match_the_twin_on_the_card(monkeypatch):
-    """Both entries of the kernel against the twin at every width, both
-    precisions and both budgets, on 4,099 rows (a ragged last warp and
+    """Both entries of the kernel against the twin at every width (128
+    included), both precisions and both budgets, on 4,099 rows (a ragged last warp and
     block) with the edge rows first; and `ops.ky_sample` draws with no
     word made in plain torch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: see README)")
     dev = torch.device("cuda")
-    for n_bins in WIDTHS:
+    for n_bins in WIDTHS + [MAX_BINS]:
         for precision in PRECISIONS:
             for max_retries in (8, 1):
                 w = torch.from_numpy(edge_rows(n_bins, precision,

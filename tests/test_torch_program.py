@@ -187,8 +187,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                             "triton"))
-        # the serving runtime, the tracer, the profiler and the CLIs are
-        # walked too
+        # the serving runtime, the tracer, the profiler, the CLIs and the
+        # LM serving path (configs, models, steps, serve) are walked too
         want = {"repro_torch.runtime." + m for m in (
             "admission", "batcher", "calibrate", "engine", "executor",
             "metrics", "trace", "__main__")} | {
@@ -199,7 +199,15 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "roofline", "kernel_cost", "report")} | {
             "repro_torch.analysis." + m for m in (
                 "kernel_lint", "source_lint", "__main__")} | {
-            "repro_torch.diag.__main__"}
+            "repro_torch.diag.__main__"} | {
+            "repro_torch.models." + m for m in (
+                "layers", "transformer", "sampling")} | {
+            "repro_torch.launch." + m for m in ("steps", "serve")} | {
+            "repro_torch.configs." + m for m in (
+                "base", "yi_9b", "codeqwen1_5_7b", "musicgen_medium",
+                "internvl2_76b", "mistral_large_123b", "qwen2_72b",
+                "qwen2_moe_a2_7b", "llama4_scout_17b_a16e",
+                "jamba_1_5_large_398b", "xlstm_350m")}
         missing = sorted(want - set(names))
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 20 else 0)
