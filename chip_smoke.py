@@ -130,7 +130,7 @@ each printing one JSON line; any failure raises and exits non-zero:
               and one sharded Penguin half-step by part (K5 and the psum
               merge, K6 and the halo exchange).  Prints `{"kernels":
               [...]}` (K1-K6, K3's and K4's lane entries, and K1 and K2
-              at the token draw's shapes from serve_lm).
+              at the token draw's shapes of each LM phase).
 13. k3_lanes / k4_lanes (run before `timing`) — K3's lane entry
               (`bn_sweep_lanes`: one sweep over the chains of Q queries,
               each with its own key read from device memory) on pigs, and
@@ -206,6 +206,40 @@ each printing one JSON line; any failure raises and exits non-zero:
               The model is freed and the serve CLI runs in a subprocess
               (`python -m repro_torch.launch.serve --arch yi-9b --batch 8
               --prompt-len 128 --gen 32 --sampler ky`), which must exit 0.
+17. serve_lm_moe — the same run, checks and timings for qwen2-moe-a2.7b
+              at full width (24 layers, d 2,048, 16 heads of 128 with qkv
+              bias, 60 experts top-4 at 1,408 and a shared 5,632; 14.3 B
+              parameters, 28.6 GB in bf16; vocabulary 151,936: 3 K1
+              launches a token).  Prefill routes each row as a group
+              (capacity 12 an expert), a decode step the batch as one
+              (capacity 4); the assignments dropped at capacity per row in
+              prefill, each decode step and the forward are printed, and
+              decode against forward holds the rows that dropped none.
+              The bounds count every expert's slots (`lm_expert_macs`).
+18. serve_lm_xlstm — the same for xlstm-350m at full width (24 layers, d
+              1,024, mLSTM:sLSTM 3:1, vocabulary 50,304: 3 K1 launches a
+              token; the recurrent states are the caches), decode against
+              forward within 10% (its exponential gates amplify bf16
+              rounding; the reference's own gap reaches 7.6%), then its
+              serve CLI in a subprocess.  For it and jamba, decode against
+              forward is also held on a float32 copy, within 1e-3.
+19. serve_lm_hybrid — the same for jamba-1.5-large-398b at reduced()
+              (Mamba, attention and MoE on every other layer; vocabulary
+              256: 2 K1 launches a token), since 398.6 B parameters do not
+              fit one card.
+20. mamba_block — one Mamba mixer at jamba's full widths (d 8,192,
+              d_inner 16,384, 16 states, dt rank 512, conv 4; 0.42 B
+              parameters) in float32 on the card: 8 rows, a prefill of 128
+              positions, 8 decode steps.  Decode step t equals a prefill
+              over 129 + t positions at its last one, and the card's
+              prefill output and state equal the CPU's, within 1e-3 of the
+              scale; prefill and a decode step timed beside their bounds.
+21. moe_block — one MoE FFN at qwen2-moe-a2.7b's widths (d 2,048, 60
+              experts top-4 at 1,408, shared 5,632) in float32: a prefill
+              row of 128 tokens (capacity 12) and a decode group of 8
+              (capacity 4), leaning towards two experts so that both drop
+              assignments; the card's experts, slots and kept assignments
+              equal the CPU's, its output within 1e-4 of the scale.
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -311,6 +345,11 @@ def main() -> int:
     runtime = timed(phase_serve_runtime, torch)
     counts = timed(phase_profile, torch)
     lm_rows = timed(phase_serve_lm, torch, per_call)
+    lm_rows += timed(phase_serve_lm_moe, torch, per_call)
+    lm_rows += timed(phase_serve_lm_xlstm, torch, per_call)
+    lm_rows += timed(phase_serve_lm_hybrid, torch, per_call)
+    timed(phase_mamba_block, torch)
+    timed(phase_moe_block, torch)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
           sharded_launches, k5_err, k6_err, per_call, k1_ptxas, runtime,
           lanes_err, counts, lm_rows)
@@ -2946,58 +2985,174 @@ def phase_profile(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# LM serving: yi-9b at full width, the KY token sampler on K2 and K1
+# LM serving: yi-9b, qwen2-moe-a2.7b and xlstm-350m at full width, jamba
+# at reduced(); the KY token sampler on K2 and K1; one Mamba mixer at
+# jamba's full widths
 # ---------------------------------------------------------------------------
 
 LM_ARCH = "yi-9b"  # the widest dense config one H100 holds in bf16
+LM_MOE_ARCH = "qwen2-moe-a2.7b"  # 14.3 B parameters, 28.6 GB in bf16
+LM_XLSTM_ARCH = "xlstm-350m"  # mLSTM:sLSTM 3:1, 0.23 B parameters
+# Mamba + attention + MoE on every other layer; 398.6 B parameters do not
+# fit one card, so it serves at reduced() (nothing sharded yet)
+LM_HYBRID_ARCH = "jamba-1.5-large-398b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
 LM_SEED = 0
 # decode against forward, bf16: at most 5% of the largest |logit|, the
 # reference's own bound for two execution orders (0.15 on its logits of
 # ~3, tests/test_models_smoke.py), taken relative to the logits' scale
 LM_FORWARD_RTOL = 0.05
+# xlstm-350m's exponential gates amplify bf16 rounding: on the CPU at
+# full width (8 seeds of 8 rows of random tokens, prefill 128, decode to
+# position 158; tests/test_torch_lm_decode_gap.py) the reference's own
+# decode against its forward reaches 7.6% of the largest |logit|, the
+# port's 6.1% on the same weights and tokens.  Its limit is 10%: above
+# every reading of either, below the 10.4% the card read while cuBLAS
+# reduced bf16 partial sums in bf16 (tools/lm_bf16.py gap;
+# layers.accumulate_in_float32)
+LM_FORWARD_RTOL_BY_ARCH = {"xlstm-350m": 0.10}
+# decode against forward for models with recurrent mixers, also on a
+# float32 copy of the model: at most 1e-3 of the largest |logit| (xlstm
+# reduced, 24 layers, on the CPU: 6.6e-6)
+LM_FORWARD_RTOL_F32 = 1e-3
 LM_REPS = 5  # timed calls of each part, medians
 BF16_FLOPS = 989e12  # H100 SXM, dense tensor cores
+ATTN_KINDS = ("attn", "attn_chunked")
+# one Mamba mixer at jamba's widths (d 8,192, d_inner 16,384, 16 states,
+# dt rank 512, conv 4), float32 on the card (TF32 off) against the CPU:
+# 8 rows, a prefill of 128 positions, then 8 decode steps
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS = 8, 128, 8
+# float32, two devices' summation orders over 8,192- and 16,384-long dot
+# products: at most 1e-3 of the output's largest |value|
+MAMBA_RTOL = 1e-3
+# one MoE FFN at qwen2-moe's widths, float32 on the card (TF32 off)
+# against the CPU: a prefill row of 128 tokens and a decode group of 8,
+# leaning towards experts 0 and 1: the inputs gain a vector along the
+# sum of their router columns that raises expert 0's logit by MOE_LEAN
+# standard deviations of a logit, so that most tokens pick both
+MOE_PROMPT, MOE_GROUP, MOE_LEAN = 128, 8, 3.0
+MOE_RTOL = 1e-4
+
+
+def _layers_of(cfg, kinds) -> int:
+    return cfg.n_super * sum(k in kinds for k in cfg.pattern)
 
 
 def lm_matmul_params(cfg) -> int:
-    """Weights of the layers' projections (attention and SwiGLU), the ones
-    every token multiplies; the head and the embedding table apart."""
-    d, hd = cfg.d_model, cfg.hd
-    return cfg.n_layers * (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-                           + 3 * d * cfg.d_ff)
+    """Weights every token multiplies: the mixers' projections (attention
+    q, k, v and o; Mamba's in, x, dt and out projections; mLSTM's q, k, v,
+    gates, output gate and out; sLSTM's input, recurrent r and out), the
+    dense FFNs, and of an MoE FFN the router and the shared expert.  The
+    routed experts (`lm_expert_macs`), the head and the embedding table
+    apart."""
+    d, hd, h = cfg.d_model, cfg.hd, cfg.n_heads
+    total = 0
+    for slot, kind in enumerate(cfg.pattern):
+        if kind in ATTN_KINDS:
+            mix = d * hd * (2 * h + 2 * cfg.n_kv_heads)
+        elif kind == "mamba":
+            di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+            mix = d * 2 * di + di * (r + 2 * n) + r * di + di * d
+        elif kind == "mlstm":
+            mix = 3 * d * h * hd + 2 * d * h + 2 * d * d
+        else:  # slstm
+            mix = 4 * d * h * hd + 4 * h * hd * hd + d * d
+        moe = cfg.moe_for(slot)
+        ffn = (3 * d * cfg.d_ff if moe is None
+               else d * moe.n_experts + 3 * d * moe.d_shared)
+        total += cfg.n_super * (mix + ffn)
+    return total
+
+
+def lm_expert_macs(cfg, batch: int, seq: int) -> int:
+    """Multiply-adds of the routed experts over a step of `batch` rows of
+    `seq` tokens: every expert's SwiGLU over all C of its slots, empty
+    ones included, as the dispatch computes them; a group a row, or the
+    whole batch one group in a decode step over several rows."""
+    from repro_torch.models import moe as moe_mod
+
+    groups, tokens = (1, batch) if seq == 1 and batch > 1 else (batch, seq)
+    total = 0
+    for slot in range(len(cfg.pattern)):
+        moe = cfg.moe_for(slot)
+        if moe is not None:
+            total += (cfg.n_super * groups * moe.n_experts
+                      * moe_mod.capacity(tokens, moe)
+                      * 3 * cfg.d_model * moe.d_expert)
+    return total
+
+
+def lm_recurrent_flops(cfg, batch: int, seq: int) -> float:
+    """Operations of the recurrent mixers outside their projections over a
+    step of `batch` rows of `seq` tokens: Mamba's scan (6 a state element
+    a token), mLSTM's matrix memory (4 H hd^2 a token: the rank-1 update
+    and the read) and, in a prefill, its chunks' causal pairs (6 H hd a
+    pair: q.k, the decayed sum of v and of k)."""
+    from repro_torch.models import xlstm
+
+    tokens = batch * seq
+    n_mlstm = _layers_of(cfg, ("mlstm",))
+    ops = 6.0 * cfg.d_inner * cfg.ssm_state * _layers_of(
+        cfg, ("mamba",)) * tokens
+    ops += 4.0 * cfg.n_heads * cfg.hd ** 2 * n_mlstm * tokens
+    if seq > 1 and n_mlstm:
+        lc = xlstm.chunk_len(seq)
+        pairs = seq // lc * (lc * (lc + 1) // 2)
+        ops += 6.0 * cfg.n_heads * cfg.hd * n_mlstm * pairs * batch
+    return ops
 
 
 def lm_attention_flops(cfg, batch: int, pairs: int) -> float:
     """The two attention products (q.k and p.v, 2 x hd operations each)
-    over `pairs` (query, key) pairs per head, every layer, every row."""
-    return 4.0 * cfg.hd * cfg.n_heads * cfg.n_layers * pairs * batch
+    over `pairs` (query, key) pairs per head, every attention layer, every
+    row."""
+    return (4.0 * cfg.hd * cfg.n_heads * _layers_of(cfg, ATTN_KINDS) * pairs
+            * batch)
 
 
 def lm_prefill_flops(cfg, batch: int, seq: int) -> float:
     """Operations a prefill's outputs need: every token through the layers'
-    projections, the causal attention (a query reads its own and earlier
-    keys), and the head at the last position only (the one logit row the
-    step returns)."""
+    projections and routed experts' slots, the causal attention (a query
+    reads its own and earlier keys), the recurrent mixers, and the head at
+    the last position only (the one logit row the step returns)."""
     return (2.0 * lm_matmul_params(cfg) * batch * seq
+            + 2.0 * lm_expert_macs(cfg, batch, seq)
             + lm_attention_flops(cfg, batch, seq * (seq + 1) // 2)
+            + lm_recurrent_flops(cfg, batch, seq)
             + 2.0 * cfg.d_model * cfg.vocab * batch)
 
 
 def lm_decode_flops(cfg, batch: int, n_keys: int) -> float:
     """Operations of one decode step: one token per row through the
-    projections and the head, attending over `n_keys` keys."""
+    projections, the expert slots and the head, attending over `n_keys`
+    keys, and one step of the recurrent mixers."""
     return (2.0 * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) * batch
-            + lm_attention_flops(cfg, batch, n_keys))
+            + 2.0 * lm_expert_macs(cfg, batch, 1)
+            + lm_attention_flops(cfg, batch, n_keys)
+            + lm_recurrent_flops(cfg, batch, 1))
 
 
 def lm_step_bytes(weight_bytes: int, embed_bytes: int, cfg, tokens: int,
                   kv_read: int, kv_written: int, logit_rows: int) -> int:
     """Bytes a prefill or decode step must move: every weight but the
-    embedding table read once (of the table only the tokens' bf16 rows),
-    the K/V cache read and written, the float32 logit rows written."""
+    embedding table read once (of the table only the tokens' bf16 rows;
+    an MoE step reads every expert, since the dispatch multiplies every
+    expert's slots), the caches (K/V and recurrent states) read and
+    written, the float32 logit rows written."""
     return (weight_bytes - embed_bytes + 2 * tokens * cfg.d_model + kv_read
             + kv_written + 4 * logit_rows * cfg.vocab)
+
+
+def token_levels(vocab: int) -> int:
+    """The token sampler's tree levels over `vocab`: K1 launches a token."""
+    from repro_torch.models import sampling
+
+    levels, width = 1, -(-vocab // sampling.BRANCH) * sampling.BRANCH
+    while width > sampling.BRANCH:
+        width = -(-(width // sampling.BRANCH) // sampling.BRANCH) \
+            * sampling.BRANCH
+        levels += 1
+    return levels
 
 
 def event_ms(torch, fn) -> tuple[float, object]:
@@ -3014,44 +3169,115 @@ def event_ms(torch, fn) -> tuple[float, object]:
     return start.elapsed_time(end), out
 
 
-def phase_serve_lm(torch, per_call: dict) -> list:
-    """LM serving at yi-9b's full width; returns the token-level K1 and K2
-    rows of the kernels line.  The model is freed before the serve CLI
-    runs in a subprocess."""
-    import gc
+def _serve_cli(arch: str, phase: str) -> None:
+    """The serve CLI in a subprocess at the phase's shape; must exit 0."""
     import os
 
-    torch.cuda.empty_cache()
-    rows = _serve_lm(torch, per_call)
-    gc.collect()
-    torch.cuda.empty_cache()
-    cmd = ["repro_torch.launch.serve", "--arch", LM_ARCH, "--batch",
+    cmd = ["repro_torch.launch.serve", "--arch", arch, "--batch",
            str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen",
            str(LM_GEN), "--sampler", "ky"]
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", *cmd], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=600)
-    emit({"phase": "serve_lm_cli", "cmd": "python -m " + " ".join(cmd),
+    emit({"phase": f"{phase}_cli", "cmd": "python -m " + " ".join(cmd),
           "rc": out.returncode, "s": time.perf_counter() - t0,
           "tail": out.stdout.splitlines()[-2:]})
     check(out.returncode == 0, f"the serve CLI exited {out.returncode}: "
           f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+
+
+def _free(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_lm(torch, per_call: dict) -> list:
+    """LM serving at yi-9b's full width; returns the token-level K1 and K2
+    rows of the kernels line.  The model is freed before the serve CLI
+    runs in a subprocess."""
+    from repro_torch.configs import get_config
+
+    _free(torch)
+    rows = _serve_lm(torch, per_call, get_config(LM_ARCH), "serve_lm")
+    _free(torch)
+    _serve_cli(LM_ARCH, "serve_lm")
     return rows
 
 
-def _serve_lm(torch, per_call: dict) -> list:
-    import numpy as np
-
-    from repro_torch import prng
+def phase_serve_lm_moe(torch, per_call: dict) -> list:
+    """qwen2-moe-a2.7b at full width (60 experts top-4, shared 5,632)."""
     from repro_torch.configs import get_config
+
+    _free(torch)
+    rows = _serve_lm(torch, per_call, get_config(LM_MOE_ARCH),
+                     "serve_lm_moe")
+    _free(torch)
+    return rows
+
+
+def phase_serve_lm_xlstm(torch, per_call: dict) -> list:
+    """xlstm-350m at full width, then its serve CLI in a subprocess."""
+    from repro_torch.configs import get_config
+
+    _free(torch)
+    rows = _serve_lm(torch, per_call, get_config(LM_XLSTM_ARCH),
+                     "serve_lm_xlstm")
+    _free(torch)
+    _serve_cli(LM_XLSTM_ARCH, "serve_lm_xlstm")
+    return rows
+
+
+def phase_serve_lm_hybrid(torch, per_call: dict) -> list:
+    """jamba-1.5-large-398b at reduced(): Mamba, attention and MoE."""
+    from repro_torch.configs import get_config
+
+    _free(torch)
+    rows = _serve_lm(torch, per_call, get_config(LM_HYBRID_ARCH).reduced(),
+                     "serve_lm_hybrid")
+    _free(torch)
+    return rows
+
+
+def moe_row_drops(torch, moe_mod, x, router, moe):
+    """(B,) the assignments `moe_apply` drops at capacity for x (B, S, d),
+    per batch row: `route` over the groups it routes, each dropped
+    assignment counted at its token's row."""
+    g = moe_mod.groups(x)
+    r = moe_mod.route(g, router, moe)
+    d = torch.zeros(g.shape[:2], dtype=torch.int64, device=x.device)
+    d.scatter_add_(1, r.stok, (~r.keep).long())
+    return (d.transpose(0, 1) if g is not x else d).sum(-1)
+
+
+def _drops(torch, moe_mod, fn):
+    """(fn(), the assignments its MoE FFNs dropped at capacity per row
+    (list)), counted by a wrapper of `moe_apply` installed for the call."""
+    dropped = torch.zeros(LM_BATCH, dtype=torch.int64, device=DEVICE)
+    orig = moe_mod.moe_apply
+
+    def counted(p, x, cfg, moe):
+        dropped.add_(moe_row_drops(torch, moe_mod, x, p["router"], moe))
+        return orig(p, x, cfg, moe)
+
+    moe_mod.moe_apply = counted
+    try:
+        return fn(), dropped.tolist()
+    finally:
+        moe_mod.moe_apply = orig
+
+
+def _serve_lm(torch, per_call: dict, cfg, phase: str) -> list:
+    from repro_torch import prng
     from repro_torch.core.interp import build_exp_weight_lut
     from repro_torch.launch import serve, steps
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import sampling
     from repro_torch.models import transformer as tfm
 
     dev = torch.device(DEVICE)
-    cfg = get_config(LM_ARCH)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = tfm.init_model(cfg, seed=LM_SEED, device=dev)
@@ -3076,27 +3302,31 @@ def _serve_lm(torch, per_call: dict) -> list:
     # ---- end of the main path ----------------------------------------------
     peak = torch.cuda.max_memory_allocated()
 
-    n_levels = 3  # 64,000 -> 512 -> 128
+    n_levels = token_levels(cfg.vocab)
     check(tuple(toks.shape) == (LM_BATCH, LM_PROMPT + LM_GEN),
-          f"generate gave {tuple(toks.shape)} tokens")
+          f"{phase}: generate gave {tuple(toks.shape)} tokens")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
-          "a token lies outside the vocabulary")
-    check(torch.equal(toks[:, :LM_PROMPT], prompts), "the prompt moved")
+          f"{phase}: a token lies outside the vocabulary")
+    check(torch.equal(toks[:, :LM_PROMPT], prompts),
+          f"{phase}: the prompt moved")
     check(launches["ky_sample_kernel"] == n_levels * LM_GEN
           and launches["interp_kernel"] == LM_GEN,
-          f"{LM_GEN} tokens launched K1 {launches['ky_sample_kernel']} and "
-          f"K2 {launches['interp_kernel']} times, not {n_levels} and 1 each")
+          f"{phase}: {LM_GEN} tokens launched K1 "
+          f"{launches['ky_sample_kernel']} and K2 "
+          f"{launches['interp_kernel']} times, not {n_levels} and 1 each")
     check(all(n == 0 for name, n in launches.items()
               if name not in ("ky_sample_kernel", "interp_kernel")),
-          f"the LM path launched another kernel: {launches}")
-    check(raw_calls == 0, f"the token sampler called prng._raw_bits "
-          f"{raw_calls} times: words were made outside K1")
+          f"{phase}: the LM path launched another kernel: {launches}")
+    check(raw_calls == 0, f"{phase}: the token sampler called "
+          f"prng._raw_bits {raw_calls} times: words were made outside K1")
 
-    # ---- every step's tokens against the twin on the same logits ----------
+    # ---- every step's tokens against the twin on the same logits, and the
+    # MoE assignments each step dropped at capacity, per row ---------------
     tab, spec = build_exp_weight_lut(device=dev)
     tab_cpu, spec_cpu = build_exp_weight_lut(device="cpu")
     batch = {"tokens": prompts}
-    logits, caches = steps.make_prefill_step(cfg)(model, batch)
+    (logits, caches), drop_prefill = _drops(
+        torch, moe_mod, lambda: steps.make_prefill_step(cfg)(model, batch))
     caches = tfm.grow_attn_caches(caches, cfg, LM_GEN)
     step = steps.make_serve_step(cfg, sampler="ky", exp_table=tab,
                                  exp_spec=spec)
@@ -3105,61 +3335,130 @@ def _serve_lm(torch, per_call: dict) -> list:
     step_logits, twin_bad = [logits], 0
     twin_bad += int((tok.cpu() != sampling.ky_token_sample(
         logits.cpu(), k, exp_table=tab_cpu, exp_spec=spec_cpu)).sum())
-    mine = [tok]
+    mine, drop_steps = [tok], []
     for t in range(LM_GEN - 1):
         k, sub = prng.split(k)
-        tok, logits, caches = step(model, tok[:, None], caches,
-                                   LM_PROMPT + t, sub)
+        (tok, logits, caches), dropped = _drops(
+            torch, moe_mod, lambda: step(model, tok[:, None], caches,
+                                         LM_PROMPT + t, sub))
+        drop_steps.append(dropped)
         twin = sampling.ky_token_sample(logits.cpu(), sub,
                                         exp_table=tab_cpu, exp_spec=spec_cpu)
         twin_bad += int((tok.cpu() != twin).sum())
         mine.append(tok)
         step_logits.append(logits)
     mine = torch.stack(mine, dim=1)
-    check(twin_bad == 0, f"{twin_bad} of {LM_BATCH * LM_GEN} tokens differ "
-          f"from the twin's draw on the same logits and keys")
+    check(twin_bad == 0, f"{phase}: {twin_bad} of {LM_BATCH * LM_GEN} "
+          f"tokens differ from the twin's draw on the same logits and keys")
     check(torch.equal(mine, toks[:, LM_PROMPT:]),
-          "the steps run again gave other tokens than generate")
+          f"{phase}: the steps run again gave other tokens than generate")
 
     # ---- the last decode step against a full forward ----------------------
     # all 160 tokens (the KV loop's chunks divide 160; 159 would take
-    # chunks of one): position 158's logits see tokens 0..158 only
-    full, _ = tfm.forward(model, cfg, {"tokens": toks})
+    # chunks of one): position 158's logits see tokens 0..158 only.  With
+    # MoE FFNs, a row's forward and decode differ by design wherever either
+    # dropped an assignment (a 160-token row and a decode group of 8 have
+    # other capacities): such rows are not held
+    (full, _), drop_fwd = _drops(
+        torch, moe_mod, lambda: tfm.forward(model, cfg, {"tokens": toks}))
     fwd = full[:, -2]
-    err = float((step_logits[-1] - fwd).abs().max())
+    del full
+    dropped_any = [drop_prefill[b] + sum(s[b] for s in drop_steps)
+                   + drop_fwd[b] for b in range(LM_BATCH)]
+    held = [b for b in range(LM_BATCH) if dropped_any[b] == 0]
+    check(bool(torch.isfinite(fwd).all()),
+          f"{phase}: forward logits are not finite")
     scale = float(fwd.abs().max())
+    err = float((step_logits[-1][held] - fwd[held]).abs().max()) \
+        if held else None
     same_argmax = float((step_logits[-1].argmax(-1) == fwd.argmax(-1))
                         .float().mean())
-    del full
-    check(bool(torch.isfinite(fwd).all()), "forward logits are not finite")
-    check(err <= LM_FORWARD_RTOL * scale, f"decode differs from forward by "
-          f"{err} (largest |logit| {scale})")
+    rtol = LM_FORWARD_RTOL_BY_ARCH.get(cfg.name, LM_FORWARD_RTOL)
+    check(err is None or err <= rtol * scale,
+          f"{phase}: decode differs from forward by {err} (largest |logit| "
+          f"{scale}, limit {rtol} of it)")
+    recurrent = any(k not in ATTN_KINDS for k in cfg.pattern)
+    f32 = _decode_vs_forward_f32(torch, cfg, toks) if recurrent else None
+    check(f32 is None or f32["max_abs"] is None
+          or f32["max_abs"] <= LM_FORWARD_RTOL_F32 * f32["scale"],
+          f"{phase}: in float32 decode differs from forward by {f32}")
 
     # ---- greedy twice ------------------------------------------------------
     g1, _ = serve.generate(cfg, model, prompts, LM_GEN, sampler="greedy")
     g2, _ = serve.generate(cfg, model, prompts, LM_GEN, sampler="greedy")
-    check(torch.equal(g1, g2), "greedy decoding run twice differs")
+    check(torch.equal(g1, g2), f"{phase}: greedy decoding run twice differs")
 
-    emit({"phase": "serve_lm", "arch": LM_ARCH, "batch": LM_BATCH,
+    emit({"phase": phase, "arch": cfg.name, "batch": LM_BATCH,
           "prompt_len": LM_PROMPT, "gen": LM_GEN,
           "params": sum(p.numel() for p in model.parameters()),
           "weight_bytes": weight_bytes, "init_s": init_s,
           "peak_bytes": peak, "launches": launches,
+          "k1_launches_per_token": n_levels,
           "plain_torch_generator_calls": raw_calls,
           "tokens_vs_twin_mismatches": twin_bad,
+          "moe_dropped_prefill": drop_prefill,
+          "moe_dropped_decode_steps": drop_steps,
+          "moe_dropped_forward": drop_fwd,
+          "decode_vs_forward_rows_held": held,
           "decode_vs_forward_max_abs": err, "forward_max_abs_logit": scale,
+          "decode_vs_forward_rtol": rtol,
           "decode_vs_forward_same_argmax": same_argmax,
+          "decode_vs_forward_float32": f32,
           "greedy_twice_equal": True, "sample_row": toks[0, -16:].tolist()})
 
     return timing_serve_lm(torch, cfg, model, prompts, caches, times,
                            step_logits[-1], launches, per_call, weight_bytes,
-                           (tab, spec))
+                           (tab, spec), phase)
+
+
+def _decode_vs_forward_f32(torch, cfg, toks) -> dict:
+    """The served tokens teacher-forced through a float32 copy of the model
+    (the same seed: the weights before their cast to bf16): a prefill of
+    the prompt and decode steps to position 158 against a forward over
+    all 160 tokens, on the rows that dropped no MoE assignment."""
+    import dataclasses
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = tfm.init_model(cfg32, seed=LM_SEED, device=torch.device(DEVICE))
+    (_, caches), drops = _drops(torch, moe_mod, lambda: tfm.prefill(
+        model, cfg32, {"tokens": toks[:, :LM_PROMPT]}))
+    caches = tfm.grow_attn_caches(caches, cfg32, LM_GEN)
+    for t in range(LM_GEN - 1):
+        pos = LM_PROMPT + t
+        (logits, caches), d = _drops(torch, moe_mod, lambda: tfm.decode_step(
+            model, cfg32, toks[:, pos:pos + 1], caches, pos))
+        drops = [a + b for a, b in zip(drops, d)]
+    (full, _), d = _drops(torch, moe_mod, lambda: tfm.forward(
+        model, cfg32, {"tokens": toks}))
+    held = [b for b in range(LM_BATCH) if drops[b] + d[b] == 0]
+    fwd = full[:, -2]
+    err = float((logits[held] - fwd[held]).abs().max()) if held else None
+    del model, caches, full
+    _free(torch)
+    return {"max_abs": err, "scale": float(fwd.abs().max()),
+            "rows_held": held, "rtol": LM_FORWARD_RTOL_F32}
+
+
+def _cache_bytes(cfg, caches) -> tuple[int, int, int]:
+    """(all cache bytes, attention K/V bytes of one position over every
+    attention layer, recurrent state bytes)."""
+    nb = lambda t: t.numel() * t.element_size()
+    total = sum(nb(t) for c in caches for t in c.values())
+    attn = [c for i, c in enumerate(caches)
+            if cfg.pattern[i % len(cfg.pattern)] in ATTN_KINDS]
+    kv_row = sum(nb(c[n]) // c[n].shape[1] for c in attn for n in ("k", "v"))
+    state = total - sum(nb(t) for c in attn for t in c.values())
+    return total, kv_row, state
 
 
 def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
-                    launches, per_call, weight_bytes, lut) -> list:
+                    launches, per_call, weight_bytes, lut,
+                    phase: str) -> list:
     """Prefill and decode on the card beside their bounds, the decode step
-    split into the model and the token draw, K2 at (8, 64,000) and K1 at
+    split into the model and the token draw, K2 at (8, V) and K1 at
     (8, 128) beside theirs, and the whole draw beside `torch.multinomial`
     on the softmax.  Returns the token-level K1 and K2 rows."""
     from repro_torch import prng
@@ -3208,25 +3507,26 @@ def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
     draw_busy = device_busy_ms(torch, draw, 20)
     draw_host = host_ms(torch, draw, 20)
 
-    kv_bytes = sum(c[n].numel() * c[n].element_size() for c in caches
-                   for n in ("k", "v"))
-    kv_row = kv_bytes // caches[0]["k"].shape[1]  # one position, all layers
+    kv_bytes, kv_row, state_bytes = _cache_bytes(cfg, caches)
     embed_bytes = model["embed"].numel() * model["embed"].element_size()
     n_keys = pos + 1
     dec_bytes = lm_step_bytes(weight_bytes, embed_bytes, cfg, LM_BATCH,
-                              kv_row * n_keys, kv_row, LM_BATCH)
+                              kv_row * n_keys + state_bytes,
+                              kv_row + state_bytes, LM_BATCH)
     dec_flops = lm_decode_flops(cfg, LM_BATCH, n_keys)
     dec_bound, dec_by = bound(dec_bytes, dec_flops, BF16_FLOPS)
     pre_bytes = lm_step_bytes(weight_bytes, embed_bytes, cfg,
-                              LM_BATCH * LM_PROMPT, 0, kv_row * LM_PROMPT,
-                              LM_BATCH)
+                              LM_BATCH * LM_PROMPT, 0,
+                              kv_row * LM_PROMPT + state_bytes, LM_BATCH)
     pre_flops = lm_prefill_flops(cfg, LM_BATCH, LM_PROMPT)
     pre_bound, pre_by = bound(pre_bytes, pre_flops, BF16_FLOPS)
     decode_ms = med(1e3 * s for s in times)
-    emit({"phase": "timing_serve_lm", "card": nvidia_smi(),
+    emit({"phase": f"timing_{phase}", "arch": cfg.name,
+          "card": nvidia_smi(),
           "prefill_ms": prefill_ms, "prefill_tokens": LM_BATCH * LM_PROMPT,
           "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
           "prefill_flops": pre_flops, "prefill_bytes": pre_bytes,
+          "prefill_expert_macs": lm_expert_macs(cfg, LM_BATCH, LM_PROMPT),
           "prefill_busy_ms": prefill_busy,
           "prefill_busy_share": prefill_busy / prefill_ms,
           "decode_ms_per_token_median": decode_ms,
@@ -3234,7 +3534,8 @@ def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
           "decode_tokens_per_s": LM_BATCH / (decode_ms / 1e3),
           "decode_bound_ms": dec_bound, "decode_bound_by": dec_by,
           "decode_bytes": dec_bytes, "decode_flops": dec_flops,
-          "kv_cache_bytes": kv_bytes,
+          "decode_expert_macs": lm_expert_macs(cfg, LM_BATCH, 1),
+          "kv_cache_bytes": kv_bytes, "recurrent_state_bytes": state_bytes,
           "serve_step_ms": step_ms, "serve_step_busy_ms": step_busy,
           "serve_step_kernels": step_kernels, "draw_kernels": draw_kernels,
           "serve_step_busy_share": step_busy / step_ms,
@@ -3251,13 +3552,13 @@ def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
     y_k, y_t = k2(), interp_lut.interp_kernel_ref(z, tab, spec)
     torch.cuda.synchronize()
     k2_bad = int((y_k.view(torch.int32) != y_t.view(torch.int32)).sum())
-    check(k2_bad == 0, f"K2 differs from its twin at the token shape in "
-          f"{k2_bad} elements")
+    check(k2_bad == 0, f"{phase}: K2 differs from its twin at the token "
+          f"shape in {k2_bad} elements")
     cost = kernel_cost.lut_exp(z.numel(), tab.numel())
     k2_bound, k2_by = bound(cost.hbm_bytes, cost.flops)
     k2_events = time_ms(torch, k2, 200)
     k2_row = {
-        "name": f"K2 interp_kernel (token draw, {LM_BATCH} x "
+        "name": f"K2 interp_kernel (token draw, {cfg.name}, {LM_BATCH} x "
                 f"{cfg.vocab:,})", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/interp_lut.cu",
         "replaces": "src/repro/kernels/interp_lut.py:50",
@@ -3287,8 +3588,8 @@ def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
         bad = int((lab_k != lab_t).sum()) + sum(
             int((st_k[n] != st_t[n]).sum())
             for n in ("bits_used", "rejections", "fallback"))
-        check(bad == 0, f"K1 differs from its twin at tree level {li} "
-              f"(precision {p}, 128 bins): {bad}")
+        check(bad == 0, f"{phase}: K1 differs from its twin at tree level "
+              f"{li} (precision {p}, 128 bins): {bad}")
         keyed = lambda: ky_sampler.ky_sample_keyed(wl, lkey, **kw)
         bits = st_t["bits_used"]
         calls = int(((bits.long() + 31) // 32).sum())
@@ -3312,10 +3613,10 @@ def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
                "max_abs_err": int((lab_k - lab_t).abs().max())}
         level_rows.append(row)
         idx = lab_t if idx is None else idx * sampling.BRANCH + lab_t
-        if k1_row is None:  # the top level, at precision 30
+        if k1_row is None:  # the top level
             k1_row = {
-                "name": f"K1 ky_sample_keyed (token draw, {LM_BATCH} x 128, "
-                        f"p={p})", "route": "cuda",
+                "name": f"K1 ky_sample_keyed (token draw, {cfg.name}, "
+                        f"{LM_BATCH} x 128, p={p})", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ky_sampler.cu",
                 "replaces": "src/repro/kernels/ky_sampler.py:159",
                 "launches": launches["ky_sample_kernel"],
@@ -3325,10 +3626,162 @@ def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
                 "library": "torch.multinomial(weights.float(), 1)",
                 "ms_per_call_events": events,
                 "launches_per_token": len(levels)}
-    emit({"phase": "timing_serve_lm_kernels", "k1_levels": level_rows,
+    emit({"phase": f"timing_{phase}_kernels", "k1_levels": level_rows,
           "k2": {n: k2_row[n] for n in ("ms", "ms_per_call_events",
                                         "bound_ms", "plain_ms")}})
     return [k1_row, k2_row]
+
+
+def phase_mamba_block(torch) -> None:
+    """One Mamba mixer at jamba's full widths in float32: 8 rows, a
+    prefill of 128 positions and 8 decode steps on the card.  Decode step
+    t equals a prefill over 129 + t positions at its last one, and the
+    card's outputs and state equal the same module's on the CPU, each
+    within MAMBA_RTOL of the output's scale; prefill and a decode step
+    timed beside their bounds."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    _free(torch)
+    cfg = dataclasses.replace(get_config(LM_HYBRID_ARCH), dtype="float32")
+    dev = torch.device(DEVICE)
+    p_cpu = ssm.init_mamba(torch.Generator().manual_seed(LM_SEED), cfg,
+                           torch.device("cpu"))
+    p = copy.deepcopy(p_cpu).to(dev)  # Module.to moves in place
+    n_params = sum(t.numel() for t in p.parameters())
+    g = torch.Generator().manual_seed(LM_SEED + 2)
+    x_cpu = torch.randn((MAMBA_BATCH, MAMBA_PROMPT + MAMBA_STEPS,
+                         cfg.d_model), generator=g)
+    x = x_cpu.to(dev)
+    pre = x[:, :MAMBA_PROMPT]
+    y, state = ssm.mamba_apply(p, pre, cfg)
+    st_prefill = {k: v.clone() for k, v in state.items()}  # decode writes
+    whole, _ = ssm.mamba_apply(p, x, cfg)  # positions 128..135 its last
+    steps_out = []
+    for t in range(MAMBA_STEPS):
+        yt, state = ssm.mamba_decode(
+            p, x[:, MAMBA_PROMPT + t:MAMBA_PROMPT + t + 1], state, cfg)
+        steps_out.append(yt)
+    dec = torch.cat(steps_out, dim=1)
+    scale = float(whole.abs().max())
+    cont_err = float((dec - whole[:, MAMBA_PROMPT:]).abs().max())
+    check(bool(torch.isfinite(whole).all()), "mamba_block: not finite")
+    check(cont_err <= MAMBA_RTOL * scale, f"mamba_block: decode differs "
+          f"from the prefill over more positions by {cont_err} "
+          f"(scale {scale})")
+
+    y_cpu, st_cpu = ssm.mamba_apply(p_cpu, x_cpu[:, :MAMBA_PROMPT], cfg)
+    cpu_err = float((y.cpu() - y_cpu).abs().max())
+    ssm_scale = float(st_cpu["ssm"].abs().max())
+    ssm_err = float((st_prefill["ssm"].cpu() - st_cpu["ssm"]).abs().max())
+    check(cpu_err <= MAMBA_RTOL * float(y_cpu.abs().max()),
+          f"mamba_block: the card's prefill differs from the CPU's by "
+          f"{cpu_err}")
+    check(ssm_err <= MAMBA_RTOL * ssm_scale, f"mamba_block: the card's "
+          f"state differs from the CPU's by {ssm_err} (scale {ssm_scale})")
+
+    med = statistics.median
+    prefill_ms = med(event_ms(torch, lambda: ssm.mamba_apply(p, pre, cfg))[0]
+                     for _ in range(3))
+    st = {k: v.clone() for k, v in state.items()}
+    x1 = x[:, -1:]
+    decode_ms = med(event_ms(torch, lambda: ssm.mamba_decode(p, x1, st,
+                                                             cfg))[0]
+                    for _ in range(LM_REPS))
+    prefill_busy = device_busy_ms(torch, lambda: ssm.mamba_apply(p, pre,
+                                                                 cfg), 1)
+    decode_busy = device_busy_ms(torch, lambda: ssm.mamba_decode(
+        p, x1, st, cfg), LM_REPS)
+    wbytes = sum(t.numel() * t.element_size() for t in p.parameters())
+    sbytes = sum(t.numel() * t.element_size() for t in st.values())
+    one = dataclasses.replace(cfg, n_layers=1, pattern=("mamba",), d_ff=0,
+                              moe=None, moe_mask=(), vocab=0)
+    tokens = MAMBA_BATCH * MAMBA_PROMPT
+    act = 4 * cfg.d_model * tokens * 2  # float32 input read, output written
+    pre_bound, pre_by = bound(
+        wbytes + act + sbytes, 2.0 * lm_matmul_params(one) * tokens
+        + lm_recurrent_flops(one, MAMBA_BATCH, MAMBA_PROMPT))
+    dec_bound, dec_by = bound(
+        wbytes + 2 * sbytes + 4 * cfg.d_model * MAMBA_BATCH * 2,
+        2.0 * lm_matmul_params(one) * MAMBA_BATCH
+        + lm_recurrent_flops(one, MAMBA_BATCH, 1))
+    emit({"phase": "mamba_block", "card": nvidia_smi(),
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+          "ssm_state": cfg.ssm_state, "dt_rank": cfg.dt_rank,
+          "conv": cfg.ssm_conv, "params": n_params, "batch": MAMBA_BATCH,
+          "prefill": MAMBA_PROMPT, "decode_steps": MAMBA_STEPS,
+          "dtype": "float32", "rtol": MAMBA_RTOL,
+          "decode_vs_prefill_max_abs": cont_err, "output_scale": scale,
+          "card_vs_cpu_max_abs": cpu_err, "card_vs_cpu_state_max_abs":
+          ssm_err, "state_scale": ssm_scale,
+          "prefill_ms": prefill_ms, "prefill_bound_ms": pre_bound,
+          "prefill_bound_by": pre_by, "prefill_busy_ms": prefill_busy,
+          "prefill_busy_share": prefill_busy / prefill_ms,
+          "decode_ms": decode_ms, "decode_bound_ms": dec_bound,
+          "decode_bound_by": dec_by, "decode_busy_ms": decode_busy,
+          "decode_busy_share": decode_busy / decode_ms})
+    del p, p_cpu
+    _free(torch)
+
+
+def phase_moe_block(torch) -> None:
+    """One MoE FFN at qwen2-moe-a2.7b's widths in float32 (TF32 off): a
+    prefill row of 128 tokens (capacity 12 an expert) and a decode group of
+    8 (capacity 4), their inputs leaning towards experts 0 and 1 so that
+    both drop assignments.  On the card, the experts, slots and kept
+    assignments equal the CPU's, and the output is within MOE_RTOL of the
+    CPU's output scale."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+
+    _free(torch)
+    cfg = dataclasses.replace(get_config(LM_MOE_ARCH), dtype="float32")
+    moe, d = cfg.moe, cfg.d_model
+    cpu, dev = torch.device("cpu"), torch.device(DEVICE)
+    p_cpu = moe_mod.init_moe(torch.Generator().manual_seed(LM_SEED), cfg,
+                             moe, cpu)
+    p = copy.deepcopy(p_cpu).to(dev)  # Module.to moves in place
+    router = p_cpu["router"]
+    lean = router[:, 0] + router[:, 1]  # x ~ N(0, 1): logit sd |column|
+    lean = lean * (MOE_LEAN * router[:, 0].norm() / (lean @ router[:, 0]))
+    g = torch.Generator().manual_seed(LM_SEED + 3)
+    out = {"phase": "moe_block", "d_model": d, "experts": moe.n_experts,
+           "top_k": moe.top_k, "d_expert": moe.d_expert,
+           "d_shared": moe.d_shared, "dtype": "float32", "rtol": MOE_RTOL,
+           "params": sum(t.numel() for t in p.parameters())}
+    for name, shape in (("prefill", (1, MOE_PROMPT, d)),
+                        ("decode_group", (MOE_GROUP, 1, d))):
+        x_cpu = torch.randn(shape, generator=g) + lean
+        x = x_cpu.to(dev)
+        r_cpu = moe_mod.route(moe_mod.groups(x_cpu), router, moe)
+        r = moe_mod.route(moe_mod.groups(x), p["router"], moe)
+        same = all(torch.equal(getattr(r, f).cpu(), getattr(r_cpu, f))
+                   for f in ("top_i", "slot", "keep", "stok"))
+        y_cpu = moe_mod.moe_apply(p_cpu, x_cpu, cfg, moe)
+        y = moe_mod.moe_apply(p, x, cfg, moe)
+        torch.cuda.synchronize()
+        scale = float(y_cpu.abs().max())
+        err = float((y.cpu() - y_cpu).abs().max())
+        dropped = int((~r.keep).sum())
+        out[name] = {"tokens": shape[0] * shape[1], "capacity": r.cap,
+                     "assignments": int(r.keep.numel()),
+                     "dropped": dropped, "routing_equal": same,
+                     "max_abs": err, "scale": scale}
+        check(dropped > 0, f"moe_block: the {name} inputs dropped nothing")
+        check(same, f"moe_block: the card's {name} routing differs from "
+              f"the CPU's")
+        check(bool(torch.isfinite(y).all()) and err <= MOE_RTOL * scale,
+              f"moe_block: the card's {name} output differs from the "
+              f"CPU's by {err} (scale {scale})")
+    emit(out)
+    del p, p_cpu
+    _free(torch)
 
 
 def _k4_lane_calls(torch, mrf, labels, evs, keys, b):

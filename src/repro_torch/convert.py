@@ -22,6 +22,7 @@ from repro_torch import prng
 from repro_torch.core.bayesnet import ColorGroup, CompiledBayesNet
 from repro_torch.core.interp import LUTSpec
 from repro_torch.models import transformer as tfm
+from repro_torch.models import layers
 from repro_torch.models.layers import Params
 
 GROUP_FIELDS = ("nodes", "cards", "base", "stride", "scope_var", "is_self")
@@ -101,38 +102,50 @@ def lm_params_from_reference(tree, cfg, device="cuda") -> Params:
     weights of the reference's `init_model(key, cfg)` tree, given as
     nested dicts of numpy arrays.  The reference stacks its layers over
     the `n_super` axis of `"super"` (layer i = slot i % period of
-    superblock i // period); its (d, H, hd) `wq`/`wk`/`wv` and (H, hd, d)
-    `wo` become the port's (d, H * hd) and (H * hd, d) matrices.  Weights
-    the reference casts to the activation type at every use are cast once
-    to `cfg.dtype`; the norm weights stay float32."""
-    tfm.check_supported(cfg)
+    superblock i // period); its head-split projections, (d, H, hd)
+    `wq`/`wk`/`wv`, (H, hd, d) `wo` and sLSTM's (d, 4, H, hd) `w_in`,
+    become the port's 2-D matrices, their biases vectors.  Weights the
+    reference casts to the activation type at every use are cast once to
+    `cfg.dtype`; those it reads in float32 (the norms, Mamba's `a_log`
+    and `d_skip`, sLSTM's `r`) stay float32, and Mamba's `dt_bias` keeps
+    the parameter type.  Products accumulate in float32 from here on
+    (`layers.accumulate_in_float32`)."""
+    layers.accumulate_in_float32()
     dev = device_mod.resolve(device)
     dt = cfg.act_dtype
+    keep = {"a_log": torch.float32, "d_skip": torch.float32,
+            "r": torch.float32, "dt_bias": getattr(torch, cfg.param_dtype)}
 
     def t(x, dtype=dt, shape=None):
         x = torch.tensor(np.asarray(x, np.float32), device=dev)
         return (x if shape is None else x.reshape(shape)).to(dtype)
+
+    def core(c, kind):
+        d = cfg.d_model
+        flat = {"wq": (d, -1), "wk": (d, -1), "wv": (d, -1), "w_in": (d, -1),
+                "bq": (-1,), "bk": (-1,), "bv": (-1,), "b": (-1,)}
+        if kind in tfm.ATTN_KINDS:
+            flat["wo"] = (-1, d)
+        return Params(**{name: t(w, keep.get(name, dt), flat.get(name))
+                         for name, w in c.items()})
+
+    def ffn(f):
+        if "shared" in f:
+            f = {**f, "shared": Params(**{k: t(w)
+                                          for k, w in f["shared"].items()})}
+        return Params(**{k: w if isinstance(w, Params) else t(w)
+                         for k, w in f.items()})
 
     period = len(cfg.pattern)
     blocks = []
     for i in range(cfg.n_layers):
         b = {k: _leaf(v, i // period)
              for k, v in tree["super"][f"b{i % period}"].items()}
-        d = cfg.d_model
-        core = {
-            "wq": t(b["core"]["wq"], shape=(d, -1)),
-            "wk": t(b["core"]["wk"], shape=(d, -1)),
-            "wv": t(b["core"]["wv"], shape=(d, -1)),
-            "wo": t(b["core"]["wo"], shape=(-1, d)),
-        }
-        for name in ("bq", "bk", "bv"):
-            if name in b["core"]:
-                core[name] = t(b["core"][name], shape=(-1,))
-        blk = {"norm1": t(b["norm1"], torch.float32), "core": Params(**core)}
+        blk = {"norm1": t(b["norm1"], torch.float32),
+               "core": core(b["core"], cfg.pattern[i % period])}
         if "ffn" in b:
             blk["norm2"] = t(b["norm2"], torch.float32)
-            blk["ffn"] = Params(**{k: t(b["ffn"][k])
-                                   for k in ("wg", "wu", "wd")})
+            blk["ffn"] = ffn(b["ffn"])
         blocks.append(Params(**blk))
     p = {"embed": t(tree["embed"]), "blocks": torch.nn.ModuleList(blocks),
          "final_norm": t(tree["final_norm"], torch.float32)}

@@ -65,11 +65,34 @@ def init_dense(gen: torch.Generator | None, in_dim: int,
     return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
 
 
+def accumulate_in_float32() -> None:
+    """Have cuBLAS reduce 16-bit products in float32, as the reference's
+    XLA dots accumulate.  PyTorch's default lets a split-K GEMM reduce its
+    partial sums in bf16; on the card that doubled xlstm-350m's bf16
+    decode-against-forward gap (10.4% of the largest |logit| against 4.5%,
+    `tools/lm_bf16.py gap` on an H100 80GB HBM3 at 700 W).  The setting is
+    the process's; the LM builders make it."""
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = False
+    matmul.allow_fp16_reduced_precision_reduction = False
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
+
+
+def add_rms_norm(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                 eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x + y, rms_norm(x + y)) with the norm taken of the sum unrounded
+    in float32, as XLA computes the reference's residual add and the norm
+    after it in one fusion (the sum's round trip through the activation
+    type removed), the returned sum rounded to x's type."""
+    s = x.float() + y.float()
+    h = s * torch.rsqrt((s * s).mean(-1, keepdim=True) + eps)
+    return s.to(x.dtype), (h * w.float()).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -365,6 +388,18 @@ def init_mlp(gen, cfg: ModelConfig, device: torch.device,
     )
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)) with each op rounded to x's type: the form XLA
+    gives `jax.nn.sigmoid` (its logistic expanded into exp, add and
+    divide in the operand's type), not a sigmoid rounded once."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x), `jax.nn.silu`, rounded as XLA rounds it."""
+    return x * sigmoid(x)
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    gate = torch.nn.functional.silu(x @ p["wg"])
+    gate = silu(x @ p["wg"])
     return (gate * (x @ p["wu"])) @ p["wd"]

@@ -1,0 +1,168 @@
+"""Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch.
+
+Port of `repro/models/moe.py` for one device, forward only:
+
+  1. router logits -> softmax -> top-k (probs renormalised over the k);
+  2. the (tokens x k) assignments are sorted by expert id and packed into
+     an (E, C, d) buffer of capacity C = ceil4(int(ceil(T*k/E) * 1.25))
+     (at least 4); an assignment past its expert's C slots is dropped and
+     its token keeps its residual stream (Switch-style);
+  3. every expert's SwiGLU over all C of its slots, empty ones included,
+     as one grouped product over the expert axis;
+  4. each token's k results, times their routing weights, added in the
+     activation type in ascending expert order;
+  5. the shared expert, if any, densely over every token.
+
+Dispatch is per batch row during prefill; a decode step with more than
+one row routes the whole batch as one group (the reference's `s == 1 and
+b > 1` branch).  The reference's sharding constraints (`_MESH_CTX`) and
+its load-balancing loss, which only training reads, have no counterpart.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models import layers
+from repro_torch.models.layers import Params
+
+
+def init_moe(gen, cfg: ModelConfig, moe: MoEConfig, device) -> Params:
+    d, e, f = cfg.d_model, moe.n_experts, moe.d_expert
+    dt = cfg.act_dtype
+    p = {
+        "router": layers.init_dense(gen, d, (e,), dt, device),
+        "wg": _expert_stack(gen, e, d, f, dt, device),
+        "wu": _expert_stack(gen, e, d, f, dt, device),
+        "wd": _expert_stack(gen, e, f, d, dt, device),
+    }
+    if moe.d_shared:
+        p["shared"] = layers.init_mlp(gen, cfg, device, d_ff=moe.d_shared)
+    return Params(**p)
+
+
+def _expert_stack(gen, e: int, in_dim: int, out_dim: int, dtype, device):
+    """(E, in_dim, out_dim): each expert's matrix drawn by `init_dense`
+    and cast one expert at a time (the float32 peak is one expert's)."""
+    if device.type == "meta":
+        return torch.empty((e, in_dim, out_dim), dtype=dtype, device=device)
+    out = torch.empty((e, in_dim, out_dim), dtype=dtype, device=device)
+    for i in range(e):
+        out[i] = layers.init_dense(gen, in_dim, (out_dim,), dtype, device)
+    return out
+
+
+def capacity(tokens: int, moe: MoEConfig) -> int:
+    """Slots per expert for a group of `tokens`: the reference's integer
+    arithmetic, ceil(T*k/E) * capacity_factor truncated, rounded up to a
+    multiple of 4, at least 4."""
+    cap = int(-(-tokens * moe.top_k // moe.n_experts) * moe.capacity_factor)
+    return max(4, -(-cap // 4) * 4)
+
+
+class Routing(NamedTuple):
+    """A group's routing.  `top_i`, `top_p` (G, S, k): the chosen experts
+    and their renormalised float32 probabilities; then over the G rows'
+    S*k assignments sorted by expert (stable): `order` the sort, `stok`
+    each one's token, `sw` its weight in the activation type, `slot` its
+    row of the (E*C) buffer (E*C when dropped), `keep` whether it holds
+    one; `cap` is C."""
+    top_i: torch.Tensor
+    top_p: torch.Tensor
+    order: torch.Tensor
+    stok: torch.Tensor
+    sw: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    cap: int
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, the lower
+    index first among equal values, as `jax.lax.top_k` orders them."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig) -> Routing:
+    """Routing of x (G, S, d) in groups of S tokens (moe.py:117-142 of the
+    reference)."""
+    g, s, _ = x.shape
+    e, k = moe.n_experts, moe.top_k
+    probs = torch.softmax((x @ router).float(), dim=-1)
+    top_p, top_i = top_k(probs, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    n = s * k
+    cap = capacity(s, moe)
+    flat_e = top_i.reshape(g, n)
+    flat_w = top_p.reshape(g, n).to(x.dtype)
+    flat_tok = torch.arange(s, device=x.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    sw = torch.gather(flat_w, 1, order)
+    stok = flat_tok[order]
+    # position within the expert's run: index less the run's first index
+    first = torch.searchsorted(se, se, side="left")
+    pos = torch.arange(n, device=x.device) - first
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, torch.full_like(se, e * cap))
+    return Routing(top_i, top_p, order, stok, sw, slot, keep, cap)
+
+
+def groups(x: torch.Tensor) -> torch.Tensor:
+    """The groups `moe_apply` routes x (B, S, d) in: each row, or, in a
+    decode step over several rows (S = 1, B > 1), the batch as one group
+    (1, B, d)."""
+    b, s, _ = x.shape
+    return x.transpose(0, 1) if s == 1 and b > 1 else x
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              moe: MoEConfig) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d), routed in `groups(x)`."""
+    b, s, _ = x.shape
+    y = _moe_groups(p, groups(x), moe)
+    if s == 1 and b > 1:
+        y = y.transpose(0, 1)
+    if "shared" in p:
+        y = y + layers.mlp_apply(p["shared"], x, cfg)
+    return y
+
+
+def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig):
+    """Routed experts over x (G, S, d) in groups of S tokens."""
+    g, s, d = x.shape
+    e, k = moe.n_experts, moe.top_k
+    r = route(x, p["router"], moe)
+    ec = e * r.cap
+    rows = torch.arange(g, device=x.device)[:, None]
+
+    # dispatch: a buffer of E*C + 1 rows, the last the dropped ones' sink
+    buf = x.new_zeros((g, ec + 1, d))
+    buf[rows, r.slot] = x[rows, r.stok]
+    h = buf[:, :ec].reshape(g, e, r.cap, d)
+    gate = layers.silu(torch.einsum("becd,edf->becf", h, p["wg"]))
+    up = torch.einsum("becd,edf->becf", h, p["wu"])
+    out_e = torch.einsum("becf,efd->becd", gate * up, p["wd"])
+
+    # combine: back to the unsorted (token, j) layout, each token's k
+    # results summed left to right in ascending expert order (the order
+    # of the reference's scatter-add over expert-sorted assignments)
+    flat_out = out_e.reshape(g, ec, d)
+    got = flat_out[rows, torch.clamp(r.slot, max=ec - 1)]
+    live = (r.keep & (r.sw > 0)).to(x.dtype)
+    got = got * live[..., None] * r.sw[..., None]
+    unsorted = torch.empty_like(got)
+    unsorted[rows, r.order] = got
+    unsorted = unsorted.view(g, s, k, d)
+    by_expert = torch.argsort(r.top_i, dim=-1)
+    unsorted = torch.gather(unsorted, 2,
+                            by_expert[..., None].expand(-1, -1, -1, d))
+    y = unsorted[:, :, 0]
+    for j in range(1, k):
+        y = y + unsorted[:, :, j]
+    return y

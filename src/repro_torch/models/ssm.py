@@ -1,0 +1,126 @@
+"""Mamba selective-SSM block (Jamba's sequence mixer).
+
+Port of `repro/models/ssm.py`, forward only.  The reference chunks its
+prefill scan (`CHUNK` positions a `lax.scan` step) to bound live memory
+under remat; the recurrence inside is the same step in position order,
+so here prefill is a loop over positions of that step, and decode is the
+same step at S = 1.
+
+Types follow the reference: the projections and the causal convolution
+in the activation type (the convolution a sum over its `ssm_conv`
+shifted slices, j ascending); `dt_bias` held in the parameter type and
+added in float32; `a_log`, `d_skip` and the recurrent state float32.
+The state is `{"conv": (B, K-1, d_inner) act, "ssm": (B, d_inner, n)
+float32}`; `mamba_decode` updates it in place.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+from repro_torch.models.layers import Params
+
+
+def init_mamba(gen, cfg: ModelConfig, device) -> Params:
+    d, di, n, r, kc = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                       cfg.ssm_conv)
+    dt = cfg.act_dtype
+    pdt = getattr(torch, cfg.param_dtype)
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=device).expand(
+        di, n)
+    if device.type == "meta":
+        conv_w = torch.empty((kc, di), dtype=dt, device=device)
+    else:
+        conv_w = (torch.randn((kc, di), generator=gen, dtype=torch.float32,
+                              device=device) / math.sqrt(kc)).to(dt)
+    return Params(
+        in_proj=layers.init_dense(gen, d, (2 * di,), dt, device),
+        conv_w=conv_w,
+        conv_b=torch.zeros(di, dtype=dt, device=device),
+        x_proj=layers.init_dense(gen, di, (r + 2 * n,), dt, device),
+        dt_proj=layers.init_dense(gen, r, (di,), dt, device),
+        dt_bias=torch.full((di,), -4.6, dtype=pdt, device=device),
+        a_log=torch.log(a).contiguous(),
+        d_skip=torch.ones(di, dtype=torch.float32, device=device),
+        out_proj=layers.init_dense(gen, di, (d,), dt, device),
+    )
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, device) -> dict:
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                            dtype=cfg.act_dtype, device=device),
+        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def ssm_step(h, x_t, dt_t, b_t, c_t, a):
+    """One recurrence step.  h (B, di, n) float32; x_t (B, di), b_t, c_t
+    (B, n) in the activation type; dt_t (B, di) float32; a (di, n)
+    negative float32.  Returns (h_new, y_t (B, di) float32)."""
+    da = torch.exp(dt_t[..., None] * a[None])
+    drive = (dt_t * x_t.float())[..., None] * b_t.float()[:, None, :]
+    h = h * da + drive
+    return h, (h * c_t.float()[:, None, :]).sum(-1)
+
+
+def _pre_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, conv_tail):
+    """in_proj, the causal depthwise convolution over the carried-in tail
+    (B, K-1, di) and the new positions, silu, and the parameter
+    projections.  Returns (xs, xs unrounded in float32, dts, bs, cs, z,
+    new_tail)."""
+    di, n, r, kc = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    s = x.shape[1]
+    xz = x @ p["in_proj"]
+    xs, z = xz[..., :di], xz[..., di:]
+    ext = torch.cat([conv_tail, xs], dim=1)  # (B, K-1+S, di)
+    new_tail = ext[:, ext.shape[1] - (kc - 1):]
+    conv = sum(p["conv_w"][j] * ext[:, j:j + s] for j in range(kc))
+    conv = conv + p["conv_b"]
+    # silu's last product unrounded: XLA fuses it into the float32 skip
+    # term `d_skip * xs` (its bf16 -> float32 convert pair removed), and
+    # rounds it to the activation type where xs is stored for the rest
+    xs_f32 = conv.float() * layers.sigmoid(conv).float()
+    xs = xs_f32.to(conv.dtype)
+    dbl = xs @ p["x_proj"]
+    dt_r, b, c = dbl[..., :r], dbl[..., r:r + n], dbl[..., r + n:]
+    dts = torch.nn.functional.softplus((dt_r @ p["dt_proj"]).float()
+                                       + p["dt_bias"].float())
+    return xs, xs_f32, dts, b, c, z, new_tail
+
+
+def _out(p: Params, ys: torch.Tensor, xs_f32, z, cfg: ModelConfig):
+    y = (ys + p["d_skip"] * xs_f32).to(cfg.act_dtype)
+    return (y * layers.silu(z)) @ p["out_proj"]
+
+
+def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
+    """Prefill: x (B, S, d) -> (y (B, S, d), the state after S)."""
+    if state is None:
+        state = init_mamba_state(cfg, x.shape[0], x.device)
+    xs, xs_f32, dts, bs, cs, z, tail = _pre_scan(p, x, cfg, state["conv"])
+    a = -torch.exp(p["a_log"])
+    h = state["ssm"]
+    ys = []
+    for t in range(x.shape[1]):
+        h, y = ssm_step(h, xs[:, t], dts[:, t], bs[:, t], cs[:, t], a)
+        ys.append(y)
+    out = _out(p, torch.stack(ys, dim=1), xs_f32, z, cfg)
+    return out, {"conv": tail.contiguous(), "ssm": h}
+
+
+def mamba_decode(p: Params, x: torch.Tensor, state: dict,
+                 cfg: ModelConfig):
+    """x (B, 1, d) -> (y (B, 1, d), state), the state updated in place."""
+    xs, xs_f32, dts, bs, cs, z, tail = _pre_scan(p, x, cfg, state["conv"])
+    a = -torch.exp(p["a_log"])
+    h, y = ssm_step(state["ssm"], xs[:, 0], dts[:, 0], bs[:, 0], cs[:, 0], a)
+    out = _out(p, y[:, None], xs_f32, z, cfg)
+    state["conv"].copy_(tail)
+    state["ssm"].copy_(h)
+    return out, state

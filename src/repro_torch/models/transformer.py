@@ -1,13 +1,14 @@
 """Model assembly: blocks, embedding and frontends, prefill and decode.
 
-Port of `repro/models/transformer.py` for the dense attention blocks
-(`attn`, `attn_chunked`) with the SwiGLU FFN, forward only.  The reference
-runs `lax.scan` over `n_super` stacked superblocks of the config's
-pattern; here the layer stack is a Python loop over a per-layer
-`nn.ModuleList` (layer i is slot i % period of superblock i // period),
-and the caches are one `{"k", "v"}` per layer.  Mamba, mLSTM and sLSTM
-mixers and the MoE FFN are not ported yet (ROADMAP §1 item 3) and raise
-`NotImplementedError`.
+Port of `repro/models/transformer.py`, forward only: the attention
+(`attn`, `attn_chunked`), Mamba, mLSTM and sLSTM mixers, with the SwiGLU
+or MoE FFN.  The reference runs `lax.scan` over `n_super` stacked
+superblocks of the config's pattern; here the layer stack is a Python
+loop over a per-layer `nn.ModuleList` (layer i is slot i % period of
+superblock i // period), and the caches are a list with one entry per
+layer: `{"k", "v"}` for attention, the recurrent state for the others.
+The reference's MoE auxiliary loss, which only training reads, is not
+computed.
 """
 
 from __future__ import annotations
@@ -19,75 +20,107 @@ from torch import nn
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_mod, ssm, xlstm
 from repro_torch.models.layers import Params
 
 FRONTEND_DIM = 1024  # feature dim delivered by the (stubbed) modality encoder
 ATTN_KINDS = ("attn", "attn_chunked")
 
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP §1 item 3: "
-        "the LM stack's MoE, SSM and xLSTM blocks come after the dense "
-        "serving path)"
-    )
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for a config this port cannot run: a
-    mixer other than attention, or an MoE FFN."""
-    for slot, kind in enumerate(cfg.pattern):
-        if kind not in ATTN_KINDS:
-            raise _not_ported(f"{cfg.name}: the {kind!r} mixer")
-        if cfg.moe_for(slot) is not None:
-            raise _not_ported(f"{cfg.name}: the MoE FFN")
-
-
 # ---------------------------------------------------------------------------
-# single block (attention mixer + optional FFN)
+# single block (mixer + optional FFN/MoE)
 # ---------------------------------------------------------------------------
 
 
 def init_block(gen, cfg: ModelConfig, slot: int, device) -> Params:
-    check_supported(cfg)
-    p = {
-        "norm1": torch.ones(cfg.d_model, dtype=torch.float32, device=device),
-        "core": layers.init_attention(gen, cfg, device),
-    }
-    if cfg.d_ff:
-        p["norm2"] = torch.ones(cfg.d_model, dtype=torch.float32,
-                                device=device)
+    kind = cfg.pattern[slot]
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind in ATTN_KINDS:
+        core = layers.init_attention(gen, cfg, device)
+    elif kind == "mamba":
+        core = ssm.init_mamba(gen, cfg, device)
+    elif kind == "mlstm":
+        core = xlstm.init_mlstm(gen, cfg, device)
+    elif kind == "slstm":
+        core = xlstm.init_slstm(gen, cfg, device)
+    else:
+        raise ValueError(kind)
+    p = {"norm1": torch.ones(cfg.d_model, **f32), "core": core}
+    moe_cfg = cfg.moe_for(slot)
+    if moe_cfg is not None:
+        p["norm2"] = torch.ones(cfg.d_model, **f32)
+        p["ffn"] = moe_mod.init_moe(gen, cfg, moe_cfg, device)
+    elif cfg.d_ff:
+        p["norm2"] = torch.ones(cfg.d_model, **f32)
         p["ffn"] = layers.init_mlp(gen, cfg, device)
     return Params(**p)
 
 
+def _mixer_apply(p, x, cfg, kind, positions, q_offset):
+    if kind in ATTN_KINDS:
+        return layers.attention_apply(p, x, cfg, kind=kind,
+                                      positions=positions, q_offset=q_offset)
+    if kind == "mamba":
+        return ssm.mamba_apply(p, x, cfg)
+    if kind == "mlstm":
+        return xlstm.mlstm_apply(p, x, cfg)
+    if kind == "slstm":
+        return xlstm.slstm_apply(p, x, cfg)
+    raise ValueError(kind)
+
+
+def _mixer_decode(p, x, cache, pos, cfg, kind):
+    if kind in ATTN_KINDS:
+        return layers.attention_decode(p, x, cache, pos, cfg, kind=kind)
+    if kind == "mamba":
+        return ssm.mamba_decode(p, x, cache, cfg)
+    if kind == "mlstm":
+        return xlstm.mlstm_decode(p, x, cache, cfg)
+    if kind == "slstm":
+        return xlstm.slstm_decode(p, x, cache, cfg)
+    raise ValueError(kind)
+
+
+def _ffn(p: Params, x, mix, cfg: ModelConfig, slot: int):
+    """x + mix, then the FFN's residual branch on it if the block has one."""
+    if "ffn" not in p:
+        return x + mix
+    x, h = layers.add_rms_norm(x, mix, p["norm2"], cfg.norm_eps)
+    moe_cfg = cfg.moe_for(slot)
+    if moe_cfg is not None:
+        return x + moe_mod.moe_apply(p["ffn"], h, cfg, moe_cfg)
+    return x + layers.mlp_apply(p["ffn"], h, cfg)
+
+
 def block_apply(p: Params, x, cfg: ModelConfig, slot: int, positions,
                 q_offset: int = 0):
-    """(x, cache) after one block over a whole sequence."""
-    kind = cfg.pattern[slot]
+    """(x, cache) after one block over a whole sequence; the cache is the
+    attention's K/V or the recurrent mixer's state after the sequence."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-    mix, cache = layers.attention_apply(p["core"], h, cfg, kind=kind,
-                                        positions=positions,
-                                        q_offset=q_offset)
-    x = x + mix
-    if "ffn" in p:
-        h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + layers.mlp_apply(p["ffn"], h, cfg)
-    return x, cache
+    mix, cache = _mixer_apply(p["core"], h, cfg, cfg.pattern[slot],
+                              positions, q_offset)
+    return _ffn(p, x, mix, cfg, slot), cache
 
 
 def block_decode(p: Params, x, cache, pos: int, cfg: ModelConfig,
                  slot: int):
-    kind = cfg.pattern[slot]
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-    mix, cache = layers.attention_decode(p["core"], h, cache, pos, cfg,
-                                         kind=kind)
-    x = x + mix
-    if "ffn" in p:
-        h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + layers.mlp_apply(p["ffn"], h, cfg)
-    return x, cache
+    mix, cache = _mixer_decode(p["core"], h, cache, pos, cfg,
+                               cfg.pattern[slot])
+    return _ffn(p, x, mix, cfg, slot), cache
+
+
+def init_block_cache(cfg: ModelConfig, slot: int, batch: int, s_max: int,
+                     device):
+    kind = cfg.pattern[slot]
+    if kind in ATTN_KINDS:
+        return layers.init_attn_cache(cfg, batch, s_max, kind, device)
+    if kind == "mamba":
+        return ssm.init_mamba_state(cfg, batch, device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_state(cfg, batch, device)
+    raise ValueError(kind)
 
 
 def _slot(cfg: ModelConfig, layer: int) -> int:
@@ -103,8 +136,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights from a seeded `torch.Generator` on `device`: each
     weight drawn in float32 and cast to `cfg.dtype` one tensor at a time,
     so the peak is the model in its working type plus one float32 tensor.
-    On the `meta` device, the shapes alone."""
-    check_supported(cfg)
+    On the `meta` device, the shapes alone.  Products accumulate in float32
+    from here on (`layers.accumulate_in_float32`)."""
+    layers.accumulate_in_float32()
     dev = torch.device(device)
     if dev.type != "meta":  # shapes only on meta; else the card by default
         dev = device_mod.resolve(device)
@@ -152,7 +186,7 @@ def _logits(p: Params, cfg: ModelConfig, x):
 def forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
             collect_cache: bool = False):
     """Full forward (prefill).  Returns (logits (B, S, V) float32, caches:
-    one {"k", "v"} per layer, or None)."""
+    one per layer, or None)."""
     x = embed_inputs(p, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     caches = []
@@ -176,7 +210,7 @@ def prefill(p: Params, cfg: ModelConfig, batch):
 
 def grow_attn_caches(caches, cfg: ModelConfig, extra: int):
     """Pad full-attention K/V caches by `extra` positions (decode headroom).
-    Chunked slots are fixed-size and pass through."""
+    Chunked and recurrent slots are fixed-size and pass through."""
     out = []
     for i, cache in enumerate(caches):
         if cfg.pattern[_slot(cfg, i)] == "attn":
@@ -200,9 +234,8 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, caches, pos: int):
 
 def init_decode_caches(cfg: ModelConfig, batch: int, s_max: int,
                        device="cuda"):
-    """One zeroed {"k", "v"} per layer, for decode from scratch."""
-    check_supported(cfg)
+    """One zeroed cache per layer (an attention layer's {"k", "v"}, a
+    recurrent mixer's initial state), for decode from scratch."""
     dev = device_mod.resolve(device)
-    return [layers.init_attn_cache(cfg, batch, s_max,
-                                   cfg.pattern[_slot(cfg, i)], dev)
+    return [init_block_cache(cfg, _slot(cfg, i), batch, s_max, dev)
             for i in range(cfg.n_layers)]

@@ -233,3 +233,119 @@ def test_lm_bounds_count_yi_9b():
     ms, by = cs.bound(weight_bytes, cs.lm_prefill_flops(cfg, 8, 128),
                       cs.BF16_FLOPS)
     assert by == "operations" and ms == pytest.approx(17.254, abs=1e-3)
+
+
+# the reduced() configs, counted by hand: (projections every token
+# multiplies, expert multiply-adds of a prefill of 2 x 8 tokens and of a
+# decode step at B = 2, recurrent operations of the same prefill and step)
+REDUCED_COUNTS = {
+    # 2 layers: attention 64 x 16 x (8 + 8) = 16,384; router 64 x 4 and
+    # shared SwiGLU 3 x 64 x 64 = 12,544.  Experts: a row's 8 tokens take
+    # capacity 8, a decode group of 2 capacity 4: 2 rows x 4 experts x 8
+    # slots x 3 x 64 x 64 a layer, and 1 x 4 x 4 x 12,288
+    "qwen2-moe-a2.7b": (57_856, 1_572_864, 393_216, 0.0, 0.0),
+    # 6 mLSTM (3 x 64 x 64 + 2 x 64 x 4 + 2 x 64 x 64 = 20,992) and 2
+    # sLSTM (4 x 64 x 64 + 4 x 4 x 16 x 16 + 64 x 64 = 24,576); the matrix
+    # memory 4 x 4 x 16^2 a token an mLSTM layer, one chunk of 8 (36
+    # causal pairs) at 6 x 4 x 16 a pair
+    "xlstm-350m": (175_104, 0, 0, 393_216.0 + 165_888.0, 49_152.0),
+    # 7 Mamba (64 x 256 + 128 x 20 + 4 x 128 + 128 x 64 = 27,648), one
+    # attention (64 x 16 x 12 = 12,288), 4 dense SwiGLU (3 x 64 x 128) and
+    # 4 routers (64 x 4); 4 MoE layers of 2 x 4 x 8 slots; the scan 6 x
+    # 128 x 8 a token a Mamba layer
+    "jamba-1.5-large-398b": (305_152, 3_145_728, 786_432, 688_128.0,
+                             86_016.0),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(REDUCED_COUNTS))
+def test_lm_bounds_count_moe_and_recurrent_mixers(arch):
+    from repro_torch.configs import get_config
+
+    cs = _chip_smoke()
+    cfg = get_config(arch).reduced()
+    mm, pre_macs, dec_macs, pre_rec, dec_rec = REDUCED_COUNTS[arch]
+    assert cs.lm_matmul_params(cfg) == mm
+    assert cs.lm_expert_macs(cfg, 2, 8) == pre_macs
+    assert cs.lm_expert_macs(cfg, 2, 1) == dec_macs
+    assert cs.lm_recurrent_flops(cfg, 2, 8) == pre_rec
+    assert cs.lm_recurrent_flops(cfg, 2, 1) == dec_rec
+    n_attn = sum(k.startswith("attn") for k in cfg.pattern) * cfg.n_super
+    attn = 4 * 16 * 4 * n_attn * 36 * 2
+    assert cs.lm_prefill_flops(cfg, 2, 8) == (
+        2 * mm * 16 + 2 * pre_macs + attn + pre_rec + 2 * 64 * 256 * 2)
+    assert cs.lm_decode_flops(cfg, 2, 9) == (
+        2 * (mm + 64 * 256) * 2 + 2 * dec_macs + 4 * 16 * 4 * n_attn * 9
+        * 2 + dec_rec)
+    assert cs.token_levels(cfg.vocab) == 2
+
+
+def test_lm_bounds_of_qwen2_moe_at_full_width():
+    """The serve_lm_moe phase's bound: a prefill of 8 x 128 tokens
+    multiplies 60 experts x 12 slots a row at 3 x 2,048 x 1,408 a slot in
+    each of 24 layers, beside the attention, router and shared expert;
+    a decode step reads every expert's weights."""
+    from repro_torch.configs import get_config
+
+    cs = _chip_smoke()
+    cfg = get_config("qwen2-moe-a2.7b")
+    per_layer = 2048 * 128 * 64 + 2048 * 60 + 3 * 2048 * 5632
+    assert cs.lm_matmul_params(cfg) == 24 * per_layer
+    assert cs.lm_expert_macs(cfg, 8, 128) == 24 * 8 * 60 * 12 * 3 * 2048 \
+        * 1408
+    assert cs.lm_expert_macs(cfg, 8, 1) == 24 * 60 * 4 * 3 * 2048 * 1408
+    flops = cs.lm_prefill_flops(cfg, 8, 128)
+    assert 4.9e12 < flops < 5.0e12  # 4.96 TFLOP: 5.0 ms at 989 TFLOP/s
+    assert [cs.token_levels(v) for v in (151_936, 50_304, 64_000, 256)] \
+        == [3, 3, 3, 2]
+
+
+@pytest.mark.parametrize("b,s", [(2, 16), (16, 1), (1, 1)])
+def test_moe_row_drops_counts_each_rows_dropped_assignments(b, s):
+    """The drops the LM phases print per row: a prefill row's own dropped
+    assignments, and in a decode step over several rows (one group) those
+    of each row's token; the inputs lean towards two experts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(),
+                              dtype="float32")
+    router = moe_mod.init_moe(torch.Generator().manual_seed(0), cfg,
+                              cfg.moe, torch.device("cpu"))["router"]
+    x = torch.randn((b, s, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    x = x + 3.0 * (router[:, 0] + router[:, 1]) * cfg.d_model ** 0.5
+    got = cs.moe_row_drops(torch, moe_mod, x, router, cfg.moe)
+    r = moe_mod.route(moe_mod.groups(x), router, cfg.moe)
+    if s == 1 and b > 1:
+        want = torch.bincount(r.stok[~r.keep], minlength=b)
+    else:
+        want = (~r.keep).sum(-1)
+    assert got.tolist() == want.tolist()
+    assert (got.sum() > 0) == (b * s > 1)
+
+
+def test_main_runs_every_lm_phase_and_ends_with_the_device_line():
+    """chip_smoke's main drives the LM phases after `profile` (yi-9b, then
+    qwen2-moe, xlstm, jamba at reduced(), the Mamba block and the MoE
+    block), `timing` last; the last line is the device JSON."""
+    import inspect
+
+    cs = _chip_smoke()
+    src = inspect.getsource(cs.main)
+    order = ["phase_profile", "phase_serve_lm,", "phase_serve_lm_moe",
+             "phase_serve_lm_xlstm", "phase_serve_lm_hybrid",
+             "phase_mamba_block", "phase_moe_block", "phase_timing"]
+    where = [src.index(name) for name in order]
+    assert where == sorted(where)
+    assert (cs.LM_MOE_ARCH, cs.LM_XLSTM_ARCH, cs.LM_HYBRID_ARCH) == (
+        "qwen2-moe-a2.7b", "xlstm-350m", "jamba-1.5-large-398b")
+    tail = src[src.index('emit({"phase": "done"'):]
+    assert tail.index("print(card)") < tail.index('emit({"ok": True')
+    assert '"platform": "gpu"' in tail and "get_device_name(0)" in tail \
+        and "device_count()" in tail
