@@ -241,6 +241,34 @@ each printing one JSON line; any failure raises and exits non-zero:
               assignments; the card's experts, slots and kept assignments
               equal the CPU's, its output within 1e-4 of the scale.
 
+22. train_lm — single-card training at full width: yi-9b (d 4,096, GQA
+              32/4 of 128, SwiGLU 11,008, vocabulary 64,000) cut to 8 of
+              its 48 layers, and qwen2-moe-a2.7b (60 experts top-4 at
+              1,408, shared 5,632, vocabulary 151,936) cut to 2 of 24, each
+              cut printed; a training model from a seed (float32 leaves),
+              AdamW as the reference's trainer runs it by default (lr
+              3e-4, warmup 20), remat "nothing", B = 4 x
+              S = 1,024 tokens from `SyntheticLM`, through
+              `steps.make_train_step`: 10 steps, whose losses are finite
+              and fall (the last below the first, from about ln V), each
+              step's loss, grad norm and lr printed; the step's median ms
+              over 5 steps after 2 warm-up steps (CUDA events) beside its
+              bound (`lm_train_flops` at 989 TFLOP/s plus AdamW's bytes
+              at 3.35 TB/s), tokens/s, the card's busy share and kernels
+              of one step (torch.profiler) and the peak memory.  Then the
+              trainer as a user runs it, in subprocesses under
+              deterministic algorithms: `python -m
+              repro_torch.launch.train --arch yi-9b --reduced` for 4 steps
+              with a checkpoint every 2, then `--steps 6 --resume` (it
+              prints "resumed from step 4"), against an uninterrupted
+              6-step run: every step's loss, grad norm and lr equal bit
+              for bit.
+23. train_block — one yi-9b layer (attention and SwiGLU) at full width in
+              float32, B = 1 x S = 1,024: the loss mean(y^2) and the
+              gradient of every leaf and the input on the card within
+              1e-4 of the CPU's; the flash backward at yi-9b's heads
+              against the naive oracle under autograd on the card.
+
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
 and exits 2.
@@ -350,6 +378,8 @@ def main() -> int:
     lm_rows += timed(phase_serve_lm_hybrid, torch, per_call)
     timed(phase_mamba_block, torch)
     timed(phase_moe_block, torch)
+    timed(phase_train_lm, torch)
+    timed(phase_train_block, torch)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
           sharded_launches, k5_err, k6_err, per_call, k1_ptxas, runtime,
           lanes_err, counts, lm_rows)
@@ -3502,8 +3532,12 @@ def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
                                                logits, key, exp_table=tab,
                                                exp_spec=spec), 5)
     prefill_busy = device_busy_ms(torch, lambda: prefill(model, batch), 2)
+    prefill_kernels = device_kernels_per_call(
+        torch, lambda: prefill(model, batch), 1)
     model_busy = device_busy_ms(torch, lambda: tfm.decode_step(
         model, cfg, tok, caches, pos), LM_REPS)
+    model_kernels = device_kernels_per_call(torch, lambda: tfm.decode_step(
+        model, cfg, tok, caches, pos), 2)
     draw_busy = device_busy_ms(torch, draw, 20)
     draw_host = host_ms(torch, draw, 20)
 
@@ -3529,6 +3563,7 @@ def timing_serve_lm(torch, cfg, model, prompts, caches, times, logits,
           "prefill_expert_macs": lm_expert_macs(cfg, LM_BATCH, LM_PROMPT),
           "prefill_busy_ms": prefill_busy,
           "prefill_busy_share": prefill_busy / prefill_ms,
+          "prefill_kernels": prefill_kernels, "model_kernels": model_kernels,
           "decode_ms_per_token_median": decode_ms,
           "decode_ms_spread": spread([1e3 * s for s in times]),
           "decode_tokens_per_s": LM_BATCH / (decode_ms / 1e3),
@@ -3781,6 +3816,344 @@ def phase_moe_block(torch) -> None:
               f"CPU's by {err} (scale {scale})")
     emit(out)
     del p, p_cpu
+    _free(torch)
+
+
+# ---------------------------------------------------------------------------
+# LM training on one card: yi-9b and qwen2-moe-a2.7b at full width, depth
+# cut; one yi-9b layer and its flash backward against the CPU
+# ---------------------------------------------------------------------------
+
+# layers kept of each config's stack (yi-9b 48, qwen2-moe-a2.7b 24): the
+# float32 leaves, their gradients and two float32 AdamW moments take 16
+# bytes a parameter, 30.4 and 28.3 GB here
+TRAIN_LAYERS = {"yi-9b": 8, "qwen2-moe-a2.7b": 2}
+# B x S tokens a step from SyntheticLM: 1,024 positions cross the flash
+# loops' 512-position chunks and the causal mask
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS, TRAIN_WARM, TRAIN_TIMED = 10, 2, 5
+TRAIN_REMAT = "nothing"
+# AdamW as the reference's trainer runs it by default (`launch/train.py`:
+# --lr 3e-4, --warmup 20, the rest AdamWConfig's defaults)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 20
+# the checkpoint check: `launch.train` on yi-9b reduced, 4 steps with a
+# checkpoint every 2, resumed to 6, against an uninterrupted 6
+TRAIN_CLI_ARCH = "yi-9b"
+# one yi-9b layer (attention + SwiGLU) in float32 (TF32 off), B = 1 x S =
+# 1,024, the loss mean(y^2): loss and every gradient on the card within
+# 1e-4 of the CPU's (float32 sums over 4,096- and 11,008-long products in
+# two devices' orders), per leaf against its largest |g|
+BLOCK_SEQ, BLOCK_RTOL = 1024, 1e-4
+# the flash backward at yi-9b's heads against the naive oracle under
+# autograd on the card, float32: 1e-4 of each gradient's largest |g|
+FLASH_RTOL = 1e-4
+
+
+def lm_train_flops(cfg, batch: int, seq: int) -> float:
+    """bf16 operations of a train step: three times the forward's (the
+    forward's products, and the backward's two per product), the forward
+    taking every position through the layers' projections, the routed
+    experts' slots, the causal attention, the recurrent mixers and the
+    head (the loss reads every position's logits).  Remat's recompute is
+    not counted: the bound is the work the step's outputs need."""
+    fwd = (2.0 * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab)
+           * batch * seq
+           + 2.0 * lm_expert_macs(cfg, batch, seq)
+           + lm_attention_flops(cfg, batch, seq * (seq + 1) // 2)
+           + lm_recurrent_flops(cfg, batch, seq))
+    return 3.0 * fwd
+
+
+def adamw_bytes(leaves: dict, state: dict) -> int:
+    """Bytes AdamW's update must move: every leaf, its gradient (the
+    leaf's type) and both moments read, the leaf and moments written."""
+    nb = lambda t: t.numel() * t.element_size()
+    return sum(3 * nb(p) + 2 * nb(state["m"][n]) + 2 * nb(state["v"][n])
+               for n, p in leaves.items())
+
+
+def phase_train_lm(torch) -> None:
+    """Single-card training at full width (yi-9b, qwen2-moe-a2.7b; depth
+    cut, each cut printed), then the trainer's checkpoint resume."""
+    for arch, n_layers in TRAIN_LAYERS.items():
+        _free(torch)
+        _train_lm(torch, arch, n_layers)
+    _free(torch)
+    _train_cli_resume(torch)
+
+
+def _profile_step(torch, fn) -> tuple[float, int]:
+    """(device ms, kernels) of one call of `fn` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = kernel_events(torch, prof)
+    return (sum(e.device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def _train_lm(torch, arch: str, n_layers: int) -> None:
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    dev = torch.device(DEVICE)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    emit({"phase": "train_lm_cut", "arch": arch,
+          "layers": f"{n_layers} of {full.n_layers}",
+          "widths": "full", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tfm.init_model(cfg, seed=LM_SEED, device=dev, train=True)
+    leaves = tfm.train_leaves(model, cfg)
+    opt_cfg = dataclasses.replace(steps.default_opt_cfg(cfg), lr=TRAIN_LR,
+                                  warmup_steps=TRAIN_WARMUP,
+                                  total_steps=TRAIN_STEPS + 1)
+    state = adamw.init(leaves, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = steps.make_train_step(cfg, None, opt_cfg,
+                                 remat_policy=TRAIN_REMAT)
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=LM_SEED)
+    rows = []
+    for i in range(TRAIN_STEPS):
+        batch = to_device(data.batch(i), dev)
+        ms, (_, state, metrics) = event_ms(
+            torch, lambda: step(model, state, batch))
+        rows.append({"step": i, "ms": ms,
+                     **{k: float(v) for k, v in metrics.items()}})
+    peak = torch.cuda.max_memory_allocated()
+    batch = to_device(data.batch(TRAIN_STEPS), dev)
+    busy_ms, kernels = _profile_step(
+        torch, lambda: step(model, state, batch))
+
+    losses = [r["loss"] for r in rows]
+    timed_ms = [r["ms"] for r in rows[TRAIN_WARM:TRAIN_WARM + TRAIN_TIMED]]
+    step_ms = statistics.median(timed_ms)
+    n_params = sum(p.numel() for p in leaves.values())
+    flops = lm_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    opt_bytes = adamw_bytes(leaves, state)
+    bound_ms = (flops / BF16_FLOPS + opt_bytes / HBM_BYTES_PER_S) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train_lm", "arch": arch, "card": nvidia_smi(),
+          "layers": n_layers, "params": n_params, "init_s": init_s,
+          "remat": TRAIN_REMAT, "opt": dataclasses.asdict(opt_cfg),
+          "steps": rows, "ln_vocab": math.log(cfg.vocab),
+          "step_ms_median": step_ms, "step_ms_spread": spread(timed_ms),
+          "bound_ms": bound_ms, "bound_flops": flops,
+          "bound_flops_ms": flops / BF16_FLOPS * 1e3,
+          "bound_opt_bytes": opt_bytes,
+          "bound_opt_bytes_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
+          "step_over_bound": step_ms / bound_ms,
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
+          "kernels_per_step": kernels, "peak_bytes": peak})
+    timing_train_lm(torch, cfg, model, leaves, state, opt_cfg, batch,
+                    step_ms)
+    check(all(math.isfinite(x) for x in losses),
+          f"train_lm {arch}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"train_lm {arch}: the loss did not fall over {TRAIN_STEPS} "
+          f"steps: {losses}")
+    del model, leaves, state, batch
+
+
+def timing_train_lm(torch, cfg, model, leaves, state, opt_cfg, batch,
+                    step_ms: float) -> None:
+    """A train step by part, medians of LM_REPS calls (CUDA events): the
+    forward alone (no autograd), the loss and its gradients (remat
+    "nothing", and "dots", which keeps the projections' outputs), AdamW's
+    update alone, and the flash attention
+    of one layer at the step's shape, forward alone and forward with its
+    backward, times the attention layers (remat runs each forward
+    twice)."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    med = statistics.median
+    params = list(leaves.values())
+
+    def fwd_bwd(policy):
+        loss = tfm.train_loss(model, cfg, batch, remat_policy=policy)
+        return torch.autograd.grad(loss, params)
+
+    parts = {}
+    with torch.no_grad():  # the forward alone: remat recomputes its layers
+        parts["forward_ms"] = med(event_ms(torch, lambda: tfm.train_loss(
+            model, cfg, batch))[0] for _ in range(LM_REPS))
+    for policy in ("nothing", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        parts[f"loss_and_grads_{policy}_ms"] = med(
+            event_ms(torch, lambda: fwd_bwd(policy))[0]
+            for _ in range(LM_REPS))
+        parts[f"loss_and_grads_{policy}_peak_bytes"] = (
+            torch.cuda.max_memory_allocated())
+    grads = dict(zip(leaves, fwd_bwd(TRAIN_REMAT)))
+    parts["adamw_ms"] = med(event_ms(torch, lambda: adamw.update(
+        leaves, grads, state, opt_cfg, decays=tfm.decays))[0]
+        for _ in range(LM_REPS))
+    del grads
+    n_attn = _layers_of(cfg, ATTN_KINDS)
+    hp, kvp = layers.head_geometry(cfg)[:2]
+    g = torch.Generator(device=DEVICE).manual_seed(LM_SEED + 7)
+    shape = lambda h: (TRAIN_BATCH, TRAIN_SEQ, h, cfg.hd)
+    qkv = [torch.randn(shape(h), generator=g, device=DEVICE,
+                       dtype=cfg.act_dtype).requires_grad_(True)
+           for h in (hp, kvp, kvp)]
+    dout = torch.randn(shape(hp), generator=g, device=DEVICE,
+                       dtype=cfg.act_dtype)
+
+    def flash_fwd_bwd():
+        out = layers.flash_attention(*qkv)
+        return torch.autograd.grad(out, qkv, dout)
+
+    with torch.no_grad():
+        fwd_ms = med(event_ms(torch, lambda: layers.flash_attention(*qkv))[0]
+                     for _ in range(LM_REPS))
+    fb_ms = med(event_ms(torch, flash_fwd_bwd)[0] for _ in range(LM_REPS))
+    parts.update({"flash_fwd_ms_a_layer": fwd_ms,
+                  "flash_fwd_bwd_ms_a_layer": fb_ms,
+                  "attention_layers": n_attn,
+                  "flash_in_step_ms": n_attn * (fwd_ms + fb_ms)})
+    emit({"phase": "timing_train_lm", "arch": cfg.name,
+          "step_ms": step_ms, **parts,
+          "other_ms": step_ms - parts["loss_and_grads_nothing_ms"]
+          - parts["adamw_ms"]})
+
+
+def _train_cli_resume(torch) -> None:
+    """`python -m repro_torch.launch.train` in subprocesses under
+    deterministic algorithms: 4 steps with a checkpoint every 2, resumed
+    to 6, against an uninterrupted 6-step run: every step's loss, grad
+    norm and lr equal bit for bit (exact floats from --metrics-out)."""
+    import json as json_mod
+    import os
+    import shutil
+
+    base = ROOT / "build" / "train_cli"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    common = ["--arch", TRAIN_CLI_ARCH, "--reduced", "--deterministic",
+              "--log-every", "1"]
+    runs = {"first": ["--steps", "4", "--ckpt-every", "2"],
+            "resumed": ["--steps", "6", "--ckpt-every", "2", "--resume"],
+            "whole": ["--steps", "6", "--ckpt-every", "2"]}
+    out = {}
+    for name, extra in runs.items():
+        d = base / ("whole" if name == "whole" else "split")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *common,
+               *extra, "--ckpt-dir", str(d), "--metrics-out",
+               str(d) + ".jsonl"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        out[name] = {"rc": res.returncode, "s": time.perf_counter() - t0,
+                     "tail": res.stdout.splitlines()[-2:]}
+        check(res.returncode == 0, f"train CLI ({name}) exited "
+              f"{res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+        if name == "resumed":
+            check("[train] resumed from step 4" in res.stdout,
+                  f"train CLI: no resume: {res.stdout[-1000:]}")
+    read = lambda p: [json_mod.loads(ln) for ln in open(p)]
+    split, whole = read(str(base / "split") + ".jsonl"), read(
+        str(base / "whole") + ".jsonl")
+    emit({"phase": "train_lm_cli", "cmd": "python -m "
+          "repro_torch.launch.train " + " ".join(common), "runs": out,
+          "split": split, "whole": whole, "bit_equal": split == whole})
+    check(split == whole, "train CLI: the resumed run's metrics differ "
+          "from the uninterrupted run's")
+
+
+def phase_train_block(torch) -> None:
+    """One yi-9b layer at full width in float32 (TF32 off), B = 1 x S =
+    1,024: the loss mean(y^2) and the gradient of every leaf and of the
+    input on the card against the CPU's, within BLOCK_RTOL of each
+    gradient's largest |g|; then the flash backward at yi-9b's head
+    geometry against the naive oracle under autograd, on the card."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+
+    _free(torch)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=1,
+                              dtype="float32")
+    cpu, dev = torch.device("cpu"), torch.device(DEVICE)
+    blk_cpu = tfm.init_block(torch.Generator().manual_seed(LM_SEED), cfg, 0,
+                             cpu).requires_grad_(True)
+    blk = copy.deepcopy(blk_cpu).to(dev)  # Module.to moves in place
+    g = torch.Generator().manual_seed(LM_SEED + 5)
+    x_cpu = torch.randn((1, BLOCK_SEQ, cfg.d_model), generator=g)
+    res = {}
+    for name, p, x in (("cpu", blk_cpu, x_cpu), ("card", blk, x_cpu.to(dev))):
+        x = x.clone().requires_grad_(True)
+        pos = torch.arange(BLOCK_SEQ, dtype=torch.int32, device=x.device)
+        t0 = time.perf_counter()
+        y, _ = tfm.block_apply(p, x, cfg, 0, pos)
+        loss = y.square().mean()
+        params = dict(p.named_parameters())
+        grads = torch.autograd.grad(loss, [x, *params.values()])
+        if name == "card":
+            torch.cuda.synchronize()
+        res[name] = {"loss": float(loss.detach()),
+                     "s": time.perf_counter() - t0,
+                     "grads": dict(zip(["input", *params],
+                                       [t.cpu() for t in grads]))}
+    ratios = {}
+    for n, want in res["cpu"]["grads"].items():
+        got = res["card"]["grads"][n]
+        ratios[n] = float((got - want).abs().max() / want.abs().max())
+    loss_rel = abs(res["card"]["loss"] - res["cpu"]["loss"]) / res["cpu"][
+        "loss"]
+
+    # the flash backward alone at yi's heads: 32 query heads over 4 KV
+    # heads of 128, against attention_reference under autograd
+    shapes = ((1, BLOCK_SEQ, cfg.n_heads, cfg.hd),
+              (1, BLOCK_SEQ, cfg.n_kv_heads, cfg.hd),
+              (1, BLOCK_SEQ, cfg.n_kv_heads, cfg.hd))
+    gd = torch.Generator(device=dev).manual_seed(LM_SEED + 6)
+    q, k, v = (torch.randn(s, generator=gd, device=dev) * 0.3
+               for s in shapes)
+    dout = torch.randn(shapes[0], generator=gd, device=dev)
+    flash = {}
+    for name, fn in (("flash", lambda *a: layers.flash_attention(*a)),
+                     ("naive", lambda *a: layers.attention_reference(*a))):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        flash[name] = torch.autograd.grad(fn(*xs), xs, dout)
+    flash_ratios = [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(flash["flash"], flash["naive"])]
+    emit({"phase": "train_block", "arch": cfg.name, "seq": BLOCK_SEQ,
+          "dtype": "float32", "rtol": BLOCK_RTOL,
+          "params": sum(t.numel() for t in blk.parameters()),
+          "loss_cpu": res["cpu"]["loss"], "loss_card": res["card"]["loss"],
+          "loss_rel": loss_rel, "cpu_s": res["cpu"]["s"],
+          "card_s": res["card"]["s"], "grad_max_rel": max(ratios.values()),
+          "grad_rel": ratios, "flash_vs_naive_rel": {
+              "dq": flash_ratios[0], "dk": flash_ratios[1],
+              "dv": flash_ratios[2]}, "flash_rtol": FLASH_RTOL})
+    check(loss_rel <= BLOCK_RTOL, f"train_block: loss {res['card']['loss']}"
+          f" on the card, {res['cpu']['loss']} on the CPU")
+    bad = {n: r for n, r in ratios.items() if not r <= BLOCK_RTOL}
+    check(not bad, f"train_block: gradients differ from the CPU's: {bad}")
+    check(all(r <= FLASH_RTOL for r in flash_ratios),
+          f"train_block: the flash backward differs from the naive "
+          f"oracle's: {flash_ratios}")
+    del blk, blk_cpu, flash
     _free(torch)
 
 

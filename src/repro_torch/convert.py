@@ -9,7 +9,10 @@ reference package or JAX:
     reads them off the reference object by attribute);
   * `key_from_reference(key_data)` takes `jax.random.key_data(k)`;
   * `lm_params_from_reference(tree, cfg)` builds the port's language model
-    from the reference's `init_model` parameters.
+    from the reference's `init_model` parameters (`train=True`: a training
+    model), and `lm_tree_from_port(named, cfg)` carries the port's leaves
+    (parameters, gradients or moments, by state-dict name) back into the
+    reference's tree layout.
 """
 
 from __future__ import annotations
@@ -97,7 +100,8 @@ def key_from_reference(key_data: np.ndarray) -> prng.Key:
     return prng.Key(k1, k2)
 
 
-def lm_params_from_reference(tree, cfg, device="cuda") -> Params:
+def lm_params_from_reference(tree, cfg, device="cuda",
+                             train: bool = False) -> Params:
     """The port's model (`transformer.init_model`'s tree) holding the
     weights of the reference's `init_model(key, cfg)` tree, given as
     nested dicts of numpy arrays.  The reference stacks its layers over
@@ -109,12 +113,17 @@ def lm_params_from_reference(tree, cfg, device="cuda") -> Params:
     `cfg.dtype`; those it reads in float32 (the norms, Mamba's `a_log`
     and `d_skip`, sLSTM's `r`) stay float32, and Mamba's `dt_bias` keeps
     the parameter type.  Products accumulate in float32 from here on
-    (`layers.accumulate_in_float32`)."""
+    (`layers.accumulate_in_float32`).
+
+    With `train`, a training model (`transformer.init_model(...,
+    train=True)`'s types): every leaf in the reference's own type, the
+    parameter type (Mamba's `a_log` and `d_skip` float32), trainable."""
     layers.accumulate_in_float32()
     dev = device_mod.resolve(device)
-    dt = cfg.act_dtype
+    pdt = getattr(torch, cfg.param_dtype)
+    dt = pdt if train else cfg.act_dtype
     keep = {"a_log": torch.float32, "d_skip": torch.float32,
-            "r": torch.float32, "dt_bias": getattr(torch, cfg.param_dtype)}
+            "r": pdt if train else torch.float32, "dt_bias": pdt}
 
     def t(x, dtype=dt, shape=None):
         x = torch.tensor(np.asarray(x, np.float32), device=dev)
@@ -137,22 +146,65 @@ def lm_params_from_reference(tree, cfg, device="cuda") -> Params:
                          for k, w in f.items()})
 
     period = len(cfg.pattern)
+    norm = pdt if train else torch.float32
     blocks = []
     for i in range(cfg.n_layers):
         b = {k: _leaf(v, i // period)
              for k, v in tree["super"][f"b{i % period}"].items()}
-        blk = {"norm1": t(b["norm1"], torch.float32),
+        blk = {"norm1": t(b["norm1"], norm),
                "core": core(b["core"], cfg.pattern[i % period])}
         if "ffn" in b:
-            blk["norm2"] = t(b["norm2"], torch.float32)
+            blk["norm2"] = t(b["norm2"], norm)
             blk["ffn"] = ffn(b["ffn"])
         blocks.append(Params(**blk))
     p = {"embed": t(tree["embed"]), "blocks": torch.nn.ModuleList(blocks),
-         "final_norm": t(tree["final_norm"], torch.float32)}
+         "final_norm": t(tree["final_norm"], norm)}
     for name in ("head", "frontend_proj"):
         if name in tree:
             p[name] = t(tree[name])
-    return Params(**p)
+    return Params(**p).requires_grad_(train)
+
+
+def _reference_shape(name: str, kind: str | None, cfg) -> tuple | None:
+    """The reference's shape of a port leaf the port holds flattened (None
+    where the two agree): the head-split projections and biases."""
+    d, hd, h = cfg.d_model, cfg.hd, cfg.n_heads
+    if kind in tfm.ATTN_KINDS:
+        return {"wq": (d, -1, hd), "wk": (d, -1, hd), "wv": (d, -1, hd),
+                "wo": (-1, hd, d), "bq": (-1, hd), "bk": (-1, hd),
+                "bv": (-1, hd)}.get(name)
+    if kind == "mlstm":
+        return {"wq": (d, h, hd), "wk": (d, h, hd),
+                "wv": (d, h, hd)}.get(name)
+    if kind == "slstm":
+        return {"w_in": (d, 4, h, hd), "b": (4, h, hd)}.get(name)
+    return None
+
+
+def lm_tree_from_port(named: dict, cfg) -> dict:
+    """The port's leaves by state-dict name (`model.named_parameters()`,
+    or gradients or moments under the same names) as the reference's tree
+    of float32 numpy arrays: a block leaf stacked over the superblocks
+    under `super/b<slot>`, the head-split matrices reshaped back."""
+    out: dict = {}
+    stacks: dict = {}
+    for name, leaf in named.items():
+        arr = leaf.detach().float().cpu().numpy()
+        path = tfm.reference_path(name, cfg)
+        if path[0] != "super":
+            out[name] = arr
+            continue
+        slot, keys, i = int(path[1][1:]), path[2:-1], path[-1]
+        kind = cfg.pattern[slot] if keys[0] == "core" else None
+        shape = _reference_shape(keys[-1], kind, cfg)
+        stacks.setdefault(path[1:-1], {})[i] = (
+            arr if shape is None else arr.reshape(shape))
+    for path, layers_ in stacks.items():
+        node = out.setdefault("super", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([layers_[i] for i in range(cfg.n_super)])
+    return out
 
 
 def _leaf(tree, i: int):

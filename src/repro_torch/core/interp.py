@@ -71,6 +71,13 @@ def build_exp_weight_lut(
     )
 
 
+def build_log_lut(size: int = DEFAULT_SIZE, x0: float = 1.0,
+                  x1: float = 2.0, device="cuda"
+                  ) -> tuple[torch.Tensor, LUTSpec]:
+    """log() over one octave; range-reduced callers handle the exponent."""
+    return build_lut(np.log, x0, x1, size, device)
+
+
 def inv_dx(spec: LUTSpec) -> float:
     """The float32 reciprocal of the grid step, as XLA folds `x / dx`."""
     return float(np.float32(1.0) / np.float32(spec.dx))

@@ -60,6 +60,17 @@ def extend_with_rejection(
     return torch.cat([m, (1 << precision) - s], dim=-1)
 
 
+def ddg_matrix(m_ext: torch.Tensor,
+               precision: int = DEFAULT_PRECISION) -> torch.Tensor:
+    """Binary DDG matrix M[..., i, j] = bit (precision - 1 - j) of m'_i
+    (Eqn. 10 analogue): column j lists the bins that end at tree level j.
+    Only tests and documentation read it; the walk takes its columns on
+    the fly with shifts (`ddg_column`)."""
+    shifts = precision - 1 - torch.arange(precision, dtype=m_ext.dtype,
+                                          device=m_ext.device)
+    return (m_ext[..., :, None] >> shifts) & 1
+
+
 def ddg_column(
     m_ext: torch.Tensor, level: torch.Tensor, precision: int
 ) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """`repro_torch.launch` — the H100 roofline (`roofline`), the static work
 of the port's kernels and runs (`kernel_cost`), the report tables the
-CLIs print (`report`), and LM serving: the step builders (`steps`) and
-the serve CLI (`serve`).  The reference's training, sharding, mesh and
-dry-run launchers are not ported yet (ROADMAP §1 items 3-4)."""
+CLIs print (`report`), and the LM's steps: the step builders (`steps`),
+the serve CLI (`serve`) and the single-card trainer (`train`).  The
+reference's sharding, mesh and dry-run launchers wait for meshes over
+several cards (ROADMAP §1)."""

@@ -1,20 +1,25 @@
 """Transformer substrate: RMSNorm, RoPE, flash attention (plain torch, online
-softmax over KV chunks), GQA attention blocks (prefill and decode), SwiGLU.
+softmax over KV chunks, with its hand-written backward), GQA attention
+blocks (train/prefill and decode), SwiGLU.
 
-Port of `repro/models/layers.py`, forward only (the flash backward waits
-for the training slice).  Attention is not a Pallas kernel in the
-reference: it is a jnp `custom_vjp`, and it stays plain torch here, as do
-the projections.  The port follows the reference's algorithm (the same
-chunked online softmax, float32 scores, running max and sum, the same
-casts), so that the tests can hold it tightly against the reference.
+Port of `repro/models/layers.py`.  Attention is not a Pallas kernel in the
+reference: it is a jnp `custom_vjp`, and it stays plain torch here, a
+`torch.autograd.Function`, as do the projections.  The port follows the
+reference's algorithm (the same chunked online softmax, float32 scores,
+running max and sum, the same casts; the backward recomputing each
+chunk's probabilities from the saved log-sum-exp), so that the tests can
+hold it tightly against the reference.
 
 Weights live in `Params` modules, read as `p["wq"]` and `"bq" in p`, the
 reference's dict idiom.  Layout: the reference keeps `wq` as (d, H, hd)
 and `wo` as (H, hd, d); here they are the 2-D matrices (d, H * hd) and
 (H * hd, d) of the same contraction, so each projection is one matmul.
-The weights a layer casts to the activation type at every use in the
-reference (`.astype(dt)`) are held once in that type; the norm weights,
-which the reference reads in float32, stay float32.
+Every weight is read through `act(w, cfg)`, the reference's cast to the
+activation type at each use (`.astype(dt)`).  A serving model holds those
+weights once in that type, so the cast is the tensor itself; a training
+model holds them in the parameter type (`transformer.init_model(...,
+train=True)`), and the cast's gradient reaches the leaf in that type.
+The norm weights are read in float32, as the reference reads them.
 """
 
 from __future__ import annotations
@@ -30,9 +35,10 @@ NEG_INF = -1e30
 
 
 class Params(nn.Module):
-    """Named frozen weights and sub-trees of one part of a model: tensors
-    become parameters (`requires_grad=False`), modules sub-modules.  Read
-    as `p["wq"]`; `"bq" in p` says whether an optional weight exists."""
+    """Named weights and sub-trees of one part of a model: tensors become
+    parameters, frozen (`requires_grad=False`) until a training build sets
+    them trainable; modules become sub-modules.  Read as `p["wq"]`; `"bq"
+    in p` says whether an optional weight exists."""
 
     def __init__(self, **entries):
         super().__init__()
@@ -75,6 +81,14 @@ def accumulate_in_float32() -> None:
     matmul = torch.backends.cuda.matmul
     matmul.allow_bf16_reduced_precision_reduction = False
     matmul.allow_fp16_reduced_precision_reduction = False
+
+
+def act(w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A weight in the activation type, the reference's `.astype(dt)` at
+    each use: the tensor itself where it is held in that type (a serving
+    model: no copy, no launch), a cast otherwise (a training leaf in the
+    parameter type, whose gradient the cast converts back to it)."""
+    return w.to(cfg.act_dtype)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -134,13 +148,38 @@ def flash_attention(
     q_chunk: int = 512,
     kv_chunk: int = 512,
 ) -> torch.Tensor:
-    """Online-softmax attention, the forward of the reference's
-    `flash_attention`: a loop over KV chunks carrying the float32 running
-    max, sum and output, so the (Sq, Skv) scores never exist whole.  The
-    query heads are grouped over the KV heads (group-major), as the
-    reference's (kvh, g) reshape groups them."""
-    out, _ = _flash_fwd_impl(q, k, v, q_offset, window, q_chunk, kv_chunk)
-    return out
+    """Online-softmax attention with the reference's hand-written
+    backward: a loop over KV chunks carrying the float32 running max, sum
+    and output, so the (Sq, Skv) scores never exist whole.  The query
+    heads are grouped over the KV heads (group-major), as the reference's
+    (kvh, g) reshape groups them.
+
+    It runs as `_FlashAttention`: autograd never records the chunk loop
+    (which would keep O(Skv / kv_chunk) copies of the carries); the
+    residuals are q, k, v, the output and the log-sum-exp, and the
+    backward recomputes each chunk's probabilities from them.  Where no
+    gradient is wanted, no graph is built and the residuals are dropped
+    when the call returns."""
+    return _FlashAttention.apply(q, k, v, q_offset, window, q_chunk,
+                                 kv_chunk)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's `flash_attention` `custom_vjp`: `_flash_fwd` saves
+    (q, k, v, out, lse), `_flash_bwd` differentiates chunk by chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, window, q_chunk, kv_chunk):
+        out, lse = _flash_fwd_impl(q, k, v, q_offset, window, q_chunk,
+                                   kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.geom = (q_offset, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, dout, *ctx.geom)
+        return dq, dk, dv, None, None, None, None
 
 
 def _flash_geom(q, k, q_chunk, kv_chunk):
@@ -193,6 +232,45 @@ def _flash_fwd_impl(q, k, v, q_offset, window, q_chunk, kv_chunk):
     lse = m + torch.log(torch.clamp(l, min=1e-30))  # (b, nq, qc, kvh, g)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, sq, h, d).to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, q_offset, window, q_chunk,
+               kv_chunk):
+    """(dq, dk, dv) in the inputs' types: the reference's `_flash_bwd`.
+    delta = sum(dout * out) per query; per KV chunk the exact
+    probabilities p = exp(s - lse), ds = p * (dp - delta); dq accumulates
+    in float32 across the chunks, dk and dv are each chunk's own.  The
+    reference repeats each KV head over its group and sums the group in
+    the repeat's transpose; here the grouped products sum it inside the
+    einsum (a reordering of float32 sums)."""
+    b, sq, h, d, skv, kvh, g, qc, kc = _flash_geom(q, k, q_chunk, kv_chunk)
+    nq, nk = sq // qc, skv // kc
+    dev = q.device
+    qr = q.reshape(b, nq, qc, kvh, g, d).float()
+    kr = k.reshape(b, nk, kc, kvh, d).float()
+    vr = v.reshape(b, nk, kc, kvh, d).float()
+    dor = dout.reshape(b, nq, qc, kvh, g, d).float()
+    our = out.reshape(b, nq, qc, kvh, g, d).float()
+    q_pos = q_offset + torch.arange(sq, device=dev).reshape(nq, qc)
+    delta = (dor * our).sum(-1)  # (b, nq, qc, kvh, g)
+    dq = torch.zeros((b, nq, qc, kvh, g, d), dtype=torch.float32,
+                     device=dev)
+    dks, dvs = [], []
+    for j in range(nk):
+        k_c, v_c = kr[:, j], vr[:, j]
+        kpos = torch.arange(j * kc, (j + 1) * kc, device=dev)
+        s = torch.einsum("bnqhgd,bkhd->bnqhgk", qr, k_c)
+        mask = _mask_for(q_pos, kpos, window)
+        s = torch.where(mask[None, :, :, None, None, :], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])  # exact probabilities
+        dp = torch.einsum("bnqhgd,bkhd->bnqhgk", dor, v_c)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bnqhgk,bkhd->bnqhgd", ds, k_c)
+        dks.append(torch.einsum("bnqhgk,bnqhgd->bkhd", ds, qr))
+        dvs.append(torch.einsum("bnqhgk,bnqhgd->bkhd", p, dor))
+    dk = torch.stack(dks, dim=1).reshape(b, skv, kvh, d).to(k.dtype)
+    dv = torch.stack(dvs, dim=1).reshape(b, skv, kvh, d).to(v.dtype)
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk, dv
 
 
 def attention_reference(q, k, v, *, q_offset=0, window=0):
@@ -255,9 +333,11 @@ def init_attention(gen, cfg: ModelConfig, device: torch.device) -> Params:
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     hd = cfg.hd
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = (x @ act(p["wq"], cfg), x @ act(p["wk"], cfg),
+               x @ act(p["wv"], cfg))
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = (q + act(p["bq"], cfg), k + act(p["bk"], cfg),
+                   v + act(p["bv"], cfg))
     return (q.view(b, s, -1, hd), k.view(b, s, -1, hd),
             v.view(b, s, -1, hd))
 
@@ -278,10 +358,11 @@ def attention_apply(
     positions: torch.Tensor,  # (S,)
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, dict]:
-    """Prefill path.  Returns (out, cache) — cache holds the roped k and raw
-    v for decode continuation.  K/V are not repeated to the query heads as
-    the reference repeats them for its tensor-parallel mesh: the grouped
-    flash loop reads each KV head once and computes the same products."""
+    """Training / prefill path.  Returns (out, cache) — cache holds the
+    roped k and raw v for decode continuation.  K/V are not repeated to
+    the query heads as the reference repeats them for its tensor-parallel
+    mesh: the grouped flash loop reads each KV head once and computes the
+    same products."""
     q, k, v = _qkv(p, x, cfg)
     if kind == "attn_chunked" or cfg.rope_on_global:
         q = rope(q, positions, cfg.rope_theta)
@@ -293,7 +374,7 @@ def attention_apply(
     if qmask is not None:
         o = o * qmask[None, None, :, None].to(o.dtype)
     b, s = x.shape[:2]
-    return o.reshape(b, s, -1) @ p["wo"], {"k": k, "v": v}
+    return o.reshape(b, s, -1) @ act(p["wo"], cfg), {"k": k, "v": v}
 
 
 def attention_decode(
@@ -343,7 +424,7 @@ def attention_decode(
     o = torch.einsum("bhgk,bkhd->bhgd", pattn, cv)
     if qmask is not None:
         o = o * qmask.reshape(kvh, g, 1).to(o.dtype)[None]
-    return o.reshape(b, 1, h * d) @ p["wo"], cache
+    return o.reshape(b, 1, h * d) @ act(p["wo"], cfg), cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int, kind: str,
@@ -401,5 +482,5 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    gate = silu(x @ p["wg"])
-    return (gate * (x @ p["wu"])) @ p["wd"]
+    gate = silu(x @ act(p["wg"], cfg))
+    return (gate * (x @ act(p["wu"], cfg))) @ act(p["wd"], cfg)

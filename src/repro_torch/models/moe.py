@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch.
 
-Port of `repro/models/moe.py` for one device, forward only:
+Port of `repro/models/moe.py` for one device:
 
   1. router logits -> softmax -> top-k (probs renormalised over the k);
   2. the (tokens x k) assignments are sorted by expert id and packed into
@@ -13,10 +13,11 @@ Port of `repro/models/moe.py` for one device, forward only:
      activation type in ascending expert order;
   5. the shared expert, if any, densely over every token.
 
-Dispatch is per batch row during prefill; a decode step with more than
-one row routes the whole batch as one group (the reference's `s == 1 and
-b > 1` branch).  The reference's sharding constraints (`_MESH_CTX`) and
-its load-balancing loss, which only training reads, have no counterpart.
+Dispatch is per batch row during training and prefill; a decode step with
+more than one row routes the whole batch as one group (the reference's
+`s == 1 and b > 1` branch).  The switch load-balancing loss, which only
+training reads, is computed when the caller asks for it.  The
+reference's sharding constraints (`_MESH_CTX`) have no counterpart.
 """
 
 from __future__ import annotations
@@ -64,12 +65,14 @@ def capacity(tokens: int, moe: MoEConfig) -> int:
 
 
 class Routing(NamedTuple):
-    """A group's routing.  `top_i`, `top_p` (G, S, k): the chosen experts
-    and their renormalised float32 probabilities; then over the G rows'
-    S*k assignments sorted by expert (stable): `order` the sort, `stok`
-    each one's token, `sw` its weight in the activation type, `slot` its
-    row of the (E*C) buffer (E*C when dropped), `keep` whether it holds
-    one; `cap` is C."""
+    """A group's routing.  `probs` (G, S, E): the router's float32
+    softmax; `top_i`, `top_p` (G, S, k): the chosen experts and their
+    renormalised float32 probabilities; then over the G rows' S*k
+    assignments sorted by expert (stable): `order` the sort, `stok` each
+    one's token, `sw` its weight in the activation type, `slot` its row
+    of the (E*C) buffer (E*C when dropped), `keep` whether it holds one;
+    `cap` is C."""
+    probs: torch.Tensor
     top_i: torch.Tensor
     top_p: torch.Tensor
     order: torch.Tensor
@@ -92,7 +95,7 @@ def route(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig) -> Routing:
     reference)."""
     g, s, _ = x.shape
     e, k = moe.n_experts, moe.top_k
-    probs = torch.softmax((x @ router).float(), dim=-1)
+    probs = torch.softmax((x @ router.to(x.dtype)).float(), dim=-1)
     top_p, top_i = top_k(probs, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
@@ -110,7 +113,7 @@ def route(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig) -> Routing:
     pos = torch.arange(n, device=x.device) - first
     keep = pos < cap
     slot = torch.where(keep, se * cap + pos, torch.full_like(se, e * cap))
-    return Routing(top_i, top_p, order, stok, sw, slot, keep, cap)
+    return Routing(probs, top_i, top_p, order, stok, sw, slot, keep, cap)
 
 
 def groups(x: torch.Tensor) -> torch.Tensor:
@@ -122,19 +125,33 @@ def groups(x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              moe: MoEConfig) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d), routed in `groups(x)`."""
+              moe: MoEConfig, *, aux: bool = False):
+    """x (B, S, d) -> (B, S, d), routed in `groups(x)`; with `aux`, the
+    pair (y, the switch load-balancing loss, a float32 scalar)."""
     b, s, _ = x.shape
-    y = _moe_groups(p, groups(x), moe)
+    y, r = _moe_groups(p, groups(x), moe)
     if s == 1 and b > 1:
         y = y.transpose(0, 1)
     if "shared" in p:
         y = y + layers.mlp_apply(p["shared"], x, cfg)
-    return y
+    return (y, aux_loss(r, moe)) if aux else y
+
+
+def aux_loss(r: Routing, moe: MoEConfig) -> torch.Tensor:
+    """The reference's switch loss (moe.py:121-126) in float32 over the
+    group axes (G, S): the share of tokens that chose each expert (among
+    its k) times the expert's mean router probability, summed, times
+    `router_aux_weight * E`."""
+    e = moe.n_experts
+    experts = torch.arange(e, device=r.top_i.device)
+    density = (r.top_i[..., None] == experts).any(2).float().mean((0, 1))
+    return moe.router_aux_weight * e * (density
+                                        * r.probs.mean((0, 1))).sum()
 
 
 def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig):
-    """Routed experts over x (G, S, d) in groups of S tokens."""
+    """Routed experts over x (G, S, d) in groups of S tokens: (y, the
+    routing)."""
     g, s, d = x.shape
     e, k = moe.n_experts, moe.top_k
     r = route(x, p["router"], moe)
@@ -145,9 +162,10 @@ def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig):
     buf = x.new_zeros((g, ec + 1, d))
     buf[rows, r.slot] = x[rows, r.stok]
     h = buf[:, :ec].reshape(g, e, r.cap, d)
-    gate = layers.silu(torch.einsum("becd,edf->becf", h, p["wg"]))
-    up = torch.einsum("becd,edf->becf", h, p["wu"])
-    out_e = torch.einsum("becf,efd->becd", gate * up, p["wd"])
+    dt = x.dtype
+    gate = layers.silu(torch.einsum("becd,edf->becf", h, p["wg"].to(dt)))
+    up = torch.einsum("becd,edf->becf", h, p["wu"].to(dt))
+    out_e = torch.einsum("becf,efd->becd", gate * up, p["wd"].to(dt))
 
     # combine: back to the unsorted (token, j) layout, each token's k
     # results summed left to right in ascending expert order (the order
@@ -165,4 +183,4 @@ def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig):
     y = unsorted[:, :, 0]
     for j in range(1, k):
         y = y + unsorted[:, :, j]
-    return y
+    return y, r

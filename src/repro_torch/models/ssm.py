@@ -1,10 +1,11 @@
 """Mamba selective-SSM block (Jamba's sequence mixer).
 
-Port of `repro/models/ssm.py`, forward only.  The reference chunks its
+Port of `repro/models/ssm.py`.  The reference chunks its training and
 prefill scan (`CHUNK` positions a `lax.scan` step) to bound live memory
 under remat; the recurrence inside is the same step in position order,
-so here prefill is a loop over positions of that step, and decode is the
-same step at S = 1.
+so here training and prefill run a loop over positions of that step
+(autograd differentiates it: each step makes new tensors), and decode is
+the same step at S = 1.
 
 Types follow the reference: the projections and the causal convolution
 in the activation type (the convolution a sum over its `ssm_conv`
@@ -76,31 +77,34 @@ def _pre_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, conv_tail):
     new_tail)."""
     di, n, r, kc = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
     s = x.shape[1]
-    xz = x @ p["in_proj"]
+    xz = x @ layers.act(p["in_proj"], cfg)
     xs, z = xz[..., :di], xz[..., di:]
     ext = torch.cat([conv_tail, xs], dim=1)  # (B, K-1+S, di)
     new_tail = ext[:, ext.shape[1] - (kc - 1):]
-    conv = sum(p["conv_w"][j] * ext[:, j:j + s] for j in range(kc))
-    conv = conv + p["conv_b"]
+    conv_w = layers.act(p["conv_w"], cfg)
+    conv = sum(conv_w[j] * ext[:, j:j + s] for j in range(kc))
+    conv = conv + layers.act(p["conv_b"], cfg)
     # silu's last product unrounded: XLA fuses it into the float32 skip
     # term `d_skip * xs` (its bf16 -> float32 convert pair removed), and
     # rounds it to the activation type where xs is stored for the rest
     xs_f32 = conv.float() * layers.sigmoid(conv).float()
     xs = xs_f32.to(conv.dtype)
-    dbl = xs @ p["x_proj"]
+    dbl = xs @ layers.act(p["x_proj"], cfg)
     dt_r, b, c = dbl[..., :r], dbl[..., r:r + n], dbl[..., r + n:]
-    dts = torch.nn.functional.softplus((dt_r @ p["dt_proj"]).float()
+    dts = torch.nn.functional.softplus((dt_r @ layers.act(p["dt_proj"], cfg))
+                                       .float()
                                        + p["dt_bias"].float())
     return xs, xs_f32, dts, b, c, z, new_tail
 
 
 def _out(p: Params, ys: torch.Tensor, xs_f32, z, cfg: ModelConfig):
     y = (ys + p["d_skip"] * xs_f32).to(cfg.act_dtype)
-    return (y * layers.silu(z)) @ p["out_proj"]
+    return (y * layers.silu(z)) @ layers.act(p["out_proj"], cfg)
 
 
 def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
-    """Prefill: x (B, S, d) -> (y (B, S, d), the state after S)."""
+    """Training / prefill: x (B, S, d) -> (y (B, S, d), the state after
+    S)."""
     if state is None:
         state = init_mamba_state(cfg, x.shape[0], x.device)
     xs, xs_f32, dts, bs, cs, z, tail = _pre_scan(p, x, cfg, state["conv"])

@@ -1,22 +1,28 @@
-"""Model assembly: blocks, embedding and frontends, prefill and decode.
+"""Model assembly: blocks, embedding and frontends, the training loss,
+prefill and decode.
 
-Port of `repro/models/transformer.py`, forward only: the attention
-(`attn`, `attn_chunked`), Mamba, mLSTM and sLSTM mixers, with the SwiGLU
-or MoE FFN.  The reference runs `lax.scan` over `n_super` stacked
-superblocks of the config's pattern; here the layer stack is a Python
-loop over a per-layer `nn.ModuleList` (layer i is slot i % period of
-superblock i // period), and the caches are a list with one entry per
-layer: `{"k", "v"}` for attention, the recurrent state for the others.
-The reference's MoE auxiliary loss, which only training reads, is not
-computed.
+Port of `repro/models/transformer.py`: the attention (`attn`,
+`attn_chunked`), Mamba, mLSTM and sLSTM mixers, with the SwiGLU or MoE
+FFN.  The reference runs `lax.scan` over `n_super` stacked superblocks of
+the config's pattern, rematerialised per superblock; here the layer stack
+is a Python loop over a per-layer `nn.ModuleList` (layer i is slot
+i % period of superblock i // period), checkpointed per superblock in
+training (`torch.utils.checkpoint`), and the caches are a list with one
+entry per layer: `{"k", "v"}` for attention, the recurrent state for the
+others.  Serving (`forward`, `prefill`, `decode_step`) runs without
+autograd; training (`train_forward`, `train_loss`) with it, and adds the
+MoE FFNs' switch loss.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
@@ -80,25 +86,31 @@ def _mixer_decode(p, x, cache, pos, cfg, kind):
     raise ValueError(kind)
 
 
-def _ffn(p: Params, x, mix, cfg: ModelConfig, slot: int):
-    """x + mix, then the FFN's residual branch on it if the block has one."""
+def _ffn(p: Params, x, mix, cfg: ModelConfig, slot: int, aux=None):
+    """x + mix, then the FFN's residual branch on it if the block has one.
+    With `aux` (a list), an MoE FFN appends its switch loss to it."""
     if "ffn" not in p:
         return x + mix
     x, h = layers.add_rms_norm(x, mix, p["norm2"], cfg.norm_eps)
     moe_cfg = cfg.moe_for(slot)
-    if moe_cfg is not None:
+    if moe_cfg is None:
+        return x + layers.mlp_apply(p["ffn"], h, cfg)
+    if aux is None:
         return x + moe_mod.moe_apply(p["ffn"], h, cfg, moe_cfg)
-    return x + layers.mlp_apply(p["ffn"], h, cfg)
+    y, a = moe_mod.moe_apply(p["ffn"], h, cfg, moe_cfg, aux=True)
+    aux.append(a)
+    return x + y
 
 
 def block_apply(p: Params, x, cfg: ModelConfig, slot: int, positions,
-                q_offset: int = 0):
+                q_offset: int = 0, aux=None):
     """(x, cache) after one block over a whole sequence; the cache is the
-    attention's K/V or the recurrent mixer's state after the sequence."""
+    attention's K/V or the recurrent mixer's state after the sequence.
+    With `aux` (a list), an MoE block appends its switch loss to it."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     mix, cache = _mixer_apply(p["core"], h, cfg, cfg.pattern[slot],
                               positions, q_offset)
-    return _ffn(p, x, mix, cfg, slot), cache
+    return _ffn(p, x, mix, cfg, slot, aux), cache
 
 
 def block_decode(p: Params, x, cache, pos: int, cfg: ModelConfig,
@@ -132,12 +144,31 @@ def _slot(cfg: ModelConfig, layer: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
+# leaves a training model holds in float32 whatever the parameter type
+# (the reference's Mamba `a_log` and `d_skip`)
+FLOAT32_LEAVES = ("a_log", "d_skip")
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+               train: bool = False) -> Params:
     """Random weights from a seeded `torch.Generator` on `device`: each
     weight drawn in float32 and cast to `cfg.dtype` one tensor at a time,
     so the peak is the model in its working type plus one float32 tensor.
     On the `meta` device, the shapes alone.  Products accumulate in float32
-    from here on (`layers.accumulate_in_float32`)."""
+    from here on (`layers.accumulate_in_float32`).
+
+    With `train`, a training model: the reference's leaves, every weight
+    in `cfg.param_dtype` (Mamba's `a_log` and `d_skip` in float32, the
+    norms too in the parameter type), each cast to the activation type
+    where a layer reads it, and all of them trainable."""
+    if train:
+        pdt = getattr(torch, cfg.param_dtype)
+        model = init_model(dataclasses.replace(cfg, dtype=cfg.param_dtype),
+                           seed=seed, device=device)
+        for name, leaf in model.named_parameters():
+            leaf.data = leaf.data.to(
+                torch.float32 if name.endswith(FLOAT32_LEAVES) else pdt)
+        return model.requires_grad_(True)
     layers.accumulate_in_float32()
     dev = torch.device(device)
     if dev.type != "meta":  # shapes only on meta; else the card by default
@@ -169,9 +200,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
 
 def embed_inputs(p: Params, cfg: ModelConfig, batch: dict[str, Any]):
     """tokens (B, S_tok) [+ features (B, S_f, FRONTEND_DIM)] -> (B, S, d)."""
-    x = p["embed"][batch["tokens"]]
+    x = layers.act(p["embed"], cfg)[batch["tokens"]]
     if cfg.frontend:
-        feats = batch["features"].to(cfg.act_dtype) @ p["frontend_proj"]
+        feats = (batch["features"].to(cfg.act_dtype)
+                 @ layers.act(p["frontend_proj"], cfg))
         x = torch.cat([feats, x], dim=1)
     return x
 
@@ -179,7 +211,7 @@ def embed_inputs(p: Params, cfg: ModelConfig, batch: dict[str, Any]):
 def _logits(p: Params, cfg: ModelConfig, x):
     x = layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
     head = p["embed"].T if cfg.tie_embeddings else p["head"]
-    return (x @ head).float()
+    return (x @ layers.act(head, cfg)).float()
 
 
 @torch.no_grad()
@@ -194,6 +226,103 @@ def forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
         x, cache = block_apply(blk, x, cfg, _slot(cfg, i), positions)
         caches.append(cache)
     return _logits(p, cfg, x), caches if collect_cache else None
+
+
+def _dots_saved(ctx, op, *args, **kwargs):
+    """The "dots" remat policy: keep the outputs of products without a
+    batch axis (the projections), recompute the rest, as JAX's
+    `dots_with_no_batch_dims_saveable` does."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(policy: str):
+    """`torch.utils.checkpoint` arguments of a remat policy."""
+    if policy == "nothing":
+        return {}
+    if policy == "dots":
+        return {"context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_saved)}
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def train_forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
+                  remat_policy: str = "nothing"):
+    """The training forward, under autograd: (logits (B, S, V) float32,
+    the MoE FFNs' switch losses summed in layer order, a float32 scalar).
+    Each superblock of `len(cfg.pattern)` layers is checkpointed: its
+    input is kept and its insides recomputed in the backward
+    (`remat_policy` "nothing"), or its products without a batch axis kept
+    too ("dots"), the reference's `jax.checkpoint` policies."""
+    x = embed_inputs(p, cfg, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    period = len(cfg.pattern)
+    blocks = p["blocks"]
+
+    def superblock(x, aux, first):
+        moe = []
+        for j in range(period):
+            x, _ = block_apply(blocks[first + j], x, cfg, j, positions,
+                               aux=moe)
+        for a in moe:
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kw = _remat(remat_policy)
+    for first in range(0, cfg.n_layers, period):
+        x, aux = ckpt.checkpoint(superblock, x, aux, first,
+                                 use_reentrant=False, **kw)
+    return _logits(p, cfg, x), aux
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """Mean token cross-entropy in float32.  logits (B, S, V), labels
+    (B, S)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def train_loss(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
+               remat_policy: str = "nothing") -> torch.Tensor:
+    """batch: tokens (B, S), labels (B, S_total); for frontend archs the
+    labels cover the frontend positions too (stub targets).  The mean
+    cross-entropy plus the switch losses."""
+    logits, aux = train_forward(p, cfg, batch, remat_policy=remat_policy)
+    return softmax_xent(logits, batch["labels"]) + aux
+
+
+def reference_path(name: str, cfg: ModelConfig) -> tuple:
+    """A leaf's place in the reference's parameter tree: the keys from
+    the root, then for a block's leaf its superblock (the index into the
+    stacked leaf).  `blocks.5.core.wq` at period 2 is
+    ("super", "b1", "core", "wq", 2)."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return tuple(parts)
+    i = int(parts[1])
+    period = len(cfg.pattern)
+    return ("super", f"b{i % period}", *parts[2:], i // period)
+
+
+def train_leaves(p: Params, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The model's leaves by state-dict name, in the reference's leaf
+    order (`jax.tree.leaves`: dict keys sorted at every level, a stacked
+    leaf's superblocks in order): the order of its `global_norm` sum."""
+    named = dict(p.named_parameters())
+    return {n: named[n] for n in sorted(
+        named, key=lambda n: reference_path(n, cfg))}
+
+
+def decays(name: str, leaf: torch.Tensor) -> bool:
+    """Whether AdamW decays a leaf: the reference decays leaves of two or
+    more axes, and it holds every block leaf stacked over the superblocks,
+    so every block leaf (norms and biases too) and, outside the blocks,
+    the matrices."""
+    return name.startswith("blocks.") or leaf.ndim >= 2
 
 
 def prefill(p: Params, cfg: ModelConfig, batch):

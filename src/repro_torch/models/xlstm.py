@@ -1,18 +1,21 @@
 """xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel prefill) and
 sLSTM (scalar memory, sequential) [arXiv:2405.04517].
 
-Port of `repro/models/xlstm.py`, forward only.  mLSTM prefill runs the
+Port of `repro/models/xlstm.py`.  mLSTM training and prefill run the
 chunkwise form (intra-chunk quadratic attention with log-gate decays,
 inter-chunk (C, n, m) state, stabilised in log space) with the
 reference's chunk length: `MLSTM_CHUNK`, halved until it divides S.  The
 chunkwise form and the exact step round differently, so each path takes
-the form the reference takes: chunks for prefill, the step for decode.
-sLSTM runs its step over the positions, its recurrent `r` in float32.
+the form the reference takes: chunks for training and prefill, the step
+for decode.  sLSTM runs its step over the positions, its recurrent `r`
+read in float32.  Training and prefill make new tensors at every chunk
+and position, so autograd differentiates them.
 
 Layout: the reference's (d, H, hd) `wq`/`wk`/`wv` and (d, 4, H, hd)
 `w_in` are held as the matrices (d, H * hd) and (d, 4 * H * hd) of the
-same contractions; the weights cast to the activation type at every use
-are held in it.  The decode functions update their state in place.
+same contractions; weights are read through `layers.act`, the
+reference's cast to the activation type at each use.  The decode
+functions update their state in place.
 """
 
 from __future__ import annotations
@@ -65,13 +68,14 @@ def _mlstm_qkv_gates(p: Params, x: torch.Tensor, cfg: ModelConfig):
     gates (B, H, S), all float32."""
     b, s, _ = x.shape
     heads = lambda t: t.view(b, s, cfg.n_heads, -1).float().transpose(1, 2)
-    q = x @ p["wq"]
-    k = (x @ p["wk"]) / math.sqrt(cfg.hd)
-    v = x @ p["wv"]
+    w = lambda name: layers.act(p[name], cfg)
+    q = x @ w("wq")
+    k = (x @ w("wk")) / math.sqrt(cfg.hd)
+    v = x @ w("wv")
     # the bias adds unrounded: XLA drops their round trip through the
     # activation type before the float32 gate math
-    li = (x @ p["wi"]).float() + p["bi"].float()
-    lf = _logsig((x @ p["wf"]).float() + p["bf"].float())
+    li = (x @ w("wi")).float() + w("bi").float()
+    lf = _logsig((x @ w("wf")).float() + w("bf").float())
     return heads(q), heads(k), heads(v), li.transpose(1, 2), lf.transpose(
         1, 2)
 
@@ -144,7 +148,8 @@ def chunk_len(s: int) -> int:
 
 
 def mlstm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
-    """Prefill: x (B, S, d) -> (y (B, S, d), the state after S)."""
+    """Training / prefill: x (B, S, d) -> (y (B, S, d), the state after
+    S)."""
     b, s, d = x.shape
     if state is None:
         state = init_mlstm_state(cfg, b, x.device)
@@ -162,8 +167,8 @@ def mlstm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
 
 def _mlstm_out(p: Params, x, h, cfg: ModelConfig):
     h = headwise_rms(h, cfg).to(cfg.act_dtype)
-    o = layers.sigmoid(x @ p["wo_gate"])
-    return (h * o) @ p["out"]
+    o = layers.sigmoid(x @ layers.act(p["wo_gate"], cfg))
+    return (h * o) @ layers.act(p["out"], cfg)
 
 
 def headwise_rms(h: torch.Tensor, cfg: ModelConfig, eps: float = 1e-6):
@@ -221,10 +226,10 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device) -> dict:
 
 
 def slstm_step(pre_x_t: torch.Tensor, r: torch.Tensor, state: dict):
-    """pre_x_t (B, 4, H, hd) = W x_t + b, float32; r (H, hd, 4, hd)
-    float32.  Returns (h_t (B, H, hd), the new state)."""
+    """pre_x_t (B, 4, H, hd) = W x_t + b, float32; r (H, hd, 4, hd), read
+    in float32.  Returns (h_t (B, H, hd), the new state)."""
     c, n, h_prev, m = state["c"], state["n"], state["h"], state["m"]
-    pre = pre_x_t + torch.einsum("bhk,hkgj->bghj", h_prev, r)
+    pre = pre_x_t + torch.einsum("bhk,hkgj->bghj", h_prev, r.float())
     li, fraw, zraw, oraw = pre[:, 0], pre[:, 1], pre[:, 2], pre[:, 3]
     lf = _logsig(fraw)
     m_new = torch.maximum(lf + m, li)
@@ -238,16 +243,18 @@ def slstm_step(pre_x_t: torch.Tensor, r: torch.Tensor, state: dict):
 
 def _slstm_pre(p: Params, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
-    pre = (x @ p["w_in"]).float() + p["b"].float()  # unrounded, as XLA
+    pre = ((x @ layers.act(p["w_in"], cfg)).float()
+           + layers.act(p["b"], cfg).float())  # unrounded, as XLA
     return pre.view(b, s, 4, cfg.n_heads, cfg.hd)
 
 
 def _slstm_out(p: Params, h: torch.Tensor, cfg: ModelConfig):
-    return headwise_rms(h, cfg).to(cfg.act_dtype) @ p["out"]
+    return headwise_rms(h, cfg).to(cfg.act_dtype) @ layers.act(p["out"], cfg)
 
 
 def slstm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
-    """Prefill: x (B, S, d) -> (y (B, S, d), the state after S)."""
+    """Training / prefill: x (B, S, d) -> (y (B, S, d), the state after
+    S)."""
     b, s, d = x.shape
     if state is None:
         state = init_slstm_state(cfg, b, x.device)

@@ -332,15 +332,17 @@ def test_moe_row_drops_counts_each_rows_dropped_assignments(b, s):
 
 def test_main_runs_every_lm_phase_and_ends_with_the_device_line():
     """chip_smoke's main drives the LM phases after `profile` (yi-9b, then
-    qwen2-moe, xlstm, jamba at reduced(), the Mamba block and the MoE
-    block), `timing` last; the last line is the device JSON."""
+    qwen2-moe, xlstm, jamba at reduced(), the Mamba block, the MoE block,
+    then training: train_lm and train_block), `timing` last; the last
+    line is the device JSON."""
     import inspect
 
     cs = _chip_smoke()
     src = inspect.getsource(cs.main)
     order = ["phase_profile", "phase_serve_lm,", "phase_serve_lm_moe",
              "phase_serve_lm_xlstm", "phase_serve_lm_hybrid",
-             "phase_mamba_block", "phase_moe_block", "phase_timing"]
+             "phase_mamba_block", "phase_moe_block", "phase_train_lm",
+             "phase_train_block", "phase_timing"]
     where = [src.index(name) for name in order]
     assert where == sorted(where)
     assert (cs.LM_MOE_ARCH, cs.LM_XLSTM_ARCH, cs.LM_HYBRID_ARCH) == (
@@ -349,3 +351,34 @@ def test_main_runs_every_lm_phase_and_ends_with_the_device_line():
     assert tail.index("print(card)") < tail.index('emit({"ok": True')
     assert '"platform": "gpu"' in tail and "get_device_name(0)" in tail \
         and "device_count()" in tail
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "qwen2-moe-a2.7b"])
+def test_lm_train_flops_is_three_forwards_over_every_position(arch):
+    """train_lm's bound counts three times a forward whose head runs at
+    every position: the prefill's count (head at the last position only)
+    plus the head over the other positions, times three; and AdamW's
+    bytes are three reads and two writes of float32 leaves' size (leaf,
+    grad, m, v read; leaf, m, v written: 28 bytes a parameter)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config(arch), n_layers=cs.TRAIN_LAYERS[
+        arch])
+    b, s = cs.TRAIN_BATCH, cs.TRAIN_SEQ
+    head_rest = 2.0 * cfg.d_model * cfg.vocab * b * (s - 1)
+    assert cs.lm_train_flops(cfg, b, s) == pytest.approx(
+        3.0 * (cs.lm_prefill_flops(cfg, b, s) + head_rest), rel=1e-12)
+    small = dataclasses.replace(cfg.reduced(), n_layers=len(cfg.pattern))
+    model = tfm.init_model(small, device="cpu", train=True)
+    leaves = tfm.train_leaves(model, small)
+    state = adamw.init(leaves, adamw.AdamWConfig())
+    n = sum(p.numel() for p in leaves.values())
+    assert all(p.dtype == torch.float32 for p in leaves.values())
+    assert cs.adamw_bytes(leaves, state) == 28 * n

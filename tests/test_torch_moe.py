@@ -37,6 +37,16 @@ ARCHS = ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e"]
 SHAPES = {"prefill": (2, 16), "decode_group": (16, 1), "decode_row": (1, 1)}
 
 
+@pytest.fixture(autouse=True)
+def _no_reference_moe_mesh(monkeypatch):
+    """The reference's MoE reads its sharding axes from a module global
+    that its mesh step factories set and never clear; a test in the same
+    process that built a meshed step would leave them set, and the
+    unmeshed reference calls here would then ask for a mesh."""
+    monkeypatch.setattr(r_moe, "_MESH_CTX",
+                        {"dp": None, "tp": None, "tp_size": 1})
+
+
 def _cfgs(arch, dtype):
     return (dataclasses.replace(r_configs.get_config(arch).reduced(),
                                 dtype=dtype),

@@ -187,8 +187,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                             "triton"))
-        # the serving runtime, the tracer, the profiler, the CLIs and the
-        # LM serving path (configs, models, steps, serve) are walked too
+        # the serving runtime, the tracer, the profiler, the CLIs, the
+        # LM serving path (configs, models, steps, serve) and the LM
+        # training path (train, optim, data, checkpoint) are walked too
         want = {"repro_torch.runtime." + m for m in (
             "admission", "batcher", "calibrate", "engine", "executor",
             "metrics", "trace", "__main__")} | {
@@ -202,7 +203,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.diag.__main__"} | {
             "repro_torch.models." + m for m in (
                 "layers", "transformer", "sampling")} | {
-            "repro_torch.launch." + m for m in ("steps", "serve")} | {
+            "repro_torch.launch." + m for m in ("steps", "serve",
+                                                "train")} | {
+            "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.checkpoint"} | {
             "repro_torch.configs." + m for m in (
                 "base", "yi_9b", "codeqwen1_5_7b", "musicgen_medium",
                 "internvl2_76b", "mistral_large_123b", "qwen2_72b",

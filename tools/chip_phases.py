@@ -1,0 +1,48 @@
+#!/usr/bin/env python3
+"""Run chosen phases of `chip_smoke.py` alone on the card, in the order
+given, each printing its JSON lines; exits 1 if one fails.  A quick
+check on the card of a change to those phases, from the repository root:
+
+    python3 tools/chip_phases.py phase_train_block phase_train_lm
+
+The phases that take arguments from earlier phases (`timing`, the serve
+phases' `per_call`) cannot run alone.
+"""
+
+import importlib.util
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None) -> int:
+    names = sys.argv[1:] if argv is None else argv
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_phases: no CUDA device", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(cs.nvidia_smi(), flush=True)
+    rc = 0
+    for name in names:
+        t0 = time.perf_counter()
+        try:
+            getattr(cs, name)(torch)
+        except SystemExit as e:  # chip_smoke's `fail`
+            print(f"chip_phases: {name}: {e}", flush=True)
+            rc = 1
+        cs.emit({"phase_seconds": name, "s": time.perf_counter() - t0})
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
