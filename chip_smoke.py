@@ -312,10 +312,12 @@ MRF_MODELS = {
 MRF_CHECK_ITERS = 20
 MRF_PINS = 64
 THREEFRY_COUNTERS = 1 << 24
-# the device kernels' names, for the profiler: K3 and K5 are one kernel,
-# and so are K4 and K6
-BN_KERNEL = "bn_rounds_kernel"
-MRF_KERNEL = "mrf_half_step_kernel"
+# the device kernels' names, for the profiler: K3 and its lane entry are
+# one kernel, and so are K4 and its lane entry
+K3_KERNEL = "bn_lanes_kernel"
+K5_KERNEL = "bn_rounds_kernel"
+K4_KERNEL = "mrf_lanes_kernel"
+K6_KERNEL = "mrf_half_step_kernel"
 # K1's instances (ky_lanes_kernel, ky_planes_kernel) share this prefix
 K1_KERNEL = "ky_"
 K1_WIDTHS = (1, 2, 3, 4, 11, 15, 16, 31, 32, 33, 63, 64, 65, 127, 128)
@@ -432,10 +434,9 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, kernel: str):
-    """Mean device time per call of the kernels whose name contains
-    `kernel`, from torch.profiler's CUPTI trace (launch gaps excluded); None
-    when the profiler recorded no such kernel."""
+def profiled_kernels(torch, fn, reps: int) -> list:
+    """The device-side kernel rows (`kernel_events`) of `reps` calls of
+    `fn` under torch.profiler, after one call outside it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -445,40 +446,39 @@ def device_ms(torch, fn, reps: int, kernel: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in kernel_events(torch, prof)
-             if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    return kernel_events(torch, prof)
+
+
+def device_ms(torch, fn, reps: int, kernel: str, launches: int = 1):
+    """Device ms per call of the kernels whose name contains `kernel`, from
+    torch.profiler's CUPTI trace (launch gaps excluded): the mean time of
+    the launches the trace recorded, times `launches` a call.  Late in a
+    long process the profiler can start tracing the card some
+    milliseconds into its window and miss the launches before, so the
+    mean is taken over the recorded launches, not over `reps` calls.
+    With `kernel` "" every kernel of a call is summed, over `reps` calls.
+    None when the profiler recorded no such kernel."""
+    rows = [e for e in profiled_kernels(torch, fn, reps) if kernel in e.key]
+    us = sum(e.device_time_total for e in rows)
+    if us <= 0:
+        return None
+    if not kernel:
+        return us / reps / 1e3
+    return us / sum(e.count for e in rows) * launches / 1e3
 
 
 def device_busy_ms(torch, fn, reps: int) -> float:
     """Device time per call of every kernel `fn` launches (torch.profiler),
-    for the card's busy share against the wall time per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for the card's busy share against the wall time per call; windows of
+    long loops, where a late start of the trace is lost in the sum."""
     return sum(e.device_time_total
-               for e in kernel_events(torch, prof)) / 1e3 / reps
+               for e in profiled_kernels(torch, fn, reps)) / 1e3 / reps
 
 
 def device_kernels_per_call(torch, fn, reps: int) -> float:
     """Device kernels `fn` launches per call (torch.profiler's count of
     kernel rows), the work a host issues one launch at a time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in kernel_events(torch, prof)) / reps
+    return sum(e.count for e in profiled_kernels(torch, fn, reps)) / reps
 
 
 def kernel_events(torch, prof):
@@ -650,6 +650,45 @@ def ptxas_entries(log: str, prefix: str) -> list[dict]:
     return entries
 
 
+def instance_name(mangled: str) -> str | None:
+    """`bn_lanes_kernel<3, 1, 32>` from the mangled name of an instance of
+    an integer- or bool-templated `..._kernel` (K3-K6), else None."""
+    m = re.search(r"\d([a-z_]+_kernel)I((?:L[ib]-?\d+E)+)E", mangled)
+    if not m:
+        return None
+    args = re.findall(r"L[ib](-?\d+)E", m.group(2))
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def template_instances(log: str) -> list[dict]:
+    """Registers, stack frame and spill bytes of every instance of an
+    integer-templated `..._kernel<...>` in an `nvcc -Xptxas -v` log (K3-K6:
+    `bn_lanes_kernel<CAP, EXACT, CPW>`, `bn_rounds_kernel<VCAP>`,
+    `mrf_lanes_kernel<CAP, EXACT>`, `mrf_half_step_kernel<VCAP>`), named
+    by `instance_name`."""
+    entries, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, cur = instance_name(m.group(1)), None
+            if name:
+                cur = {"function": name}
+                entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return entries
+
+
 class WalkBits:
     """Records `bits_used` of every KY walk the twins run (through
     `ky.ky_sample_fast`) while active: `threefry_calls` is the sum over
@@ -705,6 +744,16 @@ def phase_build(torch) -> str:
     k1_log = _lib.BUILD_DIR / "ky_sampler.log"
     k1 = ptxas_entries(k1_log.read_text(), K1_KERNEL) if k1_log.exists() \
         else []
+    # K3-K6's instances, one line of their own
+    k3_k6 = []
+    for name in ("bn_gibbs", "mrf_gibbs"):
+        log = _lib.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            k3_k6 += template_instances(log.read_text())
+    emit({"phase": "build_k3_k6_instances", "instances": k3_k6})
+    check(len(k3_k6) == 48, f"K3-K6's build logs name {len(k3_k6)} "
+          "instances, not 48 (K3: 7 widths x 4 chains a block, K5: 5, K4: "
+          "10, K6: 5)")
     card = nvidia_smi()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": seconds, "ptxas": ptxas, "k1_instances": k1,
@@ -959,7 +1008,7 @@ def phase_k4(torch) -> dict:
         out = {"phase": "k4", "model": name, "chains": CHAINS,
                "grid": [mrf.height, mrf.width], "labels": mrf.n_labels,
                "data_cost": mrf.data_cost,
-               "tile_rows": mrf_gibbs.tile_rows(mrf.width, spec.size),
+               "launch": mrf_gibbs.lanes_launch(mrf, 1, CHAINS, spec.size),
                "mismatches": {}, "changed_share": {}}
         err = 0
         for parity in (0, 1):
@@ -1656,7 +1705,7 @@ def sharded_profile(torch, prog, seed, mesh, run_kw):
     kw = {**run_kw, "n_iters": PROFILE_SWEEPS, "burn_in": 0}
     wall, total, rows = run_profile(
         torch, lambda: prog.run_sharded(prng.key(seed), mesh, **kw))
-    k5 = sum(ms for name, ms in rows if BN_KERNEL in name)
+    k5 = sum(ms for name, ms in rows if K5_KERNEL in name)
     n = PROFILE_SWEEPS
     emit({"phase": "serve_sharded_profile", "per_sweep": True,
           "mesh": list(MESH), "sweeps": n, "wall_ms": wall / n,
@@ -1675,7 +1724,7 @@ def sweep_profile(torch, prog, ev, seed, run_kw):
     kw = {**run_kw, "n_iters": PROFILE_SWEEPS, "burn_in": 0}
     wall, total, rows = run_profile(
         torch, lambda: prog.run(prng.key(seed), evidence=ev, **kw))
-    k3 = sum(ms for name, ms in rows if BN_KERNEL in name)
+    k3 = sum(ms for name, ms in rows if K3_KERNEL in name)
     n = PROFILE_SWEEPS
     emit({"phase": "serve_profile", "per_sweep": True, "sweeps": n,
           "wall_ms": wall / n, "device_ms": total / n,
@@ -1802,7 +1851,7 @@ def phase_timing(torch, launches: dict, k3_err: dict, mrf_launches: dict,
     cbn, fr, vals, p, key = c["inputs"]
     k3 = lambda: bn_gibbs.bn_sweep(cbn, fr, vals, key, "lut_ky", p)
     ms_events = time_ms(torch, k3, 50)
-    ms = device_ms(torch, k3, 50, BN_KERNEL)
+    ms = device_ms(torch, k3, 50, K3_KERNEL)
     plain = time_ms(torch, lambda: _k3_twin(cbn, fr, vals, key, "lut_ky", p),
                     2)
     b = vals.shape[0]
@@ -2040,7 +2089,7 @@ def timing_mrf(torch, launches: dict, k4_err: dict, per_call: dict,
         int_ms = hash_ms(cost.hash_calls, per_call)
         bms, by = bound(cost.hbm_bytes, ops, FP32_FLOPS, int_ms)
         shapes[name] = {
-            "ms": device_ms(torch, k4, 50, MRF_KERNEL),
+            "ms": device_ms(torch, k4, 50, K4_KERNEL),
             "ms_per_call_events": time_ms(torch, k4, 50),
             "plain_ms": time_ms(torch, twin, 2), "bound_ms": bms,
             "bound_by": by, "bytes": cost.hbm_bytes, "ops": ops,
@@ -2122,7 +2171,7 @@ def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict,
             _k5_twin_round(torch, cbn, sfr, r, vals, key, "lut_ky", p)
 
     ms_events = time_ms(torch, k5_sweep, 20) / n
-    ms = device_ms(torch, k5_sweep, 20, BN_KERNEL)
+    ms = device_ms(torch, k5_sweep, 20, K5_KERNEL, launches=n)
     plain = time_ms(torch, twin_sweep, 2) / n
     # per launch, averaged over the sweep's rounds: the values read once,
     # each node position's plane written once, the position tables of one
@@ -2173,7 +2222,7 @@ def timing_sharded(torch, launches: dict, k5_err: dict, k6_err: dict,
             for g in range(n_g)]
 
     ms_events = time_ms(torch, k6, 50)
-    ms = device_ms(torch, k6, 50, MRF_KERNEL)
+    ms = device_ms(torch, k6, 50, K6_KERNEL)
     plain = time_ms(torch, twin, 2)
     # bytes and threefry calls from kernel_cost (the labels read and
     # written once, the halo rows, evidence and LUT); operations counted
@@ -2261,7 +2310,7 @@ def sharded_parts(torch, cbn, sfr, vals, mrf, ev, labels) -> None:
     bn["host_key_split_ms"] = host_ms(torch, lambda: prng.split(key), 200)
     bn["host_hist_ms"] = host_ms(torch, lambda: hist + (
         vals[..., None] == v_range).sum(0, dtype=torch.int32), 200)
-    bn["device_k5_ms"] = device_ms(torch, k5, 200, BN_KERNEL)
+    bn["device_k5_ms"] = device_ms(torch, k5, 200, K5_KERNEL)
     bn["device_psum_merge_ms"] = device_busy_ms(torch, merge, 200)
     emit({"phase": "timing_sharded_bn_sweep", "model": "pigs",
           "mesh": list(MESH), "chains": CHAINS, **bn})
@@ -2299,7 +2348,7 @@ def sharded_parts(torch, cbn, sfr, vals, mrf, ev, labels) -> None:
     m["host_halo_exchange_ms"] = host_ms(torch, exchange, 200)
     m["host_k6_wrapper_ms"] = host_ms(torch, k6, 200)
     m["device_halo_exchange_ms"] = device_busy_ms(torch, exchange, 200)
-    m["device_k6_ms"] = device_ms(torch, k6, 200, MRF_KERNEL)
+    m["device_k6_ms"] = device_ms(torch, k6, 200, K6_KERNEL)
     emit({"phase": "timing_sharded_mrf_half_step", "model": "penguin",
           "mesh": list(MESH), "chains": CHAINS, **m})
 
@@ -2309,6 +2358,10 @@ def sharded_parts(torch, cbn, sfr, vals, mrf, ev, labels) -> None:
 # ---------------------------------------------------------------------------
 
 LANES_Q = 3  # queries of the lane-entry checks
+# chains a query in the K3 lane check on pigs: no multiple of the lane
+# kernel's chains a block (32, 16, 8 or 4), so each query ends in a
+# partial block
+LANES_PARTIAL = 1000
 WALL_REPS = 5  # timed runs of each runtime bucket and standalone query
 RUNTIME_SLICE = 100  # the runtime phase's slice_iters
 RUNTIME_SEED = 17
@@ -2316,14 +2369,15 @@ RUNTIME_SEED = 17
 
 def phase_lanes(torch) -> dict:
     """K3's lane entry (`bn_sweep_lanes`) on pigs and K4's
-    (`mrf_half_step_lanes`) on Penguin and Art, LANES_Q queries of 1,024
-    chains each, and K3's on hailfinder at the runtime bucket's 2 queries,
+    (`mrf_half_step_lanes`) on Penguin and Art, LANES_Q queries each, and
+    K3's on hailfinder at the runtime bucket's 2 queries of 1,024 chains,
     against their twins (bit-equal, lut_ky) and against the one-query
     kernels run query by query with the same keys (bit-equal, exact_ky
     included).  `timing_lanes` holds the runtime's other bucket shapes
-    (pigs at 8 queries, Penguin at 2) against the twins.  K3's blocks hold `chains_per_block` chains of one
-    query, and 1,024 is no multiple of it: each query's last block is
-    partial."""
+    (pigs at 8 queries, Penguin at 2) against the twins.  K3's blocks hold
+    `chains_per_warp` chains of one query; pigs runs at LANES_PARTIAL
+    chains a query, no multiple of it, so every query's last block is
+    partial (checked)."""
     from repro_torch import prng
     from repro_torch.core import bayesnet as bnet
     from repro_torch.core import mrf as mrf_mod
@@ -2334,29 +2388,30 @@ def phase_lanes(torch) -> dict:
     errs = {"k3": 0}
     # pigs at LANES_Q, whose queries end in partial blocks, and the
     # runtime's hailfinder bucket (2 queries) at its own shape
-    for name, q, seed in (("pigs", LANES_Q, 20), ("hailfinder", 2, 90)):
+    for name, q, b, seed in (("pigs", LANES_Q, LANES_PARTIAL, 20),
+                             ("hailfinder", 2, CHAINS, 90)):
         cbn = bnet.compile_bayesnet(bn_repository_replica(name), device=dev)
         fr = bn_gibbs.build_fused_rounds(cbn.groups)
         vals = torch.cat([bnet.init_chain_values(cbn, prng.key(seed + i),
-                                                 CHAINS)[0]
+                                                 b)[0]
                           for i in range(q)])
         keys = [prng.key(seed + 10 + i) for i in range(q - 1)] + [
             prng.Key(0xFFFFFFFF, 0x89ABCDEF)]
         kt = prng.key_tensor(keys, dev)
-        cpc = min(bn_gibbs.chains_per_block(q * CHAINS, cbn.n_nodes,
-                                            cbn.exp_spec.size), CHAINS)
+        ln = bn_gibbs.lanes_launch(cbn, fr, q, b)
+        cpw = ln["chains_per_warp"]
         if name == "pigs":
-            check(CHAINS % cpc != 0, f"{cpc} chains per block divide "
-                  f"{CHAINS}: no partial block to check")
+            check(b % cpw != 0, f"{cpw} chains per block divide {b}: no "
+                  "partial block to check")
         out = {"phase": "k3_lanes", "model": name, "queries": q,
-               "chains": CHAINS, "chains_per_block": cpc,
-               "partial_block_chains": CHAINS % cpc}
+               "chains": b, "chains_per_block": cpw,
+               "partial_block_chains": b % cpw, "launch": ln}
         for sampler in ("lut_ky", "exact_ky"):
             p = bn_gibbs.sweep_params(cbn, sampler)
             got = bn_gibbs.bn_sweep_lanes(cbn, fr, vals, kt, sampler, p)
             one = torch.cat([
-                bn_gibbs.bn_sweep(cbn, fr, vals[i * CHAINS:(i + 1) * CHAINS],
-                                  k, sampler, p) for i, k in enumerate(keys)])
+                bn_gibbs.bn_sweep(cbn, fr, vals[i * b:(i + 1) * b], k,
+                                  sampler, p) for i, k in enumerate(keys)])
             torch.cuda.synchronize()
             bad = int((got != one).sum())
             out[f"{sampler}_mismatches_vs_one_query_kernel"] = bad
@@ -4223,7 +4278,7 @@ def runtime_parts(torch, cbn, vals, kt, q: int) -> None:
         torch, lambda: prng.split_many(arr, 2), 200)
     out["host_k3_lanes_wrapper_ms"] = host_ms(torch, k3, 200)
     out["host_hist_ms"] = host_ms(torch, hist_update, 200)
-    out["device_k3_lanes_ms"] = device_ms(torch, k3, 50, BN_KERNEL)
+    out["device_k3_lanes_ms"] = device_ms(torch, k3, 50, K3_KERNEL)
     out["device_hist_ms"] = device_busy_ms(torch, hist_update, 50)
     out["split_many_equals_split"] = bool(np.array_equal(
         prng.split_many(arr, 2)[:, 1],
@@ -4332,7 +4387,7 @@ def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict,
     check(bad == 0, f"K3 lanes differ from their twin at the runtime's pigs "
           f"bucket (Q={q}, {bad} labels)")
     ms_events = time_ms(torch, k3, 50)
-    ms = device_ms(torch, k3, 50, BN_KERNEL)
+    ms = device_ms(torch, k3, 50, K3_KERNEL)
     plain = time_ms(torch, twin, 1)
     cost = c["cost"]
     int_ms = hash_ms(cost.hash_calls, per_call)
@@ -4367,7 +4422,7 @@ def timing_lanes(torch, runtime: dict, errs: dict, per_call: dict,
     check(bad == 0, f"K4 lanes differ from their twin at the runtime's "
           f"Penguin bucket (Q={q}, {bad} labels)")
     ms_events = time_ms(torch, k4, 50)
-    ms = device_ms(torch, k4, 50, MRF_KERNEL)
+    ms = device_ms(torch, k4, 50, K4_KERNEL)
     plain = time_ms(torch, twin, 1)
     cost, n_active, steps = c["cost"], c["active_sites"], c["walk_steps"]
     ops = n_active * v * 16 + steps * (4 * (v + 1) + 8)

@@ -8,13 +8,16 @@ CUDA block holds what its wrapper stages in shared memory, at most 227 KB
 after the dynamic opt-in, so the footprint here is exactly what the
 wrappers' own sizing rules allocate:
 
-  * **BN** (K3 / K5, `kernels/bn_gibbs.py`): `chains_per_block` chains'
-    values (4 bytes a node) and the exp LUT.  The rule packs as many
-    chains as the default 48 KB holds (and two blocks per SM when the
+  * **BN** (K3 / K5, `kernels/bn_gibbs.py`): K5's `chains_per_block`
+    chains' values (4 bytes a node) and the exp LUT.  The rule packs as
+    many chains as the default 48 KB holds (and two blocks per SM when the
     batch allows); a net too wide for one chain within 227 KB raises.
-  * **MRF** (K4 / K6, `kernels/mrf_gibbs.py`): `tile_rows` label rows plus
-    the two halo rows, the tile's evidence rows and the LUT.  A grid too
-    wide for one row within 227 KB raises.  A sharded bucket's slabs keep
+    K3's lane kernel (`lanes_launch`) holds at least 4 chains as bytes,
+    the same 4 bytes a node, and stages the arena only where it fits.
+  * **MRF** (K4 / K6, `kernels/mrf_gibbs.py`): K6's `tile_rows` label rows
+    plus the two halo rows, the tile's evidence rows and the LUT (K4's
+    lane kernel takes at most 16 of those rows, its labels as bytes).  A
+    grid too wide for one row within 227 KB raises.  A sharded bucket's slabs keep
     the grid's width and a block takes rows of one slab, so the footprint
     takes no mesh-slice width.
   * The KY walk's register lanes cover at most 127 bins (`ky_sampler.

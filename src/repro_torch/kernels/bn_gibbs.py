@@ -23,36 +23,39 @@ W)` + j of that round's stream, hashed (threefry2x32, partitionable mode)
 only when the row's walk reaches word j.  No word is generated outside the
 kernel or stored, and a row that stops early hashes only what it consumed.
 
-Bound on the H100: bytes, barely.  A sweep must read and write the (B, n)
-values once (3.6 MB for pigs at B = 1024, with the tables ~1.2 us) and
-hash one threefry call per 32 walk steps of every row: ~450 k calls on
-pigs, each 41 bit operations (20 rotates, 21 xors) that only the 64 ALU
-lanes of an SM run, ~1.1 us (counts from the SASS, chip_smoke's threefry
-phase).  The design keeps
-everything else on chip: each block holds its chains' values in shared
-memory for the whole sweep (the TPU kept them VMEM-resident across its
-sequential grid over rounds; here a loop over rounds inside the block takes
-the grid's place), the log-CPT arena is read through the read-only cache,
-and a label is stored straight into shared memory where the TPU scattered
-with a one-hot matmul.
+Bound on the H100: the threefry calls, then bytes (`launch/kernel_cost`):
+a sweep must read and write the (B, n) values once and hash one threefry
+call per 32 walk steps of every row.  The kernel (`bn_lanes_kernel`)
+keeps everything else on chip: a block holds CPW chains of one query as
+bytes, node-major, in shared memory for the whole sweep (the TPU kept
+them VMEM-resident across its sequential grid over rounds; here a loop
+over rounds inside the block takes the grid's place), with the exp LUT
+and, where it fits, the log-CPT arena; a warp takes 32 / CPW nodes of a
+round, each across the block's chains, so its table reads are broadcasts
+and its loops uniform; the round tables are compact (`LaneTables`: the
+real factors and scope slots only); and a label is stored straight into
+shared memory where the TPU scattered with a one-hot matmul.  The walk
+holds a warp until its slowest row is done (csrc/bn_gibbs.cu).
 
 `bn_sweep` launches the kernel for CUDA tensors (counted in
-`bn_sweep.launches`).  `bn_sweep_lanes` (counted in
-`bn_sweep_lanes.launches`) is K3's lane entry: one sweep over the chains of
-Q queries of a serving bucket, each query with its own sweep key, read from
-a (Q, 2) int32 tensor on the card; its twin `bn_sweep_lanes_ref` runs the
-per-key twin query by query.  For CPU tensors it generates the same key's words
-with `fused_round_words` (rounds in order, unpadded: round r's rows are
-(chain, node) = chain * n_c_r + node) and runs the plain twin
-`bn_sweep_ref` on them.  `fused_gibbs_sweep` is the reference's drop-in
-entry point.
+`bn_sweep.launches`), as one query with the key by value.
+`bn_sweep_lanes` (counted in `bn_sweep_lanes.launches`) is K3's lane
+entry: one sweep over the chains of Q queries of a serving bucket, each
+query with its own sweep key, read from a (Q, 2) int32 tensor on the card;
+its twin `bn_sweep_lanes_ref` runs the per-key twin query by query.  Both
+launches are shaped by `lanes_launch` and draw from the same kernel.  For
+CPU tensors `bn_sweep` generates the key's words with `fused_round_words`
+(rounds in order, unpadded: round r's rows are (chain, node) = chain *
+n_c_r + node) and runs the plain twin `bn_sweep_ref` on them.
+`fused_gibbs_sweep` is the reference's drop-in entry point.
 
 K5 (`fused_color_round_mesh`, `fused_color_round`, twin
 `fused_color_round_ref`, counter `fused_color_round.launches` for both)
 replaces the reference's `fused_color_round`
 (src/repro/kernels/bn_gibbs.py:316), which the reference's sharded engine
-calls once per round on every mesh device.  It is K3's kernel over one
-round and a range of mesh positions of a `core.distributed.
+calls once per round on every mesh device.  Its kernel (`bn_rounds_kernel`,
+`chains_per_block` int32 chains a block over the padded table) runs one
+round over a range of mesh positions of a `core.distributed.
 ShardedFusedRounds` table (owned nodes first, pad lanes after them with
 node id -1, never processed): `fused_color_round_mesh` launches it once per
 round over every position of the mesh, `fused_color_round` over one
@@ -69,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -85,6 +89,12 @@ FUSED_BN_SAMPLERS = ("lut_ky", "exact_ky")
 _SMS = 132  # H100 SXM
 _SMEM_DEFAULT = 48 * 1024
 _SMEM_MAX = 232448  # 227 KB, after the dynamic shared-memory opt-in
+# K3's lane entry: chains a block may hold (one warp's width, or a
+# fraction of it), its warps at most, and the shared memory up to which a
+# block stages the log-CPT arena (two blocks an SM)
+_LANE_CHAINS = (32, 16, 8, 4)
+_LANE_WARPS = 16
+_LANE_STAGE = 100 * 1024
 
 
 def check_fused_sampler(sampler: str) -> None:
@@ -116,6 +126,9 @@ class BNFusedRounds:
     c_max: int
     f_max: int
     s_max: int
+    # the lane entry's compact tables, built at its first launch
+    lanes: "LaneTables | None" = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 def build_fused_rounds(groups) -> BNFusedRounds:
@@ -148,6 +161,72 @@ def build_fused_rounds(groups) -> BNFusedRounds:
         f_max=f_max,
         s_max=s_max,
     )
+
+
+@dataclasses.dataclass
+class LaneTables:
+    """K3's lane entry's round tables, compact: the real rows, factors and
+    scope slots of a `BNFusedRounds` and nothing else, in its order (rounds
+    in order, each round's nodes, each node's factors and each factor's
+    slots left to right).  Row i of round r is row round_rows[r] + i; its
+    factors are facs[rows[., 2]:rows[., 3]], a factor's slots
+    slots[facs[., 1]:facs[., 2]].  `facs` and `slots` are sized for the
+    padded envelope (plus one scratch entry that padding is routed to), so
+    that the tables are built on the device with no copy to the host; only
+    their leading entries are read."""
+
+    round_rows: torch.Tensor  # (R + 1,) int32
+    rows: torch.Tensor  # (N, 4) int32: node, card, first factor, end
+    facs: torch.Tensor  # (N * F + 1, 4) int32: base, first slot, end, 0
+    slots: torch.Tensor  # (N * F * S + 1, 2) int32: stride, 2 scope + self
+
+
+def build_lane_tables(fr: BNFusedRounds) -> LaneTables:
+    """`LaneTables` of `fr`, on its device.  Padded factors (base 0) trail
+    each node's real ones and padded slots (stride 0) each factor's, so a
+    real entry's place is a running count (no data-dependent shape)."""
+    dev = fr.nodes.device
+    r_n, c, f, s = len(fr.n_c), fr.c_max, fr.f_max, fr.s_max
+    i32 = torch.int32
+    ends = np.cumsum(fr.n_c)
+    sel = np.concatenate([r * c + np.arange(k) for r, k in enumerate(fr.n_c)])
+    idx = torch.from_numpy(sel).to(dev, non_blocking=True)
+    n = len(sel)
+    base = fr.base.reshape(r_n * c, f)[idx]
+    stride = fr.stride.reshape(r_n * c, f, s)[idx]
+    scope = fr.scope_var.reshape(r_n * c, f, s)[idx]
+    is_self = fr.is_self.reshape(r_n * c, f, s)[idx]
+    fmask = base != 0
+    nf = fmask.sum(1, dtype=i32)
+    f_end = torch.cumsum(nf, 0, dtype=i32)
+    smask = stride != 0
+    ns = smask.sum(2, dtype=i32).reshape(-1)  # 0 for a padded factor
+    s_end = torch.cumsum(ns, 0, dtype=i32)
+    f_ar = torch.arange(f, dtype=i32, device=dev)
+    s_ar = torch.arange(s, dtype=i32, device=dev)
+    fdest = torch.where(fmask, (f_end - nf)[:, None] + f_ar, n * f)
+    sdest = torch.where(smask, (s_end - ns).reshape(n, f, 1) + s_ar,
+                        n * f * s)
+    facs = torch.zeros((n * f + 1, 4), dtype=i32, device=dev)
+    facs[fdest.reshape(-1).long()] = torch.stack(
+        [base, (s_end - ns).reshape(n, f), s_end.reshape(n, f),
+         torch.zeros_like(base)], -1).reshape(-1, 4)
+    slots = torch.zeros((n * f * s + 1, 2), dtype=i32, device=dev)
+    slots[sdest.reshape(-1).long()] = torch.stack(
+        [stride, 2 * scope + is_self.to(i32)], -1).reshape(-1, 2)
+    round_rows = torch.from_numpy(
+        np.concatenate([[0], ends]).astype(np.int32)).to(dev,
+                                                         non_blocking=True)
+    rows = torch.stack([fr.nodes.reshape(-1)[idx], fr.cards.reshape(-1)[idx],
+                        f_end - nf, f_end], -1)
+    return LaneTables(round_rows, rows.contiguous(), facs, slots)
+
+
+def lane_tables(fr: BNFusedRounds) -> LaneTables:
+    """`fr`'s compact tables, built once per `BNFusedRounds`."""
+    if fr.lanes is None:
+        fr.lanes = build_lane_tables(fr)
+    return fr.lanes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,9 +399,10 @@ def bn_sweep_ref(
 
 
 def chains_per_block(n_chains: int, n_nodes: int, lut_size: int) -> int:
-    """Chains a block keeps resident: enough blocks for two per SM when the
-    batch allows, within the default 48 KB of shared memory when a chain
-    fits there (beyond it, one chain per block with the opt-in)."""
+    """Chains a K5 block keeps resident (int32): enough blocks for two per
+    SM when the batch allows, within the default 48 KB of shared memory
+    when a chain fits there (beyond it, one chain per block with the
+    opt-in)."""
     per_chain = 4 * n_nodes
     fixed = 4 * lut_size
     fit = (_SMEM_DEFAULT - fixed) // per_chain
@@ -348,33 +428,7 @@ def bn_sweep(
         words = fused_round_words(fr, key, vals.shape[0], p.n_words,
                                   vals.device)
         return bn_sweep_ref(cbn, fr, vals, words, sampler, p)
-    tab = cbn.exp_table
-    _lib.require_cuda(
-        "bn_sweep", vals, cbn.log_flat, tab, fr.nodes, fr.cards, fr.base,
-        fr.stride, fr.scope_var, fr.is_self, fr.n_c_t,
-    )
-    b, n = vals.shape
-    spec = cbn.exp_spec
-    cpc = chains_per_block(b, n, spec.size)
-    out = torch.empty_like(vals)
-    P, I, U, F = _lib.PTR, _lib.INT, _lib.UINT, _lib.FLOAT
-    fn = _lib.function(
-        "bn_gibbs", "aia_bn_sweep",
-        [P, P, I, I, I, I, P, I, I, I, P, P, P, P, P, P, U, U, I, P, P, I, F,
-         F, I, I, I, I, I, P],
-    )
-    with torch.cuda.device(vals.device):
-        code = fn(
-            vals.data_ptr(), out.data_ptr(), b, n, cpc, len(fr.n_c),
-            fr.n_c_t.data_ptr(), fr.c_max, fr.f_max, fr.s_max,
-            fr.nodes.data_ptr(), fr.cards.data_ptr(), fr.base.data_ptr(),
-            fr.stride.data_ptr(), fr.scope_var.data_ptr(),
-            fr.is_self.data_ptr(), key.k1, key.k2, p.n_words,
-            cbn.log_flat.data_ptr(), tab.data_ptr(), spec.size, spec.x0,
-            inv_dx(spec), p.v_max, int(sampler == "exact_ky"), p.weight_bits,
-            p.precision, p.total_steps, _lib.stream_of(vals),
-        )
-    _lib.check("bn_gibbs", code, "bn_sweep")
+    out = _sweep_lanes("bn_sweep", cbn, fr, vals, 1, None, key, sampler, p)
     bn_sweep.launches += 1
     return out
 
@@ -425,6 +479,81 @@ def bn_sweep_lanes_ref(
         for i, k in enumerate(prng.keys_of(keys))])
 
 
+def lane_stride(chains_per_warp: int) -> int:
+    """Bytes between two nodes' rows of chain values in a lane block's
+    shared memory: an odd number of words, so that the transposing copies
+    in and out fall in 32 banks (`LaneShape::STRIDE`, bn_gibbs.cu)."""
+    return 4 * ((chains_per_warp // 4) | 1)
+
+
+def lanes_launch(cbn: CompiledBayesNet, fr: BNFusedRounds, q: int,
+                 b: int) -> dict:
+    """The lane entry's launch for Q queries of B chains: a block holds
+    `chains_per_warp` chains of one query (never two: a query's last block
+    is partial when they do not divide B), the largest of 32, 16, 8 and 4
+    that still gives the card's 132 SMs a block each (4 where none does),
+    and a warp takes 32 / chains_per_warp nodes of a round at once, each
+    across those chains.  Threads: enough warps for the widest round, at
+    most 16.  The log-CPT arena is staged in shared memory when the block
+    then stays within `_LANE_STAGE` bytes (two blocks an SM), else it is
+    read through the cache.  Raises where even 4 chains of bytes do not
+    fit a block."""
+    n, lut, arena = cbn.n_nodes, cbn.exp_spec.size, cbn.log_flat.numel()
+    fits = [c for c in _LANE_CHAINS if 4 * lut + n * lane_stride(c)
+            <= _SMEM_MAX]
+    if not fits:
+        raise ValueError(f"{n} nodes do not fit one block's shared memory")
+    cpw = next((c for c in fits if q * -(-b // c) >= _SMS), fits[-1])
+    smem = 4 * lut + n * lane_stride(cpw)
+    stage = smem + 4 * arena <= _LANE_STAGE
+    warps = min(_LANE_WARPS, max(-(-nc // (32 // cpw)) for nc in fr.n_c))
+    v = cbn.max_card
+    exact = 2 <= v <= 4
+    cap = v if exact else next(c for c in (8, 16, 32, 128) if v <= c)
+    return {"chains_per_warp": cpw, "threads": 32 * max(warps, 1),
+            "stage_arena": stage, "smem": smem + (4 * arena if stage else 0),
+            "blocks": q * -(-b // cpw),
+            "kernel": f"bn_lanes_kernel<{cap}, {int(exact)}, {cpw}>"}
+
+
+def _sweep_lanes(name, cbn, fr, vals, q, keys, key, sampler,
+                 p) -> torch.Tensor:
+    """Launch the lane kernel (for the entry `name`) over Q queries of
+    `vals`, drawing from the (Q, 2) int32 `keys` on the card, or from one
+    `key` when keys is None."""
+    tab = cbn.exp_table
+    t = lane_tables(fr)
+    extra = () if keys is None else (keys,)
+    _lib.require_cuda(
+        name, vals, *extra, cbn.log_flat, tab, t.round_rows, t.rows, t.facs,
+        t.slots,
+    )
+    b, n = vals.shape[0] // q, vals.shape[1]
+    spec = cbn.exp_spec
+    ln = lanes_launch(cbn, fr, q, b)
+    out = torch.empty_like(vals)
+    P, I, U, F = _lib.PTR, _lib.INT, _lib.UINT, _lib.FLOAT
+    fn = _lib.function(
+        "bn_gibbs", "aia_bn_sweep_lanes",
+        [P, P, I, I, I, I, I, I, P, P, P, P, P, U, U, I, P, I, I, P, I, F, F,
+         I, I, I, I, I, P],
+    )
+    k1, k2 = (0, 0) if key is None else (key.k1, key.k2)
+    with torch.cuda.device(vals.device):
+        code = fn(
+            vals.data_ptr(), out.data_ptr(), q, b, n, ln["chains_per_warp"],
+            ln["threads"], len(fr.n_c), t.round_rows.data_ptr(),
+            t.rows.data_ptr(), t.facs.data_ptr(), t.slots.data_ptr(),
+            None if keys is None else keys.data_ptr(), k1, k2, p.n_words,
+            cbn.log_flat.data_ptr(), cbn.log_flat.numel(),
+            int(ln["stage_arena"]), tab.data_ptr(), spec.size, spec.x0,
+            inv_dx(spec), p.v_max, int(sampler == "exact_ky"), p.weight_bits,
+            p.precision, p.total_steps, _lib.stream_of(vals),
+        )
+    _lib.check("bn_gibbs", code, name)
+    return out
+
+
 def bn_sweep_lanes(
     cbn: CompiledBayesNet, fr: BNFusedRounds, vals: torch.Tensor,
     keys: torch.Tensor, sampler: str, p: SweepParams,
@@ -437,35 +566,8 @@ def bn_sweep_lanes(
     q, b = _check_lanes(cbn, vals, keys, sampler)
     if vals.device.type == "cpu":
         return bn_sweep_lanes_ref(cbn, fr, vals, keys, sampler, p)
-    tab = cbn.exp_table
-    _lib.require_cuda(
-        "bn_sweep_lanes", vals, keys, cbn.log_flat, tab, fr.nodes,
-        fr.cards, fr.base, fr.stride, fr.scope_var, fr.is_self, fr.n_c_t,
-    )
-    n = vals.shape[1]
-    spec = cbn.exp_spec
-    # blocks from the launch's Q * B chains, so the grid fills the card as
-    # K3's does; a block holds chains of one query only
-    cpc = min(chains_per_block(q * b, n, spec.size), b)
-    out = torch.empty_like(vals)
-    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
-    fn = _lib.function(
-        "bn_gibbs", "aia_bn_sweep_lanes",
-        [P, P, I, I, I, I, I, P, I, I, I, P, P, P, P, P, P, P, I, P, P, I, F,
-         F, I, I, I, I, I, P],
-    )
-    with torch.cuda.device(vals.device):
-        code = fn(
-            vals.data_ptr(), out.data_ptr(), q, b, n, cpc, len(fr.n_c),
-            fr.n_c_t.data_ptr(), fr.c_max, fr.f_max, fr.s_max,
-            fr.nodes.data_ptr(), fr.cards.data_ptr(), fr.base.data_ptr(),
-            fr.stride.data_ptr(), fr.scope_var.data_ptr(),
-            fr.is_self.data_ptr(), keys.data_ptr(), p.n_words,
-            cbn.log_flat.data_ptr(), tab.data_ptr(), spec.size, spec.x0,
-            inv_dx(spec), p.v_max, int(sampler == "exact_ky"), p.weight_bits,
-            p.precision, p.total_steps, _lib.stream_of(vals),
-        )
-    _lib.check("bn_gibbs", code, "bn_sweep_lanes")
+    out = _sweep_lanes("bn_sweep_lanes", cbn, fr, vals, q, keys, None,
+                       sampler, p)
     bn_sweep_lanes.launches += 1
     return out
 

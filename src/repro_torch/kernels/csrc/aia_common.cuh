@@ -20,13 +20,14 @@
 //     them (K1's keyed entry and K3-K6: `threefry2x32`, `jax_word`,
 //     `WordsFromKey`).
 //
-// K3-K6 walk with `ky_prepare`/`ddg_walk` below; K1 walks bit planes of
-// the bins (ky_sampler.cu) and shares only the word sources and
-// `argmax_fallback`.  Here distributions live in per-thread register
-// arrays of a compile-time capacity VCAP >= n_bins + 1 (bins plus the
-// rejection bin); every loop over them is unrolled with a runtime mask so
-// the arrays stay in registers.  Lanes past n_bins + 1 play the part of
-// the reference's zero lanes up to 128.
+// Every kernel walks bit planes of the bins (`prepare`, `scaled`,
+// `plane_walk`), the rejection bin held apart: a step is one popcount of a
+// column, with no loop over lanes, where the reference's `ddg_walk` sums
+// all 128 lanes' bits with a matmul.  K3-K6 hold a row's weights in
+// per-thread register arrays of a compile-time capacity CAP >= n_bins,
+// every loop over them unrolled with a mask so the arrays stay in
+// registers (`plane_draw`, with the lean `exact_walk` their rows allow);
+// K1 forms its columns from registers or shared memory (ky_sampler.cu).
 
 #pragma once
 
@@ -46,39 +47,6 @@ __device__ __forceinline__ float lut_interp(float x, const float* tab,
   float y0 = tab[idx];
   float y1 = tab[idx + 1];
   return __fmaf_rn(frac, __fsub_rn(y1, y0), y0);
-}
-
-// ky_sampler.preprocess_lanes: clamp -> uniform if all zero -> scale to
-// fill 2^precision -> rejection bin in lane n_bins.
-template <int VCAP>
-__device__ __forceinline__ void ky_prepare(const int (&w)[VCAP], int n_bins,
-                                           int precision, int (&m)[VCAP]) {
-  int s = 0;
-#pragma unroll
-  for (int i = 0; i < VCAP; ++i) {
-    m[i] = (i < n_bins) ? max(w[i], 0) : 0;
-    s += m[i];
-  }
-  if (s <= 0) {
-    s = 0;
-#pragma unroll
-    for (int i = 0; i < VCAP; ++i) {
-      m[i] = (i < n_bins) ? 1 : 0;
-      s += m[i];
-    }
-  }
-  int k = max((1 << precision) / s, 1);
-  int tot = 0;
-#pragma unroll
-  for (int i = 0; i < VCAP; ++i) {
-    m[i] *= k;
-    tot += m[i];
-  }
-  int rej = (1 << precision) - tot;
-#pragma unroll
-  for (int i = 0; i < VCAP; ++i) {
-    if (i == n_bins) m[i] = rej;
-  }
 }
 
 // One threefry2x32 round: x += y, y = rotl(y, r) ^ x.
@@ -147,51 +115,171 @@ struct WordsFromKey {
   }
 };
 
-// ky_sampler.ddg_walk for one row, stopping at the row's own termination
-// (the reference's lock-step loop never changes a finished row, so the
-// per-row exit gives the same label and counts).  Word j of the row comes
-// from `words(j)` at step 32 j.  Returns the label, or -1 when the bit
-// budget ran out (done = false).
-template <int VCAP, class Words>
-__device__ __forceinline__ int ddg_walk(const int (&m)[VCAP],
-                                        const Words& words, int n_bins,
-                                        int precision, int total_steps,
-                                        int& bits, int& rejs, bool& done) {
-  int d = 0, level = 0, label = -1;
+// The bit of a weight that the reference's `(m >> (p - 1 - level)) & 1`
+// reads: bit p - 1 - level, and past level p - 1 (reached only when every
+// weight is a multiple of 2^p) the sign bit, which an arithmetic shift by
+// a negative amount fills with.
+__device__ __forceinline__ int level_bit(int level, int precision) {
+  return level < precision ? precision - 1 - level : 31;
+}
+
+// Position of the set bit of rank n (from 0) of x, which has more than n,
+// all below bit WIDTH: a binary search of log2(WIDTH) halvings.
+template <int WIDTH>
+__device__ __forceinline__ int nth_set_bit(unsigned x, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = WIDTH / 2; w > 0; w >>= 1) {
+    const int c = __popc(x & ((1u << w) - 1u));
+    if (n >= c) {
+      n -= c;
+      x >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// preprocess_lanes from a row's clamped sum s (wrapped in int32, as
+// jnp.sum wraps): uniform if s <= 0, k = max(2^p // s, 1), and the
+// rejection bin 2^p - k s (the wrapped sum of the scaled bins).
+struct Prep {
+  bool uniform;
+  unsigned k;
+  int rej;
+};
+
+__device__ __forceinline__ Prep prepare(unsigned s, int n_bins,
+                                        int precision) {
+  const bool uniform = (int)s <= 0;
+  if (uniform) s = (unsigned)n_bins;
+  const unsigned k = max((1u << precision) / s, 1u);
+  return {uniform, k, (int)((1u << precision) - k * s)};
+}
+
+// A bin's scaled weight (a bin of the row, never a padding lane).
+__device__ __forceinline__ unsigned scaled(int w, const Prep& pr) {
+  return (pr.uniform ? 1u : (unsigned)max(w, 0)) * pr.k;
+}
+
+// ky_sampler.ddg_walk for one row over its columns: `column(level, b, col)`
+// fills the NW words of the bins' column at `level` (bit b of each scaled
+// bin), each below bit WIDTH.  The rejection bin is held apart (`rej`), so
+// a step is
+//
+//   c = popc(column): accept at its (d+1)-th set bit if c > d, else reject
+//   if c + rejbit > d, else d -= c + rejbit and go down a level,
+//
+// the reference's first lane past d with no loop over lanes.  Word j of
+// the row comes from `words(j)` at step 32 j.  Returns the label, or -1
+// when the bit budget ran out (done = false).  It takes every step that
+// the reference's `ddg_walk` takes on the same scaled bins (the column's
+// set bits below the rejection bin are its lanes), so the two give the
+// same label, bits and rejections.
+template <int NW, int WIDTH, class Column, class Words>
+__device__ __forceinline__ int plane_walk(const Column& column, int rej,
+                                          const Words& words, int precision,
+                                          int total_steps, int& bits,
+                                          int& rejs, bool& done) {
+  int d = 0, level = 0;
   unsigned word = 0u;
   bits = 0;
   rejs = 0;
   done = false;
   for (int t = 0; t < total_steps; ++t) {
     if ((t & 31) == 0) word = words(t >> 5);
-    int bit = (int)((word >> (t & 31)) & 1u);
-    d = 2 * d + bit;
-    int sh = precision - 1 - level;
-    int c = 0, idx = -1;
-#pragma unroll
-    for (int i = 0; i < VCAP; ++i) {
-      if (i <= n_bins) {
-        c += (m[i] >> sh) & 1;
-        if (idx < 0 && c > d) idx = i;
-      }
-    }
+    d = (int)(2u * (unsigned)d + ((word >> (t & 31)) & 1u));
     ++bits;
+    // d wraps negative after 31 levels without a leaf; every prefix sum
+    // then exceeds it, and the reference takes lane 0
+    if (d < 0) {
+      done = true;
+      return 0;
+    }
+    const int b = level_bit(level, precision);
+    unsigned col[NW];
+    column(level, b, col);
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) c += __popc(col[j]);
     if (c > d) {
-      if (idx >= n_bins) {
-        ++rejs;
-        d = 0;
-        level = 0;
-      } else {
-        label = idx;
-        done = true;
-        break;
+      int r = d, label = -1;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int cj = __popc(col[j]);
+        if (label < 0) {
+          if (r < cj)
+            label = 32 * j + nth_set_bit<WIDTH>(col[j], r);
+          else
+            r -= cj;
+        }
       }
+      done = true;
+      return label;
+    }
+    const int total = c + ((rej >> b) & 1);
+    if (total > d) {
+      ++rejs;
+      d = 0;
+      level = 0;
     } else {
-      d -= c;
+      d -= total;
       ++level;
     }
   }
-  return label;
+  return -1;
+}
+
+// plane_walk for a row whose scaled bins and rejection bin sum to exactly
+// 2^precision with rej >= 0, as every row of the lane entries' does (the
+// precision is widened so that n_bins weights of weight_bits bits sum
+// below it: bn_gibbs.sweep_params, mrf_gibbs.half_step_params).  Such a
+// DDG tree is complete by level precision - 1 (its internal nodes there
+// number 2^p minus that sum, none), so the walk reads bit precision - 1 -
+// level of each column and needs neither plane_walk's sign-bit level past
+// it nor its exit on a wrapped d: the same steps and the same label, for
+// fewer instructions a step.
+template <int NW, int WIDTH, class Column, class Words>
+__device__ __forceinline__ int exact_walk(const Column& column, int rej,
+                                          const Words& words, int precision,
+                                          int total_steps, bool& done) {
+  int d = 0;
+  int b = precision - 1;  // the bit of the current level
+  unsigned word = 0u;
+  done = false;
+  for (int t = 0; t < total_steps; ++t) {
+    if ((t & 31) == 0) word = words(t >> 5);
+    d = 2 * d + (int)((word >> (t & 31)) & 1u);
+    unsigned col[NW];
+    column(0, b, col);
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) c += __popc(col[j]);
+    if (c > d) {
+      int r = d, label = -1;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int cj = __popc(col[j]);
+        if (label < 0) {
+          if (r < cj)
+            label = 32 * j + nth_set_bit<WIDTH>(col[j], r);
+          else
+            r -= cj;
+        }
+      }
+      done = true;
+      return label;
+    }
+    const int total = c + ((rej >> b) & 1);
+    if (total > d) {
+      d = 0;
+      b = precision - 1;
+    } else {
+      d -= total;
+      --b;
+    }
+  }
+  return -1;
 }
 
 // ky_sampler.argmax_fallback: first lane of the largest raw weight among
@@ -209,6 +297,47 @@ __device__ __forceinline__ int argmax_fallback(const int (&w)[VCAP],
     }
   }
   return mx < -1 ? n_bins : amax;
+}
+
+// Smallest power of two >= n (n <= 32): the width nth_set_bit searches.
+__host__ __device__ constexpr int pow2_width(int n) {
+  return n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;
+}
+
+// preprocess_lanes, the plane walk (`exact_walk`) and argmax_fallback for
+// one row of n_bins <= CAP integer weights held in registers (w[i] = 0
+// from n_bins on): the lane entries' draw.  A level's column is formed from the
+// scaled weights when the walk reaches it (CAP shifts and masks, one word
+// per 32 bins).  With CAP == n_bins at compile time every mask folds away.
+template <int CAP, class Words>
+__device__ __forceinline__ int plane_draw(const int (&w)[CAP], int n_bins,
+                                          int precision, int total_steps,
+                                          const Words& words) {
+  constexpr int NW = (CAP + 31) / 32;
+  unsigned s = 0u;
+#pragma unroll
+  for (int i = 0; i < CAP; ++i)
+    if (i < n_bins) s += (unsigned)max(w[i], 0);
+  const Prep pr = prepare(s, n_bins, precision);
+  // The empty asm keeps each scaled weight in a register: without it nvcc
+  // recomputes them at every walk step (as in K1's ky_lanes_kernel).
+  unsigned m[CAP];
+#pragma unroll
+  for (int i = 0; i < CAP; ++i) {
+    m[i] = i < n_bins ? scaled(w[i], pr) : 0u;
+    asm volatile("" : "+r"(m[i]));
+  }
+  auto column = [&](int, int b, unsigned(&col)[NW]) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j) col[j] = 0u;
+#pragma unroll
+    for (int i = 0; i < CAP; ++i) col[i / 32] |= ((m[i] >> b) & 1u) << (i % 32);
+  };
+  bool done;
+  int label = exact_walk<NW, pow2_width(CAP < 32 ? CAP : 32)>(
+      column, pr.rej, words, precision, total_steps, done);
+  if (!done) label = argmax_fallback<CAP>(w, n_bins);
+  return label;
 }
 
 }  // namespace aia

@@ -19,7 +19,8 @@
 // Bound on the H100: bytes.  A row's weights are read once and four ints
 // written; its words are read (`aia_ky_sample`) or hashed by the walk from
 // the key when it reaches them (`aia_ky_sample_keyed`).  Two layouts share
-// the walk (`plane_walk`):
+// the walk (`aia::plane_walk`, aia_common.cuh, which K3's and K4's lane
+// entries walk with too):
 //
 //   * up to 8 bins (`ky_lanes_kernel<CAP>`): a thread loads its row into
 //     registers and forms each level's column from them when the walk
@@ -47,112 +48,11 @@ constexpr int MAX_PRECISION = 30;          // 2^p and every sum fit in int32
 constexpr int MAX_BINS = 128;              // 4 words of a plane
 constexpr int PLANES = MAX_PRECISION + 1;  // levels 0..p-1 and the sign
 
-// The bit of a weight that the reference's `(m >> (p - 1 - level)) & 1`
-// reads: bit p - 1 - level, and past level p - 1 (reached only when every
-// weight is a multiple of 2^p) the sign bit, which an arithmetic shift by
-// a negative amount fills with.
-__device__ __forceinline__ int level_bit(int level, int precision) {
-  return level < precision ? precision - 1 - level : 31;
-}
-
-// Position of the set bit of rank n (from 0) of x, which has more than n,
-// all below bit WIDTH: a binary search of log2(WIDTH) halvings.
-template <int WIDTH>
-__device__ __forceinline__ int nth_set_bit(unsigned x, int n) {
-  int pos = 0;
-#pragma unroll
-  for (int w = WIDTH / 2; w > 0; w >>= 1) {
-    const int c = __popc(x & ((1u << w) - 1u));
-    if (n >= c) {
-      n -= c;
-      x >>= w;
-      pos += w;
-    }
-  }
-  return pos;
-}
-
-// preprocess_lanes from a row's clamped sum s (wrapped in int32, as
-// jnp.sum wraps): uniform if s <= 0, k = max(2^p // s, 1), and the
-// rejection bin 2^p - k s (the wrapped sum of the scaled bins).
-struct Prep {
-  bool uniform;
-  unsigned k;
-  int rej;
-};
-
-__device__ __forceinline__ Prep prepare(unsigned s, int n_bins,
-                                        int precision) {
-  const bool uniform = (int)s <= 0;
-  if (uniform) s = (unsigned)n_bins;
-  const unsigned k = max((1u << precision) / s, 1u);
-  return {uniform, k, (int)((1u << precision) - k * s)};
-}
-
-// A bin's scaled weight (a bin of the row, never a padding lane).
-__device__ __forceinline__ unsigned scaled(int w, const Prep& pr) {
-  return (pr.uniform ? 1u : (unsigned)max(w, 0)) * pr.k;
-}
-
-// ddg_walk for one row over its columns: `column(level, b, col)` fills the
-// NW words of the bins' column at `level` (bit b of each scaled bin), each
-// below bit WIDTH.  Word j of the row comes from `words(j)` at step 32 j;
-// word 0, which every walk reads, is passed in as `word`, fetched before
-// the row's weights so that the two loads overlap.  Returns the label, or
-// -1 when the bit budget ran out (done = false).
-template <int NW, int WIDTH, class Column, class Words>
-__device__ __forceinline__ int plane_walk(const Column& column, int rej,
-                                          const Words& words, int precision,
-                                          int total_steps, int& bits,
-                                          int& rejs, bool& done) {
-  int d = 0, level = 0;
-  unsigned word = 0u;
-  bits = 0;
-  rejs = 0;
-  done = false;
-  for (int t = 0; t < total_steps; ++t) {
-    if ((t & 31) == 0) word = words(t >> 5);
-    d = (int)(2u * (unsigned)d + ((word >> (t & 31)) & 1u));
-    ++bits;
-    // d wraps negative after 31 levels without a leaf; every prefix sum
-    // then exceeds it, and the reference takes lane 0
-    if (d < 0) {
-      done = true;
-      return 0;
-    }
-    const int b = level_bit(level, precision);
-    unsigned col[NW];
-    column(level, b, col);
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) c += __popc(col[j]);
-    if (c > d) {
-      int r = d, label = -1;
-#pragma unroll
-      for (int j = 0; j < NW; ++j) {
-        const int cj = __popc(col[j]);
-        if (label < 0) {
-          if (r < cj)
-            label = 32 * j + nth_set_bit<WIDTH>(col[j], r);
-          else
-            r -= cj;
-        }
-      }
-      done = true;
-      return label;
-    }
-    const int total = c + ((rej >> b) & 1);
-    if (total > d) {
-      ++rejs;
-      d = 0;
-      level = 0;
-    } else {
-      d -= total;
-      ++level;
-    }
-  }
-  return -1;
-}
+using aia::nth_set_bit;
+using aia::plane_walk;
+using aia::Prep;
+using aia::prepare;
+using aia::scaled;
 
 // Where a row's words come from: a (B, n_words) int32 array, or the
 // stream of a key at the row's counters, `random_words(key, (B,),

@@ -24,23 +24,28 @@ j.  The other parity's words are never generated.
 Bound on the H100: bytes: the labels read and written once (33.6 MB for
 Penguin at B = 1024, ~10 us) against one threefry call per 32 walk steps
 of every active site (~2.1 M calls, each 41 bit operations on the ALU
-lanes, ~5 us; counts from the SASS, chip_smoke's threefry phase).
+lanes, ~5 us; counts from the SASS, chip_smoke's threefry phase).  The
+kernel (`mrf_lanes_kernel`, csrc/mrf_gibbs.cu) gives a block a few chains
+of one query and a tile of rows, stages the tile's evidence once for them
+and the labels as bytes, and draws with exact-width lanes and K1's
+bit-plane walk; a warp is held until its slowest site's walk is done.
 
 `mrf_half_step` launches the kernel for CUDA tensors (counted in
-`mrf_half_step.launches`).  For CPU tensors it generates the key's words
-with `round_words` and runs the plain twin `mrf_half_step_ref` on them.
-`mrf_round_step` is the reference's entry point.  `mrf_half_step_lanes`
-(counted in `mrf_half_step_lanes.launches`) is K4's lane entry: one
-half-step over the chains of Q queries of a serving bucket, each query with
-its own evidence plane and half-step key (a (Q, 2) int32 tensor on the
-card); its twin `mrf_half_step_lanes_ref` runs the per-key twin query by
-query.
+`mrf_half_step.launches`), as one query with the key by value.  For CPU
+tensors it generates the key's words with `round_words` and runs the plain
+twin `mrf_half_step_ref` on them.  `mrf_round_step` is the reference's
+entry point.  `mrf_half_step_lanes` (counted in
+`mrf_half_step_lanes.launches`) is K4's lane entry: one half-step over the
+chains of Q queries of a serving bucket, each query with its own evidence
+plane and half-step key (a (Q, 2) int32 tensor on the card); its twin
+`mrf_half_step_lanes_ref` runs the per-key twin query by query.  Both are
+shaped by `lanes_launch`.
 
 K6 (`mrf_halo_half_step`, twin `mrf_halo_half_step_ref`, counter
 `mrf_halo_half_step.launches`) replaces the reference's
 `mrf_halo_half_step_kernel` (src/repro/kernels/mrf_gibbs.py:280), which
 the reference's sharded engine calls on every device of its mesh, one row
-slab each.  K4 and K6 are one CUDA kernel: K6 runs a block of chains and
+slab each.  Its kernel (`mrf_half_step_kernel`) runs a block of chains and
 grid rows split into row slabs, each slab's rows -1 and h_loc taken from
 its exchanged halo rows, with the checkerboard and the words' counters at
 the global chain and row.  `mrf_sharded_round_step` is the reference's
@@ -71,6 +76,12 @@ FUSED_MRF_SAMPLERS = ("lut_ky",)
 _TILE_ROWS = 32  # the reference's DEFAULT_BLOCK_H
 _SMEM_DEFAULT = 48 * 1024
 _SMEM_MAX = 232448  # 227 KB, after the dynamic shared-memory opt-in
+_SMS = 132  # H100 SXM
+# K4's lane kernel: chains of one query a block may hold, most first, and
+# grid rows a block takes at most (on the H100 fewer chains and rows a
+# block ran faster than 8 x 32: PERF.md's kernel findings)
+_LANE_CHAINS = (2, 1)
+_LANE_ROWS = 16
 
 
 def check_fused_sampler(sampler: str) -> None:
@@ -222,26 +233,8 @@ def mrf_half_step(
         words = round_words(mrf, key, labels.shape[0], p, labels.device)
         return mrf_half_step_ref(mrf, labels, evidence, words, parity,
                                  exp_table, exp_spec, p)
-    tab = exp_table.reshape(-1)
-    _lib.require_cuda("mrf_half_step", labels, evidence, tab)
-    b, hh, ww = labels.shape
-    out = torch.empty_like(labels)
-    P, I, U, F = _lib.PTR, _lib.INT, _lib.UINT, _lib.FLOAT
-    fn = _lib.function(
-        "mrf_gibbs", "aia_mrf_half_step",
-        [P, P, P, U, U, P, I, I, I, I, I, I, I, F, F, F, I, F, F, I, I, I,
-         P],
-    )
-    with torch.cuda.device(labels.device):
-        code = fn(
-            labels.data_ptr(), out.data_ptr(), evidence.data_ptr(),
-            key.k1, key.k2, tab.data_ptr(), b, hh, ww,
-            tile_rows(ww, exp_spec.size), mrf.n_labels, parity,
-            int(mrf.data_cost == "quadratic"), mrf.theta, mrf.h, -mrf.h,
-            exp_spec.size, exp_spec.x0, inv_dx(exp_spec), p.n_words,
-            p.precision, p.total_steps, _lib.stream_of(labels),
-        )
-    _lib.check("mrf_gibbs", code, "mrf_half_step")
+    out = _half_step_lanes("mrf_half_step", mrf, labels, evidence, 1, None,
+                           key, parity, exp_table, exp_spec, p)
     mrf_half_step.launches += 1
     return out
 
@@ -285,6 +278,63 @@ def mrf_half_step_lanes_ref(
         for i, k in enumerate(prng.keys_of(keys))])
 
 
+def lanes_launch(mrf: GridMRF, q: int, b: int, lut_size: int = 16) -> dict:
+    """The lane kernel's launch for Q queries of B chains: a block takes
+    `chains_per_block` chains of one query (2, or 1 where 2 leaves some of
+    the card's 132 SMs without a block or overflows shared memory) and
+    `tile_rows` grid rows (at most 16), staging the tile's evidence once
+    for its chains; 256 threads.  The instance is exact-width for 2-8
+    labels."""
+    h, w, v = mrf.height, mrf.width, mrf.n_labels
+    th = min(_LANE_ROWS, tile_rows(w, lut_size))
+    tiles = -(-h // th)
+
+    def smem(c):
+        return 4 * lut_size + 4 * th * w + c * (th + 2) * w
+
+    fits = [c for c in _LANE_CHAINS if smem(c) <= _SMEM_MAX]
+    cpb = next((c for c in fits if q * -(-b // c) * tiles >= _SMS),
+               fits[-1])
+    cap = v if 2 <= v <= 8 else next(c for c in (16, 32, 128) if v <= c)
+    return {"chains_per_block": cpb, "tile_rows": th, "threads": 256,
+            "smem": smem(cpb), "blocks": q * -(-b // cpb) * tiles,
+            "kernel": f"mrf_lanes_kernel<{cap}, {int(2 <= v <= 8)}>"}
+
+
+def _half_step_lanes(name, mrf, labels, evidence, q, keys, key, parity,
+                     exp_table, exp_spec, p) -> torch.Tensor:
+    """Launch the lane kernel (for the entry `name`) over Q queries of
+    `labels` with evidence (Q, H, W) (or (H, W) when Q = 1), drawing from
+    the (Q, 2) int32 `keys` on the card, or from one `key` when keys is
+    None."""
+    tab = exp_table.reshape(-1)
+    extra = () if keys is None else (keys,)
+    _lib.require_cuda(name, labels, evidence, *extra, tab)
+    hh, ww = labels.shape[1:]
+    b = labels.shape[0] // q
+    ln = lanes_launch(mrf, q, b, exp_spec.size)
+    out = torch.empty_like(labels)
+    P, I, U, F = _lib.PTR, _lib.INT, _lib.UINT, _lib.FLOAT
+    fn = _lib.function(
+        "mrf_gibbs", "aia_mrf_half_step_lanes",
+        [P, P, P, P, U, U, P, I, I, I, I, I, I, I, I, I, F, F, F, I, F, F, I,
+         I, I, P],
+    )
+    k1, k2 = (0, 0) if key is None else (key.k1, key.k2)
+    with torch.cuda.device(labels.device):
+        code = fn(
+            labels.data_ptr(), out.data_ptr(), evidence.data_ptr(),
+            None if keys is None else keys.data_ptr(), k1, k2,
+            tab.data_ptr(), q, b, hh, ww, ln["tile_rows"],
+            ln["chains_per_block"], mrf.n_labels, parity,
+            int(mrf.data_cost == "quadratic"), mrf.theta, mrf.h, -mrf.h,
+            exp_spec.size, exp_spec.x0, inv_dx(exp_spec), p.n_words,
+            p.precision, p.total_steps, _lib.stream_of(labels),
+        )
+    _lib.check("mrf_gibbs", code, name)
+    return out
+
+
 def mrf_half_step_lanes(
     mrf: GridMRF, labels: torch.Tensor, evidence: torch.Tensor,
     keys: torch.Tensor, parity: int, exp_table: torch.Tensor,
@@ -300,26 +350,8 @@ def mrf_half_step_lanes(
     if labels.device.type == "cpu":
         return mrf_half_step_lanes_ref(mrf, labels, evidence, keys, parity,
                                        exp_table, exp_spec, p)
-    tab = exp_table.reshape(-1)
-    _lib.require_cuda("mrf_half_step_lanes", labels, evidence, keys, tab)
-    hh, ww = labels.shape[1:]
-    out = torch.empty_like(labels)
-    P, I, F = _lib.PTR, _lib.INT, _lib.FLOAT
-    fn = _lib.function(
-        "mrf_gibbs", "aia_mrf_half_step_lanes",
-        [P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, I, F, F, I, I, I,
-         P],
-    )
-    with torch.cuda.device(labels.device):
-        code = fn(
-            labels.data_ptr(), out.data_ptr(), evidence.data_ptr(),
-            keys.data_ptr(), tab.data_ptr(), q, b, hh, ww,
-            tile_rows(ww, exp_spec.size), mrf.n_labels, parity,
-            int(mrf.data_cost == "quadratic"), mrf.theta, mrf.h, -mrf.h,
-            exp_spec.size, exp_spec.x0, inv_dx(exp_spec), p.n_words,
-            p.precision, p.total_steps, _lib.stream_of(labels),
-        )
-    _lib.check("mrf_gibbs", code, "mrf_half_step_lanes")
+    out = _half_step_lanes("mrf_half_step_lanes", mrf, labels, evidence, q,
+                           keys, None, parity, exp_table, exp_spec, p)
     mrf_half_step_lanes.launches += 1
     return out
 

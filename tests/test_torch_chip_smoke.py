@@ -169,6 +169,55 @@ def test_ptxas_entries_names_k1_instances_and_their_spills():
     assert cs.ptxas_entries(PTXAS_LOG, "bn_") == []
 
 
+K3_K6_LOG = """
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__a9d8ca57_11_bn_gibbs_cu_03bb7e9715bn_lanes_kernelILi3ELb1ELi32EEEvNS_9LanesArgsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 600 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__a9d8ca57_11_bn_gibbs_cu_03bb7e9716bn_rounds_kernelILi128EEEvNS_10RoundsArgsE' for 'sm_90a'
+    192 bytes stack frame, 344 bytes spill stores, 340 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__c70cf027_12_mrf_gibbs_cu_03bb7e9716mrf_lanes_kernelILi5ELb1EEEvNS_9LanesArgsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__496cbd7e_13_ky_sampler_cu_03bb7e9721threefry_words_kernelEjjyyPi' for 'sm_90a'
+ptxas info    : Used 14 registers, used 0 barriers
+"""
+
+
+def test_template_instances_names_k3_k6_instances_and_their_spills():
+    cs = _chip_smoke()
+    assert cs.template_instances(K3_K6_LOG) == [
+        {"function": "bn_lanes_kernel<3, 1, 32>", "stack_bytes": 0,
+         "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 56},
+        {"function": "bn_rounds_kernel<128>", "stack_bytes": 192,
+         "spill_store_bytes": 344, "spill_load_bytes": 340,
+         "registers": 255},
+        {"function": "mrf_lanes_kernel<5, 1>", "stack_bytes": 0,
+         "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 40},
+    ]
+
+
+class _Row:
+    def __init__(self, key, us, count):
+        self.key, self.device_time_total, self.count = key, us, count
+
+
+def test_device_ms_averages_the_recorded_launches(monkeypatch):
+    """A named kernel's device ms a call is the mean of the launches the
+    profiler recorded, times the launches a call: a window that missed
+    its first launches still reads a launch's time.  "" sums every kernel
+    of `reps` calls."""
+    cs = _chip_smoke()
+    rows = [_Row("void bn_lanes_kernel<3, true, 32>(LanesArgs)", 300.0, 3),
+            _Row("elementwise_kernel", 999.0, 10)]
+    monkeypatch.setattr(cs, "profiled_kernels", lambda torch, fn, reps: rows)
+    assert cs.device_ms(None, None, 10, "bn_lanes_kernel") == 0.1
+    assert cs.device_ms(None, None, 10, "bn_lanes_kernel",
+                        launches=4) == 0.4
+    assert cs.device_ms(None, None, 10, "") == (300.0 + 999.0) / 10 / 1e3
+    assert cs.device_ms(None, None, 10, "mrf_lanes_kernel") is None
+
+
 def test_runtime_trace_forms_the_four_buckets():
     """The serve_runtime phase's queries: 8 pigs queries sharing one
     observed-node set, 2 hailfinder, 2 pinned and 2 unpinned Penguin, all
