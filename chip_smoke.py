@@ -106,6 +106,28 @@ each printing one JSON line; any failure raises and exits non-zero:
               the resumed halves making no word in plain torch; the legacy
               `fused=False` route on asia (100 sweeps) is within TV 0.05 of
               exact variable elimination.
+11a. serve_ranks — the sampler's mesh over processes: the kernel
+              libraries are built before the ranks start (they only load
+              them), then `launch.mesh.spawn` starts 8 gloo ranks sharing
+              the card as a (2, 4) mesh (`core.distributed.RankMesh`).
+              Each rank runs its own position through
+              `compile_graph(...).run_sharded(key, mesh, ...)`: pigs and
+              hailfinder (one query of `serve` each, fused, 1,024 chains x
+              200 sweeps), Penguin (1,024 x 200), asia with
+              `diagnostics=True`, and pigs sliced at sweep 100 and resumed
+              through its carry; counters zeroed on each rank before and
+              read after: K5 launched once per round a rank (over its own
+              node position and chain block), K6 twice per iteration (its
+              own slab), nothing else.  Every rank's result equals, bit
+              for bit, the single-process `run_sharded` on a (2, 4) mesh
+              of the card and `run(fused=True)` (the snapshot field for
+              field).  Each run's wall by part on rank 0: K5/K6 ms a
+              launch (alone in rank 0, CUDA events), the collectives'
+              host ms a round (gloo, staged through host memory), and the
+              rest, the host's.  Then an NCCL world of min(cards, 4) ranks
+              as a (1, n) mesh (one rank holding a 1 x 1 mesh on one
+              card) runs pigs and Penguin, equal to the single-process
+              mesh and to `run`.  A failed rank fails the phase.
 12. timing  — every kernel and its twin at the main paths' shapes: the
               kernel's device time (torch.profiler) and time per call (CUDA
               events), the twin's time (for K3-K6 with the key's words
@@ -371,6 +393,7 @@ def main() -> int:
     k5_err = timed(phase_k5, torch)
     k6_err = timed(phase_k6, torch)
     sharded_launches = timed(phase_serve_sharded, torch, served)
+    timed(phase_serve_ranks, torch)
     lanes_err = timed(phase_lanes, torch)
     runtime = timed(phase_serve_runtime, torch)
     counts = timed(phase_profile, torch)
@@ -1674,6 +1697,270 @@ def phase_serve_sharded(torch, served_mrf: dict) -> dict:
           "launches": launches, "expected_launches": want})
     check(tv <= 0.05, f"legacy sharded asia marginals off exact VE: {tv}")
     return launches
+
+
+RANK_MESH = (2, 4)  # gloo ranks sharing the card
+RANK_TIMEOUT_S = 600
+NCCL_MAX_RANKS = 4
+
+
+def _rank_jobs(torch) -> list[dict]:
+    """The serve_ranks runs, as data a rank rebuilds its programs from:
+    one pigs and one hailfinder query of `serve`, Penguin, asia with
+    diagnostics, and the pigs query sliced at sweep 100."""
+    from repro_torch.core.graphs import bn_repository_replica
+
+    def query(model, seed):
+        _, ev, key = _queries(model, 1, seed,
+                              bn_repository_replica(model).cards)[0]
+        return {"model": model, "evidence": ev, "seed": key}
+
+    bn_kw = dict(n_chains=CHAINS, n_iters=ITERS, burn_in=BURN_IN,
+                 sampler="lut_ky", backend="schedule", fused=True)
+    pigs = query("pigs", 11)
+    return [
+        {"name": "pigs", **pigs, "kw": bn_kw},
+        {"name": "hailfinder", **query("hailfinder", 12), "kw": bn_kw},
+        {"name": "penguin", "model": "penguin", "seed": 100,
+         "kw": dict(n_chains=CHAINS, n_iters=ITERS, sampler="lut_ky",
+                    backend="schedule", fused=True)},
+        {"name": "asia_diagnostics", "model": "asia",
+         "evidence": {0: 1, 5: 0}, "seed": 4,
+         "kw": {**bn_kw, "diagnostics": True}},
+        {"name": "pigs_sliced", **pigs, "kw": bn_kw, "slice": ITERS // 2},
+    ]
+
+
+def _rank_program(torch, job: dict, dev):
+    """(program, MRF evidence image or None) of a serve_ranks job."""
+    from repro_torch.compile import ir
+    from repro_torch.compile.program import compile_graph
+    from repro_torch.core.graphs import bn_repository_replica
+
+    if job["model"] in MRF_MODELS:
+        mrf, _, ev = _mrf_model(torch, job["model"])
+        return compile_graph(ir.canonicalize(mrf, evidence_mode="runtime"),
+                             device=dev), ev.to(dev)
+    return compile_graph(bn_repository_replica(job["model"]),
+                         job["evidence"], device=dev), None
+
+
+def _run_job(job: dict, prog, ev, mesh):
+    """Serve `job` on `mesh` (`run_sharded`), or on one device with mesh
+    None (`run`); a sliced job runs its halves through the carry."""
+    from repro_torch import prng
+
+    kw = dict(job["kw"])
+    if ev is not None:
+        kw["evidence"] = ev
+    if mesh is None:
+        def run(key, **a):
+            return prog.run(key, device=prog.device, **a)
+    else:
+        def run(key, **a):
+            return prog.run_sharded(key, mesh, **a)
+    key = prng.key(job["seed"])
+    if "slice" not in job:
+        return run(key, **kw)
+    first = {**kw, "n_iters": job["slice"]}
+    *_, state = run(key, return_state=True, **first)
+    return run(None, carry_state=state,
+               **{**kw, "n_iters": kw["n_iters"] - job["slice"]})
+
+
+def _same(a, b) -> bool:
+    """Bit-equal results: tensors (on any device), numpy arrays (NaN
+    equal to NaN), snapshots field for field, tuples element by
+    element."""
+    import dataclasses
+
+    import numpy as np
+
+    if hasattr(a, "detach"):
+        return (hasattr(b, "detach") and a.dtype == b.dtype
+                and a.shape == b.shape
+                and bool((a.detach().cpu() == b.detach().cpu()).all()))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            _same(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (a != a and b != b)
+    return a == b
+
+
+def rank_serve(rank, device_mesh, jobs, time_kernels) -> dict:
+    """One rank of serve_ranks (`launch.mesh.spawn` runs it): the jobs on
+    this rank's position, counters zeroed before and read after, each
+    run's wall and collectives; then, with `time_kernels`, K5 and K6 alone
+    at this rank's shapes while the other ranks wait."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = distributed.RankMesh(device_mesh, dev)
+    progs = [_rank_program(torch, job, dev) for job in jobs]
+    for prog, _ in progs:  # first-use checks, outside the counted runs
+        prog.ensure_fused_cross_check("lut_ky", sharded=True)
+    out = {"rank": rank, "coords": mesh.coords, "runs": {}, "rounds": {}}
+    zero_launches()
+    for job, (prog, ev) in zip(jobs, progs):
+        dist.barrier()
+        torch.cuda.synchronize()
+        c0, s0, t0 = mesh.collectives, mesh.collective_s, time.perf_counter()
+        res = _run_job(job, prog, ev, mesh)
+        torch.cuda.synchronize()
+        out["runs"][job["name"]] = {
+            "result": res, "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "collectives": mesh.collectives - c0,
+            "collective_ms": (mesh.collective_s - s0) * 1e3}
+        if prog.kind == "bn":
+            out["rounds"][job["name"]] = len(
+                prog.schedule_executable().round_groups)
+    out["launches"] = read_launches()
+    dist.barrier()
+    if time_kernels and rank == 0:
+        out["kernel_ms"] = _rank_kernel_ms(torch, jobs, progs, mesh)
+    dist.barrier()
+    return out
+
+
+def _rank_kernel_ms(torch, jobs, progs, mesh) -> dict:
+    """K5 over rank 0's position of pigs (its chain block, node position
+    0, round 0) and K6 over its Penguin block, each alone on the card: ms
+    a launch (CUDA events, 20 launches)."""
+    from repro_torch import prng
+    from repro_torch.core import bayesnet as bnet
+    from repro_torch.core import distributed
+    from repro_torch.core.interp import build_exp_weight_lut
+    from repro_torch.kernels import bn_gibbs, mrf_gibbs
+
+    names = [j["name"] for j in jobs]
+    prog, _ = progs[names.index("pigs")]
+    cbn = prog.cbn
+    sfr = distributed.build_sharded_fused_rounds(
+        cbn, prog.schedule_executable().round_groups,
+        mesh.axis_size("model"), prog.placement)
+    p = bn_gibbs.sweep_params(cbn, "lut_ky")
+    b_loc = CHAINS // mesh.axis_size("data")
+    vals, _ = bnet.init_chain_values(cbn, prng.key(1), CHAINS)
+    blk = vals[:b_loc].contiguous()
+    k5 = time_ms(torch, lambda: bn_gibbs.fused_color_round(
+        cbn, sfr, 0, 0, blk, prng.key(2), 0, "lut_ky", p), 20)
+    prog, ev = progs[names.index("penguin")]
+    mrf = prog.mrf
+    h_loc = mrf.height // mesh.axis_size("model")
+    lab = torch.randint(0, mrf.n_labels, (b_loc, h_loc, mrf.width),
+                        dtype=torch.int32, device=mesh.device)
+    halo = torch.full((1, b_loc, mrf.width), -1, dtype=torch.int32,
+                      device=mesh.device)
+    table, spec = build_exp_weight_lut(device=mesh.device)
+    pm = mrf_gibbs.half_step_params(mrf)
+    k6 = time_ms(torch, lambda: mrf_gibbs.mrf_halo_half_step(
+        mrf, lab, halo, halo, 0, ev[:h_loc], prng.key(3), 0, table, spec,
+        pm, 0), 20)
+    return {"fused_color_round": k5, "mrf_halo_half_step": k6}
+
+
+def phase_serve_ranks(torch) -> None:
+    """The sampler's mesh over processes: 8 gloo ranks sharing the card as
+    a (2, 4) mesh, then an NCCL world of one rank a card, each held bit
+    for bit against the single-process mesh and `run(fused=True)`."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import mesh as mesh_mod
+
+    _lib.build()  # the ranks load the libraries; none of them builds one
+    card = nvidia_smi()
+    dev = torch.device(DEVICE)
+    jobs = _rank_jobs(torch)
+    ranks = mesh_mod.spawn(rank_serve, RANK_MESH[0] * RANK_MESH[1],
+                           backend="gloo", device="cuda",
+                           timeout_s=RANK_TIMEOUT_S, mesh_shape=RANK_MESH,
+                           args=(jobs, True))
+    single = distributed.make_mesh(RANK_MESH, ("data", "model"), dev)
+    for job in jobs:
+        prog, ev = _rank_program(torch, job, dev)
+        ref = _run_job(job, prog, ev, single)
+        one = _run_job(job, prog, ev, None)
+        check(_same(ref, one), f"serve_ranks {job['name']}: the "
+              "single-process mesh differs from run(fused=True)")
+        for r in ranks:
+            check(_same(r["runs"][job["name"]]["result"], ref),
+                  f"serve_ranks {job['name']}: rank {r['rank']} differs "
+                  "from the single-process (2, 4) mesh")
+    rounds = ranks[0]["rounds"]
+    # one K5 launch a round a rank, two K6 launches an iteration a rank
+    want_launches = {name: 0 for name in ranks[0]["launches"]}
+    want_launches["fused_color_round"] = ITERS * sum(rounds.values())
+    want_launches["mrf_halo_half_step"] = 2 * ITERS
+    for r in ranks:
+        check(r["launches"] == want_launches, f"serve_ranks: rank "
+              f"{r['rank']} launched {r['launches']}, expected "
+              f"{want_launches}")
+    k_ms = ranks[0]["kernel_ms"]
+    for job in jobs:
+        runs = [r["runs"][job["name"]] for r in ranks]
+        run0 = runs[0]
+        kernel = ("mrf_halo_half_step" if job["model"] in MRF_MODELS
+                  else "fused_color_round")
+        launches = (2 * ITERS if kernel == "mrf_halo_half_step"
+                    else ITERS * rounds[job["name"]])
+        kernel_ms = launches * k_ms[kernel]
+        emit({"phase": "serve_ranks", "run": job["name"], "backend": "gloo",
+              "mesh": list(RANK_MESH), "ranks": len(ranks),
+              "chains": CHAINS, "iters": ITERS, "card": card,
+              "wall_ms_rank0": run0["wall_ms"],
+              "wall_ms_ranks_max": max(x["wall_ms"] for x in runs),
+              "kernel": kernel, "launches_rank0": launches,
+              "kernel_ms_a_launch_alone": k_ms[kernel],
+              "kernel_ms_rank0": kernel_ms,
+              "collectives_rank0": run0["collectives"],
+              "collective_ms_rank0": run0["collective_ms"],
+              "collective_ms_a_round": run0["collective_ms"] / max(
+                  launches, 1),
+              "host_ms_rank0": run0["wall_ms"] - kernel_ms
+              - run0["collective_ms"],
+              "equals_single_process_mesh": True, "equals_run": True})
+    emit({"phase": "serve_ranks_checks", "ranks": len(ranks),
+          "coords": [list(r["coords"]) for r in ranks],
+          "launches_per_rank": want_launches, "bit_equal_runs":
+          [j["name"] for j in jobs], "card": card})
+
+    # NCCL: one rank a card, as a (1, n) mesh
+    n = min(torch.cuda.device_count(), NCCL_MAX_RANKS)
+    nccl_jobs = [j for j in jobs if j["name"] in ("pigs", "penguin")]
+    ranks = mesh_mod.spawn(rank_serve, n, backend="nccl", device="cuda",
+                           timeout_s=RANK_TIMEOUT_S, mesh_shape=(1, n),
+                           args=(nccl_jobs, False))
+    single = distributed.make_mesh((1, n), ("data", "model"), dev)
+    for job in nccl_jobs:
+        prog, ev = _rank_program(torch, job, dev)
+        ref = _run_job(job, prog, ev, single)
+        check(_same(ref, _run_job(job, prog, ev, None)),
+              f"serve_ranks nccl {job['name']}: the single-process mesh "
+              "differs from run(fused=True)")
+        for r in ranks:
+            check(_same(r["runs"][job["name"]]["result"], ref),
+                  f"serve_ranks nccl {job['name']}: rank {r['rank']} "
+                  "differs from the single-process mesh")
+        run0 = ranks[0]["runs"][job["name"]]
+        emit({"phase": "serve_ranks", "run": job["name"], "backend": "nccl",
+              "mesh": [1, n], "ranks": n, "chains": CHAINS, "iters": ITERS,
+              "card": card, "wall_ms_rank0": run0["wall_ms"],
+              "collectives_rank0": run0["collectives"],
+              "collective_ms_rank0": run0["collective_ms"],
+              "collective_ms_a_round": run0["collective_ms"] / (
+                  2 * ITERS if job["model"] in MRF_MODELS
+                  else ITERS * ranks[0]["rounds"][job["name"]]),
+              "launches_rank0": ranks[0]["launches"],
+              "equals_single_process_mesh": True, "equals_run": True})
 
 
 PROFILE_SWEEPS = 50

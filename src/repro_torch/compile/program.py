@@ -425,7 +425,7 @@ class CompiledProgram:
     def run_sharded(
         self,
         key: prng.Key | None,
-        mesh: dist_mod.Mesh,
+        mesh,
         *,
         n_chains: int = 32,
         n_iters: int = 200,
@@ -440,9 +440,14 @@ class CompiledProgram:
         diagnostics: bool = False,
         **axes,
     ):
-        """Execute across `mesh` (`core.distributed.make_mesh`), whose
-        positions lie on the program's device; node ownership follows this
-        program's placement (see `distributed.run_program_sharded`).  With
+        """Execute across `mesh`: a `core.distributed.make_mesh` mesh whose
+        positions lie on the program's device, or a mesh over the ranks of
+        a `torch.distributed` world (`distributed.RankMesh`, or the
+        `launch.mesh.make_mesh` `DeviceMesh` it wraps, on the program's
+        device), where every rank calls this with the same arguments, runs
+        its own position and returns the whole result.  Node ownership
+        follows this program's placement (see
+        `distributed.run_program_sharded`).  With
         backend="schedule" (the default, like `run()`) the rounds come from
         this program's schedule and each round's comm op is routed onto
         its named collective; backend="eager" is the escape hatch.

@@ -4,8 +4,10 @@ serving (prefill, and decode with the token draw).
 Port of `repro/launch/steps.py`'s `default_opt_cfg`, `make_train_step`,
 `make_prefill_step` and `make_serve_step` for one device (`mesh=None`).
 The reference jits each step; PyTorch runs eagerly, so a step here is a
-plain function.  A mesh raises `NotImplementedError`: meshes over several
-cards are ROADMAP §1 item 2.
+plain function.  A mesh raises `NotImplementedError`: the LM mesh
+(sharding as DTensor placements over `launch/mesh.py`'s meshes) is
+ROADMAP §1 item 2.  The sampler runs over a mesh of ranks already
+(`core/distributed.RankMesh`).
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ from repro_torch.optim import adamw
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded LM steps are not ported (ROADMAP §1 item 2: meshes "
-            "over several cards); pass mesh=None"
+            "sharded LM steps are not ported: the LM mesh is ROADMAP §1 "
+            "item 2 (the sampler's mesh over ranks is "
+            "core.distributed.RankMesh); pass mesh=None"
         )
 
 

@@ -19,8 +19,10 @@ Port of `repro/launch/train.py` for one device:
 * `--metrics-out` writes every step's exact loss, grad norm and lr as
   JSON lines.
 
-`--mesh` takes only '' or 1x1: meshes over several cards and the
-reference's `--compress` wait for ROADMAP §1's meshes.
+`--mesh` takes only '' or 1x1: training over a mesh of ranks waits for
+the LM mesh (ROADMAP §1 item 2).  The reference's `--compress` is parsed
+there but never reaches its collectives, which the port keeps in
+`optim/compression.py`.
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ def build(cfg, opt_cfg, device):
 def _mesh(spec: str) -> None:
     if spec not in ("", "1x1"):
         raise NotImplementedError(
-            f"--mesh {spec}: meshes over several cards are not ported "
-            "(ROADMAP §1 item 2); pass '' or 1x1")
+            f"--mesh {spec}: training over a mesh of ranks waits for the "
+            "LM mesh (ROADMAP §1 item 2; the sampler's runs over ranks "
+            "already); pass '' or 1x1")
 
 
 def main(argv=None):

@@ -431,3 +431,62 @@ def test_lm_train_flops_is_three_forwards_over_every_position(arch):
     n = sum(p.numel() for p in leaves.values())
     assert all(p.dtype == torch.float32 for p in leaves.values())
     assert cs.adamw_bytes(leaves, state) == 28 * n
+
+
+def test_main_runs_serve_ranks_after_the_single_process_mesh():
+    """serve_ranks runs after serve_sharded and before `timing`, whose
+    kernels line keeps K1-K6 and both lane entries."""
+    import inspect
+
+    cs = _chip_smoke()
+    src = inspect.getsource(cs.main)
+    where = [src.index(n) for n in ("phase_serve_sharded,",
+                                    "phase_serve_ranks", "phase_timing")]
+    assert where == sorted(where)
+    timing = inspect.getsource(cs.timing_sharded) + inspect.getsource(
+        cs.phase_timing) + inspect.getsource(cs.timing_lanes)
+    for line in ("ky_sampler.py:159", "interp_lut.py:50", "bn_gibbs.py:236",
+                 "mrf_gibbs.py:159", "bn_gibbs.py:316", "mrf_gibbs.py:280"):
+        assert line in inspect.getsource(cs), line
+    for name in ("bn_sweep_lanes", "mrf_half_step_lanes"):
+        assert name in timing, name
+
+
+def test_rank_jobs_are_the_published_runs():
+    cs = _chip_smoke()
+    jobs = cs._rank_jobs(None)
+    assert [j["name"] for j in jobs] == ["pigs", "hailfinder", "penguin",
+                                         "asia_diagnostics", "pigs_sliced"]
+    for j in jobs:
+        assert j["kw"]["n_chains"] == 1024 and j["kw"]["n_iters"] == 200
+        assert j["kw"]["fused"] and j["kw"]["backend"] == "schedule"
+    assert jobs[3]["kw"]["diagnostics"]
+    assert jobs[4]["slice"] == 100 and jobs[4]["seed"] == jobs[0]["seed"]
+    assert cs.MRF_MODELS[jobs[2]["model"]] == (64, 64, 4, "potts")
+
+
+def test_a_sliced_rank_job_equals_the_whole_run():
+    """`_run_job` on the CPU at a few chains: one device, a (2, 4) mesh
+    and the run sliced through its carry agree, snapshot included."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed
+
+    cs = _chip_smoke()
+    job = {"name": "asia", "model": "asia", "evidence": {0: 1, 5: 0},
+           "seed": 4, "kw": dict(n_chains=8, n_iters=6, burn_in=2,
+                                 sampler="lut_ky", backend="schedule",
+                                 fused=True)}
+    prog, ev = cs._rank_program(torch, job, torch.device("cpu"))
+    mesh = distributed.make_mesh((2, 4), device="cpu")
+    whole = cs._run_job(job, prog, ev, None)
+    assert cs._same(cs._run_job(job, prog, ev, mesh), whole)
+    assert cs._same(cs._run_job({**job, "slice": 3}, prog, ev, mesh), whole)
+    diag = {**job, "kw": {**job["kw"], "diagnostics": True}}
+    assert cs._same(cs._run_job(diag, prog, ev, mesh),
+                    cs._run_job(diag, prog, ev, None))
+    assert not cs._same(cs._run_job({**job, "seed": 5}, prog, ev, None),
+                        whole)
+    assert cs._same(np.array([np.nan, 1.0]), np.array([np.nan, 1.0]))
+    assert not cs._same(torch.zeros(2, dtype=torch.int32), torch.zeros(2))

@@ -13,7 +13,16 @@
     under 0.05 (the repo's quickstart gate);
   * on a card, the fused route makes words in plain torch
     (`prng._raw_bits`) only for its chain init, never when resumed;
-  * every argument check of the sharded route.
+  * every argument check of the sharded route;
+  * the mesh over ranks (`RankMesh`): 8 gloo ranks on the CPU as a (2, 4)
+    mesh, one spawn for the module (`torch_rank_cases.sampler_cases`),
+    against the reference's (2, 4) outputs (both fused and both legacy
+    engines) and against the single-process mesh and `run` (carries
+    crossing both ways, `diagnostics=True` snapshots field for field, the
+    halo at both grid edges), every rank returning the same, bit for bit;
+    a (1, 2) world; the errors (a mesh that is not the world, chains or
+    rows that do not divide, NCCL with two ranks on one card, a failed
+    or hung rank).
 
 Inputs come from numpy seeds; keys are the reference's keys carried
 across."""
@@ -22,6 +31,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import jax
@@ -38,6 +48,9 @@ from repro_torch.core import mrf as t_mrf
 from repro_torch.core.exact import ve_marginal
 from repro_torch.core.graphs import GridMRF, bn_repository_replica, \
     random_bayesnet
+from repro_torch.launch import mesh as mesh_mod
+
+import torch_rank_cases as cases
 
 MESHES = [(1, 1), (1, 2), (2, 4)]
 
@@ -274,20 +287,24 @@ _REFERENCE = textwrap.dedent("""
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The reference's sharded engines on a (2, 4) mesh, run once in a
-    subprocess with 8 simulated host devices."""
-    out = tmp_path_factory.mktemp("sharded") / "reference.npz"
-    root = Path(__file__).resolve().parent.parent
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(root / "src")
-    env["JAX_PLATFORMS"] = "cpu"
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run([sys.executable, "-c", _REFERENCE, str(out)],
-                         env=env, capture_output=True, text=True,
-                         timeout=600)
-    assert "REFERENCE_OK" in res.stdout, (res.stdout[-2000:]
-                                          + res.stderr[-4000:])
-    return dict(np.load(out))
+    """The reference's sharded engines on a (2, 4) mesh, run once a
+    session in a subprocess with 8 simulated host devices."""
+    def compute():
+        out = tmp_path_factory.mktemp("sharded") / "reference.npz"
+        root = Path(__file__).resolve().parent.parent
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(root / "src")
+        env["JAX_PLATFORMS"] = "cpu"
+        env.pop("XLA_FLAGS", None)
+        res = subprocess.run([sys.executable, "-c", _REFERENCE, str(out)],
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        assert "REFERENCE_OK" in res.stdout, (res.stdout[-2000:]
+                                              + res.stderr[-4000:])
+        return dict(np.load(out))
+
+    return cases.once_per_session(tmp_path_factory, "sharded_reference",
+                                  compute)
 
 
 def test_fused_engines_match_the_reference(reference):
@@ -423,3 +440,221 @@ def test_sharded_route_argument_checks():
         bn.run_sharded(prng.key(0), t_dist.Mesh(
             np.array([[torch.device("meta")]], dtype=object),
             ("data", "model")), n_iters=1)
+
+
+# ---------------------------------------------------------------------------
+# the mesh over ranks: 8 gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = 300
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Every rank's results of `torch_rank_cases.sampler_cases` on a (2, 4)
+    mesh of 8 gloo ranks, spawned once a session."""
+    return cases.once_per_session(
+        tmp_path_factory, "rank_mesh_2x4", lambda: mesh_mod.spawn(
+            cases.sampler_cases, 8, backend="gloo", device="cpu",
+            timeout_s=RANK_TIMEOUT_S, mesh_shape=(2, 4)))
+
+
+def test_rank_mesh_positions_and_collectives(ranks):
+    assert [r["rank"] for r in ranks] == list(range(8))
+    assert [r["coords"] for r in ranks] == [(i, j) for i in range(2)
+                                            for j in range(4)]
+    # every rank ran the same collectives (a count that differs would
+    # have deadlocked or paired the wrong exchanges)
+    assert len({r["collectives"] for r in ranks}) == 1
+    assert ranks[0]["collectives"] > 0
+
+
+def test_rank_mesh_fused_engines_match_the_reference(reference, ranks):
+    for r in ranks:
+        np.testing.assert_array_equal(r["ref_mrf_fused"].numpy(),
+                                      reference["mrf_fused"])
+        m, v = r["ref_bn_fused"]
+        np.testing.assert_array_equal(m.numpy(), reference["bn_fused_m"])
+        np.testing.assert_array_equal(v.numpy(), reference["bn_fused_v"])
+
+
+@pytest.mark.parametrize("backend", ["schedule", "eager"])
+def test_rank_mesh_legacy_engines_match_the_reference(reference, ranks,
+                                                      backend):
+    for r in ranks:
+        np.testing.assert_array_equal(
+            r[f"ref_mrf_legacy_{backend}"].numpy(),
+            reference[f"mrf_legacy_{backend}"])
+        m, v = r[f"ref_bn_legacy_{backend}"]
+        np.testing.assert_array_equal(m.numpy(),
+                                      reference[f"bn_legacy_{backend}_m"])
+        np.testing.assert_array_equal(v.numpy(),
+                                      reference[f"bn_legacy_{backend}_v"])
+
+
+@pytest.mark.parametrize("case", ["bn_fused", "bn_exact", "mrf_fused"])
+def test_rank_mesh_equals_single_process_and_run(ranks, case):
+    mesh = _cpu_mesh((2, 4))
+    if case == "mrf_fused":
+        prog, kw = cases.mrf_prog(), dict(evidence=cases.evidence(),
+                                          **cases.MRF_KW)
+        key = prng.key(7)
+    else:
+        prog, kw = cases.bn_prog(), dict(cases.BN_KW)
+        kw["sampler"] = "exact_ky" if case == "bn_exact" else "lut_ky"
+        key = prng.key(11)
+    single = prog.run(key, device="cpu", **kw)
+    sharded = prog.run_sharded(key, mesh, **kw)
+    for r in ranks:
+        for want in (single, sharded):
+            got = r[case]
+            if case == "mrf_fused":
+                assert torch.equal(got, want)
+            else:
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[1], want[1])
+
+
+def test_rank_mesh_bn_carry_crosses_both_ways(ranks):
+    prog = cases.bn_prog()
+    kw = {k: v for k, v in cases.BN_KW.items() if k != "n_iters"}
+    m, v, st = prog.run(prng.key(3), n_iters=7, return_state=True,
+                        device="cpu", **kw)
+    for r in ranks:
+        m_a, v_a, st_a = r["bn_carry_in"]
+        m_b, v_b, st_b = prog.run(None, n_iters=4,
+                                  carry_state=r["bn_carry_out"],
+                                  return_state=True, device="cpu", **kw)
+        for mm, vv, ss in ((m_a, v_a, st_a), (m_b, v_b, st_b)):
+            assert torch.equal(mm, m) and torch.equal(vv, v)
+            _same_state(ss, st)
+
+
+def test_rank_mesh_mrf_carry_crosses_both_ways(ranks):
+    prog = cases.mrf_prog()
+    kw = dict(evidence=cases.evidence(seed=2), n_chains=4, fused=True)
+    whole = prog.run(prng.key(9), n_iters=6, device="cpu", **kw)
+    for r in ranks:
+        assert torch.equal(r["mrf_carry_in"], whole)
+        lab = prog.run(None, n_iters=4, carry_state=r["mrf_carry_out"],
+                       device="cpu", **kw)
+        assert torch.equal(lab, whole)
+
+
+def test_rank_mesh_quality_snapshots_equal_single_device(ranks):
+    mprog, bprog = cases.mrf_prog(), cases.bn_prog()
+    zeros = np.zeros((8, 16), np.int32)
+    lab1, snap1 = mprog.run(prng.key(7), evidence=zeros, n_chains=4,
+                            n_iters=5, fused=True, diagnostics=True,
+                            device="cpu")
+    m1, v1, sn1 = bprog.run(prng.key(11), device="cpu", **cases.BN_DIAG_KW)
+    # 2 iterations, then 3 resumed, on one device
+    _, _, a = mprog.run(prng.key(7), evidence=zeros, n_chains=4, n_iters=2,
+                        fused=True, diagnostics=True, return_state=True,
+                        device="cpu")
+    _, snap_sliced = mprog.run(None, evidence=zeros, n_chains=4, n_iters=3,
+                               fused=True, diagnostics=True, carry_state=a,
+                               device="cpu")
+    for r in ranks:
+        lab2, snap2 = r["mrf_diag"]
+        assert torch.equal(lab1, lab2)
+        _assert_snap_equal(snap1, snap2)
+        m2, v2, sn2 = r["bn_diag"]
+        assert torch.equal(m1, m2) and torch.equal(v1, v2)
+        _assert_snap_equal(sn1, sn2)
+        # 2 iterations on one device, 3 resumed on the ranks: the
+        # accumulator's (chain, site) blocks cross both ways
+        lab3, snap3 = r["mrf_diag_resumed"]
+        assert torch.equal(lab3, lab1)
+        _assert_snap_equal(snap3, snap_sliced)
+
+
+def test_rank_mesh_carries_its_quality_state():
+    """The accumulator's blocks cut and gathered as the ranks do it are
+    the whole accumulator (leaves elementwise over chain and site)."""
+    prog = cases.mrf_prog()
+    zeros = np.zeros((8, 16), np.int32)
+    _, _, st = prog.run(prng.key(7), evidence=zeros, n_chains=4, n_iters=3,
+                        fused=True, diagnostics=True, return_state=True,
+                        device="cpu")
+    q = st.quality
+    blocks = [[t_dist._accum_block(q, slice(2 * i, 2 * i + 2),
+                                   slice(32 * j, 32 * j + 32))
+               for j in range(4)] for i in range(2)]
+    for f in t_dist._ACCUM_LEAVES:
+        whole = torch.cat([torch.cat([getattr(b, f) for b in row], dim=-2)
+                           for row in blocks], dim=-3)
+        assert torch.equal(whole, getattr(q, f)), f
+    for f in ("counts", "split_at", "batch_len", "bm_count", "cur_n"):
+        assert getattr(blocks[1][3], f) == getattr(q, f), f
+
+
+def test_rank_halo_at_both_grid_edges(ranks):
+    grid = torch.arange(4 * 8 * 16, dtype=torch.int32).reshape(4, 8, 16)
+    up, down = t_dist._halo_exchange(grid, 4)
+    for r in ranks:
+        ci, gi = r["coords"]
+        got_up, got_down = r["halo"]
+        assert torch.equal(got_up, up[gi, 2 * ci:2 * ci + 2])
+        assert torch.equal(got_down, down[gi, 2 * ci:2 * ci + 2])
+        assert bool((got_up == -1).all()) == (gi == 0)
+        assert bool((got_down == -1).all()) == (gi == 3)
+
+
+def test_rank_mesh_argument_errors(ranks):
+    for r in ranks:
+        err = r["errors"]
+        assert "positions; the world has 8 ranks" in err["mesh_size"]
+        assert "(16, 16) mesh" in err["production_mesh"]
+        for k in ("n_chains", "n_chains_legacy"):
+            assert err[k].startswith("ValueError: n_chains 3"), err[k]
+        assert err["grid_height"].startswith("ValueError: grid height 9")
+
+
+def test_rank_mesh_1x2_equals_single_process(tmp_path_factory):
+    out = cases.once_per_session(
+        tmp_path_factory, "rank_mesh_1x2", lambda: mesh_mod.spawn(
+            cases.sampler_cases, 2, backend="gloo", device="cpu",
+            timeout_s=RANK_TIMEOUT_S, mesh_shape=(1, 2)))
+    mesh = _cpu_mesh((1, 2))
+    bn, mrf = cases.bn_prog(), cases.mrf_prog()
+    m, v = bn.run_sharded(prng.key(11), mesh, **cases.BN_KW)
+    lab = mrf.run_sharded(prng.key(7), mesh, evidence=cases.evidence(),
+                          **cases.MRF_KW)
+    assert [r["coords"] for r in out] == [(0, 0), (0, 1)]
+    for r in out:
+        assert torch.equal(r["bn_fused"][0], m)
+        assert torch.equal(r["bn_fused"][1], v)
+        assert torch.equal(r["mrf_fused"], lab)
+
+
+def test_nccl_refuses_two_ranks_on_one_card():
+    with pytest.raises(ValueError, match="duplicate GPU"):
+        mesh_mod.check_backend("nccl", 2, "cuda", 1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        mesh_mod.check_backend("nccl", 1, "cpu", 0)
+    with pytest.raises(ValueError, match="backend"):
+        mesh_mod.check_backend("mpi", 1, "cpu", 0)
+    mesh_mod.check_backend("nccl", 4, "cuda", 4)
+    mesh_mod.check_backend("gloo", 8, "cuda", 1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh_mod.spawn(cases.hang, 2, backend="gloo", device="cuda")
+
+
+def test_spawn_fails_when_a_rank_fails():
+    t0 = time.monotonic()
+    with pytest.raises(mesh_mod.RankFailed,
+                       match="rank 1 fails on purpose") as info:
+        mesh_mod.spawn(cases.fail_on_rank_1, 2, backend="gloo",
+                       device="cpu", timeout_s=RANK_TIMEOUT_S)
+    # the rank that failed first is named first
+    assert str(info.value).startswith("rank1 exited with code 1")
+    # rank 0, left waiting in its barrier, was ended, not waited for
+    assert time.monotonic() - t0 < RANK_TIMEOUT_S / 2
+
+
+def test_spawn_times_out_a_hung_rank():
+    with pytest.raises(TimeoutError, match="still running"):
+        mesh_mod.spawn(cases.hang, 1, backend="gloo", device="cpu",
+                       timeout_s=2)

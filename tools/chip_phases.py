@@ -20,6 +20,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def main(argv=None) -> int:
     names = sys.argv[1:] if argv is None else argv
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))  # spawned ranks import chip_smoke by name
     import torch
 
     if not torch.cuda.is_available():
@@ -28,6 +29,7 @@ def main(argv=None) -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
     spec.loader.exec_module(cs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
