@@ -205,8 +205,9 @@ each printing one JSON line; any failure raises and exits non-zero:
               `python -m repro_torch.diag --quick` exit 0; the engine's
               wall with profiling on and off, medians of 3 runs.
 16. serve_lm (after profile, before `timing`) — LM serving at yi-9b's
-              full width (48 layers, d 4,096, 8.83 B parameters held in
-              bf16, random weights from a seeded generator): caches freed,
+              full width (d 4,096; its 48 layers cut to LM_SERVE_LAYERS'
+              16, printed; bf16, random weights from a seeded
+              generator): caches freed,
               then 8 prompts of 128 tokens (seeded) through
               `launch.serve.generate(..., 32, sampler="ky")` after a
               warm-up, counters zeroed before and read after: K1 launched
@@ -229,7 +230,7 @@ each printing one JSON line; any failure raises and exits non-zero:
               (`python -m repro_torch.launch.serve --arch yi-9b --batch 8
               --prompt-len 128 --gen 32 --sampler ky`), which must exit 0.
 17. serve_lm_moe — the same run, checks and timings for qwen2-moe-a2.7b
-              at full width (24 layers, d 2,048, 16 heads of 128 with qkv
+              at full width (all 24 layers, d 2,048, 16 heads of 128 with qkv
               bias, 60 experts top-4 at 1,408 and a shared 5,632; 14.3 B
               parameters, 28.6 GB in bf16; vocabulary 151,936: 3 K1
               launches a token).  Prefill routes each row as a group
@@ -238,8 +239,8 @@ each printing one JSON line; any failure raises and exits non-zero:
               prefill, each decode step and the forward are printed, and
               decode against forward holds the rows that dropped none.
               The bounds count every expert's slots (`lm_expert_macs`).
-18. serve_lm_xlstm — the same for xlstm-350m at full width (24 layers, d
-              1,024, mLSTM:sLSTM 3:1, vocabulary 50,304: 3 K1 launches a
+18. serve_lm_xlstm — the same for xlstm-350m at full width (8 of 24
+              layers, d 1,024, mLSTM:sLSTM 3:1, vocabulary 50,304: 3 K1 launches a
               token; the recurrent states are the caches), decode against
               forward within 10% (its exponential gates amplify bf16
               rounding; the reference's own gap reaches 7.6%), then its
@@ -290,6 +291,41 @@ each printing one JSON line; any failure raises and exits non-zero:
               gradient of every leaf and the input on the card within
               1e-4 of the CPU's; the flash backward at yi-9b's heads
               against the naive oracle under autograd on the card.
+24. serve_lm_mesh (after moe_block) — LM serving over a mesh of ranks
+              (`launch/sharding.py`, `launch/collectives.py`, the meshed
+              `launch/steps.py` factories): 8 gloo ranks sharing the card
+              as (2, 4), then an NCCL world of min(cards, 4) ranks (one
+              card: a 1 x 1 mesh), at full width with depth cut (yi-9b 2
+              of 48 layers, qwen2-moe-a2.7b 1 of 24, each cut printed).
+              Each rank builds the model from the seed on the card,
+              distributes it (its shards alone stay: the bytes the
+              caching allocator was asked for equal the specs' shard
+              bytes) and runs `serve.generate(..., mesh=)` on 8 prompts
+              of 128 tokens for 8 KY tokens, counters zeroed before and
+              read after (3 K1 and 1 K2 a token, nothing else); every
+              rank returns the same tokens and logits, every draw equals
+              the twin's on the gathered logits, the logits are within
+              LM_MESH_LOGIT_RTOL of the one-process steps' teacher-forced
+              on the same tokens, and the NCCL 1 x 1 world is bit-equal
+              to one process.  Prints each rank's wall, the collectives'
+              host ms and the resident bytes.
+25. train_lm_mesh (after train_block) — LM training over the mesh:
+              yi-9b at full width cut to 2 of 48 layers, float32 leaves,
+              B 8 x S 512 `SyntheticLM`, 3 AdamW steps on the NCCL world
+              (whose rank 0 then runs the one-process reference) and the
+              (2, 4) gloo world, under deterministic algorithms: the same
+              losses on every rank, falling; in the gloo world, before
+              the last step a checkpoint of block 0 and the final norm
+              with their moments (every rank sends its shards to rank 0,
+              which writes them whole), those zeroed and restored from it
+              bit for bit, the last step run from them; ranks holding the
+              same block of a leaf hold the same bytes; step 0's loss and
+              gradient norm within LM_MESH_LOSS_RTOL and
+              LM_MESH_GNORM_RTOL of the one-process run's, and each
+              leaf's update within LM_MESH_UPDATE_RTOL of the norm of the
+              one-process update (bit-equal on the NCCL 1 x 1 world);
+              each step's wall and collective ms, and the resident bytes,
+              printed.
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -299,6 +335,7 @@ and exits 2.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -403,8 +440,15 @@ def main() -> int:
     lm_rows += timed(phase_serve_lm_hybrid, torch, per_call)
     timed(phase_mamba_block, torch)
     timed(phase_moe_block, torch)
+    mesh_launches = timed(phase_serve_lm_mesh, torch)
+    for row in lm_rows[:2]:  # yi-9b's K1 and K2 rows
+        kernel = ("ky_sample_kernel" if row["name"].startswith("K1")
+                  else "interp_kernel")
+        row["launches_serve_lm_mesh_rank0"] = {
+            arch: n[kernel] for arch, n in mesh_launches.items()}
     timed(phase_train_lm, torch)
     timed(phase_train_block, torch)
+    timed(phase_train_lm_mesh, torch)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
           sharded_launches, k5_err, k6_err, per_call, k1_ptxas, runtime,
           lanes_err, counts, lm_rows)
@@ -3369,6 +3413,11 @@ LM_XLSTM_ARCH = "xlstm-350m"  # mLSTM:sLSTM 3:1, 0.23 B parameters
 # fit one card, so it serves at reduced() (nothing sharded yet)
 LM_HYBRID_ARCH = "jamba-1.5-large-398b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
+# the one-card serving phases' depth, full widths (printed): yi-9b and
+# xlstm-350m cut to keep chip_smoke within its time with the LM mesh's
+# phases (their serve CLIs still run the whole stacks); qwen2-moe-a2.7b,
+# which has no CLI run here, whole
+LM_SERVE_LAYERS = {"yi-9b": 16, "qwen2-moe-a2.7b": 24, "xlstm-350m": 8}
 LM_SEED = 0
 # decode against forward, bf16: at most 5% of the largest |logit|, the
 # reference's own bound for two execution orders (0.15 on its logits of
@@ -3567,35 +3616,46 @@ def _free(torch) -> None:
 
 
 def phase_serve_lm(torch, per_call: dict) -> list:
-    """LM serving at yi-9b's full width; returns the token-level K1 and K2
-    rows of the kernels line.  The model is freed before the serve CLI
-    runs in a subprocess."""
-    from repro_torch.configs import get_config
-
+    """LM serving at yi-9b's full width, depth cut; returns the token-level
+    K1 and K2 rows of the kernels line.  The model is freed before the
+    serve CLI (the whole stack) runs in a subprocess."""
     _free(torch)
-    rows = _serve_lm(torch, per_call, get_config(LM_ARCH), "serve_lm")
+    rows = _serve_lm(torch, per_call, _serve_cut(LM_ARCH, "serve_lm"),
+                     "serve_lm")
     _free(torch)
     _serve_cli(LM_ARCH, "serve_lm")
     return rows
 
 
-def phase_serve_lm_moe(torch, per_call: dict) -> list:
-    """qwen2-moe-a2.7b at full width (60 experts top-4, shared 5,632)."""
+def _serve_cut(arch: str, phase: str):
+    """`arch` at full width, its depth cut to LM_SERVE_LAYERS (printed)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
 
+    full = get_config(arch)
+    emit({"phase": f"{phase}_cut", "arch": arch, "widths": "full",
+          "layers": f"{LM_SERVE_LAYERS[arch]} of {full.n_layers}"})
+    return dataclasses.replace(full, n_layers=LM_SERVE_LAYERS[arch])
+
+
+def phase_serve_lm_moe(torch, per_call: dict) -> list:
+    """qwen2-moe-a2.7b at full width (60 experts top-4, shared 5,632),
+    depth cut."""
     _free(torch)
-    rows = _serve_lm(torch, per_call, get_config(LM_MOE_ARCH),
+    rows = _serve_lm(torch, per_call,
+                     _serve_cut(LM_MOE_ARCH, "serve_lm_moe"),
                      "serve_lm_moe")
     _free(torch)
     return rows
 
 
 def phase_serve_lm_xlstm(torch, per_call: dict) -> list:
-    """xlstm-350m at full width, then its serve CLI in a subprocess."""
-    from repro_torch.configs import get_config
-
+    """xlstm-350m at full width, depth cut, then its serve CLI (the whole
+    stack) in a subprocess."""
     _free(torch)
-    rows = _serve_lm(torch, per_call, get_config(LM_XLSTM_ARCH),
+    rows = _serve_lm(torch, per_call,
+                     _serve_cut(LM_XLSTM_ARCH, "serve_lm_xlstm"),
                      "serve_lm_xlstm")
     _free(torch)
     _serve_cli(LM_XLSTM_ARCH, "serve_lm_xlstm")
@@ -4417,6 +4477,560 @@ def _train_cli_resume(torch) -> None:
           "split": split, "whole": whole, "bit_equal": split == whole})
     check(split == whole, "train CLI: the resumed run's metrics differ "
           "from the uninterrupted run's")
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh over ranks: serve_lm_mesh, train_lm_mesh
+# ---------------------------------------------------------------------------
+
+LM_MESH = (2, 4)  # gloo ranks sharing the card, (data, model)
+# full widths, depth cut (printed): layers served over the mesh (8 gloo
+# ranks gather every block's weights at use through host memory: a
+# decode step of yi-9b's 4 layers took 6.6 s)
+LM_MESH_SERVE = {"yi-9b": 2, "qwen2-moe-a2.7b": 1}
+LM_MESH_GEN = 8
+LM_MESH_TRAIN_ARCH, LM_MESH_TRAIN_LAYERS = "yi-9b", 2
+LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS = 8, 512, 3
+# bf16 logits of the mesh's rows (GEMMs over 4 rows, not 8) against the
+# one-process step's, teacher-forced on the same tokens: a share of the
+# largest |logit| (the decode-against-forward limit, LM_FORWARD_RTOL)
+LM_MESH_LOGIT_RTOL = LM_FORWARD_RTOL
+# mesh against one process, train_lm_mesh.  Step 0 starts from the same
+# leaves: its loss and gradient norm, each a share of the one-process
+# value.  After the steps, each leaf's update p_final - p_init: the
+# norm of its difference from the one-process update, a share of that
+# update's norm (bf16 activations over other GEMM shapes move each
+# gradient a little, and AdamW's normalised first steps turn a
+# near-zero gradient's sign into a whole step).  A gradient taken from
+# half the batch (a dropped dp sum) moves the norm by a third and the
+# updates by about their size (PERF.md, PR 24).
+LM_MESH_LOSS_RTOL = 1e-5
+LM_MESH_GNORM_RTOL = 1e-3
+LM_MESH_UPDATE_RTOL = 0.25
+# the checkpoint saved, zeroed and restored on the gloo world: block 0's
+# leaves and moments, the final norm and the step (a full-width block)
+LM_MESH_CKPT_LEAVES = ("blocks.0.", "final_norm")
+LM_MESH_DIR = ROOT / "build" / "lm_mesh"
+
+
+def _mesh_cfg(torch, arch: str, n_layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
+
+
+def _digest(t) -> str:
+    """A tensor's bytes hashed (bit-equal tensors, equal digests)."""
+    import hashlib
+
+    import torch
+
+    host = t.detach().contiguous().cpu().view(-1).view(torch.uint8)
+    return hashlib.sha256(host.numpy().tobytes()).hexdigest()
+
+
+def _requested(torch) -> int:
+    """Bytes the caching allocator holds for this process's tensors, as
+    they were asked for (before its rounding)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _resident(torch, model, specs, cfg, mesh, base: int) -> dict:
+    """The rank's resident parameter bytes after `distribute` (the whole
+    model freed): `memory_allocated` (the caching allocator's blocks,
+    each rounded up; a block carved from a larger segment may keep up to
+    1 MiB more) and the bytes those blocks were asked for
+    (`requested_bytes`, less `base`, what the process held before the
+    model: a cuBLAS workspace, say), beside the specs' shard bytes."""
+    from repro_torch.launch import sharding
+
+    _free(torch)
+    spec_bytes = 0
+    for name, p in model.named_parameters():
+        shape = sharding.storage_shape(cfg, name, p.shape)
+        spec_bytes += sharding.shard_bytes(mesh, shape, specs[name], p.dtype)
+    return {"resident_bytes": torch.cuda.memory_allocated(),
+            "requested_bytes": _requested(torch) - base,
+            "spec_shard_bytes": spec_bytes}
+
+
+def rank_lm_serve(rank, device_mesh, gloo_tokens) -> dict:
+    """One rank of serve_lm_mesh, for each arch of LM_MESH_SERVE in turn:
+    the model built on the card from the seed and distributed (each rank
+    its shard, the whole freed); the kernels loaded by one small draw;
+    then `serve.generate(..., mesh=)` with counters zeroed before and
+    read after, keeping the logits each token was drawn from, and every
+    draw against the twin on them.  With `gloo_tokens` (the NCCL world:
+    the gloo world's tokens by arch), rank 0 then runs the one-process
+    reference (`_serve_single`) in the same process."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for arch, n_layers in LM_MESH_SERVE.items():
+        cfg = _mesh_cfg(torch, arch, n_layers)
+        out[arch] = _rank_serve(torch, rank, device_mesh, cfg)
+        if gloo_tokens is not None and rank == 0:
+            out[arch]["single"] = _serve_single(torch, cfg,
+                                                gloo_tokens[arch])
+        _free(torch)
+    dist.barrier()
+    return out
+
+
+def _rank_serve(torch, rank, device_mesh, cfg) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch import prng
+    from repro_torch.core.interp import build_exp_weight_lut
+    from repro_torch.launch import collectives, serve, sharding
+    from repro_torch.models import sampling
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    base = _requested(torch)
+    whole = tfm.init_model(cfg, seed=LM_SEED, device=dev)
+    specs = sharding.param_specs(device_mesh, cfg, whole)
+    model = sharding.distribute(device_mesh, whole, specs, cfg=cfg)
+    del whole
+    mem = _resident(torch, model, specs, cfg, device_mesh, base)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=dev, dtype=torch.int32)
+    key = prng.key(LM_SEED)
+    sampling.ky_token_sample(torch.zeros((LM_BATCH, 256), device=dev), key)
+    dist.barrier()
+    zero_launches()
+    c0 = dict(collectives.TOTALS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = []
+    toks, times = serve.generate(cfg, model, prompts, LM_MESH_GEN,
+                                 sampler="ky", mesh=device_mesh, key=key,
+                                 logits_out=logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    coll = {k: collectives.TOTALS[k] - c0[k] for k in c0}
+    # each draw against the twin on the gathered logits it came from
+    tab_cpu, spec_cpu = build_exp_weight_lut(device="cpu")
+    twin_bad, k = 0, key
+    for t, lg in enumerate(logits):
+        sub = k
+        if t:
+            k, sub = prng.split(k)
+        twin = sampling.ky_token_sample(lg.cpu(), sub, exp_table=tab_cpu,
+                                        exp_spec=spec_cpu)
+        twin_bad += int((toks[:, LM_PROMPT + t].cpu() != twin).sum())
+    lgs = torch.stack(logits).cpu()
+    del model, logits
+    return {"rank": rank, "coords": tuple(device_mesh.get_coordinate()),
+            "tokens": toks.cpu(), "logits_digest": _digest(lgs),
+            "logits": lgs if rank == 0 else None, "wall_s": wall,
+            "step_s": times, "collectives": coll["collectives"],
+            "collective_ms": coll["seconds"] * 1e3, "launches": launches,
+            "twin_mismatches": twin_bad, **mem}
+
+
+def _serve_single(torch, cfg, toks) -> dict:
+    """The one-process step on the card: generate's tokens and the logits
+    they were drawn from, and the logits of the prefill and decode steps
+    teacher-forced on `toks` (the gloo world's), in generate's order."""
+    from repro_torch import prng
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = tfm.init_model(cfg, seed=LM_SEED, device=dev)
+    prompts = toks[:, :LM_PROMPT].to(dev)
+    key = prng.key(LM_SEED)
+    own = []
+    mine, _ = serve.generate(cfg, model, prompts, LM_MESH_GEN, sampler="ky",
+                             key=key, logits_out=own)
+    logits, caches = steps.make_prefill_step(cfg)(model, {"tokens": prompts})
+    caches = tfm.grow_attn_caches(caches, cfg, LM_MESH_GEN)
+    step = steps.make_serve_step(cfg, sampler="ky")
+    lgs, k, t_dev = [logits], key, toks.to(dev)
+    for t in range(LM_MESH_GEN - 1):
+        k, sub = prng.split(k)
+        _, lg, caches = step(model, t_dev[:, LM_PROMPT + t:LM_PROMPT + t + 1],
+                             caches, LM_PROMPT + t, sub)
+        lgs.append(lg)
+    out = {"tokens": mine.cpu(), "own_logits": torch.stack(own).cpu(),
+           "logits": torch.stack(lgs).cpu()}
+    del model, caches
+    return out
+
+
+def phase_serve_lm_mesh(torch) -> dict:
+    """LM serving over ranks: 8 gloo ranks sharing the card as (2, 4), then
+    an NCCL world of min(cards, 4) ranks (whose rank 0 also runs the
+    one-process reference), at full width with depth cut (LM_MESH_SERVE:
+    yi-9b 2 of 48 layers, qwen2-moe-a2.7b 1 of 24), 8 prompts of 128
+    tokens and 8 KY tokens.  Every rank returns the same tokens and logits; each rank's
+    weights take its shards' bytes; the logits are within
+    LM_MESH_LOGIT_RTOL of the one-process step's on the same tokens (the
+    NCCL 1 x 1 world bit-equal); every draw equals the twin's on the
+    gathered logits.  Returns rank 0's launches per arch."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import sampling
+
+    _lib.build()  # the ranks load the libraries; none of them builds one
+    card = nvidia_smi()
+    n = min(torch.cuda.device_count(), NCCL_MAX_RANKS)
+    for arch, n_layers in LM_MESH_SERVE.items():
+        emit({"phase": "serve_lm_mesh_cut", "arch": arch,
+              "layers": f"{n_layers} of {_full_layers(arch)}",
+              "widths": "full", "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+              "gen": LM_MESH_GEN})
+    _free(torch)
+    gloo = mesh_mod.spawn(rank_lm_serve, LM_MESH[0] * LM_MESH[1],
+                          backend="gloo", device="cuda",
+                          timeout_s=RANK_TIMEOUT_S, mesh_shape=LM_MESH,
+                          args=(None,))
+    nccl = mesh_mod.spawn(rank_lm_serve, n, backend="nccl", device="cuda",
+                          timeout_s=RANK_TIMEOUT_S, mesh_shape=(1, n),
+                          args=({a: gloo[0][a]["tokens"]
+                                 for a in LM_MESH_SERVE},))
+    out = {}
+    for arch, n_layers in LM_MESH_SERVE.items():
+        cfg = _mesh_cfg(torch, arch, n_layers)
+        single = nccl[0][arch]["single"]
+        worlds = {"gloo": [r[arch] for r in gloo],
+                  "nccl": [r[arch] for r in nccl]}
+        for name, world in worlds.items():
+            r0 = world[0]
+            emit({"phase": "serve_lm_mesh", "arch": arch, "backend": name,
+                  "mesh": list(LM_MESH) if name == "gloo" else [1, n],
+                  "card": card, "layers": n_layers,
+                  "wall_s_ranks": [r["wall_s"] for r in world],
+                  "decode_step_s_rank0": r0["step_s"],
+                  "collectives_rank0": r0["collectives"],
+                  "collective_ms_rank0": r0["collective_ms"],
+                  "collective_ms_per_token_rank0":
+                      r0["collective_ms"] / LM_MESH_GEN,
+                  "resident_bytes_ranks": [r["resident_bytes"]
+                                           for r in world],
+                  "requested_bytes_ranks": [r["requested_bytes"]
+                                            for r in world],
+                  "spec_shard_bytes_ranks": [r["spec_shard_bytes"]
+                                             for r in world],
+                  "launches_rank0": r0["launches"],
+                  "twin_mismatches": [r["twin_mismatches"] for r in world],
+                  # the gloo world teacher-forced on its own tokens, the
+                  # NCCL world against one process's own generate
+                  "logits_vs_one_process_max_abs": float(
+                      (r0["logits"] - single["logits" if name == "gloo"
+                                             else "own_logits"]).abs().max()),
+                  "largest_abs_logit": float(single["logits"].abs().max()),
+                  "rtol": LM_MESH_LOGIT_RTOL,
+                  "tokens_equal_one_process": bool(torch.equal(
+                      r0["tokens"], single["tokens"]))})
+        levels = sampling.weight_pyramid(torch.zeros((1, cfg.vocab),
+                                                     dtype=torch.int32))
+        want = {"ky_sample_kernel": len(levels) * LM_MESH_GEN,
+                "interp_kernel": LM_MESH_GEN}
+        for name, world in worlds.items():
+            for r in world:
+                where = f"serve_lm_mesh {arch} {name}: rank {r['rank']}"
+                check(torch.equal(r["tokens"], world[0]["tokens"])
+                      and r["logits_digest"] == world[0]["logits_digest"],
+                      f"{where} returned other tokens or logits than rank "
+                      "0")
+                check(r["twin_mismatches"] == 0, f"{where}: "
+                      f"{r['twin_mismatches']} draws differ from the "
+                      "twin's on the gathered logits")
+                check(r["requested_bytes"] == r["spec_shard_bytes"],
+                      f"{where} holds {r['requested_bytes']} bytes of "
+                      f"weights, its shards {r['spec_shard_bytes']}")
+                got = {k: r["launches"][k] for k in want}
+                check(got == want and all(
+                    v == 0 for k, v in r["launches"].items()
+                    if k not in want), f"{where} launched {r['launches']},"
+                    f" expected {want} and no other kernel")
+        scale = float(single["logits"].abs().max())
+        err = float((worlds["gloo"][0]["logits"]
+                     - single["logits"]).abs().max())
+        check(err <= LM_MESH_LOGIT_RTOL * scale, f"serve_lm_mesh {arch}: "
+              f"mesh logits differ from one process by {err} (largest "
+              f"|logit| {scale}, limit {LM_MESH_LOGIT_RTOL} of it)")
+        if n == 1:
+            one = worlds["nccl"][0]
+            check(torch.equal(one["logits"], single["own_logits"])
+                  and torch.equal(one["tokens"], single["tokens"]),
+                  f"serve_lm_mesh {arch}: the NCCL 1 x 1 world differs "
+                  "from the one-process step")
+        out[arch] = worlds["gloo"][0]["launches"]
+    return out
+
+
+def _full_layers(arch: str) -> int:
+    from repro_torch.configs import get_config
+
+    return get_config(arch).n_layers
+
+
+def rank_lm_train(rank, device_mesh, single_path, ckpt_dir) -> dict:
+    """One rank of train_lm_mesh, under deterministic algorithms: yi-9b's
+    training model (float32 leaves) built on the card and distributed,
+    LM_MESH_TRAIN_STEPS AdamW steps on `SyntheticLM` batches placed on
+    the mesh; with `ckpt_dir` (the gloo world), before the last step a
+    checkpoint of LM_MESH_CKPT_LEAVES (rank 0 writes it), those leaves
+    and moments zeroed and restored from it (bit-equal to the state
+    saved), and the last step run from the restored state.  In the NCCL
+    world (`single_path` not written yet) rank 0 then runs the
+    one-process reference and writes its leaves to `single_path`; every
+    rank returns, for each leaf's block, the squared norms of its
+    difference from the one-process leaf and of the one-process update
+    (read by memory map)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import SyntheticLM, place_batch
+    from repro_torch.launch import collectives, sharding, steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import transformer as tfm
+
+    _deterministic(torch)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _mesh_cfg(torch, LM_MESH_TRAIN_ARCH, LM_MESH_TRAIN_LAYERS)
+    opt_cfg = _mesh_opt_cfg(cfg)
+    data = SyntheticLM(cfg.vocab, LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_BATCH,
+                       seed=LM_SEED)
+    base = _requested(torch)
+    whole = tfm.init_model(cfg, seed=LM_SEED, device=dev, train=True)
+    specs = sharding.param_specs(device_mesh, cfg, whole)
+    params = sharding.distribute(device_mesh, whole, specs, cfg=cfg)
+    del whole
+    mem = _resident(torch, params, specs, cfg, device_mesh, base)
+    with_batch, _ = steps.make_train_step(cfg, device_mesh, opt_cfg)
+    fn, bspecs = with_batch(data.batch(0))
+    bshard = sharding.to_named(device_mesh, bspecs)
+    leaves = tfm.train_leaves(params, cfg)
+    init = {n: sharding.local(p).detach().clone() for n, p in leaves.items()}
+    state = train_lib.moments(device_mesh, leaves, opt_cfg)
+    saved = [n for n in leaves if n.startswith(LM_MESH_CKPT_LEAVES)]
+    tree = {"params": {n: leaves[n] for n in saved},
+            "opt": {"m": {n: state["m"][n] for n in saved},
+                    "v": {n: state["v"][n] for n in saved},
+                    "step": state["step"]}}
+    rows, restored = [], None
+    for i in range(LM_MESH_TRAIN_STEPS):
+        if ckpt_dir is not None and i == LM_MESH_TRAIN_STEPS - 1:
+            restored = _save_zero_restore(torch, ckpt, train_lib, cfg,
+                                          tree, ckpt_dir, i)
+        batch = place_batch(data.batch(i), bshard, dev)
+        dist.barrier()
+        c0 = dict(collectives.TOTALS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = fn(params, state, batch)
+        torch.cuda.synchronize()
+        rows.append({"step": i, "s": time.perf_counter() - t0,
+                     "collective_ms": (collectives.TOTALS["seconds"]
+                                       - c0["seconds"]) * 1e3,
+                     "collectives": collectives.TOTALS["collectives"]
+                     - c0["collectives"],
+                     **{k: float(v) for k, v in m.items()}})
+    if rank == 0 and not os.path.exists(single_path):
+        _train_single(torch, cfg, opt_cfg, data, single_path)
+    dist.barrier()
+    ref = torch.load(single_path, mmap=True, weights_only=True)
+    sq, digests = {}, {}
+    for n, p in leaves.items():
+        sl = sharding.shard_slices(device_mesh, p.shape,
+                                   collectives.spec_of(p))
+        want = ref[n].reshape(p.shape)[sl].to(dev)
+        got = sharding.local(p).detach()
+        block = str([(s.start, s.stop) for s in sl])
+        sq[n] = (block, float((got - want).double().square().sum()),
+                 float((want - init[n]).double().square().sum()))
+        digests[n] = (block, _digest(got))
+    dist.barrier()
+    return {"rank": rank, "coords": tuple(device_mesh.get_coordinate()),
+            "steps": rows, "restored_bit_equal": restored,
+            "update_sq": sq, "digests": digests, **mem}
+
+
+def _update_gaps(ranks) -> dict:
+    """Each leaf's ||p_mesh - p_one|| / ||p_one - p_init|| over its
+    distinct blocks (replicas counted once)."""
+    parts: dict = {}
+    for r in ranks:
+        for n, (block, err, upd) in r["update_sq"].items():
+            parts.setdefault(n, {})[block] = (err, upd)
+    out = {}
+    for n, blocks in parts.items():
+        err = sum(e for e, _ in blocks.values())
+        upd = sum(u for _, u in blocks.values())
+        out[n] = (err ** 0.5) / max(upd ** 0.5, 1e-30)
+    return out
+
+
+def _save_zero_restore(torch, ckpt, train_lib, cfg, tree, ckpt_dir,
+                       step) -> bool:
+    """Save `tree` (a mesh's), zero its leaves in place, restore the
+    checkpoint into them: whether every shard came back bit for bit."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.launch import sharding
+
+    ckpt.save(ckpt_dir, step, tree, cfg=cfg)
+    flat = _flatten(tree)
+    saved = [sharding.local(t).clone() for _, t in flat]
+    with torch.no_grad():
+        for _, t in flat:
+            sharding.local(t).zero_()
+    _, by_path = ckpt.restore(ckpt_dir, step)
+    train_lib._restore_into(cfg, tree, by_path)
+    return all(torch.equal(sharding.local(t), s)
+               for (_, t), s in zip(flat, saved))
+
+
+def _deterministic(torch) -> None:
+    """Deterministic algorithms in a rank (as the trainer's
+    --deterministic): a 1 x 1 world against one process is then held bit
+    for bit."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+
+
+def _mesh_opt_cfg(cfg):
+    import dataclasses
+
+    from repro_torch.launch import steps
+
+    return dataclasses.replace(steps.default_opt_cfg(cfg), lr=TRAIN_LR,
+                               warmup_steps=TRAIN_WARMUP,
+                               total_steps=LM_MESH_TRAIN_STEPS + 1)
+
+
+def _train_single(torch, cfg, opt_cfg, data, single_path) -> None:
+    """The one-process run train_lm_mesh holds the ranks against: the same
+    model, batches and steps with mesh None; its final leaves saved to
+    `single_path`, its steps beside them."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = tfm.init_model(cfg, seed=LM_SEED, device=dev, train=True)
+    leaves = tfm.train_leaves(model, cfg)
+    state = adamw.init(leaves, opt_cfg)
+    fn = steps.make_train_step(cfg, None, opt_cfg)
+    rows = []
+    for i in range(LM_MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = fn(model, state, to_device(data.batch(i), dev))
+        torch.cuda.synchronize()
+        rows.append({"step": i, "s": time.perf_counter() - t0,
+                     **{k: float(v) for k, v in m.items()}})
+    torch.save({n: p.detach().cpu() for n, p in leaves.items()},
+               single_path)
+    torch.save(rows, single_path + ".steps")
+    del model, leaves, state
+    _free(torch)
+
+
+def phase_train_lm_mesh(torch) -> None:
+    """LM training over ranks: yi-9b at full width, 2 of 48 layers,
+    float32 leaves, B 8 x S 512, 3 AdamW steps, first on an NCCL world of
+    min(cards, 4) ranks (its rank 0 then runs the one-process reference),
+    then on 8 gloo ranks sharing the card as (2, 4), which saves a
+    checkpoint before the last step and restores it."""
+    import shutil
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    card = nvidia_smi()
+    emit({"phase": "train_lm_mesh_cut", "arch": LM_MESH_TRAIN_ARCH,
+          "layers": f"{LM_MESH_TRAIN_LAYERS} of "
+                    f"{_full_layers(LM_MESH_TRAIN_ARCH)}",
+          "widths": "full", "batch": LM_MESH_TRAIN_BATCH,
+          "seq": LM_MESH_TRAIN_SEQ, "steps": LM_MESH_TRAIN_STEPS})
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    LM_MESH_DIR.mkdir(parents=True)
+    single_path = str(LM_MESH_DIR / "single_leaves.pt")
+    _free(torch)
+    n = min(torch.cuda.device_count(), NCCL_MAX_RANKS)
+    worlds = {
+        "nccl": mesh_mod.spawn(
+            rank_lm_train, n, backend="nccl", device="cuda",
+            timeout_s=RANK_TIMEOUT_S, mesh_shape=(1, n),
+            args=(single_path, None)),
+        "gloo": mesh_mod.spawn(
+            rank_lm_train, LM_MESH[0] * LM_MESH[1], backend="gloo",
+            device="cuda", timeout_s=RANK_TIMEOUT_S, mesh_shape=LM_MESH,
+            args=(single_path, str(LM_MESH_DIR / "ckpt_gloo"))),
+    }
+    single = torch.load(single_path + ".steps")
+    for name, ranks in worlds.items():
+        gaps = _update_gaps(ranks)
+        worst = max((g, leaf) for leaf, g in gaps.items())
+        exact = all(e == 0.0 for r in ranks
+                    for _, e, _ in r["update_sq"].values())
+        s0, o0 = ranks[0]["steps"][0], single[0]
+        loss_gap = abs(s0["loss"] - o0["loss"]) / abs(o0["loss"])
+        gnorm_gap = abs(s0["grad_norm"] - o0["grad_norm"]) / o0["grad_norm"]
+        emit({"phase": "train_lm_mesh", "backend": name, "card": card,
+              "mesh": list(LM_MESH) if name == "gloo" else [1, n],
+              "arch": LM_MESH_TRAIN_ARCH, "layers": LM_MESH_TRAIN_LAYERS,
+              "steps_rank0": ranks[0]["steps"],
+              "step_s_ranks": [[s["s"] for s in r["steps"]] for r in ranks],
+              "one_process_steps": single,
+              "resident_bytes_ranks": [r["resident_bytes"] for r in ranks],
+              "requested_bytes_ranks": [r["requested_bytes"]
+                                        for r in ranks],
+              "spec_shard_bytes_ranks": [r["spec_shard_bytes"]
+                                         for r in ranks],
+              "step0_loss_gap": loss_gap, "loss_rtol": LM_MESH_LOSS_RTOL,
+              "step0_grad_norm_gap": gnorm_gap,
+              "grad_norm_rtol": LM_MESH_GNORM_RTOL,
+              "update_gap_worst": worst, "update_gaps": gaps,
+              "update_rtol": LM_MESH_UPDATE_RTOL,
+              "bit_equal_one_process": exact,
+              "restored_bit_equal": [r["restored_bit_equal"]
+                                     for r in ranks]})
+        losses = [s["loss"] for s in ranks[0]["steps"]]
+        for r in ranks:
+            where = f"train_lm_mesh {name}: rank {r['rank']}"
+            check([s["loss"] for s in r["steps"]] == losses,
+                  f"{where}'s losses differ from rank 0's")
+            check(name != "gloo" or r["restored_bit_equal"], f"{where}'s "
+                  "state restored from the checkpoint differs from the "
+                  "state saved")
+            check(r["requested_bytes"] == r["spec_shard_bytes"],
+                  f"{where} holds {r['requested_bytes']} bytes of leaves, "
+                  f"its shards {r['spec_shard_bytes']}")
+        # the replicas of each block of each leaf are bit-equal
+        for leaf in ranks[0]["digests"]:
+            by_block: dict = {}
+            for r in ranks:
+                sl, dg = r["digests"][leaf]
+                by_block.setdefault(str(sl), set()).add(dg)
+            check(all(len(d) == 1 for d in by_block.values()),
+                  f"train_lm_mesh {name}: ranks holding the same block of "
+                  f"{leaf} differ")
+        check(all(x == x for x in losses) and losses[-1] < losses[0],
+              f"train_lm_mesh {name}: the loss did not fall over "
+              f"{LM_MESH_TRAIN_STEPS} steps: {losses}")
+        check(loss_gap <= LM_MESH_LOSS_RTOL, f"train_lm_mesh {name}: step "
+              f"0's loss differs from one process's by {loss_gap} of it "
+              f"(limit {LM_MESH_LOSS_RTOL})")
+        check(gnorm_gap <= LM_MESH_GNORM_RTOL, f"train_lm_mesh {name}: step"
+              f" 0's gradient norm differs from one process's by "
+              f"{gnorm_gap} of it (limit {LM_MESH_GNORM_RTOL})")
+        check(worst[0] <= LM_MESH_UPDATE_RTOL, f"train_lm_mesh {name}: leaf"
+              f" {worst[1]}'s update differs from one process's by "
+              f"{worst[0]} of its norm (limit {LM_MESH_UPDATE_RTOL})")
+        check(name != "nccl" or n != 1 or exact, "train_lm_mesh nccl: the "
+              "1 x 1 world's leaves differ from the one-process run's")
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
 
 
 def phase_train_block(torch) -> None:

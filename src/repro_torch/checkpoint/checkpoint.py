@@ -15,14 +15,24 @@ paths.
 * exact — every leaf is stored in its own type but bf16, which numpy has
   no type for: a bf16 leaf is stored widened to float32 (exactly) and
   the manifest keeps "bfloat16", to which `restore` rounds it back;
-* rotated — `rotate` keeps the last `keep_last`.
+* rotated — `rotate` keeps the last `keep_last`;
+* elastic — a tree on a mesh of ranks (DTensor leaves) is saved whole:
+  for each leaf in turn every rank sends its shard to rank 0, which
+  writes it (`save` with the model's `cfg` writes a parameter or moment
+  in the shape the one-device model holds it), so the checkpoint is the
+  one-device one; `restore` returns host arrays, read leaf by leaf, which
+  a caller puts on whatever mesh exists now (`launch/sharding.
+  load_whole`).
 """
 
 from __future__ import annotations
 
+import collections.abc
+import contextlib
 import json
 import os
 import shutil
+import zipfile
 
 import numpy as np
 import torch
@@ -52,29 +62,67 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save(base_dir: str, step: int, tree, extra: dict | None = None) -> str:
-    """Atomically write checkpoint `step`.  Returns the final directory."""
-    os.makedirs(base_dir, exist_ok=True)
+def _whole(path: str, leaf, cfg):
+    """A mesh leaf gathered whole on rank 0 (every rank sends its shard;
+    None elsewhere), in the shape the one-device model holds it; any
+    other leaf itself."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(leaf, DTensor):
+        return leaf
+    from repro_torch.launch import collectives, sharding
+
+    whole = collectives.to_rank0(leaf)
+    if whole is not None and cfg is not None:
+        whole = whole.reshape(sharding.port_shape(cfg, path.split("/")[-1],
+                                                  whole.shape))
+    return whole
+
+
+def save(base_dir: str, step: int, tree, extra: dict | None = None,
+         cfg=None) -> str:
+    """Atomically write checkpoint `step`.  Returns the final directory.
+    A tree on a mesh is saved by every rank together (rank 0 writes;
+    they meet at a barrier after)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    leaves = _flatten(tree)
+    meshed = any(isinstance(leaf, DTensor) for _, leaf in leaves)
+    writer = not meshed or dist.get_rank() == 0
     tmp = os.path.join(base_dir, f"tmp.{step}")
     final = os.path.join(base_dir, f"ckpt_{step:010d}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if writer:
+        os.makedirs(base_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     manifest = {"step": step, "extra": extra or {}, "leaves": []}
-    arrays = {}
-    for i, (path, leaf) in enumerate(_flatten(tree)):
-        key = f"leaf_{i:05d}"
-        arr, dtype = _host(leaf)
-        arrays[key] = arr
-        manifest["leaves"].append({"key": key, "path": path,
-                                   "shape": list(arr.shape),
-                                   "dtype": dtype})
-    np.savez(os.path.join(tmp, "shard_host0.npz"), **arrays)
-    with open(os.path.join(tmp, MANIFEST), "w") as f:
-        json.dump(manifest, f, indent=1)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+    # the npz np.savez writes, one leaf at a time (a mesh's leaves are
+    # gathered one by one, never all at once)
+    with (zipfile.ZipFile(os.path.join(tmp, "shard_host0.npz"), "w",
+                          allowZip64=True) if writer
+          else contextlib.nullcontext()) as zf:
+        for i, (path, leaf) in enumerate(leaves):
+            key = f"leaf_{i:05d}"
+            whole = _whole(path, leaf, cfg)
+            if not writer:
+                continue
+            arr, dtype = _host(whole)
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr),
+                                          allow_pickle=False)
+            manifest["leaves"].append({"key": key, "path": path,
+                                       "shape": list(arr.shape),
+                                       "dtype": dtype})
+    if writer:
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    if meshed:
+        dist.barrier()
     return final
 
 
@@ -93,19 +141,38 @@ def latest_step(base_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
+class _Stored(collections.abc.Mapping):
+    """{path: numpy array as stored}, each array read from the npz when
+    it is asked for (a mesh's ranks restore leaf by leaf, never holding
+    the whole checkpoint at once)."""
+
+    def __init__(self, npz: str, keys: dict):
+        self._npz, self._keys = npz, keys
+
+    def __getitem__(self, path: str) -> np.ndarray:
+        with np.load(self._npz) as data:
+            return data[self._keys[path]]
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+
 def restore(base_dir: str, step: int, like=None):
     """Load checkpoint `step`.  Without `like`: (manifest, {path: numpy
-    array as stored}).  With `like` (a tree of tensors), (manifest, the
-    same tree of new tensors, each of `like`'s shape checked, type and
-    device, bf16 leaves rounded back from their stored float32).  A
-    restored model takes float32 reductions, as a built one does
-    (`layers.accumulate_in_float32`)."""
+    array as stored}, a mapping that reads each array when asked).  With
+    `like` (a tree of tensors), (manifest, the same tree of new tensors,
+    each of `like`'s shape checked, type and device, bf16 leaves rounded
+    back from their stored float32).  A restored model takes float32
+    reductions, as a built one does (`layers.accumulate_in_float32`)."""
     d = os.path.join(base_dir, f"ckpt_{step:010d}")
     with open(os.path.join(d, MANIFEST)) as f:
         manifest = json.load(f)
-    with np.load(os.path.join(d, "shard_host0.npz")) as data:
-        by_path = {rec["path"]: data[rec["key"]]
-                   for rec in manifest["leaves"]}
+    by_path = _Stored(os.path.join(d, "shard_host0.npz"),
+                      {rec["path"]: rec["key"]
+                       for rec in manifest["leaves"]})
     if like is None:
         return manifest, by_path
     from repro_torch.models import layers

@@ -181,6 +181,40 @@ def _reference_shape(name: str, kind: str | None, cfg) -> tuple | None:
     return None
 
 
+def reference_leaf_shape(name: str, cfg, shape) -> tuple:
+    """The reference's per-layer shape of the port leaf `name` (a
+    state-dict name) of `shape`: the head-split projections and biases
+    the port holds flattened, split back; every other leaf's own shape."""
+    path = tfm.reference_path(name, cfg)
+    keys = path[2:-1] if path[0] == "super" else path
+    kind = (cfg.pattern[int(path[1][1:])]
+            if path[0] == "super" and keys[0] == "core" else None)
+    ref = _reference_shape(keys[-1], kind, cfg)
+    if ref is None:
+        return tuple(shape)
+    return tuple(torch.empty(tuple(shape), device="meta").reshape(ref).shape)
+
+
+def port_leaf_shape(name: str, cfg, ref_shape) -> tuple:
+    """The inverse of `reference_leaf_shape`: the port's shape of leaf
+    `name` given the reference's per-layer shape (projections flattened
+    behind d_model, an attention `wo` in front of it, biases to
+    vectors)."""
+    ref_shape = tuple(ref_shape)
+    path = tfm.reference_path(name, cfg)
+    keys = path[2:-1] if path[0] == "super" else path
+    kind = (cfg.pattern[int(path[1][1:])]
+            if path[0] == "super" and keys[0] == "core" else None)
+    if _reference_shape(keys[-1], kind, cfg) is None:
+        return ref_shape
+    n = int(np.prod(ref_shape))
+    if keys[-1] in ("bq", "bk", "bv", "b"):
+        return (n,)
+    if keys[-1] == "wo":
+        return (n // ref_shape[-1], ref_shape[-1])
+    return (ref_shape[0], n // ref_shape[0])
+
+
 def lm_tree_from_port(named: dict, cfg) -> dict:
     """The port's leaves by state-dict name (`model.named_parameters()`,
     or gradients or moments under the same names) as the reference's tree

@@ -12,8 +12,8 @@ Sources:
 * `BinCorpus` — a memory-mapped flat token file (uint16/uint32) with
   wrap-around sampling, for real corpora.
 
-`to_device` puts a host batch on one device; placing it over a mesh
-(`place_batch`) waits for meshes over several cards.
+`to_device` puts a host batch on one device, `place_batch` on a mesh of
+ranks (each rank its block, as a DTensor).
 """
 
 from __future__ import annotations
@@ -71,3 +71,25 @@ def to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
     """A host batch as tensors on `device`, each array's type kept."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def place_batch(batch: dict[str, np.ndarray], shardings: dict,
+                device=None) -> dict[str, torch.Tensor]:
+    """A host batch on a mesh: each array the rank's block of it by its
+    `sharding.NamedSharding` (`sharding.to_named(mesh, bspecs)`), as a
+    DTensor on the rank's device (`device`, or the mesh's); an array
+    without one goes whole to that device."""
+    from repro_torch.launch import sharding
+
+    if device is None and shardings:
+        device = sharding.mesh_device(next(iter(shardings.values())).mesh)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)) \
+            if isinstance(v, np.ndarray) else v
+        if k in shardings:
+            out[k] = sharding.shard_leaf(shardings[k].mesh, t,
+                                         shardings[k].spec, device=device)
+        else:
+            out[k] = t.to(device)
+    return out

@@ -1,0 +1,477 @@
+"""Every collective of the LM mesh, for one rank.
+
+The LM steps over a mesh (`launch/steps.py`) keep each parameter,
+optimizer moment, batch and decode cache as the rank's shard
+(`launch/sharding.py`) and compute by gathering at use, the ZeRO-3 trade:
+
+  * `Plan.leaf` / `block` all-gather a leaf over every mesh axis its
+    spec names just before a block runs, so a rank computes with whole
+    weights; the embedding and the head stay split by vocabulary over the
+    model axis (`Plan.embed`, `Plan.logits`: a masked lookup summed over
+    it, a column block of logits gathered over it).  The gather's backward is its adjoint: the gradient
+    is summed over the data-parallel ranks (in float32) and the rank
+    keeps its own block of it (an all-reduce and a slice: gloo has no
+    reduce-scatter);
+  * a rank computes the batch rows of its data-parallel position (all of
+    them when the batch does not divide: `rows` false), so ranks along
+    the model axis compute the same rows.  Tensor-parallel compute
+    (column and row splits with an all-reduce) is not done here;
+  * `dp_sum` (differentiable: its backward is the same sum) carries the
+    MoE switch loss's global means, `gather_rows` the logits the token
+    draw reads (every rank draws the whole batch with the same key, so
+    the draw equals the single-process one), `reduce_sumsq` the global
+    gradient norm.
+
+A `Comm` works in two modes.  On a live world (a `DeviceMesh`) it calls
+`torch.distributed` on the mesh's per-axis groups; under gloo a card's
+tensor goes through a host copy (gloo moves host memory), under NCCL
+it goes directly.  On a shape-only mesh (`mesh.AbstractMesh`) it calls
+nothing: each collective returns a `meta` tensor of its result's shape.
+Both modes count every collective by op, with its result's bytes and
+whether its group stays on one host of `HOST_CARDS` cards (a dry run
+prices the two at different link rates: `launch/roofline.py`); a live
+`Comm` also times each exchange on the host clock.  An axis of size one
+calls nothing.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import itertools
+import math
+import time
+
+import torch
+
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
+
+HOST_CARDS = 8  # cards a host: NVLink joins these, the network the rest
+# every live Comm's exchanges in this process: their count and host seconds
+TOTALS = {"collectives": 0, "seconds": 0.0}
+# 16-bit floats cross as bytes (gloo moves no int16 or bf16); a byte view
+# keeps each element's bytes together along the last axis
+_BITS = {torch.bfloat16: torch.uint8, torch.float16: torch.uint8}
+
+
+class Comm:
+    """The collectives of one rank of `mesh`."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.names = tuple(mesh.mesh_dim_names)
+        self.sizes = {a: mesh_lib.axis_size(mesh, a) for a in self.names}
+        self.coords = sharding.coordinates(mesh)
+        self.dry = not sharding.is_live(mesh)
+        self.dp = mesh_lib.dp_axes(mesh)
+        self.dp_size = math.prod(self.sizes[a] for a in self.dp)
+        self.tp = mesh_lib.tp_axis(mesh)
+        self.world = math.prod(self.sizes.values())
+        self.rows = True  # this call's batch rows split over the dp axes
+        self.count: collections.Counter = collections.Counter()
+        self.nbytes: collections.Counter = collections.Counter()
+        self.link_bytes: collections.Counter = collections.Counter()
+        self.seconds = 0.0
+        self._backend = None
+        if not self.dry:
+            import torch.distributed as dist
+
+            self._backend = dist.get_backend()
+
+    # ---- bookkeeping -------------------------------------------------
+
+    def _rank_of(self, coords: dict) -> int:
+        r = 0
+        for a in self.names:
+            r = r * self.sizes[a] + coords[a]
+        return r
+
+    def link(self, axes) -> str:
+        """"nvlink" when the group over `axes` lies on this rank's host
+        (ranks numbered row-major over the mesh, `HOST_CARDS` a host),
+        else "network"."""
+        hosts = set()
+        for idx in itertools.product(*(range(self.sizes[a]) for a in axes)):
+            c = dict(self.coords)
+            c.update(zip(axes, idx))
+            hosts.add(self._rank_of(c) // HOST_CARDS)
+        return "nvlink" if len(hosts) == 1 else "network"
+
+    def _record(self, op: str, shape, dtype, axes) -> None:
+        b = math.prod(shape) * dtype.itemsize
+        self.count[op] += 1
+        self.nbytes[op] += b
+        self.link_bytes[self.link(axes)] += b
+
+    @contextlib.contextmanager
+    def _timed(self, t: torch.Tensor):
+        """Time one exchange (outside autograd: its buffers are written in
+        place; the differentiable ops are `_Gather` and `_DpSum`)."""
+        staged = self._staged(t)
+        if staged:  # the device-to-host copy waits for the card anyway
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            yield staged
+        dt = time.perf_counter() - t0
+        self.seconds += dt
+        TOTALS["collectives"] += 1
+        TOTALS["seconds"] += dt
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self._backend == "gloo" and t.device.type == "cuda"
+
+    # ---- plain collectives (no autograd) -------------------------------
+
+    def _wire(self, t: torch.Tensor, staged: bool) -> torch.Tensor:
+        """A dense copy of `t` for a collective: in host memory where gloo
+        carries a card's tensor (pageable: eight ranks pinning every
+        gathered size would lock tens of GB of the host's memory)."""
+        return t.to("cpu" if staged else t.device, copy=True).contiguous()
+
+    def all_gather(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """t's blocks along `dim` from every rank of the group over
+        `axes` (major to minor), concatenated in their order."""
+        import torch.distributed as dist
+
+        for a in reversed(tuple(axes)):
+            n = self.sizes[a]
+            if n == 1:
+                continue
+            shape = list(t.shape)
+            shape[dim] *= n
+            self._record("all-gather", shape, t.dtype, (a,))
+            if self.dry:
+                t = torch.empty(shape, dtype=t.dtype, device=t.device)
+                continue
+            with self._timed(t) as staged:
+                wire = self._wire(t, staged)
+                # the blocks stacked along dim 0, as gloo writes them
+                out = torch.empty((n * t.shape[0], *t.shape[1:]),
+                                  dtype=t.dtype, device=wire.device)
+                bits = _BITS.get(t.dtype)
+                if bits is not None:  # bit for bit, whatever gloo types
+                    dist.all_gather_into_tensor(
+                        out.view(bits), wire.view(bits),
+                        group=self.mesh.get_group(a))
+                else:
+                    dist.all_gather_into_tensor(
+                        out, wire, group=self.mesh.get_group(a))
+                out = out.to(t.device)
+                t = out.view(n, *t.shape).movedim(0, dim).reshape(
+                    shape).contiguous()
+        return t
+
+    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The sum of t over the group over `axes` (a new tensor)."""
+        import torch.distributed as dist
+
+        for a in axes:
+            if self.sizes[a] == 1:
+                continue
+            self._record("all-reduce", t.shape, t.dtype, (a,))
+            if self.dry:
+                t = torch.empty_like(t)
+                continue
+            with self._timed(t) as staged:
+                wire = self._wire(t, staged)
+                dist.all_reduce(wire, group=self.mesh.get_group(a))
+                t = wire.to(t.device)
+        return t
+
+    def gather_spec(self, t: torch.Tensor, spec, skip=()) -> torch.Tensor:
+        """The whole tensor of the local shard `t` laid out by `spec`,
+        gathered over every axis of every dimension not in `skip`."""
+        for dim, entry in enumerate(spec):
+            if dim not in skip and entry is not None:
+                t = self.all_gather(t, dim, sharding._axes(entry))
+        return t
+
+    def own(self, whole: torch.Tensor, spec, skip=()) -> torch.Tensor:
+        """This rank's block of `whole` under `spec`, the dimensions in
+        `skip` taken whole (a view)."""
+        spec = tuple(None if d in skip else e for d, e in enumerate(spec))
+        return whole[sharding.shard_slices(self.mesh, whole.shape, spec,
+                                           self.coords)]
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch of a (rows, ...) tensor whose rows are split
+        over the dp axes (itself when they are not)."""
+        return self.all_gather(t, 0, self.dp) if self.rows else t
+
+    def own_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole-batch tensor (all of them when the
+        batch does not split)."""
+        if not self.rows or self.dp_size == 1:
+            return t
+        idx = 0
+        for a in self.dp:
+            idx = idx * self.sizes[a] + self.coords[a]
+        n = t.shape[0] // self.dp_size
+        return t[idx * n:(idx + 1) * n]
+
+    # ---- differentiable ------------------------------------------------
+
+    def dp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of t over the dp ranks; its gradient is the sum of the
+        ranks' gradients (each rank's loss a term of the objective)."""
+        if self.dp_size == 1:
+            return t
+        return _DpSum.apply(t, self)
+
+    def reduce_sumsq(self, specs: dict):
+        """A function of the vector of per-leaf local sums of squares (in
+        the order of `specs`' names) giving each leaf's global sum: one
+        replica of each distinct shard counts (the rank at coordinate 0 of
+        every axis the leaf's spec does not name), over the whole world."""
+        if self.world == 1:
+            return None
+        keep = []
+        for spec in specs.values():
+            named = {a for e in spec for a in sharding._axes(e)}
+            keep.append(float(all(self.coords[a] == 0 for a in self.names
+                                  if a not in named)))
+
+        def reduce(v: torch.Tensor) -> torch.Tensor:
+            w = torch.tensor(keep, dtype=v.dtype, device=v.device)
+            return self.all_reduce(v * w, self.names)
+
+        return reduce
+
+
+class _DpSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return comm.all_reduce(t, comm.dp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous(), ctx.comm.dp), None
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the whole leaf from its shard (the dimensions in `skip`
+    left split), viewed in the shape a layer reads.  Backward: the
+    gradient summed over the dp ranks in float32, this rank's block of it
+    in the leaf's type."""
+
+    @staticmethod
+    def forward(ctx, t, comm, spec, shape, skip=()):
+        ctx.comm, ctx.spec, ctx.dtype, ctx.skip = comm, spec, t.dtype, skip
+        whole = comm.gather_spec(t, spec, skip)
+        ctx.whole = whole.shape
+        return whole.view(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm = ctx.comm
+        g = g.reshape(ctx.whole)
+        if comm.dp_size > 1:
+            g = comm.all_reduce(g.float(), comm.dp)
+        return (comm.own(g, ctx.spec, ctx.skip).to(ctx.dtype), None, None,
+                None, None)
+
+
+class _ModelSum(torch.autograd.Function):
+    """The sum over the model axis of terms whose total every model rank
+    then uses alike (forward an all-reduce, in float32; backward the
+    identity: each rank's term gets the total's gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, comm):
+        return comm.all_reduce(t.float(), (comm.tp,)).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ToModelSplit(torch.autograd.Function):
+    """The identity into a product split over the model axis; backward,
+    the ranks' partial gradients summed over it (in float32)."""
+
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm = ctx.comm
+        return comm.all_reduce(g.float(), (comm.tp,)).to(g.dtype), None
+
+
+class _GatherModel(torch.autograd.Function):
+    """A last-axis block over the model axis gathered whole; backward, the
+    rank's block of the gradient (every model rank's loss is the same)."""
+
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm, ctx.n = comm, t.shape[-1]
+        return comm.all_gather(t, t.ndim - 1, (comm.tp,))
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.comm.coords[ctx.comm.tp]
+        return g[..., i * ctx.n:(i + 1) * ctx.n], None
+
+
+class Plan:
+    """How one rank runs the model on the mesh: `leaves` the local shards
+    by state-dict name, `specs` their specs (`sharding.param_specs`),
+    `cache_specs` the decode caches' (`sharding.cache_specs`)."""
+
+    def __init__(self, comm: Comm, cfg, leaves: dict, specs: dict,
+                 cache_specs=None):
+        self.comm, self.cfg = comm, cfg
+        self.leaves, self.specs = leaves, specs
+        self.cache_specs = cache_specs
+
+    def leaf(self, name: str, skip=()) -> torch.Tensor:
+        """Leaf `name` whole (the dimensions in `skip` left split), in the
+        shape a layer reads it."""
+        t, spec = self.leaves[name], self.specs[name]
+        whole = tuple(n if d in skip else n * math.prod(
+            self.comm.sizes[a] for a in sharding._axes(e))
+            for d, (n, e) in enumerate(zip(t.shape, spec)))
+        shape = sharding.port_shape(self.cfg, name, whole)
+        if t.requires_grad and torch.is_grad_enabled():
+            return _Gather.apply(t, self.comm, spec, shape, skip)
+        return self.comm.gather_spec(t, spec, skip).view(shape)
+
+    def _vocab_split(self, name: str, dim: int) -> bool:
+        """Whether leaf `name`'s vocabulary dimension `dim` is split over
+        the model axis alone (then it stays split)."""
+        tp = self.comm.tp
+        return (tp is not None and self.comm.sizes[tp] > 1
+                and self.specs[name][dim] == tp)
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of `tokens` in the activation type.  With the
+        vocabulary split over the model axis, each rank looks up the
+        tokens of its block (zero rows for the others) and the rows are
+        summed over the axis: exact, one term is not zero.  Rows are
+        looked up as one process looks them up (`layers.embed_rows`)."""
+        from repro_torch.models import layers
+
+        if not self._vocab_split("embed", 0):
+            return layers.embed_rows(self.leaf("embed"), tokens, self.cfg)
+        w = self.leaf("embed", skip=(0,))
+        n = w.shape[0]
+        local = tokens.long() - self.comm.coords[self.comm.tp] * n
+        mine = (local >= 0) & (local < n)
+        rows = layers.embed_rows(w, local.clamp(0, n - 1), self.cfg)
+        rows = rows * mine[..., None].to(rows.dtype)
+        return _ModelSum.apply(rows, self.comm)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 logits of normed hidden states x.  With the vocabulary
+        split over the model axis, each rank takes its block of columns
+        (the whole d) and the blocks are gathered."""
+        from repro_torch.models import layers
+
+        name, dim = (("embed", 0) if self.cfg.tie_embeddings
+                     else ("head", 1))
+        if not self._vocab_split(name, dim):
+            w = self.leaf(name)
+            head = w.T if self.cfg.tie_embeddings else w
+            return (x @ layers.act(head, self.cfg)).float()
+        w = self.leaf(name, skip=(dim,))
+        head = w.T if self.cfg.tie_embeddings else w
+        part = (_ToModelSplit.apply(x, self.comm)
+                @ layers.act(head, self.cfg)).float()
+        return _GatherModel.apply(part, self.comm)
+
+    def block(self, i: int) -> dict:
+        """Block i's leaves whole, as nested dicts ({"core": {"wq": ...},
+        "norm1": ...}), which the layers read as they read a `Params`."""
+        prefix = f"blocks.{i}."
+        out: dict = {}
+        for name in self.leaves:
+            if name.startswith(prefix):
+                *path, last = name[len(prefix):].split(".")
+                node = out
+                for k in path:
+                    node = node.setdefault(k, {})
+                node[last] = self.leaf(name)
+        return out
+
+    def cache_in(self, i: int, cache: dict) -> dict:
+        """Layer i's decode cache in the layout a rank computes in: its
+        own rows, every other dimension whole."""
+        skip = (0,) if self.comm.rows else ()
+        return {n: self.comm.gather_spec(sharding.local(t),
+                                         self.cache_specs[i][n], skip)
+                for n, t in cache.items()}
+
+    def cache_out(self, i: int, cache: dict, new: dict) -> dict:
+        """Write this rank's block of layer i's updated cache `new` (in
+        the compute layout) into its stored shards; returns `cache`."""
+        skip = (0,) if self.comm.rows else ()
+        for n, t in cache.items():
+            loc = sharding.local(t)
+            part = self.comm.own(new[n], self.cache_specs[i][n], skip)
+            if part.data_ptr() != loc.data_ptr() or loc.device.type == "meta":
+                loc.copy_(part)
+        return cache
+
+
+def whole(tree):
+    """A tree of DTensors (caches, moments) as whole tensors on every
+    rank, gathered through this module's collectives."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: whole(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [whole(v) for v in tree]
+    if not isinstance(tree, DTensor):
+        return tree
+    return Comm(tree.device_mesh).gather_spec(tree.to_local(),
+                                              spec_of(tree))
+
+
+def to_rank0(t):
+    """DTensor `t` whole in rank 0's host memory (None on the other
+    ranks): every rank sends its shard to rank 0 (`dist.gather`; host
+    tensors under gloo), which puts each at its block."""
+    import numpy as np
+    import torch.distributed as dist
+
+    mesh, spec = t.device_mesh, spec_of(t)
+    part = t.to_local().contiguous()
+    if dist.get_backend() == "gloo":
+        part = part.cpu()
+    bits = _BITS.get(part.dtype)
+    wire = part if bits is None else part.view(bits)
+    rank = dist.get_rank()
+    parts = ([torch.empty_like(wire) for _ in range(dist.get_world_size())]
+             if rank == 0 else None)
+    with torch.no_grad():
+        dist.gather(wire, parts, dst=0)
+    if rank != 0:
+        return None
+    whole = torch.empty(t.shape, dtype=t.dtype)
+    ranks = mesh.mesh.cpu().numpy()
+    for r, buf in enumerate(parts):
+        coords = dict(zip(mesh.mesh_dim_names, (
+            int(c) for c in np.argwhere(ranks == r)[0])))
+        buf = buf.cpu() if bits is None else buf.cpu().view(t.dtype)
+        whole[sharding.shard_slices(mesh, t.shape, spec, coords)] = buf
+    return whole
+
+
+def spec_of(t) -> tuple:
+    """A DTensor's placements as a spec (axes sharding a dimension in
+    mesh order)."""
+    from torch.distributed.tensor import Shard
+
+    names = t.device_mesh.mesh_dim_names
+    entries: list = [[] for _ in range(t.ndim)]
+    for m, p in enumerate(t.placements):
+        if isinstance(p, Shard):
+            entries[p.dim].append(names[m])
+    return tuple(None if not e else (e[0] if len(e) == 1 else tuple(e))
+                 for e in entries)

@@ -24,6 +24,7 @@ import math
 import multiprocessing
 import multiprocessing.connection
 import os
+import pickle
 import sys
 import tempfile
 import time
@@ -111,10 +112,58 @@ def make_mesh(shape, axes, *, device_type: str = "cuda"):
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """The reference's production mesh, (16, 16) over (data, model), or
-    (2, 16, 16) over (pod, data, model): a world of 256 or 512 ranks."""
+    (2, 16, 16) over (pod, data, model): a world of 256 or 512 ranks (a
+    dry run takes its shape alone: `abstract_mesh`)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     return make_mesh(shape, _DEFAULT_AXES[len(shape)],
                      device_type=device_type)
+
+
+class AbstractMesh:
+    """A shape-only mesh: named axes and their sizes, and the coordinate
+    of the one rank a dry run plays, with no process group and no device
+    (the counterpart of `jax.sharding.AbstractMesh`).  It answers what
+    the sharding rules and `launch/collectives.py` ask of a
+    `DeviceMesh`: `mesh_dim_names`, `shape`, `size`, `get_coordinate`."""
+
+    def __init__(self, shape, axes, coordinate=None):
+        self.shape = tuple(int(s) for s in shape)
+        self.mesh_dim_names = tuple(axes)
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} with axes "
+                             f"{self.mesh_dim_names}")
+        coordinate = (0,) * len(self.shape) if coordinate is None \
+            else tuple(int(c) for c in coordinate)
+        if len(coordinate) != len(self.shape) or not all(
+                0 <= c < n for c, n in zip(coordinate, self.shape)):
+            raise ValueError(f"coordinate {coordinate} outside the mesh "
+                             f"{self.shape}")
+        self._coordinate = coordinate
+
+    def size(self, mesh_dim: int | None = None) -> int:
+        return (math.prod(self.shape) if mesh_dim is None
+                else self.shape[mesh_dim])
+
+    def get_coordinate(self) -> tuple[int, ...]:
+        return self._coordinate
+
+    def __repr__(self) -> str:
+        return (f"AbstractMesh({self.shape}, {self.mesh_dim_names}, "
+                f"at {self._coordinate})")
+
+
+def abstract_mesh(shape, axes=None, coordinate=None) -> AbstractMesh:
+    """A shape-only mesh of `shape`, its axes the reference's by default
+    (("data", "model") for two axes): the production meshes of a dry run
+    are `abstract_mesh((16, 16))` and `abstract_mesh((2, 16, 16))`."""
+    shape = tuple(int(s) for s in shape)
+    return AbstractMesh(shape, axes or _DEFAULT_AXES[len(shape)],
+                        coordinate)
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of axis `name` of a `DeviceMesh` or an `AbstractMesh`."""
+    return int(mesh.size(mesh.mesh_dim_names.index(name)))
 
 
 def dp_axes(mesh) -> tuple[str, ...]:
@@ -141,7 +190,7 @@ class RankFailed(RuntimeError):
     """A rank of `spawn` raised or died; the message holds its traceback."""
 
 
-def _rank_main(rank, world, backend, device, store, shape, axes, fn, args,
+def _rank_main(rank, world, backend, device, store, shape, axes,
                out_dir) -> None:
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
@@ -149,6 +198,8 @@ def _rank_main(rank, world, backend, device, store, shape, axes, fn, args,
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     out = Path(out_dir)
     try:
+        with open(out / "call.pkl", "rb") as f:
+            fn, args = pickle.load(f)
         init_ranks(backend, f"file://{store}", device=device)
         mesh = make_mesh(shape, axes, device_type=device)
         result = fn(rank, mesh, *args)
@@ -184,10 +235,15 @@ def spawn(fn, world_size: int, *, backend: str, device: str = "cuda",
     check_backend(backend, world_size, device, n_cuda)
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+        # the call goes through a file: a start's arguments larger than a
+        # pipe's buffer would hold each start until its child had imported
+        # torch, one child after another
+        with open(os.path.join(tmp, "call.pkl"), "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
         procs = [ctx.Process(
             target=_rank_main, name=f"rank{r}",
             args=(r, world_size, backend, device, os.path.join(tmp, "store"),
-                  shape, axes, fn, tuple(args), tmp))
+                  shape, axes, tmp))
             for r in range(world_size)]
         try:
             for p in procs:

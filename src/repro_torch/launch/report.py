@@ -3,11 +3,21 @@
 
 `profile_table`, `quality_table` and `verification_table` render the same
 rows into the same bytes as the reference's; `attribution_table` is
-`obs.attrib`'s.  The dry-run, compile and roofline tables of the
-reference's language-model cells wait for a port of that stack.
+`obs.attrib`'s.  `load`, `roofline_table`, `dryrun_table` and
+`bottleneck_notes` render the LM dry run's JSONs (`launch/dryrun.py`):
+its numbers are computed from shapes on meta tensors, never measured, and
+each table says so.  Their memory column holds a rank's peak live bytes
+against one H100's 80 GB.
+
+    PYTHONPATH=src python -m repro_torch.launch.report build/dryrun
 """
 
 from __future__ import annotations
+
+import glob
+import json
+import os
+import sys
 
 from repro_torch.obs.attrib import attribution_table  # noqa: F401
 
@@ -117,3 +127,138 @@ def profile_table(rows: list[dict], comm: list[dict] | None = None) -> str:
             f"| {'n/a' if bw is None else f'{bw / 1e9:.3g}GB/s'} |"
         )
     return "\n".join(out)
+
+
+CELL_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+CARD_BYTES = 80e9  # H100 80GB HBM3
+COMPUTED = ("Computed by `python -m repro_torch.launch.dryrun` for one rank "
+            "of the mesh on meta tensors, priced at the H100's published "
+            "rates: not measured.")
+
+
+def load(results_dir: str, opt: str = "baseline") -> list[dict]:
+    out = []
+    for f in sorted(glob.glob(os.path.join(results_dir, f"*__{opt}.json"))):
+        with open(f) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def _sorted(recs):
+    return sorted(recs, key=lambda r: (r["arch"], CELL_ORDER.index(r["cell"]),
+                                       r["mesh"]))
+
+
+def roofline_table(recs: list[dict], mesh: str = "single") -> str:
+    """One row per (arch, cell) on `mesh`: the three roofline terms of a
+    rank's step, the bottleneck, the useful share of its operations, its
+    peak live memory and whether that fits one H100."""
+    rows = [
+        f"{COMPUTED}", "",
+        "| arch | cell | t_compute | t_memory | t_collective | bottleneck | "
+        "useful FLOPs | mem GiB/chip | fits in 80 GB |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in _sorted([r for r in recs if r["mesh"] == mesh]):
+        if r["status"] != "ok":
+            rows.append(f"| {r['arch']} | {r['cell']} | — | — | — | skipped "
+                        "| — | — | — |")
+            continue
+        rf = r["roofline"]
+        peak = r["memory"]["peak_live_bytes"]
+        rows.append(
+            f"| {r['arch']} | {r['cell']} | {_fmt_s(rf['t_compute_s'])} "
+            f"| {_fmt_s(rf['t_memory_s'])} | {_fmt_s(rf['t_collective_s'])} "
+            f"| {rf['bottleneck']} | {rf['useful_flops_ratio']:.3f} "
+            f"| {peak / 2**30:.1f} | {'yes' if peak <= CARD_BYTES else 'NO'} |"
+        )
+    return "\n".join(rows)
+
+
+def dryrun_table(recs: list[dict]) -> str:
+    """One row per (arch, cell, mesh): a rank's argument and temporary
+    bytes and its collectives' bytes by op (all-gather, all-reduce) and by
+    link (NVLink within a host, the network across hosts)."""
+    g = 2**30
+    rows = [
+        f"{COMPUTED}", "",
+        "| arch | cell | mesh | status | run s | args GiB | temp GiB | "
+        "AG GiB | AR GiB | NVLink GiB | network GiB |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in _sorted(recs):
+        if r["status"] != "ok":
+            rows.append(f"| {r['arch']} | {r['cell']} | {r['mesh']} | "
+                        f"skipped ({r['reason'][:40]}...) " + "| — " * 7
+                        + "|")
+            continue
+        c = r["collectives"]["bytes_by_op"]
+        link = r["collectives"]["bytes_by_link"]
+        rows.append(
+            f"| {r['arch']} | {r['cell']} | {r['mesh']} | ok "
+            f"| {r['run_s']:.0f} "
+            f"| {r['memory']['argument_size_in_bytes'] / g:.2f} "
+            f"| {r['memory']['temp_size_in_bytes'] / g:.2f} "
+            f"| {c.get('all-gather', 0) / g:.2f} "
+            f"| {c.get('all-reduce', 0) / g:.2f} "
+            f"| {link.get('nvlink', 0) / g:.2f} "
+            f"| {link.get('network', 0) / g:.2f} |"
+        )
+    return "\n".join(rows)
+
+
+def bottleneck_notes(recs: list[dict]) -> str:
+    """One sentence per (arch, cell) on what would move the dominant
+    term of the port's meshed step."""
+    notes = {
+        ("memory", "train"): "HBM traffic dominates: fuse the step's "
+        "elementwise ops (the count is unfused) and keep activations in "
+        "bf16.",
+        ("memory", "prefill"): "activation and logits traffic dominates: "
+        "take only the last position's logits and fuse attention's stages.",
+        ("memory", "decode"): "decode streams every weight and the whole "
+        "cache a step: batch more sequences per card, or split the cache's "
+        "sequence instead of gathering it.",
+        ("collective", "train"): "the per-block weight gathers and the "
+        "gradient all-reduce dominate: tensor-parallel compute on the model "
+        "axis (no gather of its weights), a reduce-scatter in place of the "
+        "all-reduce, overlap with compute.",
+        ("collective", "prefill"): "weight gathers dominate: tensor-parallel "
+        "compute on the model axis, overlap the next block's gather.",
+        ("collective", "decode"): "every step gathers every weight and the "
+        "cache's sequence: keep weights sharded on the model axis "
+        "(tensor-parallel compute) and attend over the local sequence "
+        "shard.",
+        ("compute", "train"): "compute-bound: drop the remat recompute or "
+        "the ranks' redundant rows on the model axis.",
+    }
+    out = []
+    for r in _sorted(recs):
+        if r["status"] != "ok" or r["mesh"] != "single":
+            continue
+        key = (r["roofline"]["bottleneck"], r["kind"])
+        out.append(f"* **{r['arch']} / {r['cell']}** — "
+                   f"{notes.get(key, 'see table.')}")
+    return "\n".join(out)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    d = argv[0] if argv else os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))))), "build", "dryrun")
+    recs = load(d)
+    if not recs:
+        print(f"no dry-run results under {d}", file=sys.stderr)
+        return 1
+    print("## Roofline (single pod, computed)\n")
+    print(roofline_table(recs, "single"))
+    print("\n## Dry-run detail (computed)\n")
+    print(dryrun_table(recs))
+    print("\n## Bottlenecks\n")
+    print(bottleneck_notes(recs))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

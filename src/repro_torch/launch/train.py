@@ -1,11 +1,14 @@
-"""Single-card trainer.
+"""Trainer, on one device or over a mesh of ranks.
 
-Port of `repro/launch/train.py` for one device:
+Port of `repro/launch/train.py`:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b \\
         --reduced --steps 200 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b \\
         --reduced --device cpu --steps 4
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m \\
+        repro_torch.launch.train --arch yi-9b --reduced --device cpu \\
+        --mesh 2x4 --backend gloo --steps 4
 
 * any registered --arch (full, or --reduced smoke geometry), a training
   model from a seed (`init_model(..., train=True)`), AdamW, batches from
@@ -19,17 +22,26 @@ Port of `repro/launch/train.py` for one device:
 * `--metrics-out` writes every step's exact loss, grad norm and lr as
   JSON lines.
 
-`--mesh` takes only '' or 1x1: training over a mesh of ranks waits for
-the LM mesh (ROADMAP §1 item 2).  The reference's `--compress` is parsed
-there but never reaches its collectives, which the port keeps in
-`optim/compression.py`.
+`--mesh DxM` trains over a (D, M) = ("data", "model") mesh of D*M ranks
+started by `torchrun` (or `launch.mesh.spawn`), each joining with
+`--backend` (gloo moves host memory and lets ranks share a card or run
+on the CPU; nccl needs a card a rank): the parameters and AdamW moments
+are distributed by the reference's sharding rules
+(`launch/sharding.py`), each batch is placed on the mesh
+(`data.place_batch`), checkpoints are written whole by rank 0 and
+`--resume` re-shards them onto the current mesh, whatever mesh wrote
+them.  '' or 1x1 outside a world is one device.  The reference's
+`--compress` is parsed there but never reaches its collectives, which
+the port keeps in `optim/compression.py`; the port has no such flag.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import re
 import signal
 import sys
 import time
@@ -40,27 +52,94 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import get_config
-from repro_torch.data.pipeline import SyntheticLM, to_device
+from repro_torch.data.pipeline import SyntheticLM, place_batch, to_device
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 
 
-def build(cfg, opt_cfg, device):
-    """(params, their leaves by name, opt_state, step_fn)."""
-    params = tfm.init_model(cfg, seed=0, device=device, train=True)
+def build(cfg, opt_cfg, device, mesh=None, batch_shape=None, params=None):
+    """(params, their leaves by name, opt_state, step_fn, batch
+    shardings).  The model is `params` (a training model), or one built
+    from seed 0 on `device`.  On a mesh it is distributed, the moments
+    made as each rank's zeros, `step_fn` bound to `batch_shape`, and the
+    shardings are `place_batch`'s (None on one device)."""
+    if params is None:
+        params = tfm.init_model(cfg, seed=0, device=device, train=True)
+    if mesh is None:
+        leaves = tfm.train_leaves(params, cfg)
+        opt_state = adamw.init(leaves, opt_cfg)
+        step_fn = steps_lib.make_train_step(cfg, None, opt_cfg)
+        return params, leaves, opt_state, step_fn, None
+    with_batch, specs = steps_lib.make_train_step(cfg, mesh, opt_cfg)
+    step_fn, bspecs = with_batch(batch_shape)
+    params = sharding.distribute(mesh, params, specs["params"], cfg=cfg)
     leaves = tfm.train_leaves(params, cfg)
-    opt_state = adamw.init(leaves, opt_cfg)
-    step_fn = steps_lib.make_train_step(cfg, None, opt_cfg)
-    return params, leaves, opt_state, step_fn
+    return (params, leaves, moments(mesh, leaves, opt_cfg), step_fn,
+            sharding.to_named(mesh, bspecs))
 
 
-def _mesh(spec: str) -> None:
-    if spec not in ("", "1x1"):
-        raise NotImplementedError(
-            f"--mesh {spec}: training over a mesh of ranks waits for the "
-            "LM mesh (ROADMAP §1 item 2; the sampler's runs over ranks "
-            "already); pass '' or 1x1")
+def moments(mesh, leaves: dict, opt_cfg) -> dict:
+    """AdamW's state of distributed leaves: each rank's zero moments of
+    its shards, laid out as the leaves are, and a replicated step."""
+    local = adamw.init({n: sharding.local(p) for n, p in leaves.items()},
+                       opt_cfg)
+    state = {part: {n: sharding.shard_like(leaves[n], t)
+                    for n, t in local[part].items()}
+             for part in ("m", "v")}
+    state["step"] = sharding.shard_leaf(mesh, local["step"], ())
+    return state
+
+
+def mesh_shape(spec: str) -> tuple[int, int] | None:
+    """--mesh's (D, M), None for ''; anything but DxM raises."""
+    if spec == "":
+        return None
+    m = re.fullmatch(r"([1-9][0-9]*)x([1-9][0-9]*)", spec)
+    if m is None:
+        raise ValueError(f"--mesh {spec!r}: DxM (e.g. 2x4), or '' for one "
+                         "device")
+    return int(m.group(1)), int(m.group(2))
+
+
+def join_mesh(spec: str, backend: str, device: str):
+    """(the rank's device, the (data, model) mesh) of --mesh; (the
+    device, None) for one device.  A mesh of several ranks needs a world
+    (`torchrun` sets RANK and WORLD_SIZE) of exactly its size."""
+    shape = mesh_shape(spec)
+    in_world = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if shape is None or (math.prod(shape) == 1 and not in_world):
+        return device_mod.resolve(device), None
+    if not in_world:
+        raise ValueError(
+            f"--mesh {spec} needs a world of {math.prod(shape)} ranks: run "
+            f"under torchrun --nproc-per-node {math.prod(shape)}")
+    world = int(os.environ["WORLD_SIZE"])
+    if world != math.prod(shape):  # before joining: no rank waits
+        raise ValueError(f"--mesh {spec} holds {math.prod(shape)} ranks; "
+                         f"the world has {world}")
+    dev = mesh_lib.init_ranks(backend, device=torch.device(device).type)
+    return dev, mesh_lib.make_mesh(shape, ("data", "model"),
+                                   device_type=dev.type)
+
+
+def _restore_into(cfg, tree: dict, by_path: dict) -> None:
+    """A checkpoint's host arrays (`restore` without `like`) written into
+    a tree (on the current mesh: each rank its block), each leaf checked
+    against its shape and rounded to its type."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.models import layers
+
+    layers.accumulate_in_float32()
+    for path, leaf in _flatten(tree):
+        arr = by_path[path]
+        want = sharding.port_shape(cfg, path.split("/")[-1], leaf.shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{path}: stored {tuple(arr.shape)}, expected "
+                             f"{want}")
+        sharding.load_whole(leaf, arr)
 
 
 def main(argv=None):
@@ -76,8 +155,10 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--keep", type=int, default=3)
     ap.add_argument("--mesh", default="",
-                    help="'' or 1x1 (one device); larger meshes are not "
-                    "ported")
+                    help="DxM: a (data, model) mesh of D*M ranks (under "
+                    "torchrun); '' or 1x1 alone: one device")
+    ap.add_argument("--backend", default="gloo", choices=mesh_lib.BACKENDS,
+                    help="the ranks' transport with --mesh")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=device_mod.DEFAULT,
@@ -89,11 +170,22 @@ def main(argv=None):
                     "(JSON lines, exact floats)")
     args = ap.parse_args(argv)
 
-    _mesh(args.mesh)
+    mesh_shape(args.mesh)  # a malformed spec raises before anything runs
     if args.deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
-    dev = device_mod.resolve(args.device)
+    dev, mesh = join_mesh(args.mesh, args.backend, args.device)
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args, dev, mesh):
+    rank0 = mesh is None or int(os.environ["RANK"]) == 0
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -102,23 +194,19 @@ def main(argv=None):
         moment_dtype=steps_lib.default_opt_cfg(cfg).moment_dtype,
     )
     data = SyntheticLM(cfg.vocab, args.seq, args.global_batch)
-    params, leaves, opt_state, step_fn = build(cfg, opt_cfg, dev)
+    params, leaves, opt_state, step_fn, bshard = build(
+        cfg, opt_cfg, dev, mesh, make_frontend_batch(cfg, args,
+                                                     data.batch(0)))
 
     start_step = 0
     if args.resume and args.ckpt_dir:
         last = ckpt.latest_step(args.ckpt_dir)
-        if last is not None:
-            like = {"params": leaves, "opt": opt_state}
-            manifest, tree = ckpt.restore(args.ckpt_dir, last, like)
-            with torch.no_grad():
-                for name, leaf in leaves.items():
-                    leaf.copy_(tree["params"][name])
-                for part in ("m", "v"):
-                    for name, t in opt_state[part].items():
-                        t.copy_(tree["opt"][part][name])
-                opt_state["step"].copy_(tree["opt"]["step"])
+        if last is not None:  # onto the current mesh, whichever wrote it
+            manifest, by_path = ckpt.restore(args.ckpt_dir, last)
+            _restore_into(cfg, {"params": leaves, "opt": opt_state}, by_path)
             start_step = manifest["step"]
-            print(f"[train] resumed from step {start_step}")
+            if rank0:
+                print(f"[train] resumed from step {start_step}")
 
     stop = {"now": False}
 
@@ -132,32 +220,26 @@ def main(argv=None):
         if not args.ckpt_dir:
             return
         tree = {"params": leaves, "opt": opt_state}
-        ckpt.save(args.ckpt_dir, step, tree, extra={"arch": cfg.name})
-        ckpt.rotate(args.ckpt_dir, args.keep)
+        ckpt.save(args.ckpt_dir, step, tree, extra={"arch": cfg.name},
+                  cfg=cfg)
+        if rank0:
+            ckpt.rotate(args.ckpt_dir, args.keep)
 
-    def make_frontend_batch(b):
-        if not cfg.frontend:
-            return b
-        rng = np.random.default_rng(1234)
-        s_f = cfg.frontend_len
-        b = dict(b)
-        b["tokens"] = b["tokens"][:, : args.seq - s_f]
-        b["features"] = rng.normal(
-            0, 1, (args.global_batch, s_f, tfm.FRONTEND_DIM)
-        ).astype(np.float32)
-        return b
-
-    out = open(args.metrics_out, "a") if args.metrics_out else None
+    out = open(args.metrics_out, "a") if args.metrics_out and rank0 \
+        else None
     try:
         t0 = time.time()
         losses = []
         for step in range(start_step, args.steps):
-            batch = to_device(make_frontend_batch(data.batch(step)), dev)
+            host = make_frontend_batch(cfg, args, data.batch(step))
+            batch = (to_device(host, dev) if bshard is None
+                     else place_batch(host, bshard, dev))
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             if out is not None:
                 out.write(json.dumps({"step": step, **{
                     k: float(v) for k, v in metrics.items()}}) + "\n")
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if rank0 and (step % args.log_every == 0
+                          or step == args.steps - 1):
                 loss = float(metrics["loss"])
                 losses.append(loss)
                 print(f"[train] step {step:5d} loss {loss:.4f} "
@@ -178,6 +260,21 @@ def main(argv=None):
         print(f"[train] done: first/last logged loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f}")
     return losses
+
+
+def make_frontend_batch(cfg, args, b):
+    """A frontend arch's batch: its tokens cut to leave the frontend's
+    positions, and stub features from a fixed seed."""
+    if not cfg.frontend:
+        return b
+    rng = np.random.default_rng(1234)
+    s_f = cfg.frontend_len
+    b = dict(b)
+    b["tokens"] = b["tokens"][:, : args.seq - s_f]
+    b["features"] = rng.normal(
+        0, 1, (args.global_batch, s_f, tfm.FRONTEND_DIM)
+    ).astype(np.float32)
+    return b
 
 
 if __name__ == "__main__":

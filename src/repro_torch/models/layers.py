@@ -91,6 +91,18 @@ def act(w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return w.to(cfg.act_dtype)
 
 
+def embed_rows(w: torch.Tensor, tokens: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Rows `tokens` of embedding table `w` in the activation type,
+    looked up in the wider of the table's type and the activation type:
+    the forward is the same either way, and the gradient sums a token's
+    repeats in that type (a bf16 sum over a Zipf batch's repeats of its
+    commonest tokens loses a tenth of their gradient)."""
+    if w.dtype.itemsize >= cfg.act_dtype.itemsize:
+        return act(w[tokens], cfg)
+    return act(w, cfg)[tokens]
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()

@@ -16,12 +16,20 @@ Port of `repro/models/moe.py` for one device:
 Dispatch is per batch row during training and prefill; a decode step with
 more than one row routes the whole batch as one group (the reference's
 `s == 1 and b > 1` branch).  The switch load-balancing loss, which only
-training reads, is computed when the caller asks for it.  The
-reference's sharding constraints (`_MESH_CTX`) have no counterpart.
+training reads, is computed when the caller asks for it.
+
+On a mesh of ranks (`set_moe_mesh`, which `launch/steps.py` calls) a rank
+holds its batch rows.  Groups are batch rows in training and prefill, so
+a rank routes them as the whole batch would; a decode step's one group is
+the whole batch, so the rank gathers the batch's (B, 1, d) inputs over
+the data-parallel ranks, routes them all and keeps its rows.  The switch
+loss's means are the global batch's: the per-expert sums are summed over
+the dp ranks (differentiably) before the product.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -29,6 +37,42 @@ import torch
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers
 from repro_torch.models.layers import Params
+
+# The mesh of the LM steps (set by launch.steps for a meshed step; None on
+# one device): the data-parallel axes, the model axis and its size, and
+# the rank's `launch/collectives.Comm`.
+_MESH_CTX: dict = {"dp": None, "tp": None, "tp_size": 1, "comm": None}
+
+
+def set_moe_mesh(dp_axes, tp_axis, tp_size: int, comm=None) -> None:
+    _MESH_CTX.update(dp=dp_axes, tp=tp_axis, tp_size=int(tp_size),
+                     comm=comm)
+
+
+def clear_moe_mesh() -> None:
+    _MESH_CTX.update(dp=None, tp=None, tp_size=1, comm=None)
+
+
+@contextlib.contextmanager
+def moe_mesh(dp_axes, tp_axis, tp_size: int, comm=None):
+    """`set_moe_mesh` for the body of a meshed step, the context before it
+    restored after (a one-device call in the same process must not find
+    a mesh's Comm)."""
+    saved = dict(_MESH_CTX)
+    set_moe_mesh(dp_axes, tp_axis, tp_size, comm)
+    try:
+        yield
+    finally:
+        _MESH_CTX.update(saved)
+
+
+def _split_rows():
+    """The mesh's Comm when this rank's batch rows are a dp shard of the
+    batch (else None)."""
+    comm = _MESH_CTX["comm"]
+    if comm is None or comm.dp_size == 1 or not comm.rows:
+        return None
+    return comm
 
 
 def init_moe(gen, cfg: ModelConfig, moe: MoEConfig, device) -> Params:
@@ -129,9 +173,14 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """x (B, S, d) -> (B, S, d), routed in `groups(x)`; with `aux`, the
     pair (y, the switch load-balancing loss, a float32 scalar)."""
     b, s, _ = x.shape
-    y, r = _moe_groups(p, groups(x), moe)
-    if s == 1 and b > 1:
-        y = y.transpose(0, 1)
+    comm = _split_rows()
+    if s == 1 and comm is not None:  # a decode step routes the whole batch
+        y, r = _moe_groups(p, groups(comm.gather_rows(x)), moe)
+        y = comm.own_rows(y.transpose(0, 1))
+    else:
+        y, r = _moe_groups(p, groups(x), moe)
+        if s == 1 and b > 1:
+            y = y.transpose(0, 1)
     if "shared" in p:
         y = y + layers.mlp_apply(p["shared"], x, cfg)
     return (y, aux_loss(r, moe)) if aux else y
@@ -144,9 +193,16 @@ def aux_loss(r: Routing, moe: MoEConfig) -> torch.Tensor:
     `router_aux_weight * E`."""
     e = moe.n_experts
     experts = torch.arange(e, device=r.top_i.device)
-    density = (r.top_i[..., None] == experts).any(2).float().mean((0, 1))
-    return moe.router_aux_weight * e * (density
-                                        * r.probs.mean((0, 1))).sum()
+    chose = (r.top_i[..., None] == experts).any(2).float()
+    comm = _split_rows()
+    if comm is None:
+        density, mean_p = chose.mean((0, 1)), r.probs.mean((0, 1))
+    else:  # the global batch's means: sums over the dp ranks, then / n
+        n = chose.shape[0] * chose.shape[1] * comm.dp_size
+        sums = comm.dp_sum(torch.stack([chose.sum((0, 1)),
+                                        r.probs.sum((0, 1))]))
+        density, mean_p = sums[0] / n, sums[1] / n
+    return moe.router_aux_weight * e * (density * mean_p).sum()
 
 
 def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig):

@@ -12,6 +12,17 @@ entry per layer: `{"k", "v"}` for attention, the recurrent state for the
 others.  Serving (`forward`, `prefill`, `decode_step`) runs without
 autograd; training (`train_forward`, `train_loss`) with it, and adds the
 MoE FFNs' switch loss.
+
+On a mesh of ranks each function takes `shard`, the rank's
+`launch/collectives.Plan`: the model's leaves are then the rank's shards,
+and each block's leaves are gathered whole just before the block runs
+(inside the superblock's checkpoint in training, so the backward gathers
+them again), as the reference's GSPMD gathers its FSDP-sharded weights
+per scanned layer; the embedding and the head stay split over the model
+axis by vocabulary (a masked lookup summed over it; a column block of
+logits gathered over it); a decode cache is gathered to the rank's rows
+before its layer and its block written back after.  The counterpart of
+the reference's `act_spec` constraints.
 """
 
 from __future__ import annotations
@@ -198,34 +209,54 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     return Params(**p)
 
 
-def embed_inputs(p: Params, cfg: ModelConfig, batch: dict[str, Any]):
-    """tokens (B, S_tok) [+ features (B, S_f, FRONTEND_DIM)] -> (B, S, d)."""
-    x = layers.act(p["embed"], cfg)[batch["tokens"]]
+def _top(p: Params, name: str, shard):
+    """Leaf `name` outside the blocks: the model's own, or gathered."""
+    return p[name] if shard is None else shard.leaf(name)
+
+
+def embed_inputs(p: Params, cfg: ModelConfig, batch: dict[str, Any],
+                 shard=None):
+    """tokens (B, S_tok) [+ features (B, S_f, FRONTEND_DIM)] -> (B, S, d).
+    On a mesh, the vocabulary-parallel lookup (`Plan.embed`)."""
+    if shard is None:
+        x = layers.embed_rows(p["embed"], batch["tokens"], cfg)
+    else:
+        x = shard.embed(batch["tokens"])
     if cfg.frontend:
         feats = (batch["features"].to(cfg.act_dtype)
-                 @ layers.act(p["frontend_proj"], cfg))
+                 @ layers.act(_top(p, "frontend_proj", shard), cfg))
         x = torch.cat([feats, x], dim=1)
     return x
 
 
-def _logits(p: Params, cfg: ModelConfig, x):
-    x = layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
+def _logits(p: Params, cfg: ModelConfig, x, shard=None):
+    """float32 logits of the last hidden states; on a mesh, the
+    vocabulary-parallel head (`Plan.logits`)."""
+    x = layers.rms_norm(x, _top(p, "final_norm", shard), cfg.norm_eps)
+    if shard is not None:
+        return shard.logits(x)
     head = p["embed"].T if cfg.tie_embeddings else p["head"]
     return (x @ layers.act(head, cfg)).float()
 
 
+def _block(p: Params, i: int, shard):
+    """Block i's leaves: the model's own, or gathered on a mesh."""
+    return p["blocks"][i] if shard is None else shard.block(i)
+
+
 @torch.no_grad()
 def forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
-            collect_cache: bool = False):
+            collect_cache: bool = False, shard=None):
     """Full forward (prefill).  Returns (logits (B, S, V) float32, caches:
     one per layer, or None)."""
-    x = embed_inputs(p, cfg, batch)
+    x = embed_inputs(p, cfg, batch, shard)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     caches = []
-    for i, blk in enumerate(p["blocks"]):
-        x, cache = block_apply(blk, x, cfg, _slot(cfg, i), positions)
+    for i in range(cfg.n_layers):
+        x, cache = block_apply(_block(p, i, shard), x, cfg, _slot(cfg, i),
+                               positions)
         caches.append(cache)
-    return _logits(p, cfg, x), caches if collect_cache else None
+    return _logits(p, cfg, x, shard), caches if collect_cache else None
 
 
 def _dots_saved(ctx, op, *args, **kwargs):
@@ -248,23 +279,22 @@ def _remat(policy: str):
 
 
 def train_forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
-                  remat_policy: str = "nothing"):
+                  remat_policy: str = "nothing", shard=None):
     """The training forward, under autograd: (logits (B, S, V) float32,
     the MoE FFNs' switch losses summed in layer order, a float32 scalar).
     Each superblock of `len(cfg.pattern)` layers is checkpointed: its
     input is kept and its insides recomputed in the backward
     (`remat_policy` "nothing"), or its products without a batch axis kept
     too ("dots"), the reference's `jax.checkpoint` policies."""
-    x = embed_inputs(p, cfg, batch)
+    x = embed_inputs(p, cfg, batch, shard)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     period = len(cfg.pattern)
-    blocks = p["blocks"]
 
     def superblock(x, aux, first):
         moe = []
         for j in range(period):
-            x, _ = block_apply(blocks[first + j], x, cfg, j, positions,
-                               aux=moe)
+            x, _ = block_apply(_block(p, first + j, shard), x, cfg, j,
+                               positions, aux=moe)
         for a in moe:
             aux = aux + a
         return x, aux
@@ -274,7 +304,7 @@ def train_forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
     for first in range(0, cfg.n_layers, period):
         x, aux = ckpt.checkpoint(superblock, x, aux, first,
                                  use_reentrant=False, **kw)
-    return _logits(p, cfg, x), aux
+    return _logits(p, cfg, x, shard), aux
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
@@ -287,11 +317,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
 
 
 def train_loss(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
-               remat_policy: str = "nothing") -> torch.Tensor:
+               remat_policy: str = "nothing", shard=None) -> torch.Tensor:
     """batch: tokens (B, S), labels (B, S_total); for frontend archs the
     labels cover the frontend positions too (stub targets).  The mean
-    cross-entropy plus the switch losses."""
-    logits, aux = train_forward(p, cfg, batch, remat_policy=remat_policy)
+    cross-entropy plus the switch losses.  On a mesh, the mean over the
+    rank's rows (the step averages it over the dp ranks) plus the switch
+    losses of the global batch (`moe.aux_loss` over the dp group)."""
+    logits, aux = train_forward(p, cfg, batch, remat_policy=remat_policy,
+                                shard=shard)
     return softmax_xent(logits, batch["labels"]) + aux
 
 
@@ -325,10 +358,12 @@ def decays(name: str, leaf: torch.Tensor) -> bool:
     return name.startswith("blocks.") or leaf.ndim >= 2
 
 
-def prefill(p: Params, cfg: ModelConfig, batch):
+def prefill(p: Params, cfg: ModelConfig, batch, shard=None):
     """Returns (last-position logits (B, V), decode-ready caches);
-    chunked-attention slots are rearranged into decode's ring layout."""
-    logits, caches = forward(p, cfg, batch, collect_cache=True)
+    chunked-attention slots are rearranged into decode's ring layout.  On
+    a mesh, the rank's rows, each cache in the compute layout (the step
+    stores the rank's block)."""
+    logits, caches = forward(p, cfg, batch, collect_cache=True, shard=shard)
     for i, cache in enumerate(caches):
         if cfg.pattern[_slot(cfg, i)] == "attn_chunked":
             for name in ("k", "v"):
@@ -350,21 +385,31 @@ def grow_attn_caches(caches, cfg: ModelConfig, extra: int):
 
 
 @torch.no_grad()
-def decode_step(p: Params, cfg: ModelConfig, tokens, caches, pos: int):
+def decode_step(p: Params, cfg: ModelConfig, tokens, caches, pos: int,
+                shard=None):
     """One token for every sequence.  tokens (B, 1); caches as from
     prefill/init_decode_caches, updated in place; pos the new token's
-    absolute position.  Returns (logits (B, V) float32, caches)."""
-    x = p["embed"][tokens]
-    for i, blk in enumerate(p["blocks"]):
-        x, caches[i] = block_decode(blk, x, caches[i], pos, cfg,
-                                    _slot(cfg, i))
-    return _logits(p, cfg, x)[:, 0], caches
+    absolute position.  Returns (logits (B, V) float32, caches).  On a
+    mesh, the rank's rows, the caches its stored shards."""
+    x = p["embed"][tokens] if shard is None else shard.embed(tokens)
+    for i in range(cfg.n_layers):
+        blk = _block(p, i, shard)
+        if shard is None:
+            x, caches[i] = block_decode(blk, x, caches[i], pos, cfg,
+                                        _slot(cfg, i))
+            continue
+        x, new = block_decode(blk, x, shard.cache_in(i, caches[i]), pos,
+                              cfg, _slot(cfg, i))
+        caches[i] = shard.cache_out(i, caches[i], new)
+    return _logits(p, cfg, x, shard)[:, 0], caches
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, s_max: int,
                        device="cuda"):
     """One zeroed cache per layer (an attention layer's {"k", "v"}, a
     recurrent mixer's initial state), for decode from scratch."""
-    dev = device_mod.resolve(device)
+    dev = torch.device(device)
+    if dev.type != "meta":  # shapes only on meta, as init_model
+        dev = device_mod.resolve(device)
     return [init_block_cache(cfg, _slot(cfg, i), batch, s_max, dev)
             for i in range(cfg.n_layers)]

@@ -64,13 +64,18 @@ def init(params: dict[str, torch.Tensor], cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, reduce=None) -> torch.Tensor:
     """sqrt of the float32 sum of squares, the leaves' totals added one
     after another in the order given (the reference's leaf order where
-    the caller keeps it: `transformer.train_leaves`)."""
+    the caller keeps it: `transformer.train_leaves`).  Over the shards of
+    a mesh, `reduce` maps the vector of the rank's per-leaf totals to the
+    leaves' global totals (`launch/collectives.Comm.reduce_sumsq`: each
+    distinct shard counted once) before they are added."""
+    sums = [g.float().square().sum() for g in grads]
+    if reduce is not None:
+        sums = reduce(torch.stack(sums)).unbind()
     total = None
-    for g in grads:
-        sq = g.float().square().sum()
+    for sq in sums:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -78,16 +83,21 @@ def global_norm(grads) -> torch.Tensor:
 @torch.no_grad()
 def update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
            state: dict, cfg: AdamWConfig,
-           decays: Callable[[str, torch.Tensor], bool]):
+           decays: Callable[[str, torch.Tensor], bool], reduce_sumsq=None):
     """One AdamW step, in place: (params, state, {"grad_norm", "lr"}).
     `decays(name, leaf)` says which leaves take weight decay.  The
     reference decays its leaves of two or more axes; a model's caller
     passes the rule that picks the same leaves in its own layout
-    (`transformer.decays` for the LM's unstacked block leaves)."""
+    (`transformer.decays` for the LM's unstacked block leaves).
+
+    On a mesh, params, grads and moments are the rank's shards, each
+    updated in place in the reference's per-leaf op order, and
+    `reduce_sumsq` makes the gradient norm the global one
+    (`global_norm`)."""
     state["step"].add_(1)
     step = state["step"]
     c = lambda x: _f32(x, step)
-    gnorm = global_norm(grads[n] for n in params)
+    gnorm = global_norm([grads[n] for n in params], reduce_sumsq)
     scale = torch.minimum(c(1.0), c(cfg.clip_norm)
                           / torch.maximum(gnorm, c(1e-9)))
     lr = schedule(cfg, step)

@@ -490,3 +490,76 @@ def test_a_sliced_rank_job_equals_the_whole_run():
                         whole)
     assert cs._same(np.array([np.nan, 1.0]), np.array([np.nan, 1.0]))
     assert not cs._same(torch.zeros(2, dtype=torch.int32), torch.zeros(2))
+
+
+def test_lm_mesh_phases_are_registered_and_run_before_timing():
+    """serve_lm_mesh runs after the one-card LM phases and train_lm_mesh
+    after the one-card training ones, both before `timing`; both run
+    alone through tools/chip_phases.py: yi-9b (2 layers) and
+    qwen2-moe-a2.7b (1) served at full width over a (2, 4) mesh, 8
+    tokens; yi-9b (2 layers) trained at B 8 x S 512 for 3 steps."""
+    import importlib.util
+    import inspect
+
+    cs = _chip_smoke()
+    src = inspect.getsource(cs.main)
+    order = ["phase_moe_block", "phase_serve_lm_mesh", "phase_train_lm,",
+             "phase_train_block", "phase_train_lm_mesh", "phase_timing"]
+    where = [src.index(name) for name in order]
+    assert where == sorted(where)
+    spec = importlib.util.spec_from_file_location(
+        "chip_phases", ROOT / "tools" / "chip_phases.py")
+    phases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(phases)
+    assert {"phase_serve_lm_mesh", "phase_train_lm_mesh"} <= set(
+        phases.PHASES)
+    assert all(hasattr(cs, name) for name in phases.PHASES)
+    assert phases.main(["phase_timing"]) == 2  # not runnable alone
+    assert cs.LM_MESH == (2, 4)
+    assert cs.LM_MESH_SERVE == {"yi-9b": 2, "qwen2-moe-a2.7b": 1}
+    assert (cs.LM_BATCH, cs.LM_PROMPT, cs.LM_MESH_GEN) == (8, 128, 8)
+    assert (cs.LM_MESH_TRAIN_ARCH, cs.LM_MESH_TRAIN_LAYERS,
+            cs.LM_MESH_TRAIN_BATCH, cs.LM_MESH_TRAIN_SEQ,
+            cs.LM_MESH_TRAIN_STEPS) == ("yi-9b", 2, 8, 512, 3)
+
+
+def test_train_lm_mesh_counts_each_block_of_an_update_once():
+    """`_update_gaps` sums a leaf's distinct blocks (replicas once): two
+    blocks with errors 3 and 4 against updates 6 and 8, each held by two
+    ranks, give 5 / 10."""
+    cs = _chip_smoke()
+    ranks = [{"update_sq": {"w": (block, err, upd)}}
+             for block, err, upd in (("a", 9.0, 36.0), ("b", 16.0, 64.0))
+             for _ in range(2)]
+    assert cs._update_gaps(ranks) == {"w": pytest.approx(0.5)}
+
+
+@pytest.mark.parametrize("phase", ["phase_serve_lm_mesh",
+                                   "phase_train_lm_mesh"])
+def test_no_failure_of_an_lm_mesh_phase_is_caught(phase, monkeypatch,
+                                                   tmp_path):
+    """A rank that fails ends the phase with its error (chip_smoke then
+    exits non-zero): nothing in the phases or their ranks catches it."""
+    import inspect
+
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import mesh as mesh_mod
+
+    cs = _chip_smoke()
+    for fn in (cs.phase_serve_lm_mesh, cs.phase_train_lm_mesh,
+               cs.rank_lm_serve, cs._rank_serve, cs._serve_single,
+               cs.rank_lm_train, cs._save_zero_restore, cs._train_single,
+               cs._resident):
+        assert "except" not in inspect.getsource(fn), fn.__name__
+
+    def failed(*a, **k):
+        raise mesh_mod.RankFailed("rank3 exited with code 1")
+
+    monkeypatch.setattr(mesh_mod, "spawn", failed)
+    monkeypatch.setattr(_lib, "build", lambda: None)
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "card, 700.00 W")
+    monkeypatch.setattr(cs, "LM_MESH_DIR", tmp_path / "lm_mesh")
+    with pytest.raises(mesh_mod.RankFailed, match="rank3"):
+        getattr(cs, phase)(torch)

@@ -612,16 +612,24 @@ def test_main_reports_na_throughput_for_short_gen(capsys):
 
 
 def test_a_mesh_raises():
+    """What is not a mesh, a --mesh spec that is not DxM, and a mesh of
+    several ranks outside a world of its size raise ValueError before
+    anything runs (the meshes themselves: test_torch_lm_mesh.py)."""
     cfg = t_configs.get_config("yi-9b").reduced()
     mesh = object()
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="not a mesh"):
         t_steps.make_prefill_step(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="not a mesh"):
         t_steps.make_serve_step(cfg, mesh)
     model = t_tfm.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="not a mesh"):
         t_serve.generate(cfg, model, torch.zeros((1, 4), dtype=torch.int32),
                          2, mesh=mesh)
+    common = ["--arch", "yi-9b", "--reduced", "--device", "cpu"]
+    with pytest.raises(ValueError, match="DxM"):
+        t_serve.main(common + ["--mesh", "2by4"])
+    with pytest.raises(ValueError, match="world of 8 ranks"):
+        t_serve.main(common + ["--mesh", "2x4"])
 
 
 def test_lm_entry_points_default_to_the_card():

@@ -1,0 +1,558 @@
+"""The LM mesh of the port (`launch/sharding.py`, `launch/collectives.py`,
+the meshed factories of `launch/steps.py`) against the reference's.
+
+* The sharding rules: every parameter, optimizer, batch and cache spec of
+  the ten configs at full width (abstract shapes), on (2, 4), (16, 16)
+  and (2, 16, 16), equals the reference's leaf by leaf.  The reference's
+  rules run in a subprocess with 8 simulated host devices (the (2, 4)
+  mesh through `compat.make_mesh`, the production meshes as
+  `jax.sharding.AbstractMesh`).
+* The steps: 8 gloo CPU ranks as (2, 4) run reduced yi-9b, qwen2-moe and
+  xlstm-350m in float32 with the reference's weights
+  (`torch_rank_cases.lm_mesh_cases`): prefill logits and caches, three
+  teacher-forced decode steps' logits and KY tokens, one train step's
+  loss, gradients and updated leaves.  Every rank returns the same; each
+  is within the larger of 1e-5 of its scale and the reference's own
+  (2, 4)-against-unsharded gap of the port's single-process step, and
+  within 1e-4 of its scale of the reference's (2, 4) step (the same
+  subprocess, under `jax.set_mesh`), or, where the reference's (2, 4)
+  step is further than that from its own unsharded step (xlstm-350m's
+  sLSTM `out`: 6.8e-4 of its scale after the update), within the sum of
+  the gaps along mesh -> one process -> the reference's one process ->
+  its mesh.  Two leaves are cancellations
+  (tests/test_torch_train.py): the mLSTM input-gate bias `bi`, whose
+  gradient is a sum of large terms, and the attention key bias `bk`, to
+  which the output is invariant (its gradient is rounding noise, and
+  AdamW's first step scales that noise to the learning rate); both are
+  held at `CANCEL_RTOL` of their scale on both bounds.  A 1 x 1 world is
+  bit-equal to the single-process step.
+* Checkpoints: a (2, 4) run resumed from its checkpoint is bit-equal to
+  the uninterrupted run, and the checkpoint restores onto (1, 2) and
+  1 x 1 with every leaf bit-equal.
+
+The spawns and the reference run once a session
+(`torch_rank_cases.once_per_session`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as r_configs
+from repro.models import transformer as r_tfm
+from repro_torch import configs as t_configs
+from repro_torch import convert
+from repro_torch.checkpoint import checkpoint as t_ckpt
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import sharding
+from repro_torch.launch import steps as t_steps
+from repro_torch.models import sampling as t_sampling
+from repro_torch.models import transformer as t_tfm
+
+import torch_rank_cases as cases
+
+ROOT = Path(__file__).resolve().parent.parent
+ARCHS = sorted(r_configs.list_archs())
+MESHES = {"2x4": ((2, 4), ("data", "model")),
+          "16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+# (cell, seq, batch) whose batch and cache specs are compared: the
+# batch split, the sequence split, and neither split over dp
+SPEC_CELLS = (("train_4k", 4096, 256), ("decode_32k", 32768, 128),
+              ("long_500k", 524288, 1))
+RANK_TIMEOUT_S = 600
+WEIGHT_SEED = 1
+CANCEL_RTOL = 0.1  # test_torch_train.BI_RTOL
+CANCELLING = ("bi", "bk")
+
+_REFERENCE = textwrap.dedent("""
+    import dataclasses, pickle, sys
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import AbstractMesh, NamedSharding, PartitionSpec as P
+    from repro import configs
+    from repro.core import compat
+    from repro.launch import sharding, steps
+    from repro.models import sampling, transformer as tfm
+    from repro.optim import adamw
+
+    MESHES = {MESHES!r}
+    CELLS = {CELLS!r}
+    ARCHS = {ARCHS!r}
+    B, S0, GEN, SEQ = {B}, {S0}, {GEN}, {SEQ}
+
+    def flat(tree):
+        out = {{}}
+        for path, spec in jax.tree_util.tree_flatten_with_path(
+                tree, is_leaf=lambda x: isinstance(x, P))[0]:
+            key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                           for p in path)
+            out[key] = tuple(None if e is None else
+                             (e if isinstance(e, str) else tuple(e))
+                             for e in spec)
+        return out
+
+    res = {{"specs": {{name: {{}} for name in MESHES}}, "steps": {{}}}}
+    dev_mesh = compat.make_mesh((2, 4), ("data", "model"))
+    for arch in ARCHS:
+        cfg = configs.get_config(arch)
+        params = steps.abstract_params(cfg)
+        opt = steps.abstract_opt_state(cfg, steps.default_opt_cfg(cfg))
+        cells = [(cell, steps.abstract_batch(cfg, seq, batch),
+                  steps.abstract_caches(cfg, batch, seq))
+                 for cell, seq, batch in CELLS]
+        for name, (shape, axes) in MESHES.items():
+            mesh = dev_mesh if name == "2x4" else AbstractMesh(shape, axes)
+            r = {{"params": flat(sharding.param_specs(mesh, cfg, params)),
+                  "opt": flat(sharding.opt_specs(mesh, cfg, opt))}}
+            for cell, b, c in cells:
+                r["batch/" + cell] = flat(sharding.batch_specs(mesh, cfg, b))
+                r["caches/" + cell] = flat(sharding.cache_specs(mesh, cfg,
+                                                                c))
+            res["specs"][name][arch] = r
+
+    def inputs(vocab):
+        rng = np.random.default_rng(0)
+        t = rng.integers(0, vocab, (B, SEQ + 1)).astype(np.int32)
+        return {{"prompts": rng.integers(0, vocab, (B, S0)).astype(np.int32),
+                 "decode": rng.integers(0, vocab, (GEN, B, 1)
+                                        ).astype(np.int32),
+                 "tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()}}
+
+    def run(cfg, params, x, mesh):
+        named = lambda specs: sharding.to_named(mesh, specs)
+        out = {{}}
+        batch = {{"tokens": jnp.asarray(x["prompts"])}}
+        pre = steps.make_prefill_step(cfg, mesh)
+        if mesh is not None:
+            pspecs = sharding.param_specs(mesh, cfg, params)
+            params = jax.device_put(params, named(pspecs))
+            pre = pre(batch)
+        logits, caches = pre(params, batch)
+        out["prefill_logits"] = np.asarray(logits)
+        out["prefill_caches"] = jax.tree.map(np.asarray, caches)
+        # grown from host copies: jnp.pad of the meshed prefill's output
+        # under jax.set_mesh fails in the reference's JAX
+        caches = tfm.grow_attn_caches(out["prefill_caches"], cfg, GEN)
+        serve = steps.make_serve_step(cfg, mesh, sampler="greedy")
+        if mesh is not None:
+            serve, cspecs = serve(caches, B)
+            caches = jax.device_put(caches, named(cspecs))
+        lgs = []
+        for t in range(GEN):
+            _, lg, caches = serve(params, jnp.asarray(x["decode"][t]),
+                                  caches, jnp.asarray(S0 + t, jnp.int32),
+                                  jax.random.key(0))
+            lgs.append(np.asarray(lg))
+        out["decode_logits"] = np.stack(lgs)
+        tb = {{k: jnp.asarray(x[k]) for k in ("tokens", "labels")}}
+        opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+        if mesh is None:
+            steps._set_moe_ctx(None)
+            loss, grads = jax.jit(jax.value_and_grad(
+                lambda p: tfm.train_loss(p, cfg, tb)))(params)
+            fn = steps.make_train_step(cfg, None, opt_cfg)[0]
+            opt = adamw.init(params, opt_cfg)
+        else:
+            with_batch, sh = steps.make_train_step(cfg, mesh, opt_cfg)
+            fn, bspecs = with_batch(tb)
+            aspec = steps.act_partition(mesh, cfg, B)
+            loss, grads = jax.jit(jax.value_and_grad(
+                lambda p, b: tfm.train_loss(p, cfg, b, act_spec=aspec)),
+                in_shardings=(named(sh["params"]), named(bspecs)))(
+                    params, tb)
+            opt = jax.device_put(adamw.init(params, opt_cfg),
+                                 named(sh["opt"]))
+        out["grad_loss"] = float(loss)
+        out["grads"] = jax.tree.map(np.asarray, grads)
+        new, _, m = fn(jax.tree.map(jnp.copy, params), opt, tb)
+        out["loss"] = float(m["loss"])
+        out["grad_norm"] = float(m["grad_norm"])
+        out["leaves"] = jax.tree.map(np.asarray, new)
+        return out
+
+    for arch in {STEP_ARCHS!r}:
+        cfg = dataclasses.replace(configs.get_config(arch).reduced(),
+                                  dtype="float32")
+        params = tfm.init_model(jax.random.PRNGKey({SEED}), cfg)
+        x = inputs(cfg.vocab)
+        with jax.set_mesh(dev_mesh):
+            meshed = run(cfg, params, x, dev_mesh)
+        steps._set_moe_ctx(None)
+        res["steps"][arch] = {{"mesh": meshed,
+                              "single": run(cfg, params, x, None)}}
+
+    # a reduced train step's per-device argument bytes on (2, 4)
+    cfg = configs.get_config("yi-9b").reduced()
+    with jax.set_mesh(dev_mesh):
+        with_batch, _ = steps.make_train_step(cfg, dev_mesh)
+        b = steps.abstract_batch(cfg, SEQ, B)
+        fn, _ = with_batch(b)
+        args = (steps.abstract_params(cfg), steps.abstract_opt_state(
+            cfg, steps.default_opt_cfg(cfg)), b)
+        mem = fn.lower(*args).compile().memory_analysis()
+    res["train_argument_bytes"] = int(mem.argument_size_in_bytes)
+    steps._set_moe_ctx(None)
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(res, f)
+    print("REFERENCE_OK")
+""").format(MESHES=MESHES, CELLS=SPEC_CELLS, ARCHS=ARCHS, B=cases.LM_B,
+            S0=cases.LM_S0, GEN=cases.LM_GEN, SEQ=cases.LM_SEQ,
+            STEP_ARCHS=cases.LM_ARCHS, SEED=WEIGHT_SEED)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reference's rules and meshed steps, once a session in a
+    subprocess with 8 simulated host devices."""
+    def compute():
+        out = tmp_path_factory.mktemp("lm_mesh") / "reference.pkl"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=8")
+        res = subprocess.run([sys.executable, "-c", _REFERENCE, str(out)],
+                             env=env, capture_output=True, text=True,
+                             timeout=900)
+        assert "REFERENCE_OK" in res.stdout, (res.stdout[-2000:]
+                                              + res.stderr[-4000:])
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+    return cases.once_per_session(tmp_path_factory, "lm_mesh_reference",
+                                  compute)
+
+
+def _weights(arch: str) -> dict:
+    """The reference's `init_model` tree of reduced `arch` (float32), as
+    numpy: the weights every side of these tests holds."""
+    cfg = dataclasses.replace(r_configs.get_config(arch).reduced(),
+                              dtype="float32")
+    return jax.tree.map(np.asarray, r_tfm.init_model(
+        jax.random.PRNGKey(WEIGHT_SEED), cfg))
+
+
+@pytest.fixture(scope="module")
+def trees(tmp_path_factory):
+    return cases.once_per_session(
+        tmp_path_factory, "lm_mesh_trees",
+        lambda: {arch: _weights(arch) for arch in cases.LM_ARCHS})
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, trees):
+    """Every rank's LM cases on (2, 4), (1, 1), and the (2, 4) world's
+    checkpoint restored on (1, 2) and (1, 1): spawned once a session."""
+    def compute():
+        ck = str(tmp_path_factory.mktemp("lm_mesh_ckpt"))
+        run = lambda fn, shape, *args: mesh_mod.spawn(
+            fn, shape[0] * shape[1], backend="gloo", device="cpu",
+            timeout_s=RANK_TIMEOUT_S, mesh_shape=shape, args=args)
+        out = {"2x4": run(cases.lm_mesh_cases, (2, 4), trees, ck, False),
+               "1x1": run(cases.lm_mesh_cases, (1, 1), trees, ck, True),
+               "restore_1x2": run(cases.lm_restore, (1, 2), trees["yi-9b"],
+                                  ck),
+               "ckpt": dict(t_ckpt.restore(ck, 1)[1])}
+        out["restore_1x1"] = [r["restored"] for r in out["1x1"]]
+        return out
+
+    return cases.once_per_session(tmp_path_factory, "lm_mesh_ranks", compute)
+
+
+@pytest.fixture(scope="module")
+def single(tmp_path_factory, trees):
+    """The port's single-process steps on the same weights and inputs,
+    once a session."""
+    return cases.once_per_session(tmp_path_factory, "lm_mesh_single",
+                                  lambda: _single(trees))
+
+
+def _single(trees) -> dict:
+    out = {}
+    for arch in cases.LM_ARCHS:
+        cfg = cases.lm_cfg(arch)
+        x = cases.lm_inputs(cfg.vocab)
+        res = cases.lm_serve(cfg, convert.lm_params_from_reference(
+            trees[arch], cfg, "cpu"), x)
+        res.update(cases.lm_train(cfg, convert.lm_params_from_reference(
+            trees[arch], cfg, "cpu", train=True), x))
+        if arch == "yi-9b":
+            res["generate"] = cases.lm_generate(
+                cfg, convert.lm_params_from_reference(trees[arch], cfg,
+                                                      "cpu"), x)
+        out[arch] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sharding rules
+# ---------------------------------------------------------------------------
+
+
+def _norm(spec) -> tuple:
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in spec)
+
+
+@functools.lru_cache(maxsize=None)
+def _abstract(arch: str):
+    """A full-width training model's and AdamW state's shapes (meta)."""
+    cfg = t_configs.get_config(arch)
+    return (t_steps.abstract_params(cfg, train=True),
+            t_steps.abstract_opt_state(cfg, t_steps.default_opt_cfg(cfg)))
+
+
+def _port_specs(mesh, cfg) -> dict:
+    """The port's specs under the reference's paths: a block leaf's spec
+    behind the layer axis the reference stacks it on (every layer of a
+    slot has the same)."""
+    model, state = _abstract(cfg.name)
+    out: dict = {"params": {}, "opt": {}}
+    for name, spec in sharding.param_specs(mesh, cfg, model).items():
+        path = t_tfm.reference_path(name, cfg)
+        scanned = path[0] == "super"
+        key = "/".join(path[:-1] if scanned else path)
+        spec = (None,) + spec if scanned else spec
+        assert out["params"].setdefault(key, spec) == spec, key
+    ospecs = sharding.opt_specs(mesh, cfg, state)
+    for part in ("m", "v"):
+        for name, spec in ospecs[part].items():
+            path = t_tfm.reference_path(name, cfg)
+            scanned = path[0] == "super"
+            key = f"{part}/" + "/".join(path[:-1] if scanned else path)
+            out["opt"][key] = (None,) + spec if scanned else spec
+    out["opt"]["step"] = ospecs["step"]
+    for cell, seq, batch in SPEC_CELLS:
+        out["batch/" + cell] = sharding.batch_specs(
+            mesh, cfg, t_steps.abstract_batch(cfg, seq, batch))
+        cspecs = sharding.cache_specs(
+            mesh, cfg, t_steps.abstract_caches(cfg, batch, seq))
+        c: dict = {}
+        period = len(cfg.pattern)
+        for i, layer in enumerate(cspecs):
+            for n, spec in layer.items():
+                key = f"b{i % period}/{n}"
+                assert c.setdefault(key, (None,) + spec) == (None,) + spec
+        out["caches/" + cell] = c
+    return out
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_sharding_rules_equal_the_references(reference, mesh_name):
+    shape, axes = MESHES[mesh_name]
+    mesh = mesh_mod.AbstractMesh(shape, axes)
+    for arch in ARCHS:
+        want = reference["specs"][mesh_name][arch]
+        got = _port_specs(mesh, t_configs.get_config(arch))
+        assert got.keys() == want.keys()
+        for part in want:
+            w = {k: _norm(v) for k, v in want[part].items()}
+            g = {k: _norm(v) for k, v in got[part].items()}
+            assert g == w, (arch, part)
+
+
+def test_placements_follow_the_spec():
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = mesh_mod.abstract_mesh((2, 16, 16))
+    assert sharding.placements(mesh, (("pod", "data"), None, "model")) == [
+        Shard(0), Shard(0), Shard(2)]
+    assert sharding.placements(mesh, (None, None)) == [Replicate()] * 3
+    with pytest.raises(ValueError, match="order"):
+        sharding.placements(mesh, (("data", "pod"),))
+    # a dimension over two axes: the major axis's blocks hold the minor's
+    m = mesh_mod.AbstractMesh((2, 4), ("data", "model"), (1, 2))
+    sl = sharding.shard_slices(m, (16, 3), (("data", "model"), None))
+    assert sl == (slice(12, 14), slice(0, 3))
+
+
+# ---------------------------------------------------------------------------
+# the steps on 8 gloo ranks
+# ---------------------------------------------------------------------------
+
+
+def _scale(x) -> float:
+    return float(np.abs(np.asarray(x, np.float64)).max()) or 1.0
+
+
+def _gap(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _ref_caches(tree, cfg, i) -> dict:
+    """Layer i's caches from the reference's stacked tree."""
+    period = len(cfg.pattern)
+    return {n: v[i // period] for n, v in tree[f"b{i % period}"].items()}
+
+
+def _quantities(res, cfg, reference: bool) -> dict:
+    """Everything a step gave, as {name: array}, gradients and leaves by
+    the reference's paths (the port's through `lm_tree_from_port`)."""
+    out = {"prefill_logits": res["prefill_logits"],
+           "decode_logits": res["decode_logits"],
+           "loss": res["loss"], "grad_loss": res["grad_loss"],
+           "grad_norm": res["grad_norm"]}
+    for i in range(cfg.n_layers):
+        c = (_ref_caches(res["prefill_caches"], cfg, i) if reference
+             else res["prefill_caches"][i])
+        for n, v in c.items():
+            out[f"cache/{i}/{n}"] = v
+    for part in ("grads", "leaves"):
+        tree = res[part] if reference else convert.lm_tree_from_port(
+            res[part], cfg)
+        for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            out[part + "/" + "/".join(str(p.key) for p in path)] = v
+    return {k: np.asarray(v.detach().numpy() if isinstance(v, torch.Tensor)
+                          else v, np.float64) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("arch", cases.LM_ARCHS)
+def test_every_rank_returns_the_same(ranks, arch):
+    rs = ranks["2x4"]
+    assert [r["coords"] for r in rs] == [(i, j) for i in range(2)
+                                         for j in range(4)]
+    cfg = cases.lm_cfg(arch)
+    first = _quantities(rs[0][arch], cfg, False)
+    for r in rs[1:]:
+        got = _quantities(r[arch], cfg, False)
+        for k, v in first.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        assert torch.equal(r[arch]["ky_tokens"], rs[0][arch]["ky_tokens"])
+
+
+@pytest.mark.parametrize("arch", cases.LM_ARCHS)
+def test_mesh_steps_hold_against_single_process_and_reference(
+        ranks, single, reference, arch):
+    """The (2, 4) ranks' steps within the larger of 1e-5 of each
+    quantity's scale and the reference's own meshed-against-unsharded
+    gap of the port's single-process step, and within 1e-4 of the scale
+    of the reference's meshed step."""
+    cfg = cases.lm_cfg(arch)
+    mesh = _quantities(ranks["2x4"][0][arch], cfg, False)
+    one = _quantities(single[arch], cfg, False)
+    r_mesh = _quantities(reference["steps"][arch]["mesh"], cfg, True)
+    r_one = _quantities(reference["steps"][arch]["single"], cfg, True)
+    assert mesh.keys() == one.keys() == r_mesh.keys() == r_one.keys()
+    for k in mesh:
+        scale = _scale(r_one[k])
+        cancel = k.rsplit("/", 1)[-1] in CANCELLING
+        bound = max((CANCEL_RTOL if cancel else 1e-5) * scale,
+                    _gap(r_mesh[k], r_one[k]))
+        assert _gap(mesh[k], one[k]) <= bound, (k, _gap(mesh[k], one[k]),
+                                                bound)
+        # where the reference's mesh moves further from its own unsharded
+        # step than that: the path mesh -> one process -> the reference's
+        # one process -> its mesh
+        ref_bound = max((CANCEL_RTOL if cancel else 1e-4) * scale,
+                        _gap(mesh[k], one[k]) + _gap(one[k], r_one[k])
+                        + _gap(r_one[k], r_mesh[k]))
+        assert _gap(mesh[k], r_mesh[k]) <= ref_bound, (
+            k, _gap(mesh[k], r_mesh[k]), ref_bound)
+
+
+@pytest.mark.parametrize("arch", cases.LM_ARCHS)
+def test_mesh_token_draw_is_the_single_process_draw(ranks, single, arch):
+    """Every rank draws the whole batch from the gathered logits with the
+    step's key: the tokens equal the one-device draw on those logits,
+    and the one-device step's tokens where the logits are the same."""
+    from repro_torch import prng
+
+    r = ranks["2x4"][0][arch]
+    key = prng.key(cases.LM_KEY)
+    for t in range(cases.LM_GEN):
+        key, sub = prng.split(key)
+        want = t_sampling.sample_tokens(r["decode_logits"][t], sub, "ky")
+        assert torch.equal(r["ky_tokens"][t], want)
+        if torch.equal(r["decode_logits"][t], single[arch]["decode_logits"][t]):
+            assert torch.equal(r["ky_tokens"][t], single[arch]["ky_tokens"][t])
+
+
+def test_meshed_generate_keeps_each_rank_to_its_rows(ranks, single):
+    """`serve.generate` on (2, 4) draws the one-process tokens, and no
+    rank makes a K/V tensor beyond its own rows of the grown cache (the
+    whole cache is dp = 2 times that, as one process holds it)."""
+    cfg = cases.lm_cfg("yi-9b")
+    whole = (cases.LM_B * (cases.LM_S0 + cases.LM_GEN) * cfg.n_kv_heads
+             * cfg.hd)
+    want = single["yi-9b"]["generate"]
+    assert want["kv_peak"] == whole
+    for r in ranks["2x4"]:
+        got = r["yi-9b"]["generate"]
+        assert torch.equal(got["tokens"], want["tokens"])
+        assert 0 < got["kv_peak"] <= whole // 2
+
+
+@pytest.mark.parametrize("arch", cases.LM_ARCHS)
+def test_one_by_one_world_is_bit_equal_to_single_process(ranks, single,
+                                                         arch):
+    cfg = cases.lm_cfg(arch)
+    got = _quantities(ranks["1x1"][0][arch], cfg, False)
+    want = _quantities(single[arch], cfg, False)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert torch.equal(ranks["1x1"][0][arch]["ky_tokens"],
+                       single[arch]["ky_tokens"])
+
+
+def test_resumed_mesh_run_is_bit_equal(ranks):
+    for r in ranks["2x4"]:
+        res = r["yi-9b"]
+        assert res["second"].keys() == res["second_resumed"].keys()
+        for n in res["second"]:
+            assert torch.equal(res["second"][n], res["second_resumed"][n]), n
+
+
+@pytest.mark.parametrize("world", ["restore_1x2", "restore_1x1"])
+def test_checkpoint_restores_onto_other_meshes(ranks, world):
+    """The (2, 4) checkpoint holds the one-device layout and comes back
+    onto (1, 2) and 1 x 1 bit for bit: the leaves the (2, 4) ranks held
+    after the step, and the stored first moments."""
+    saved = ranks["2x4"][0]["yi-9b"]["leaves"]
+    stored = ranks["ckpt"]
+    for r in ranks[world]:
+        for n, t in r["leaves"].items():
+            assert torch.equal(t, saved[n]), n
+            np.testing.assert_array_equal(t.numpy(), stored[f"params/{n}"])
+        for n, t in r["m"].items():
+            np.testing.assert_array_equal(t.numpy(), stored[f"opt/m/{n}"])
+
+
+# ---------------------------------------------------------------------------
+# binding and refusals
+# ---------------------------------------------------------------------------
+
+
+def test_a_meshed_step_takes_whole_or_placed_inputs():
+    """On a shape-only mesh, place_batch-style shards and whole tensors
+    give a rank the same rows."""
+    from repro_torch.launch import collectives
+
+    mesh = mesh_mod.AbstractMesh((2, 4), ("data", "model"), (1, 3))
+    comm = collectives.Comm(mesh)
+    whole = torch.arange(8 * 5).reshape(8, 5)
+    assert torch.equal(comm.own(whole, ("data", None)), whole[4:])
+    assert torch.equal(comm.own_rows(whole), whole[4:])
+    assert torch.equal(comm.own(whole, (("data", "model"), None)),
+                       whole[7:8])
+    assert comm.link(("model",)) == "nvlink"
+    big = collectives.Comm(mesh_mod.abstract_mesh((16, 16)))
+    assert big.link(("model",)) == "network"
+
+
+def test_steps_refuse_what_is_not_a_mesh():
+    cfg = t_configs.get_config("yi-9b").reduced()
+    for make in (t_steps.make_train_step, t_steps.make_prefill_step,
+                 t_steps.make_serve_step):
+        with pytest.raises(ValueError, match="not a mesh"):
+            make(cfg, object())

@@ -741,13 +741,24 @@ def test_train_cli_exits_zero_on_the_cpu(tmp_path):
     assert t_ckpt.latest_step(str(tmp_path / "ck")) == 3
 
 
-def test_a_mesh_raises():
+def test_a_mesh_raises(monkeypatch):
+    """What is not a mesh, a --mesh spec that is not DxM, a mesh of
+    several ranks outside a world, and a mesh whose size differs from the
+    world raise ValueError before any rank joins (training over a mesh:
+    test_torch_lm_mesh.py)."""
     cfg = t_configs.get_config("yi-9b").reduced()
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="not a mesh"):
         t_steps.make_train_step(cfg, object())
-    with pytest.raises(NotImplementedError, match="item 2"):
-        t_train.main(["--arch", "yi-9b", "--reduced", "--device", "cpu",
-                      "--mesh", "2x4"])
+    common = ["--arch", "yi-9b", "--reduced", "--device", "cpu"]
+    for spec in ("2by4", "2x4x1", "0x4", "x4"):
+        with pytest.raises(ValueError, match="DxM"):
+            t_train.main(common + ["--mesh", spec])
+    with pytest.raises(ValueError, match="world of 8 ranks"):
+        t_train.main(common + ["--mesh", "2x4"])
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(ValueError, match="holds 8 ranks; the world has 4"):
+        t_train.main(common + ["--mesh", "2x4"])
 
 
 def test_train_entry_points_default_to_the_card():
@@ -841,3 +852,27 @@ if __name__ == "__main__":
     ap.add_argument("--seeds", type=int, default=6)
     args = ap.parse_args()
     readings(args.arch, args.dtype, range(1, args.seeds + 1))
+
+
+def test_embedding_gradient_sums_repeats_in_the_leaf_type():
+    """A float32 table read in bf16 activations (`layers.embed_rows`): a
+    token repeated 4,096 times gets its gradient summed in float32, within
+    float32 rounding of the exact sum (a bf16 running sum of the same
+    terms stalls far below it); a bf16 table's rows are read as before."""
+    cfg = t_configs.get_config("yi-9b").reduced()
+    assert cfg.act_dtype == torch.bfloat16
+    w = torch.zeros((4, 8), dtype=torch.float32, requires_grad=True)
+    tokens = torch.ones(4096, dtype=torch.long)
+    step = torch.full((4096, 8), 1e-2, dtype=torch.bfloat16)
+    rows = t_layers.embed_rows(w, tokens, cfg)
+    assert rows.dtype == torch.bfloat16
+    rows.backward(step)
+    exact = 4096 * float(step[0, 0])
+    assert abs(float(w.grad[1, 0]) - exact) <= 1e-6 * exact
+    stalled = torch.zeros((), dtype=torch.bfloat16)
+    for g in step[:, 0]:
+        stalled = stalled + g
+    assert float(stalled) < 0.9 * exact
+    table = torch.randn((4, 8)).to(torch.bfloat16)
+    assert torch.equal(t_layers.embed_rows(table, tokens[:3], cfg),
+                       table[tokens[:3]])

@@ -166,3 +166,211 @@ def once_per_session(tmp_path_factory, name: str, compute):
             torch.save(compute(), tmp)
             os.replace(tmp, path)
     return torch.load(path, weights_only=False)
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh (test_torch_lm_mesh.py): reduced configs in float32 with the
+# reference's weights; every rank returns whole tensors
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("yi-9b", "qwen2-moe-a2.7b", "xlstm-350m")
+LM_B, LM_S0, LM_GEN, LM_SEQ = 8, 16, 3, 16
+LM_KEY = 5
+
+
+def lm_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch import configs as t_configs
+
+    return dataclasses.replace(t_configs.get_config(arch).reduced(),
+                               dtype="float32")
+
+
+def lm_inputs(vocab: int, seed: int = 0) -> dict:
+    """Prompts (B, S0), the decode steps' teacher-forced tokens (GEN, B,
+    1), and a train batch (B, SEQ) of tokens and labels."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, vocab, (LM_B, LM_SEQ + 1)).astype(np.int32)
+    return {"prompts": rng.integers(0, vocab, (LM_B, LM_S0)).astype(np.int32),
+            "decode": rng.integers(0, vocab, (LM_GEN, LM_B, 1)
+                                   ).astype(np.int32),
+            "tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()}
+
+
+def lm_opt_cfg():
+    from repro_torch.optim import adamw
+
+    return adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+
+
+def lm_serve(cfg, model, inputs, mesh=None) -> dict:
+    """Prefill logits and caches, then GEN teacher-forced decode steps
+    with the KY sampler: each step's logits and tokens (whole)."""
+    from repro_torch import prng
+    from repro_torch.launch import collectives, sharding, steps
+    from repro_torch.models import transformer as tfm
+
+    batch = {"tokens": torch.from_numpy(inputs["prompts"])}
+    if mesh is None:
+        logits, caches = steps.make_prefill_step(cfg)(model, batch)
+        serve = steps.make_serve_step(cfg, sampler="ky")
+    else:
+        model = sharding.distribute(
+            mesh, model, sharding.param_specs(mesh, cfg, model), cfg=cfg)
+        logits, caches = steps.make_prefill_step(cfg, mesh)(batch)(model,
+                                                                   batch)
+        caches = collectives.whole(caches)
+    out = {"prefill_logits": logits,
+           "prefill_caches": [{n: t.clone() for n, t in c.items()}
+                              for c in caches]}
+    caches = tfm.grow_attn_caches(caches, cfg, LM_GEN)
+    if mesh is not None:
+        serve, _ = steps.make_serve_step(cfg, mesh, sampler="ky")(caches,
+                                                                  LM_B)
+    key, toks, lgs = prng.key(LM_KEY), [], []
+    for t in range(LM_GEN):
+        key, sub = prng.split(key)
+        tok, lg, caches = serve(model, torch.from_numpy(inputs["decode"][t]),
+                                caches, LM_S0 + t, sub)
+        toks.append(tok)
+        lgs.append(lg)
+    out["ky_tokens"], out["decode_logits"] = torch.stack(toks), torch.stack(
+        lgs)
+    return out
+
+
+def lm_generate(cfg, model, inputs, mesh=None) -> dict:
+    """`serve.generate` of the prompts (LM_GEN KY tokens): the tokens, and
+    the largest K/V-shaped tensor (4 axes ending in (kv heads, head dim))
+    any op made on this rank, in elements."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch import prng
+    from repro_torch.launch import serve, sharding
+
+    tail = (cfg.n_kv_heads, cfg.hd)
+
+    class KVPeak(TorchDispatchMode):
+        peak = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_flatten(out)[0]:
+                if (type(t) is torch.Tensor and t.device.type != "meta"
+                        and t.ndim == 4 and tuple(t.shape[2:]) == tail):
+                    self.peak = max(self.peak, t.numel())
+            return out
+
+    if mesh is not None:
+        model = sharding.distribute(
+            mesh, model, sharding.param_specs(mesh, cfg, model), cfg=cfg)
+    prompts = torch.from_numpy(inputs["prompts"])
+    with KVPeak() as kv:
+        toks, _ = serve.generate(cfg, model, prompts, LM_GEN, sampler="ky",
+                                 mesh=mesh, key=prng.key(LM_KEY))
+    return {"tokens": toks, "kv_peak": kv.peak}
+
+
+def lm_train(cfg, model, inputs, mesh=None, ckpt_dir=None) -> dict:
+    """One AdamW step: its loss, gradients (whole, by state-dict name) and
+    updated leaves; on a mesh with `ckpt_dir`, a checkpoint after that
+    step, a second step, and the second step again from the checkpoint
+    restored onto fresh state."""
+    import copy
+
+    from repro_torch.launch import collectives, sharding
+    from repro_torch.launch import train as t_train
+    from repro_torch.models import transformer as tfm
+
+    batch = {k: torch.from_numpy(inputs[k]) for k in ("tokens", "labels")}
+    shapes = {n: p.shape for n, p in tfm.train_leaves(model, cfg).items()}
+
+    def build(m):
+        return t_train.build(cfg, lm_opt_cfg(), "cpu", mesh, batch, m)
+
+    def whole(tree):
+        return {n: collectives.whole(t).reshape(shapes[n]).detach().clone()
+                for n, t in tree.items()}
+
+    params, leaves, state, fn, _ = build(copy.deepcopy(model))
+    if mesh is None:
+        loss = tfm.train_loss(params, cfg, batch)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    else:
+        loss, _, g = fn.loss_and_grads(params, batch)
+        specs = sharding.param_specs(mesh, cfg, tfm.train_leaves(model, cfg))
+        comm = fn.comm
+        loss = comm.all_reduce(loss.detach(), comm.dp)
+        grads = {n: comm.gather_spec(g[n], specs[n]).reshape(shapes[n])
+                 for n in g}
+    _, _, m = fn(params, state, batch)
+    out = {"loss": m["loss"], "grad_loss": loss.detach(), "grads": grads,
+           "grad_norm": m["grad_norm"], "leaves": whole(leaves)}
+    if ckpt_dir is None:
+        return out
+    from repro_torch.checkpoint import checkpoint as t_ckpt
+
+    t_ckpt.save(ckpt_dir, 1, {"params": leaves, "opt": state}, cfg=cfg)
+    fn(params, state, batch)
+    out["second"] = whole(leaves)
+    params2, leaves2, state2, fn2, _ = build(copy.deepcopy(model))
+    _, by_path = t_ckpt.restore(ckpt_dir, 1)
+    t_train._restore_into(cfg, {"params": leaves2, "opt": state2}, by_path)
+    fn2(params2, state2, batch)
+    out["second_resumed"] = whole(leaves2)
+    return out
+
+
+def lm_mesh_cases(rank, device_mesh, trees, ckpt_dir, restore) -> dict:
+    """Every LM case on this rank's position: `trees` the reference's
+    weights by arch (numpy); `ckpt_dir` where the (2, 4) world writes its
+    checkpoint, which a world with `restore` restores after its cases
+    (`lm_restore`)."""
+    from repro_torch import convert
+
+    out = {"rank": rank, "coords": tuple(int(c) for c in
+                                         device_mesh.get_coordinate())}
+    for arch in LM_ARCHS:
+        cfg = lm_cfg(arch)
+        inputs = lm_inputs(cfg.vocab)
+        res = lm_serve(cfg, convert.lm_params_from_reference(
+            trees[arch], cfg, "cpu"), inputs, device_mesh)
+        if arch == "yi-9b":
+            res["generate"] = lm_generate(
+                cfg, convert.lm_params_from_reference(trees[arch], cfg,
+                                                      "cpu"),
+                inputs, device_mesh)
+        res.update(lm_train(cfg, convert.lm_params_from_reference(
+            trees[arch], cfg, "cpu", train=True), inputs, device_mesh,
+            ckpt_dir if arch == "yi-9b" and not restore else None))
+        out[arch] = res
+    if restore:
+        out["restored"] = lm_restore(rank, device_mesh, trees["yi-9b"],
+                                     ckpt_dir)
+    return out
+
+
+def lm_restore(rank, device_mesh, tree, ckpt_dir) -> dict:
+    """The (2, 4) world's checkpoint restored onto this world's mesh:
+    every parameter and first moment whole."""
+    from repro_torch import convert
+    from repro_torch.checkpoint import checkpoint as t_ckpt
+    from repro_torch.launch import collectives
+    from repro_torch.launch import train as t_train
+    from repro_torch.models import transformer as tfm
+
+    cfg = lm_cfg("yi-9b")
+    model = convert.lm_params_from_reference(tree, cfg, "cpu", train=True)
+    shapes = {n: p.shape for n, p in tfm.train_leaves(model, cfg).items()}
+    inputs = lm_inputs(cfg.vocab)
+    _, leaves, state, _, _ = t_train.build(
+        cfg, lm_opt_cfg(), "cpu", device_mesh,
+        {k: inputs[k] for k in ("tokens", "labels")}, model)
+    _, by_path = t_ckpt.restore(ckpt_dir, 1)
+    t_train._restore_into(cfg, {"params": leaves, "opt": state}, by_path)
+    return {part: {n: collectives.whole(t).reshape(shapes[n]).detach()
+                   for n, t in tree_.items()}
+            for part, tree_ in (("leaves", leaves), ("m", state["m"]))}

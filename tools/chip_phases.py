@@ -6,7 +6,8 @@ check on the card of a change to those phases, from the repository root:
     python3 tools/chip_phases.py phase_train_block phase_train_lm
 
 The phases that take arguments from earlier phases (`timing`, the serve
-phases' `per_call`) cannot run alone.
+phases' `per_call`) cannot run alone; `PHASES` lists those that can, the
+LM mesh's among them (`phase_serve_lm_mesh`, `phase_train_lm_mesh`).
 """
 
 import importlib.util
@@ -15,10 +16,22 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# chip_smoke's phases that take nothing from an earlier phase
+PHASES = ("phase_build", "phase_threefry", "phase_k2", "phase_k1",
+          "phase_k3", "phase_k4", "phase_serve", "phase_serve_mrf",
+          "phase_k5", "phase_k6", "phase_serve_ranks", "phase_lanes",
+          "phase_serve_runtime", "phase_profile", "phase_mamba_block",
+          "phase_moe_block", "phase_train_lm", "phase_train_block",
+          "phase_serve_lm_mesh", "phase_train_lm_mesh")
 
 
 def main(argv=None) -> int:
     names = sys.argv[1:] if argv is None else argv
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        print(f"chip_phases: {unknown} cannot run alone; one of {PHASES}",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))  # spawned ranks import chip_smoke by name
     import torch
