@@ -2,20 +2,33 @@
 
 The LM steps over a mesh (`launch/steps.py`) keep each parameter,
 optimizer moment, batch and decode cache as the rank's shard
-(`launch/sharding.py`) and compute by gathering at use, the ZeRO-3 trade:
+(`launch/sharding.py`) and compute with the reference's 2-D layout, FSDP
+on the data axes and tensor parallelism (TP) on the model axis:
 
-  * `Plan.leaf` / `block` all-gather a leaf over every mesh axis its
-    spec names just before a block runs, so a rank computes with whole
-    weights; the embedding and the head stay split by vocabulary over the
-    model axis (`Plan.embed`, `Plan.logits`: a masked lookup summed over
-    it, a column block of logits gathered over it).  The gather's backward is its adjoint: the gradient
-    is summed over the data-parallel ranks (in float32) and the rank
-    keeps its own block of it (an all-reduce and a slice: gloo has no
-    reduce-scatter);
+  * `Plan.block` gathers a block's leaves at use.  Where the rules split
+    an attention, MLP, MoE-expert or shared-expert leaf over the model
+    axis (`Plan.split`), the leaf is gathered over the other axes only
+    and the rank computes its own heads or columns of it inside the
+    block's `ModelSplit`: the region is entered through the identity
+    (whose backward sums the ranks' partial input gradients over the
+    model axis, `_ToModelSplit`) and left through the sum of the ranks'
+    partial products over it (`_ModelSum`; both sums in float32, in
+    float64 for float32 activations).  A leaf the rules leave whole that
+    a rank reads only in part inside the region (an attention's K/V
+    projections when the KV heads do not divide the axis) gets
+    gradients summed over the model axis too.  The other
+    leaves (norms, the router, Mamba's and xLSTM's mixers, any part
+    whose dimension does not divide the axis) are gathered whole.  The
+    gather's backward is its adjoint: the gradient is summed over the
+    data-parallel ranks (in float32) and the rank keeps its own block of
+    it (an all-reduce and a slice: gloo has no reduce-scatter);
+  * the embedding and the head stay split by vocabulary over the model
+    axis (`Plan.embed`, `Plan.logits`: a masked lookup summed over it, a
+    column block of logits gathered over it);
   * a rank computes the batch rows of its data-parallel position (all of
     them when the batch does not divide: `rows` false), so ranks along
-    the model axis compute the same rows.  Tensor-parallel compute
-    (column and row splits with an all-reduce) is not done here;
+    the model axis compute the same rows with their own heads and
+    columns;
   * `dp_sum` (differentiable: its backward is the same sum) carries the
     MoE switch loss's global means, `gather_rows` the logits the token
     draw reads (every rank draws the whole batch with the same key, so
@@ -27,11 +40,14 @@ A `Comm` works in two modes.  On a live world (a `DeviceMesh`) it calls
 tensor goes through a host copy (gloo moves host memory), under NCCL
 it goes directly.  On a shape-only mesh (`mesh.AbstractMesh`) it calls
 nothing: each collective returns a `meta` tensor of its result's shape.
-Both modes count every collective by op, with its result's bytes and
-whether its group stays on one host of `HOST_CARDS` cards (a dry run
-prices the two at different link rates: `launch/roofline.py`); a live
-`Comm` also times each exchange on the host clock.  An axis of size one
-calls nothing.
+Both modes count every collective by op, with its result's bytes, by
+the axis it runs over (`axis_bytes`, `axis_count`) and by whether its group stays on
+one host of `HOST_CARDS` cards (a dry run prices the two at different
+link rates: `launch/roofline.py`), and record the axes each parameter
+was gathered over (`leaf_axes`); a live `Comm` also times each exchange
+on the host clock and adds its bytes to `BYTES`.  An axis of size one
+calls nothing; so a mesh whose model axis has size one computes as one
+process does.
 """
 
 from __future__ import annotations
@@ -50,6 +66,8 @@ from repro_torch.launch import sharding
 HOST_CARDS = 8  # cards a host: NVLink joins these, the network the rest
 # every live Comm's exchanges in this process: their count and host seconds
 TOTALS = {"collectives": 0, "seconds": 0.0}
+# every live Comm's result bytes in this process, by "<op> over <axis>"
+BYTES: collections.Counter = collections.Counter()
 # 16-bit floats cross as bytes (gloo moves no int16 or bf16); a byte view
 # keeps each element's bytes together along the last axis
 _BITS = {torch.bfloat16: torch.uint8, torch.float16: torch.uint8}
@@ -72,6 +90,9 @@ class Comm:
         self.count: collections.Counter = collections.Counter()
         self.nbytes: collections.Counter = collections.Counter()
         self.link_bytes: collections.Counter = collections.Counter()
+        self.axis_bytes: collections.Counter = collections.Counter()
+        self.axis_count: collections.Counter = collections.Counter()
+        self.leaf_axes: dict[str, tuple[str, ...]] = {}
         self.seconds = 0.0
         self._backend = None
         if not self.dry:
@@ -103,6 +124,11 @@ class Comm:
         self.count[op] += 1
         self.nbytes[op] += b
         self.link_bytes[self.link(axes)] += b
+        for a in axes:
+            self.axis_bytes[f"{op} over {a}"] += b
+            self.axis_count[f"{op} over {a}"] += 1
+            if not self.dry:
+                BYTES[f"{op} over {a}"] += b
 
     @contextlib.contextmanager
     def _timed(self, t: torch.Tensor):
@@ -254,12 +280,14 @@ class _DpSum(torch.autograd.Function):
 class _Gather(torch.autograd.Function):
     """Forward: the whole leaf from its shard (the dimensions in `skip`
     left split), viewed in the shape a layer reads.  Backward: the
-    gradient summed over the dp ranks in float32, this rank's block of it
-    in the leaf's type."""
+    gradient summed over the dp ranks (and over the model axis with
+    `model_sum`: a leaf read in part by each model rank) in float32, this
+    rank's block of it in the leaf's type."""
 
     @staticmethod
-    def forward(ctx, t, comm, spec, shape, skip=()):
+    def forward(ctx, t, comm, spec, shape, skip=(), model_sum=False):
         ctx.comm, ctx.spec, ctx.dtype, ctx.skip = comm, spec, t.dtype, skip
+        ctx.axes = comm.dp + ((comm.tp,) if model_sum else ())
         whole = comm.gather_spec(t, spec, skip)
         ctx.whole = whole.shape
         return whole.view(shape)
@@ -268,29 +296,80 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         comm = ctx.comm
         g = g.reshape(ctx.whole)
-        if comm.dp_size > 1:
-            g = comm.all_reduce(g.float(), comm.dp)
+        if any(comm.sizes[a] > 1 for a in ctx.axes):
+            g = comm.all_reduce(g.float(), ctx.axes)
         return (comm.own(g, ctx.spec, ctx.skip).to(ctx.dtype), None, None,
-                None, None)
+                None, None, None)
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The type the model axis sums partial products in: float32 for
+    16-bit ones (exact for a few terms), float64 for float32 ones (the
+    sum then rounds once, as one product's float32 accumulation does).
+    Only float32 activations take the float64 sum, at twice the model
+    axis's bytes: the configs compute in bf16, and float32 runs are the
+    CPU tests' comparisons with one process and the reference."""
+    return torch.float64 if dtype.itemsize >= 4 else torch.float32
 
 
 class _ModelSum(torch.autograd.Function):
     """The sum over the model axis of terms whose total every model rank
-    then uses alike (forward an all-reduce, in float32; backward the
-    identity: each rank's term gets the total's gradient)."""
+    then uses alike, returned in `dtype` (forward an all-reduce in
+    `_wide(dtype)`; backward the identity: each rank's term gets the
+    total's gradient, in the term's type)."""
 
     @staticmethod
-    def forward(ctx, t, comm):
-        return comm.all_reduce(t.float(), (comm.tp,)).to(t.dtype)
+    def forward(ctx, t, comm, dtype):
+        ctx.dtype = t.dtype
+        return comm.all_reduce(t.to(_wide(dtype)), (comm.tp,)).to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g.to(ctx.dtype), None, None
+
+
+class _Product(torch.autograd.Function):
+    """A 16-bit product whose contraction is split over the model axis,
+    with a float32 result, so that the ranks' partial products are
+    summed before any rounding to the operands' type (as one product
+    accumulates its whole contraction in float32).  a (..., K) @ w (K, N),
+    or the experts' a (G, E, C, K) by w (E, K, N).  Backward: the
+    operands' gradients from the incoming gradient in their type, as the
+    16-bit product's own backward computes them."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        if w.ndim == 2:
+            a2 = a.reshape(-1, a.shape[-1])
+            if a.device.type == "cpu":  # no 16-bit product to float32
+                out = a2.float() @ w.float()
+            else:
+                out = torch.mm(a2, w, out_dtype=torch.float32)
+            return out.view(*a.shape[:-1], w.shape[-1])
+        g, e, c, k = a.shape
+        ae = a.transpose(0, 1).reshape(e, g * c, k)
+        if a.device.type != "cuda":  # FlopCounterMode miscounts bmm.dtype
+            out = torch.bmm(ae.float(), w.float())
+        else:
+            out = torch.bmm(ae, w, out_dtype=torch.float32)
+        return out.view(e, g, c, -1).transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        if w.ndim == 2:
+            da = g @ w.T
+            dw = a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+            return da, dw
+        return (torch.einsum("becd,efd->becf", g, w),
+                torch.einsum("becf,becd->efd", a, g))
 
 
 class _ToModelSplit(torch.autograd.Function):
     """The identity into a product split over the model axis; backward,
-    the ranks' partial gradients summed over it (in float32)."""
+    the ranks' partial gradients summed over it (in the wider type)."""
 
     @staticmethod
     def forward(ctx, t, comm):
@@ -300,7 +379,8 @@ class _ToModelSplit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         comm = ctx.comm
-        return comm.all_reduce(g.float(), (comm.tp,)).to(g.dtype), None
+        return comm.all_reduce(g.to(_wide(g.dtype)), (comm.tp,)).to(
+            g.dtype), None
 
 
 class _GatherModel(torch.autograd.Function):
@@ -318,6 +398,64 @@ class _GatherModel(torch.autograd.Function):
         return g[..., i * ctx.n:(i + 1) * ctx.n], None
 
 
+class ModelSplit:
+    """One block's tensor-parallel region on the model axis, for one rank.
+    `parts` names the block's parts computed split: "core" (an
+    attention's heads), "ffn" (the dense FFN's d_ff or the MoE experts'
+    hidden dim) and "shared" (the shared experts' d_ff).  A layer takes
+    the object of its part (`of`) or None, reads its block of the split
+    dimension (`block`), enters with `enter`, forms its partial products
+    of a contraction split over the axis with `product` and leaves with
+    `leave`."""
+
+    def __init__(self, comm: Comm, parts):
+        self.comm, self.parts = comm, frozenset(parts)
+        self.size = comm.sizes[comm.tp]
+        self.index = comm.coords[comm.tp]
+
+    def of(self, part: str):
+        """This region for `part` if the part is split, else None."""
+        return self if part in self.parts else None
+
+    def block(self, n: int) -> tuple[int, int]:
+        """[start, stop) of this rank's equal block of n."""
+        return self.index * n // self.size, (self.index + 1) * n // self.size
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """t, whole on every model rank, into the region (backward: the
+        ranks' partial gradients summed)."""
+        return _ToModelSplit.apply(t, self.comm)
+
+    def leave(self, t: torch.Tensor, dtype=None) -> torch.Tensor:
+        """The sum over the model axis of the ranks' partial products, in
+        `dtype` (t's by default)."""
+        return _ModelSum.apply(t, self.comm, dtype or t.dtype)
+
+    def product(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """This rank's partial product a @ w (or the experts' a (G, E, C,
+        K) by w (E, K, N)) over its block of the contraction, for `leave`:
+        float32 for 16-bit operands (`_Product`), else the plain product."""
+        if a.dtype.itemsize < 4:
+            return _Product.apply(a, w)
+        return a @ w if w.ndim == 2 else torch.einsum("becf,efd->becd", a, w)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's t concatenated along `dim`, in rank order
+        (no gradient)."""
+        return self.comm.all_gather(t, dim, (self.comm.tp,))
+
+
+# a block's parts split over the model axis when this leaf's spec names it
+_PART_LEAVES = {"core": "core.wq", "ffn": "ffn.wg", "shared": "ffn.shared.wg"}
+
+
+def _part(path) -> str | None:
+    """The part of a block a leaf at `path` (below the block) belongs to."""
+    if path[:2] == ["ffn", "shared"]:
+        return "shared"
+    return path[0] if path else None
+
+
 class Plan:
     """How one rank runs the model on the mesh: `leaves` the local shards
     by state-dict name, `specs` their specs (`sharding.param_specs`),
@@ -329,16 +467,21 @@ class Plan:
         self.leaves, self.specs = leaves, specs
         self.cache_specs = cache_specs
 
-    def leaf(self, name: str, skip=()) -> torch.Tensor:
+    def leaf(self, name: str, skip=(), model_sum: bool = False
+             ) -> torch.Tensor:
         """Leaf `name` whole (the dimensions in `skip` left split), in the
-        shape a layer reads it."""
+        shape a layer reads it; with `model_sum` its gradient is summed
+        over the model axis too."""
         t, spec = self.leaves[name], self.specs[name]
         whole = tuple(n if d in skip else n * math.prod(
             self.comm.sizes[a] for a in sharding._axes(e))
             for d, (n, e) in enumerate(zip(t.shape, spec)))
         shape = sharding.port_shape(self.cfg, name, whole)
+        self.comm.leaf_axes[name] = tuple(
+            a for d, e in enumerate(spec) if d not in skip
+            for a in sharding._axes(e) if self.comm.sizes[a] > 1)
         if t.requires_grad and torch.is_grad_enabled():
-            return _Gather.apply(t, self.comm, spec, shape, skip)
+            return _Gather.apply(t, self.comm, spec, shape, skip, model_sum)
         return self.comm.gather_spec(t, spec, skip).view(shape)
 
     def _vocab_split(self, name: str, dim: int) -> bool:
@@ -364,7 +507,7 @@ class Plan:
         mine = (local >= 0) & (local < n)
         rows = layers.embed_rows(w, local.clamp(0, n - 1), self.cfg)
         rows = rows * mine[..., None].to(rows.dtype)
-        return _ModelSum.apply(rows, self.comm)
+        return _ModelSum.apply(rows, self.comm, rows.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """float32 logits of normed hidden states x.  With the vocabulary
@@ -384,19 +527,42 @@ class Plan:
                 @ layers.act(head, self.cfg)).float()
         return _GatherModel.apply(part, self.comm)
 
-    def block(self, i: int) -> dict:
-        """Block i's leaves whole, as nested dicts ({"core": {"wq": ...},
-        "norm1": ...}), which the layers read as they read a `Params`."""
+    def split(self, i: int) -> ModelSplit | None:
+        """Block i's tensor-parallel region: the parts whose leaves the
+        rules split over the model axis ("core" only for an attention
+        mixer: Mamba and xLSTM mixers are gathered whole), or None."""
+        tp = self.comm.tp
+        if tp is None or self.comm.sizes[tp] == 1:
+            return None
+        kind = self.cfg.pattern[i % len(self.cfg.pattern)]
+        parts = [part for part, leaf in _PART_LEAVES.items()
+                 if (part != "core" or kind in ("attn", "attn_chunked"))
+                 and tp in self.specs.get(f"blocks.{i}.{leaf}", ())]
+        return ModelSplit(self.comm, parts) if parts else None
+
+    def block(self, i: int) -> tuple[dict, ModelSplit | None]:
+        """Block i's leaves as nested dicts ({"core": {"wq": ...},
+        "norm1": ...}), which the layers read as they read a `Params`, and
+        its region (`split`).  A leaf of a split part keeps its
+        model-axis dimension split; every other leaf is whole."""
         prefix = f"blocks.{i}."
+        split = self.split(i)
         out: dict = {}
         for name in self.leaves:
             if name.startswith(prefix):
                 *path, last = name[len(prefix):].split(".")
+                skip, model_sum = (), False
+                if split is not None and _part(path) in split.parts:
+                    skip = tuple(d for d, e in enumerate(self.specs[name])
+                                 if e == self.comm.tp)
+                    # read in part by each model rank (K/V heads that
+                    # do not divide the axis)
+                    model_sum = path[0] == "core" and not skip
                 node = out
                 for k in path:
                     node = node.setdefault(k, {})
-                node[last] = self.leaf(name)
-        return out
+                node[last] = self.leaf(name, skip, model_sum)
+        return out, split
 
     def cache_in(self, i: int, cache: dict) -> dict:
         """Layer i's decode cache in the layout a rank computes in: its

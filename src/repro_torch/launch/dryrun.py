@@ -15,7 +15,8 @@ shape-only mesh (`launch/mesh.abstract_mesh`) with every tensor on the
     bytes its ops read and write (each op's inputs and outputs, views
     excluded: an unfused upper count of its HBM traffic);
   * its collectives by op, with bytes and counts, from
-    `launch/collectives.py`'s dry mode, and by the link each crosses;
+    `launch/collectives.py`'s dry mode, by the axis each runs over and by
+    the link each crosses;
   * `model_flops / n_chips` and the roofline at the H100's terms
     (`launch/roofline.LMRoofline`).
 
@@ -287,7 +288,9 @@ def run_cell(arch: str, cell: str, mesh_kind: str, out_dir: str,
     fn, args, arg_bytes, draw = cell_inputs(cfg, kind, seq, batch, mesh)
     t_build = time.time() - t0
     comm = fn.comm  # the step's collectives: counted from here on
-    comm.count.clear(), comm.nbytes.clear(), comm.link_bytes.clear()
+    for counter in (comm.count, comm.nbytes, comm.link_bytes,
+                    comm.axis_bytes, comm.axis_count):
+        counter.clear()
     ops = _op_counter(arg_bytes)
     with FlopCounterMode(display=False) as fc, ops, shape_only_paths():
         out = fn(*args)
@@ -320,6 +323,7 @@ def run_cell(arch: str, cell: str, mesh_kind: str, out_dir: str,
         "collectives": {"bytes_by_op": coll.bytes_by_op,
                         "count_by_op": coll.count_by_op,
                         "bytes_by_link": coll.bytes_by_link,
+                        "bytes_by_axis": dict(comm.axis_bytes),
                         "total_bytes": coll.total_bytes},
         "roofline": roof.as_dict(),
     }

@@ -219,16 +219,19 @@ def bottleneck_notes(recs: list[dict]) -> str:
         ("memory", "decode"): "decode streams every weight and the whole "
         "cache a step: batch more sequences per card, or split the cache's "
         "sequence instead of gathering it.",
-        ("collective", "train"): "the per-block weight gathers and the "
-        "gradient all-reduce dominate: tensor-parallel compute on the model "
-        "axis (no gather of its weights), a reduce-scatter in place of the "
-        "all-reduce, overlap with compute.",
-        ("collective", "prefill"): "weight gathers dominate: tensor-parallel "
-        "compute on the model axis, overlap the next block's gather.",
-        ("collective", "decode"): "every step gathers every weight and the "
-        "cache's sequence: keep weights sharded on the model axis "
-        "(tensor-parallel compute) and attend over the local sequence "
-        "shard.",
+        ("collective", "train"): "the blocks' weight gathers over the "
+        "data axes (the model axis's blocks stay split: tensor-parallel "
+        "compute), the model axis's activation sums and the gradient "
+        "all-reduce dominate: a reduce-scatter in place of the all-reduce, "
+        "overlap with compute.",
+        ("collective", "prefill"): "the data-axis weight gathers and the "
+        "model axis's activation sums dominate: overlap the next block's "
+        "gather with this block's compute.",
+        ("collective", "decode"): "a step gathers each block's model-axis "
+        "block of weights over the data axes, the vocabulary blocks of the "
+        "embedding and head, and the cache's sequence over the model axis: "
+        "attend over the local sequence shard (sequence-split decode "
+        "attention) and look up only the tokens' rows.",
         ("compute", "train"): "compute-bound: drop the remat recompute or "
         "the ranks' redundant rows on the model axis.",
     }

@@ -27,8 +27,11 @@ call shapes:
 The parameters and AdamW moments are `sharding.distribute`d trees (each
 rank's shard, as DTensors), the caches a prefill step returns too; a
 batch, tokens or caches may also be given whole, and the step takes its
-own part.  A rank computes its batch rows with whole weights gathered per
-block (`launch/collectives.py`), and every rank returns what the
+own part.  A rank computes its batch rows block by block, with the
+weights gathered over the data axes and, where the rules split them
+over the model axis, its own heads and columns of them, the partial
+products summed over that axis (`launch/collectives.py`; every other
+weight gathered whole), and every rank returns what the
 one-device step returns: the whole last logits and tokens, the same
 metrics; the loss is the mean over the global batch (each rank's mean
 over its rows, averaged over the dp ranks) plus the global switch loss,
@@ -109,7 +112,8 @@ def abstract_opt_state(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
 def act_partition(mesh, cfg: ModelConfig, batch_dim: int):
     """The residual stream's (B, S, d) spec: batch over DP when it
     divides (a rank then computes its rows), d over TP (the reference's
-    constraint; the port gathers whole weights and computes every d)."""
+    constraint; between blocks the port keeps every d on every model
+    rank, each block's split products summed over the model axis)."""
     if mesh is None:
         return None
     dp = mesh_lib.dp_axes(mesh)
@@ -303,8 +307,10 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
 
 
 def _store_caches(comm, mesh, cfg, caches):
-    """Caches in the compute layout (the rank's rows, all else whole) as
-    the rank's stored shards (DTensors of the global caches)."""
+    """Caches in the compute layout (the rank's rows, all else whole: a
+    tensor-parallel attention's K/V come gathered to every KV head,
+    `layers.whole_kv`) as the rank's stored shards (DTensors of the
+    global caches)."""
     rows = comm.dp_size if comm.rows else 1
     shapes = [{n: torch.empty((t.shape[0] * rows, *t.shape[1:]),
                               device="meta") for n, t in c.items()}

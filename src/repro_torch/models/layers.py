@@ -20,6 +20,15 @@ weights once in that type, so the cast is the tensor itself; a training
 model holds them in the parameter type (`transformer.init_model(...,
 train=True)`), and the cast's gradient reaches the leaf in that type.
 The norm weights are read in float32, as the reference reads them.
+
+On a mesh (`launch/collectives.py`) attention and the MLP take `tp`, the
+block's `ModelSplit` over the model axis, or None: the weights are then
+the rank's heads or columns (`wq`, `bq` and `wo`'s rows by query head,
+`wk`/`wv`/`bk`/`bv` by KV head or whole when the KV heads do not divide
+the axis, `wg`/`wu` by column and `wd` by row), the input enters the
+region and the partial output of the row-split product (float32 for
+16-bit activations) leaves it summed over the axis.  With `tp` None
+every op is the one-device op.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import math
 
 import torch
 from torch import nn
+
+from typing import NamedTuple
 
 from repro_torch.configs.base import ModelConfig
 
@@ -342,16 +353,90 @@ def init_attention(gen, cfg: ModelConfig, device: torch.device) -> Params:
     return Params(**p)
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+class RankHeads(NamedTuple):
+    """A model rank's attention heads in the padded group-major layout:
+    query heads [q0, q1) and the KV heads [kv0, kv1) their groups read.
+    `kv_split`: wk/wv hold exactly those KV heads (the KV heads divide
+    the model axis), else they are whole and the rank slices them.
+    `kv_index`: None when the query heads are whole groups of those KV
+    heads (the grouped flash loop reads them as they are), else each
+    query head's KV head (local), for a K/V read per query head.
+    `qmask`: the pad-head mask of [q0, q1), or None."""
+    q0: int
+    q1: int
+    kv0: int
+    kv1: int
+    kv_split: bool
+    kv_index: torch.Tensor | None
+    qmask: torch.Tensor | None
+
+
+def _kv_range(hp: int, g_pad: int, size: int, index: int):
+    q0, q1 = index * hp // size, (index + 1) * hp // size
+    return q0, q1, q0 // g_pad, (q1 - 1) // g_pad + 1
+
+
+def rank_heads(cfg: ModelConfig, tp, device="cpu") -> RankHeads:
+    """The heads of model rank `tp.index` of `tp.size` (`tp` a
+    `collectives.ModelSplit`)."""
+    hp, kvp, g_pad, qmask = head_geometry(cfg, device)
+    q0, q1, kv0, kv1 = _kv_range(hp, g_pad, tp.size, tp.index)
+    local = [q // g_pad - kv0 for q in range(q0, q1)]
+    m, n = q1 - q0, kv1 - kv0
+    grouped = m % n == 0 and local == [j // (m // n) for j in range(m)]
+    return RankHeads(q0, q1, kv0, kv1, kvp % tp.size == 0,
+                     None if grouped else torch.tensor(local, device=device),
+                     None if qmask is None else qmask[q0:q1])
+
+
+def whole_kv(cache: dict, cfg: ModelConfig, tp) -> dict:
+    """K/V {"k", "v"} (..., kv heads, hd) of this rank's KV heads as every
+    KV head, gathered over the model axis (one gather of both): the
+    ranks' blocks when the KV heads divide the axis, else each head from
+    the first rank that computed it (blocks padded to the largest)."""
+    hp, kvp, g_pad, _ = head_geometry(cfg)
+    kv = torch.stack([cache["k"], cache["v"]])
+    dim = kv.ndim - 2
+    if kvp % tp.size == 0:
+        kv = tp.gather(kv, dim)
+        return {"k": kv[0], "v": kv[1]}
+    ranges = [_kv_range(hp, g_pad, tp.size, r)[2:] for r in range(tp.size)]
+    n = max(b - a for a, b in ranges)
+    pad = [0, 0] * (kv.ndim - 1 - dim) + [0, n - kv.shape[dim]]
+    kv = tp.gather(torch.nn.functional.pad(kv, pad), dim)
+    src = [next(r * n + h - a for r, (a, b) in enumerate(ranges) if a <= h < b)
+           for h in range(kvp)]
+    kv = kv.index_select(dim, torch.tensor(src, device=kv.device))
+    return {"k": kv[0], "v": kv[1]}
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         heads: RankHeads | None = None):
     b, s, _ = x.shape
     hd = cfg.hd
-    q, k, v = (x @ act(p["wq"], cfg), x @ act(p["wk"], cfg),
-               x @ act(p["wv"], cfg))
-    if "bq" in p:
-        q, k, v = (q + act(p["bq"], cfg), k + act(p["bk"], cfg),
-                   v + act(p["bv"], cfg))
+    wk, wv = p["wk"], p["wv"]
+    bias = "bq" in p
+    if bias:
+        bk, bv = p["bk"], p["bv"]
+    if heads is not None and not heads.kv_split:  # whole: the rank's heads
+        cols = slice(heads.kv0 * hd, heads.kv1 * hd)
+        wk, wv = wk[:, cols], wv[:, cols]
+        if bias:
+            bk, bv = bk[cols], bv[cols]
+    q, k, v = (x @ act(p["wq"], cfg), x @ act(wk, cfg), x @ act(wv, cfg))
+    if bias:
+        q, k, v = (q + act(p["bq"], cfg), k + act(bk, cfg),
+                   v + act(bv, cfg))
     return (q.view(b, s, -1, hd), k.view(b, s, -1, hd),
             v.view(b, s, -1, hd))
+
+
+def _rank_kv(k: torch.Tensor, v: torch.Tensor, heads: RankHeads | None):
+    """K/V as the rank's query heads read them: the heads themselves, or
+    one per query head (`heads.kv_index`)."""
+    if heads is None or heads.kv_index is None:
+        return k, v
+    return k[:, :, heads.kv_index], v[:, :, heads.kv_index]
 
 
 def _scale_queries(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -369,24 +454,35 @@ def attention_apply(
     kind: str,
     positions: torch.Tensor,  # (S,)
     q_offset: int = 0,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Training / prefill path.  Returns (out, cache) — cache holds the
-    roped k and raw v for decode continuation.  K/V are not repeated to
-    the query heads as the reference repeats them for its tensor-parallel
+    roped k and raw v for decode continuation (with `tp`, of the rank's
+    KV heads: `whole_kv` gathers them).  K/V are not repeated to the
+    query heads as the reference repeats them for its tensor-parallel
     mesh: the grouped flash loop reads each KV head once and computes the
     same products."""
-    q, k, v = _qkv(p, x, cfg)
+    heads = None
+    if tp is not None:
+        heads = rank_heads(cfg, tp, x.device)
+        x = tp.enter(x)
+    q, k, v = _qkv(p, x, cfg, heads)
     if kind == "attn_chunked" or cfg.rope_on_global:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q = _scale_queries(q, cfg)
     window = cfg.chunk_size if kind == "attn_chunked" else 0
-    _, _, _, qmask = head_geometry(cfg, x.device)
-    o = flash_attention(q, k, v, q_offset, window)
+    qmask = (head_geometry(cfg, x.device)[3] if heads is None
+             else heads.qmask)
+    o = flash_attention(q, *_rank_kv(k, v, heads), q_offset, window)
     if qmask is not None:
         o = o * qmask[None, None, :, None].to(o.dtype)
     b, s = x.shape[:2]
-    return o.reshape(b, s, -1) @ act(p["wo"], cfg), {"k": k, "v": v}
+    o = o.reshape(b, s, -1)
+    if tp is None:
+        return o @ act(p["wo"], cfg), {"k": k, "v": v}
+    return tp.leave(tp.product(o, act(p["wo"], cfg)), o.dtype), {"k": k,
+                                                                 "v": v}
 
 
 def attention_decode(
@@ -397,12 +493,19 @@ def attention_decode(
     cfg: ModelConfig,
     *,
     kind: str,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One new token against the cache.  The cache is written in place at
     `pos` (`pos % window` for `attn_chunked`), where the reference returns
     an updated copy (its step donates the old one); the masked direct
-    attention then runs over the whole cache."""
-    q, k, v = _qkv(p, x, cfg)
+    attention then runs over the whole cache.  With `tp` the cache holds
+    every KV head: the new token's K/V of the rank's heads are gathered
+    over the model axis into it, and the rank attends over its heads."""
+    heads = None
+    if tp is not None:
+        heads = rank_heads(cfg, tp, x.device)
+        x = tp.enter(x)
+    q, k, v = _qkv(p, x, cfg, heads)
     if kind == "attn_chunked" or cfg.rope_on_global:
         pos_arr = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         q = rope(q, pos_arr, cfg.rope_theta)
@@ -414,10 +517,18 @@ def attention_decode(
     slot = pos % s_max if kind == "attn_chunked" else pos
     if not 0 <= slot < s_max:
         raise ValueError(f"position {pos} is outside the cache of {s_max}")
+    if heads is not None:
+        new = whole_kv({"k": k, "v": v}, cfg, tp)
+        k, v = new["k"], new["v"]
     ck[:, slot] = k[:, 0]
     cv[:, slot] = v[:, 0]
 
-    _, _, _, qmask = head_geometry(cfg, x.device)
+    if heads is None:
+        qmask = head_geometry(cfg, x.device)[3]
+    else:
+        qmask = heads.qmask
+        ck, cv = _rank_kv(ck[:, :, heads.kv0:heads.kv1],
+                          cv[:, :, heads.kv0:heads.kv1], heads)
     b, _, h, d = q.shape
     kvh = ck.shape[2]
     g = h // kvh
@@ -436,7 +547,10 @@ def attention_decode(
     o = torch.einsum("bhgk,bkhd->bhgd", pattn, cv)
     if qmask is not None:
         o = o * qmask.reshape(kvh, g, 1).to(o.dtype)[None]
-    return o.reshape(b, 1, h * d) @ act(p["wo"], cfg), cache
+    o = o.reshape(b, 1, h * d)
+    if tp is None:
+        return o @ act(p["wo"], cfg), cache
+    return tp.leave(tp.product(o, act(p["wo"], cfg)), o.dtype), cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int, kind: str,
@@ -493,6 +607,14 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
 
 
-def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
+    """SwiGLU; with `tp`, over the rank's columns of d_ff, the partial
+    output summed over the model axis."""
+    if tp is not None:
+        x = tp.enter(x)
     gate = silu(x @ act(p["wg"], cfg))
-    return (gate * (x @ act(p["wu"], cfg))) @ act(p["wd"], cfg)
+    h = gate * (x @ act(p["wu"], cfg))
+    if tp is None:
+        return h @ act(p["wd"], cfg)
+    return tp.leave(tp.product(h, act(p["wd"], cfg)), h.dtype)

@@ -24,7 +24,19 @@ a rank routes them as the whole batch would; a decode step's one group is
 the whole batch, so the rank gathers the batch's (B, 1, d) inputs over
 the data-parallel ranks, routes them all and keeps its rows.  The switch
 loss's means are the global batch's: the per-expert sums are summed over
-the dp ranks (differentiably) before the product.
+the dp ranks (differentiably) before the product.  With the block's
+`ModelSplit` (`tp`) the experts' hidden dim is split over the model
+axis: routing, the dispatch buffer and the fixed-order combine run alike
+on every model rank, the three grouped products over the rank's f
+columns of every expert, and the combined partial outputs are summed
+over the axis (float32 partials for 16-bit activations, combined in
+float32: nothing is rounded before the sum).  The sum sits after the
+combine, where the tensor is the tokens' (B, S, d), not the (E*C, d)
+slots' (k times the capacity factor larger): so the routing weights,
+whose gradients are then partial, enter the region with the dispatched
+tokens, and the router's input does not, so that the router and the
+switch loss see whole gradients.  The shared experts run through
+`layers.mlp_apply` on their own split.
 """
 
 from __future__ import annotations
@@ -169,20 +181,26 @@ def groups(x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              moe: MoEConfig, *, aux: bool = False):
+              moe: MoEConfig, *, aux: bool = False, tp=None):
     """x (B, S, d) -> (B, S, d), routed in `groups(x)`; with `aux`, the
-    pair (y, the switch load-balancing loss, a float32 scalar)."""
+    pair (y, the switch load-balancing loss, a float32 scalar).  `tp`: the
+    block's `ModelSplit` on a mesh, or None."""
     b, s, _ = x.shape
     comm = _split_rows()
+    experts = None if tp is None else tp.of("ffn")
     if s == 1 and comm is not None:  # a decode step routes the whole batch
-        y, r = _moe_groups(p, groups(comm.gather_rows(x)), moe)
+        y, r = _moe_groups(p, groups(comm.gather_rows(x)), moe, experts)
         y = comm.own_rows(y.transpose(0, 1))
     else:
-        y, r = _moe_groups(p, groups(x), moe)
+        y, r = _moe_groups(p, groups(x), moe, experts)
         if s == 1 and b > 1:
             y = y.transpose(0, 1)
+    if experts is not None:
+        y = experts.leave(y, x.dtype)
     if "shared" in p:
-        y = y + layers.mlp_apply(p["shared"], x, cfg)
+        shared = None if tp is None else tp.of("shared")
+        y = y + (layers.mlp_apply(p["shared"], x, cfg) if shared is None
+                 else layers.mlp_apply(p["shared"], x, cfg, shared))
     return (y, aux_loss(r, moe)) if aux else y
 
 
@@ -205,14 +223,18 @@ def aux_loss(r: Routing, moe: MoEConfig) -> torch.Tensor:
     return moe.router_aux_weight * e * (density * mean_p).sum()
 
 
-def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig):
+def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig, tp=None):
     """Routed experts over x (G, S, d) in groups of S tokens: (y, the
-    routing)."""
+    routing); with `tp`, y is the rank's partial sum over its f columns
+    (float32 for 16-bit activations)."""
     g, s, d = x.shape
     e, k = moe.n_experts, moe.top_k
     r = route(x, p["router"], moe)
     ec = e * r.cap
     rows = torch.arange(g, device=x.device)[:, None]
+    sw = r.sw
+    if tp is not None:
+        x, sw = tp.enter(x), tp.enter(sw)
 
     # dispatch: a buffer of E*C + 1 rows, the last the dropped ones' sink
     buf = x.new_zeros((g, ec + 1, d))
@@ -221,7 +243,10 @@ def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig):
     dt = x.dtype
     gate = layers.silu(torch.einsum("becd,edf->becf", h, p["wg"].to(dt)))
     up = torch.einsum("becd,edf->becf", h, p["wu"].to(dt))
-    out_e = torch.einsum("becf,efd->becd", gate * up, p["wd"].to(dt))
+    if tp is None:
+        out_e = torch.einsum("becf,efd->becd", gate * up, p["wd"].to(dt))
+    else:
+        out_e = tp.product(gate * up, p["wd"].to(dt))
 
     # combine: back to the unsorted (token, j) layout, each token's k
     # results summed left to right in ascending expert order (the order
@@ -229,7 +254,7 @@ def _moe_groups(p: Params, x: torch.Tensor, moe: MoEConfig):
     flat_out = out_e.reshape(g, ec, d)
     got = flat_out[rows, torch.clamp(r.slot, max=ec - 1)]
     live = (r.keep & (r.sw > 0)).to(x.dtype)
-    got = got * live[..., None] * r.sw[..., None]
+    got = got * live[..., None] * sw[..., None]
     unsorted = torch.empty_like(got)
     unsorted[rows, r.order] = got
     unsorted = unsorted.view(g, s, k, d)

@@ -15,13 +15,21 @@ MoE FFNs' switch loss.
 
 On a mesh of ranks each function takes `shard`, the rank's
 `launch/collectives.Plan`: the model's leaves are then the rank's shards,
-and each block's leaves are gathered whole just before the block runs
-(inside the superblock's checkpoint in training, so the backward gathers
-them again), as the reference's GSPMD gathers its FSDP-sharded weights
-per scanned layer; the embedding and the head stay split over the model
-axis by vocabulary (a masked lookup summed over it; a column block of
-logits gathered over it); a decode cache is gathered to the rank's rows
-before its layer and its block written back after.  The counterpart of
+and each block's leaves are gathered just before the block runs (inside
+the superblock's checkpoint in training, so the backward gathers them
+again, and the recompute issues the region's sums again), as the
+reference's GSPMD gathers its FSDP-sharded weights per scanned layer.
+Where the rules split an attention's heads, the FFN's d_ff, the experts'
+hidden dim or the shared experts' d_ff over the model axis, the block
+gets those leaves still split and its `ModelSplit` (`Plan.block`), and
+the layers compute the rank's heads and columns and sum the partial
+outputs over the axis (tensor parallelism); Mamba and xLSTM mixers get
+None and whole weights.  The embedding and the head stay split over the
+model axis by vocabulary (a masked lookup summed over it; a column
+block of logits gathered over it); a decode cache is gathered to the
+rank's rows before its layer and its block written back after (every
+KV head: a prefill's and a new token's K/V of the rank's heads are
+gathered over the model axis, `layers.whole_kv`).  The counterpart of
 the reference's `act_spec` constraints.
 """
 
@@ -72,10 +80,11 @@ def init_block(gen, cfg: ModelConfig, slot: int, device) -> Params:
     return Params(**p)
 
 
-def _mixer_apply(p, x, cfg, kind, positions, q_offset):
+def _mixer_apply(p, x, cfg, kind, positions, q_offset, tp=None):
     if kind in ATTN_KINDS:
         return layers.attention_apply(p, x, cfg, kind=kind,
-                                      positions=positions, q_offset=q_offset)
+                                      positions=positions, q_offset=q_offset,
+                                      tp=tp)
     if kind == "mamba":
         return ssm.mamba_apply(p, x, cfg)
     if kind == "mlstm":
@@ -85,9 +94,10 @@ def _mixer_apply(p, x, cfg, kind, positions, q_offset):
     raise ValueError(kind)
 
 
-def _mixer_decode(p, x, cache, pos, cfg, kind):
+def _mixer_decode(p, x, cache, pos, cfg, kind, tp=None):
     if kind in ATTN_KINDS:
-        return layers.attention_decode(p, x, cache, pos, cfg, kind=kind)
+        return layers.attention_decode(p, x, cache, pos, cfg, kind=kind,
+                                       tp=tp)
     if kind == "mamba":
         return ssm.mamba_decode(p, x, cache, cfg)
     if kind == "mlstm":
@@ -97,7 +107,20 @@ def _mixer_decode(p, x, cache, pos, cfg, kind):
     raise ValueError(kind)
 
 
-def _ffn(p: Params, x, mix, cfg: ModelConfig, slot: int, aux=None):
+def _part(split, part: str):
+    """The block's `ModelSplit` for `part` ("core", "ffn"), or None."""
+    return None if split is None else split.of(part)
+
+
+def _tp(tp) -> dict:
+    """A layer's `tp` argument where there is a region: a one-device call
+    passes the layer its one-device arguments alone (a caller's wrapper
+    of `mlp_apply` or `moe_apply` keeps working)."""
+    return {} if tp is None else {"tp": tp}
+
+
+def _ffn(p: Params, x, mix, cfg: ModelConfig, slot: int, aux=None,
+         split=None):
     """x + mix, then the FFN's residual branch on it if the block has one.
     With `aux` (a list), an MoE FFN appends its switch loss to it."""
     if "ffn" not in p:
@@ -105,31 +128,35 @@ def _ffn(p: Params, x, mix, cfg: ModelConfig, slot: int, aux=None):
     x, h = layers.add_rms_norm(x, mix, p["norm2"], cfg.norm_eps)
     moe_cfg = cfg.moe_for(slot)
     if moe_cfg is None:
-        return x + layers.mlp_apply(p["ffn"], h, cfg)
+        return x + layers.mlp_apply(p["ffn"], h, cfg,
+                                    **_tp(_part(split, "ffn")))
     if aux is None:
-        return x + moe_mod.moe_apply(p["ffn"], h, cfg, moe_cfg)
-    y, a = moe_mod.moe_apply(p["ffn"], h, cfg, moe_cfg, aux=True)
+        return x + moe_mod.moe_apply(p["ffn"], h, cfg, moe_cfg,
+                                     **_tp(split))
+    y, a = moe_mod.moe_apply(p["ffn"], h, cfg, moe_cfg, aux=True,
+                             **_tp(split))
     aux.append(a)
     return x + y
 
 
 def block_apply(p: Params, x, cfg: ModelConfig, slot: int, positions,
-                q_offset: int = 0, aux=None):
+                q_offset: int = 0, aux=None, split=None):
     """(x, cache) after one block over a whole sequence; the cache is the
     attention's K/V or the recurrent mixer's state after the sequence.
-    With `aux` (a list), an MoE block appends its switch loss to it."""
+    With `aux` (a list), an MoE block appends its switch loss to it.
+    `split`: the block's `collectives.ModelSplit` on a mesh, or None."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     mix, cache = _mixer_apply(p["core"], h, cfg, cfg.pattern[slot],
-                              positions, q_offset)
-    return _ffn(p, x, mix, cfg, slot, aux), cache
+                              positions, q_offset, _part(split, "core"))
+    return _ffn(p, x, mix, cfg, slot, aux, split), cache
 
 
 def block_decode(p: Params, x, cache, pos: int, cfg: ModelConfig,
-                 slot: int):
+                 slot: int, split=None):
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     mix, cache = _mixer_decode(p["core"], h, cache, pos, cfg,
-                               cfg.pattern[slot])
-    return _ffn(p, x, mix, cfg, slot), cache
+                               cfg.pattern[slot], _part(split, "core"))
+    return _ffn(p, x, mix, cfg, slot, split=split), cache
 
 
 def init_block_cache(cfg: ModelConfig, slot: int, batch: int, s_max: int,
@@ -240,8 +267,9 @@ def _logits(p: Params, cfg: ModelConfig, x, shard=None):
 
 
 def _block(p: Params, i: int, shard):
-    """Block i's leaves: the model's own, or gathered on a mesh."""
-    return p["blocks"][i] if shard is None else shard.block(i)
+    """Block i's leaves and its `ModelSplit`: the model's own and None, or
+    gathered on a mesh (`Plan.block`)."""
+    return (p["blocks"][i], None) if shard is None else shard.block(i)
 
 
 @torch.no_grad()
@@ -253,8 +281,12 @@ def forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     caches = []
     for i in range(cfg.n_layers):
-        x, cache = block_apply(_block(p, i, shard), x, cfg, _slot(cfg, i),
-                               positions)
+        blk, split = _block(p, i, shard)
+        x, cache = block_apply(blk, x, cfg, _slot(cfg, i), positions,
+                               split=split)
+        tp = _part(split, "core")
+        if collect_cache and tp is not None:
+            cache = layers.whole_kv(cache, cfg, tp)
         caches.append(cache)
     return _logits(p, cfg, x, shard), caches if collect_cache else None
 
@@ -293,8 +325,9 @@ def train_forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
     def superblock(x, aux, first):
         moe = []
         for j in range(period):
-            x, _ = block_apply(_block(p, first + j, shard), x, cfg, j,
-                               positions, aux=moe)
+            blk, split = _block(p, first + j, shard)
+            x, _ = block_apply(blk, x, cfg, j, positions, aux=moe,
+                               split=split)
         for a in moe:
             aux = aux + a
         return x, aux
@@ -393,13 +426,13 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, caches, pos: int,
     mesh, the rank's rows, the caches its stored shards."""
     x = p["embed"][tokens] if shard is None else shard.embed(tokens)
     for i in range(cfg.n_layers):
-        blk = _block(p, i, shard)
+        blk, split = _block(p, i, shard)
         if shard is None:
             x, caches[i] = block_decode(blk, x, caches[i], pos, cfg,
                                         _slot(cfg, i))
             continue
         x, new = block_decode(blk, x, shard.cache_in(i, caches[i]), pos,
-                              cfg, _slot(cfg, i))
+                              cfg, _slot(cfg, i), split)
         caches[i] = shard.cache_out(i, caches[i], new)
     return _logits(p, cfg, x, shard)[:, 0], caches
 

@@ -534,6 +534,25 @@ def test_train_lm_mesh_counts_each_block_of_an_update_once():
     assert cs._update_gaps(ranks) == {"w": pytest.approx(0.5)}
 
 
+def test_lm_mesh_phases_report_collective_bytes_by_op_and_axis():
+    """serve_lm_mesh and train_lm_mesh print each rank's collective bytes
+    a token or a step: the growth of `collectives.BYTES` (a live Comm's
+    result bytes by "<op> over <axis>") over the run, divided by the
+    tokens or steps, keys that did not grow left out."""
+    import inspect
+
+    cs = _chip_smoke()
+    before = {"all-gather over data": 10, "all-reduce over model": 4}
+    now = {"all-gather over data": 50, "all-reduce over model": 4,
+           "all-gather over model": 8}
+    assert cs.collective_bytes(now, before, 8) == {
+        "all-gather over data": 5.0, "all-gather over model": 1.0}
+    assert "collective_bytes_per_token_ranks" in inspect.getsource(
+        cs.phase_serve_lm_mesh)
+    assert "collective_bytes_per_step_ranks" in inspect.getsource(
+        cs.phase_train_lm_mesh)
+
+
 @pytest.mark.parametrize("phase", ["phase_serve_lm_mesh",
                                    "phase_train_lm_mesh"])
 def test_no_failure_of_an_lm_mesh_phase_is_caught(phase, monkeypatch,

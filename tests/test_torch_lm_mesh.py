@@ -26,6 +26,13 @@ the meshed factories of `launch/steps.py`) against the reference's.
   AdamW's first step scales that noise to the learning rate); both are
   held at `CANCEL_RTOL` of their scale on both bounds.  A 1 x 1 world is
   bit-equal to the single-process step.
+* Tensor-parallel compute, counted: on (2, 4) no attention, MLP or MoE
+  block leaf is gathered over the model axis (Mamba and xLSTM mixers'
+  leaves still are), and the region's sums over it are the ones the
+  blocks' parts need; on the shape-only meshes (2, 4) and (16, 16) a
+  rank's gathered block leaves of yi-9b, qwen2-moe-a2.7b and jamba at
+  full width are the model axis's share of the leaf exactly where the
+  reference's rules split it.
 * Checkpoints: a (2, 4) run resumed from its checkpoint is bit-equal to
   the uninterrupted run, and the checkpoint restores onto (1, 2) and
   1 x 1 with every leaf bit-equal.
@@ -503,6 +510,154 @@ def test_one_by_one_world_is_bit_equal_to_single_process(ranks, single,
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert torch.equal(ranks["1x1"][0][arch]["ky_tokens"],
                        single[arch]["ky_tokens"])
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute on the model axis
+# ---------------------------------------------------------------------------
+
+
+def _plan(cfg, shape):
+    """(a rank's `collectives.Plan` of `cfg` at coordinate 0 of a
+    shape-only (data, model) mesh, over meta shards; each leaf's whole
+    element count)."""
+    from repro_torch.launch import collectives
+
+    mesh = mesh_mod.AbstractMesh(shape, ("data", "model"))
+    model = t_steps.abstract_params(cfg)
+    specs = sharding.param_specs(mesh, cfg, model)
+    shards = sharding.distribute(mesh, model, specs, cfg=cfg)
+    plan = collectives.Plan(collectives.Comm(mesh), cfg,
+                            dict(shards.named_parameters()), specs)
+    return plan, {n: p.numel() for n, p in model.named_parameters()}
+
+
+def _flat(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _part(name: str) -> str:
+    """A block leaf's part: "core", "ffn" or "shared" (blocks.i.<...>)."""
+    path = name.split(".")
+    return "shared" if path[2:4] == ["ffn", "shared"] else path[2]
+
+
+def _split_by_rule(cfg, name: str, spec) -> bool:
+    """Whether a block leaf is computed split: the rules name the model
+    axis in its spec, and it is an attention mixer's or an FFN's leaf."""
+    kind = cfg.pattern[int(name.split(".")[1]) % len(cfg.pattern)]
+    return "model" in spec and (_part(name) != "core"
+                                or kind in t_tfm.ATTN_KINDS)
+
+
+# the split block leaves of full-width yi-9b: 32 query heads and d_ff
+# 11,008 divide both model axes, its 4 KV heads divide 4 but not 16
+YI_SPLIT = {(2, 4): {"core.wq", "core.wk", "core.wv", "core.wo", "ffn.wg",
+                     "ffn.wu", "ffn.wd"},
+            (16, 16): {"core.wq", "core.wo", "ffn.wg", "ffn.wu", "ffn.wd"}}
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (16, 16)])
+@pytest.mark.parametrize("arch", ["yi-9b", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_a_rank_gathers_its_model_share_of_each_split_leaf(arch, shape):
+    """Shape only, at full width: `Plan.block` of every slot of the
+    pattern keeps a leaf split over the model axis exactly where the
+    reference's rules (`sharding.param_spec`) split it in an attention
+    mixer or an FFN (the MoE experts' hidden dim and the shared experts'
+    d_ff included), and a rank's gathered bytes of such a leaf are the
+    whole leaf's divided by the model axis; every other block leaf (the
+    norms, the router, Mamba's mixer, K/V projections whose heads do
+    not divide the axis) is whole.  The block's `ModelSplit` names the
+    parts those leaves belong to."""
+    cfg = t_configs.get_config(arch)
+    plan, whole = _plan(cfg, shape)
+    for i in range(len(cfg.pattern)):
+        prefix = f"blocks.{i}."
+        blk, split = plan.block(i)
+        got = _flat(blk, prefix)
+        assert got.keys() == {n for n in plan.leaves if n.startswith(prefix)}
+        split_names = set()
+        for name, t in got.items():
+            if _split_by_rule(cfg, name, plan.specs[name]):
+                split_names.add(name)
+                assert t.numel() * shape[1] == whole[name], name
+            else:
+                assert t.numel() == whole[name], name
+        assert (set() if split is None else split.parts) == {
+            _part(n) for n in split_names}, i
+        if arch == "yi-9b":
+            assert {n[len(prefix):] for n in split_names} == YI_SPLIT[shape]
+    if arch == "jamba-1.5-large-398b":  # Mamba mixers stay whole
+        mamba = cfg.pattern.index("mamba")
+        assert "core" not in plan.split(mamba).parts
+
+
+@pytest.mark.parametrize("arch", cases.LM_ARCHS)
+def test_split_leaves_are_not_gathered_over_the_model_axis(ranks, arch):
+    """Counted on every (2, 4) rank's `Comm`, in the prefill, the decode
+    steps and a train step's gradient pass: no leaf of a split part
+    (attention, MLP, MoE experts, shared experts) is all-gathered over
+    the model axis, while every other block leaf the rules split over it
+    (the xLSTM mixers') still is; the model axis's all-reduces are the
+    embedding's sum and one sum per split part of each layer, in the
+    prefill and in each decode step, and at least the forward's and the
+    backward's of each part in training."""
+    cfg = cases.lm_cfg(arch)
+    plan, _ = _plan(cfg, (2, 4))
+    parts = sum(len(s.parts) for s in map(plan.split, range(cfg.n_layers))
+                if s is not None)
+    assert parts == {"yi-9b": 4, "qwen2-moe-a2.7b": 6, "xlstm-350m": 0}[arch]
+    want = {"prefill": 1 + parts, "decode": cases.LM_GEN * (1 + parts)}
+    for r in ranks["2x4"]:
+        for step, rec in r[arch]["comm"].items():
+            blocks = {n: a for n, a in rec["leaf_axes"].items()
+                      if n.startswith("blocks.")}
+            assert len(blocks) == sum(n.startswith("blocks.")
+                                      for n in plan.specs)
+            for name, axes in blocks.items():
+                spec = plan.specs[name]
+                split = _split_by_rule(cfg, name, spec)
+                assert ("model" in axes) == ("model" in spec and not split), (
+                    step, name, axes)
+            got = rec["axis_count"].get("all-reduce over model", 0)
+            if step in want:
+                assert got == want[step], (step, got, want[step])
+            else:
+                assert got >= 2 * parts + 1, (step, got)
+
+
+def test_kv_projections_read_in_part_get_whole_gradients(ranks, single):
+    """The trouble spot of a leaf replicated over the model axis but read
+    in part inside the split region: reduced yi-9b on (2, 4) has 4 query
+    heads, one a model rank, and 2 KV heads, which do not divide the
+    axis, so wk/wv stay whole on every rank and each rank projects only
+    the KV head its query head reads.  Each rank's gradient of them is
+    then partial, and the gather's backward sums it over the model axis
+    as well as over dp: every rank's whole wk/wv gradients are within
+    1e-5 of their scale of the single-process step's (a missing sum
+    leaves each rank a quarter of the heads' terms)."""
+    cfg = cases.lm_cfg("yi-9b")
+    plan, _ = _plan(cfg, (2, 4))
+    one = single["yi-9b"]["grads"]
+    names = [n for n in one if n.endswith(("core.wk", "core.wv"))]
+    assert len(names) == 2 * cfg.n_layers
+    for name in names:
+        q = name[:-2] + "wq"
+        assert "model" in plan.specs[q] and "model" not in plan.specs[name]
+        assert plan.split(int(name.split(".")[1])).parts >= {"core"}
+    for r in ranks["2x4"]:
+        assert r["yi-9b"]["comm"]["train"]["leaf_axes"][names[0]] == (
+            "data",)
+        for name in names:
+            got, want = r["yi-9b"]["grads"][name], one[name]
+            assert _gap(got, want) <= 1e-5 * _scale(want), name
 
 
 def test_resumed_mesh_run_is_bit_equal(ranks):

@@ -204,9 +204,21 @@ def lm_opt_cfg():
     return adamw.AdamWConfig(warmup_steps=1, total_steps=10)
 
 
+def comm_record(comm) -> dict:
+    """What a meshed step's `collectives.Comm` counted: result bytes and
+    calls by op, bytes and calls by "<op> over <axis>", and the axes each parameter
+    was gathered over."""
+    return {"nbytes": dict(comm.nbytes), "count": dict(comm.count),
+            "axis_bytes": dict(comm.axis_bytes),
+            "axis_count": dict(comm.axis_count),
+            "leaf_axes": dict(comm.leaf_axes)}
+
+
 def lm_serve(cfg, model, inputs, mesh=None) -> dict:
     """Prefill logits and caches, then GEN teacher-forced decode steps
-    with the KY sampler: each step's logits and tokens (whole)."""
+    with the KY sampler: each step's logits and tokens (whole); on a
+    mesh, the prefill's and the decode steps' collectives
+    (`comm_record`)."""
     from repro_torch import prng
     from repro_torch.launch import collectives, sharding, steps
     from repro_torch.models import transformer as tfm
@@ -218,8 +230,8 @@ def lm_serve(cfg, model, inputs, mesh=None) -> dict:
     else:
         model = sharding.distribute(
             mesh, model, sharding.param_specs(mesh, cfg, model), cfg=cfg)
-        logits, caches = steps.make_prefill_step(cfg, mesh)(batch)(model,
-                                                                   batch)
+        prefill = steps.make_prefill_step(cfg, mesh)(batch)
+        logits, caches = prefill(model, batch)
         caches = collectives.whole(caches)
     out = {"prefill_logits": logits,
            "prefill_caches": [{n: t.clone() for n, t in c.items()}
@@ -237,6 +249,9 @@ def lm_serve(cfg, model, inputs, mesh=None) -> dict:
         lgs.append(lg)
     out["ky_tokens"], out["decode_logits"] = torch.stack(toks), torch.stack(
         lgs)
+    if mesh is not None:
+        out["comm"] = {"prefill": comm_record(prefill.comm),
+                       "decode": comm_record(serve.comm)}
     return out
 
 
@@ -275,9 +290,10 @@ def lm_generate(cfg, model, inputs, mesh=None) -> dict:
 
 def lm_train(cfg, model, inputs, mesh=None, ckpt_dir=None) -> dict:
     """One AdamW step: its loss, gradients (whole, by state-dict name) and
-    updated leaves; on a mesh with `ckpt_dir`, a checkpoint after that
-    step, a second step, and the second step again from the checkpoint
-    restored onto fresh state."""
+    updated leaves; on a mesh the collectives of the gradients' pass
+    (`comm_record`), and with `ckpt_dir` a checkpoint after that step, a
+    second step, and the second step again from the checkpoint restored
+    onto fresh state."""
     import copy
 
     from repro_torch.launch import collectives, sharding
@@ -301,14 +317,17 @@ def lm_train(cfg, model, inputs, mesh=None, ckpt_dir=None) -> dict:
             loss, list(leaves.values()))))
     else:
         loss, _, g = fn.loss_and_grads(params, batch)
-        specs = sharding.param_specs(mesh, cfg, tfm.train_leaves(model, cfg))
         comm = fn.comm
+        record = comm_record(comm)
+        specs = sharding.param_specs(mesh, cfg, tfm.train_leaves(model, cfg))
         loss = comm.all_reduce(loss.detach(), comm.dp)
         grads = {n: comm.gather_spec(g[n], specs[n]).reshape(shapes[n])
                  for n in g}
     _, _, m = fn(params, state, batch)
     out = {"loss": m["loss"], "grad_loss": loss.detach(), "grads": grads,
            "grad_norm": m["grad_norm"], "leaves": whole(leaves)}
+    if mesh is not None:
+        out["comm"] = {"train": record}
     if ckpt_dir is None:
         return out
     from repro_torch.checkpoint import checkpoint as t_ckpt
@@ -343,9 +362,11 @@ def lm_mesh_cases(rank, device_mesh, trees, ckpt_dir, restore) -> dict:
                 cfg, convert.lm_params_from_reference(trees[arch], cfg,
                                                       "cpu"),
                 inputs, device_mesh)
-        res.update(lm_train(cfg, convert.lm_params_from_reference(
+        train = lm_train(cfg, convert.lm_params_from_reference(
             trees[arch], cfg, "cpu", train=True), inputs, device_mesh,
-            ckpt_dir if arch == "yi-9b" and not restore else None))
+            ckpt_dir if arch == "yi-9b" and not restore else None)
+        res["comm"].update(train.pop("comm"))
+        res.update(train)
         out[arch] = res
     if restore:
         out["restored"] = lm_restore(rank, device_mesh, trees["yi-9b"],
