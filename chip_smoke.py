@@ -296,22 +296,30 @@ each printing one JSON line; any failure raises and exits non-zero:
               `launch/steps.py` factories): 8 gloo ranks sharing the card
               as (2, 4), then an NCCL world of min(cards, 4) ranks (one
               card: a 1 x 1 mesh), at full width with depth cut (yi-9b 2
-              of 48 layers, qwen2-moe-a2.7b 1 of 24, each cut printed).
+              of 48 layers, qwen2-moe-a2.7b 1 of 24, xlstm-350m 4 of 24:
+              three mLSTM and an sLSTM, jamba-1.5-large-398b 1 of 72: a
+              Mamba mixer and the dense FFN; each cut printed).
               Each rank builds the model from the seed on the card,
               distributes it (its shards alone stay: the bytes the
               caching allocator was asked for equal the specs' shard
               bytes) and runs `serve.generate(..., mesh=)` on 8 prompts
-              of 128 tokens for 8 KY tokens, counters zeroed before and
-              read after (3 K1 and 1 K2 a token, nothing else); every
+              of 128 tokens for 4 KY tokens (cut from 8), counters
+              zeroed before and read after (K1 a tree level and 1 K2 a
+              token, nothing else); every
               rank returns the same tokens and logits, every draw equals
               the twin's on the gathered logits, the logits are within
               LM_MESH_LOGIT_RTOL of the one-process steps' teacher-forced
               on the same tokens, and the NCCL 1 x 1 world is bit-equal
               to one process.  The meshed steps compute tensor-parallel
-              over the model axis (attention heads, FFN and expert
-              columns; partial sums all-reduced).  Prints each rank's
-              wall, the collectives' host ms and result bytes a token by
-              op and axis, and the resident bytes.
+              over the model axis (attention heads, Mamba channels, xLSTM
+              heads and head dims, FFN and expert columns; partial sums
+              all-reduced), and decode attends over each rank's block of
+              the K/V cache's sequence: the bytes a rank's decode step
+              moves over "model" must stay under one gather of the
+              attention layers' caches.  Prints each rank's wall, the
+              collectives' host ms and result bytes a token by op and
+              axis and by axis, a decode step's by axis, and the
+              resident bytes.
 25. train_lm_mesh (after train_block) — LM training over the mesh:
               yi-9b at full width cut to 2 of 48 layers, float32 leaves,
               B 8 x S 512 `SyntheticLM`, 3 AdamW steps on the NCCL world
@@ -3418,9 +3426,11 @@ LM_HYBRID_ARCH = "jamba-1.5-large-398b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
 # the one-card serving phases' depth, full widths (printed), cut to keep
 # chip_smoke within its time with the LM mesh's phases (a whole run took
-# up to 1,187 s of its 1,200 with qwen2-moe-a2.7b's 24 layers); the
-# serve CLIs of yi-9b and xlstm-350m still run the whole stacks
-LM_SERVE_LAYERS = {"yi-9b": 16, "qwen2-moe-a2.7b": 12, "xlstm-350m": 8}
+# up to 1,187 s of its 1,200 with qwen2-moe-a2.7b's 24 layers, and 1,130 s
+# with yi-9b 16, qwen2-moe 12 and xlstm-350m 8 once the mesh served four
+# models); the serve CLIs of yi-9b and xlstm-350m still run the whole
+# stacks
+LM_SERVE_LAYERS = {"yi-9b": 8, "qwen2-moe-a2.7b": 6, "xlstm-350m": 4}
 LM_SEED = 0
 # decode against forward, bf16: at most 5% of the largest |logit|, the
 # reference's own bound for two execution orders (0.15 on its logits of
@@ -4490,9 +4500,14 @@ LM_MESH = (2, 4)  # gloo ranks sharing the card, (data, model)
 # full widths, depth cut (printed): layers served over the mesh (8 gloo
 # ranks move each block's weights over the data axis and the
 # tensor-parallel sums over the model axis through host memory; before
-# tensor-parallel compute a decode step of yi-9b's 4 layers took 6.6 s)
-LM_MESH_SERVE = {"yi-9b": 2, "qwen2-moe-a2.7b": 1}
-LM_MESH_GEN = 8
+# tensor-parallel compute a decode step of yi-9b's 4 layers took 6.6 s).
+# xlstm-350m's 4 layers are one period of its pattern (three mLSTM, one
+# sLSTM); jamba's one is slot 0, a Mamba mixer and the dense FFN
+LM_MESH_SERVE = {"yi-9b": 2, "qwen2-moe-a2.7b": 1, "xlstm-350m": 4,
+                 "jamba-1.5-large-398b": 1}
+# tokens a model (cut from 8, printed, to make room for xlstm and jamba)
+LM_MESH_GEN = 4
+LM_MESH_GEN_CUT = "8 -> 4"
 LM_MESH_TRAIN_ARCH, LM_MESH_TRAIN_LAYERS = "yi-9b", 2
 LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS = 8, 512, 3
 # bf16 logits of the mesh's rows (GEMMs over 4 rows, not 8) against the
@@ -4599,10 +4614,24 @@ def _rank_serve(torch, rank, device_mesh, cfg) -> dict:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     base = _requested(torch)
-    whole = tfm.init_model(cfg, seed=LM_SEED, device=dev)
-    specs = sharding.param_specs(device_mesh, cfg, whole)
-    model = sharding.distribute(device_mesh, whole, specs, cfg=cfg)
-    del whole
+    # gloo ranks sharing the card build a whole model past 2 GB in turns
+    # (one at a time: eight of jamba's layer and its float32 draws at once
+    # passed the card's 80 GB)
+    t_build = time.perf_counter()
+    big = sum(w.numel() * w.element_size() for w in tfm.init_model(
+        cfg, device="meta").parameters()) > 2**31
+    turns = (dist.get_world_size()
+             if dist.get_backend() == "gloo" and big else 1)
+    for turn in range(turns):
+        if turn == rank % turns:
+            whole = tfm.init_model(cfg, seed=LM_SEED, device=dev)
+            specs = sharding.param_specs(device_mesh, cfg, whole)
+            model = sharding.distribute(device_mesh, whole, specs, cfg=cfg)
+            del whole
+            _free(torch)
+        if turns > 1:
+            dist.barrier()
+    build_s = time.perf_counter() - t_build
     mem = _resident(torch, model, specs, cfg, device_mesh, base)
     g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
     prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
@@ -4615,16 +4644,17 @@ def _rank_serve(torch, rank, device_mesh, cfg) -> dict:
     b0 = dict(collectives.BYTES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits = []
+    logits, comms = [], {}
     toks, times = serve.generate(cfg, model, prompts, LM_MESH_GEN,
                                  sampler="ky", mesh=device_mesh, key=key,
-                                 logits_out=logits)
+                                 logits_out=logits, comms_out=comms)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
     coll = {k: collectives.TOTALS[k] - c0[k] for k in c0}
     coll_bytes = collective_bytes(collectives.BYTES, b0, LM_MESH_GEN)
     # each draw against the twin on the gathered logits it came from
+    t_twin = time.perf_counter()
     tab_cpu, spec_cpu = build_exp_weight_lut(device="cpu")
     twin_bad, k = 0, key
     for t, lg in enumerate(logits):
@@ -4634,14 +4664,20 @@ def _rank_serve(torch, rank, device_mesh, cfg) -> dict:
         twin = sampling.ky_token_sample(lg.cpu(), sub, exp_table=tab_cpu,
                                         exp_spec=spec_cpu)
         twin_bad += int((toks[:, LM_PROMPT + t].cpu() != twin).sum())
+    twin_s = time.perf_counter() - t_twin
     lgs = torch.stack(logits).cpu()
     del model, logits
     return {"rank": rank, "coords": tuple(device_mesh.get_coordinate()),
+            "build_s": build_s, "twin_s": twin_s,
             "tokens": toks.cpu(), "logits_digest": _digest(lgs),
             "logits": lgs if rank == 0 else None, "wall_s": wall,
             "step_s": times, "collectives": coll["collectives"],
             "collective_ms": coll["seconds"] * 1e3,
-            "collective_bytes_per_token": coll_bytes, "launches": launches,
+            "collective_bytes_per_token": coll_bytes,
+            "decode_bytes_by_axis_per_step": by_axis(
+                {k: v / (LM_MESH_GEN - 1)
+                 for k, v in comms["decode"].axis_bytes.items()}),
+            "launches": launches,
             "twin_mismatches": twin_bad, **mem}
 
 
@@ -4679,12 +4715,15 @@ def phase_serve_lm_mesh(torch) -> dict:
     """LM serving over ranks: 8 gloo ranks sharing the card as (2, 4), then
     an NCCL world of min(cards, 4) ranks (whose rank 0 also runs the
     one-process reference), at full width with depth cut (LM_MESH_SERVE:
-    yi-9b 2 of 48 layers, qwen2-moe-a2.7b 1 of 24), 8 prompts of 128
-    tokens and 8 KY tokens.  Every rank returns the same tokens and logits; each rank's
-    weights take its shards' bytes; the logits are within
-    LM_MESH_LOGIT_RTOL of the one-process step's on the same tokens (the
-    NCCL 1 x 1 world bit-equal); every draw equals the twin's on the
-    gathered logits.  Returns rank 0's launches per arch."""
+    yi-9b 2 of 48 layers, qwen2-moe-a2.7b 1 of 24, xlstm-350m 4 of 24,
+    jamba-1.5-large-398b 1 of 72), 8 prompts of 128 tokens and
+    LM_MESH_GEN KY tokens.  Every rank returns the same tokens and
+    logits; each rank's weights take its shards' bytes; the logits are
+    within LM_MESH_LOGIT_RTOL of the one-process step's on the same
+    tokens (the NCCL 1 x 1 world bit-equal); every draw equals the
+    twin's on the gathered logits; a gloo rank's decode step moves fewer
+    bytes over "model" than one gather of the K/V caches would.  Returns
+    rank 0's launches per arch."""
     from repro_torch.kernels import _lib
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import sampling
@@ -4696,7 +4735,7 @@ def phase_serve_lm_mesh(torch) -> dict:
         emit({"phase": "serve_lm_mesh_cut", "arch": arch,
               "layers": f"{n_layers} of {_full_layers(arch)}",
               "widths": "full", "batch": LM_BATCH, "prompt_len": LM_PROMPT,
-              "gen": LM_MESH_GEN})
+              "gen": LM_MESH_GEN, "gen_cut": LM_MESH_GEN_CUT})
     _free(torch)
     gloo = mesh_mod.spawn(rank_lm_serve, LM_MESH[0] * LM_MESH[1],
                           backend="gloo", device="cuda",
@@ -4710,6 +4749,7 @@ def phase_serve_lm_mesh(torch) -> dict:
     for arch, n_layers in LM_MESH_SERVE.items():
         cfg = _mesh_cfg(torch, arch, n_layers)
         single = nccl[0][arch]["single"]
+        cache_bytes = _cache_gather_bytes(cfg)
         worlds = {"gloo": [r[arch] for r in gloo],
                   "nccl": [r[arch] for r in nccl]}
         for name, world in worlds.items():
@@ -4718,6 +4758,8 @@ def phase_serve_lm_mesh(torch) -> dict:
                   "mesh": list(LM_MESH) if name == "gloo" else [1, n],
                   "card": card, "layers": n_layers,
                   "wall_s_ranks": [r["wall_s"] for r in world],
+                  "build_s_rank0": r0["build_s"],
+                  "twin_check_s_rank0": r0["twin_s"],
                   "decode_step_s_rank0": r0["step_s"],
                   "collectives_rank0": r0["collectives"],
                   "collective_ms_rank0": r0["collective_ms"],
@@ -4725,6 +4767,12 @@ def phase_serve_lm_mesh(torch) -> dict:
                       r0["collective_ms"] / LM_MESH_GEN,
                   "collective_bytes_per_token_ranks":
                       [r["collective_bytes_per_token"] for r in world],
+                  "result_bytes_by_axis_per_token_ranks":
+                      [by_axis(r["collective_bytes_per_token"])
+                       for r in world],
+                  "decode_step_bytes_by_axis_ranks":
+                      [r["decode_bytes_by_axis_per_step"] for r in world],
+                  "cache_gather_bytes_per_step": cache_bytes,
                   "resident_bytes_ranks": [r["resident_bytes"]
                                            for r in world],
                   "requested_bytes_ranks": [r["requested_bytes"]
@@ -4759,6 +4807,11 @@ def phase_serve_lm_mesh(torch) -> dict:
                 check(r["requested_bytes"] == r["spec_shard_bytes"],
                       f"{where} holds {r['requested_bytes']} bytes of "
                       f"weights, its shards {r['spec_shard_bytes']}")
+                model = r["decode_bytes_by_axis_per_step"].get("model", 0)
+                check(name != "gloo" or not cache_bytes
+                      or model < cache_bytes, f"{where} moves {model} "
+                      "bytes a decode step over the model axis, not under "
+                      f"one gather of the K/V caches ({cache_bytes})")
                 got = {k: r["launches"][k] for k in want}
                 check(got == want and all(
                     v == 0 for k, v in r["launches"].items()
@@ -4778,6 +4831,32 @@ def phase_serve_lm_mesh(torch) -> dict:
                   "from the one-process step")
         out[arch] = worlds["gloo"][0]["launches"]
     return out
+
+
+def by_axis(per_op: dict) -> dict:
+    """Bytes by "<op> over <axis>" summed by axis."""
+    out: dict = {}
+    for k, v in per_op.items():
+        axis = k.rsplit(" over ", 1)[1]
+        out[axis] = out.get(axis, 0) + v
+    return out
+
+
+def _cache_gather_bytes(cfg) -> int:
+    """What a (2, 4) gloo rank's decode step would gather over "model"
+    were the K/V caches' sequence gathered there (the earlier layout):
+    every attention layer's K and V of the rank's rows, the whole cache
+    length, every KV head; 0 without attention layers."""
+    import torch
+
+    from repro_torch.models import layers as lyr
+
+    attn = sum(cfg.pattern[i % len(cfg.pattern)] in ("attn", "attn_chunked")
+               for i in range(cfg.n_layers))
+    rows = LM_BATCH // LM_MESH[0]
+    return (attn * rows * (LM_PROMPT + LM_MESH_GEN)
+            * lyr.head_geometry(cfg)[1] * cfg.hd * 2
+            * torch.tensor([], dtype=cfg.act_dtype).element_size())
 
 
 def collective_bytes(now: dict, before: dict, per: int) -> dict:

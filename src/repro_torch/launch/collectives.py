@@ -6,10 +6,10 @@ optimizer moment, batch and decode cache as the rank's shard
 on the data axes and tensor parallelism (TP) on the model axis:
 
   * `Plan.block` gathers a block's leaves at use.  Where the rules split
-    an attention, MLP, MoE-expert or shared-expert leaf over the model
-    axis (`Plan.split`), the leaf is gathered over the other axes only
-    and the rank computes its own heads or columns of it inside the
-    block's `ModelSplit`: the region is entered through the identity
+    an attention, Mamba, mLSTM, sLSTM, MLP, MoE-expert or shared-expert
+    leaf over the model axis (`Plan.split`), the leaf is gathered over
+    the other axes only and the rank computes its own heads, channels,
+    head dims or columns of it inside the block's `ModelSplit`: the region is entered through the identity
     (whose backward sums the ranks' partial input gradients over the
     model axis, `_ToModelSplit`) and left through the sum of the ranks'
     partial products over it (`_ModelSum`; both sums in float32, in
@@ -17,14 +17,19 @@ on the data axes and tensor parallelism (TP) on the model axis:
     a rank reads only in part inside the region (an attention's K/V
     projections when the KV heads do not divide the axis) gets
     gradients summed over the model axis too.  The other
-    leaves (norms, the router, Mamba's and xLSTM's mixers, any part
-    whose dimension does not divide the axis) are gathered whole.  The
+    leaves (norms, the router, any part whose dimension does not
+    divide the axis) are gathered whole.  The
     gather's backward is its adjoint: the gradient is summed over the
     data-parallel ranks (in float32) and the rank keeps its own block of
     it (an all-reduce and a slice: gloo has no reduce-scatter);
   * the embedding and the head stay split by vocabulary over the model
     axis (`Plan.embed`, `Plan.logits`: a masked lookup summed over it, a
     column block of logits gathered over it);
+  * a decode cache stays as the rules store it (`Plan.cache_in`,
+    `cache_out`): an attention's K/V split by sequence over the model
+    axis is attended where it lies (`SeqSplit`: flash-decoding, the
+    ranks' partials merged by log-sum-exp), and a recurrent state keeps
+    the rank's channels or head dims;
   * a rank computes the batch rows of its data-parallel position (all of
     them when the batch does not divide: `rows` false), so ranks along
     the model axis compute the same rows with their own heads and
@@ -206,6 +211,36 @@ class Comm:
                 t = wire.to(t.device)
         return t
 
+    def all_to_all(self, parts, shapes, axis: str) -> list[torch.Tensor]:
+        """What each rank of the group over `axis` sends this one:
+        `parts[q]` is what this rank sends rank q, `shapes[q]` the shape
+        of what rank q sends here (all of one type; a part may be
+        empty).  Counted by the bytes received."""
+        import torch.distributed as dist
+
+        ref = parts[0]
+        dtype, dev = ref.dtype, ref.device
+        numel = [math.prod(s) for s in shapes]
+        self._record("all-to-all", (sum(numel),), dtype, (axis,))
+        if self.dry:
+            return [torch.empty(s, dtype=dtype, device=dev) for s in shapes]
+        with self._timed(ref) as staged:
+            wire = self._wire(torch.cat([t.reshape(-1) for t in parts]),
+                              staged)
+            out = torch.empty(sum(numel), dtype=dtype, device=wire.device)
+            sent = [t.numel() for t in parts]
+            bits = _BITS.get(dtype)
+            if bits is not None:  # as bytes: gloo moves no 16-bit floats
+                k = dtype.itemsize
+                dist.all_to_all_single(
+                    out.view(bits), wire.view(bits), [n * k for n in numel],
+                    [n * k for n in sent], group=self.mesh.get_group(axis))
+            else:
+                dist.all_to_all_single(out, wire, numel, sent,
+                                       group=self.mesh.get_group(axis))
+            out = out.to(dev)
+        return [b.view(s) for b, s in zip(out.split(numel), shapes)]
+
     def gather_spec(self, t: torch.Tensor, spec, skip=()) -> torch.Tensor:
         """The whole tensor of the local shard `t` laid out by `spec`,
         gathered over every axis of every dimension not in `skip`."""
@@ -328,6 +363,76 @@ class _ModelSum(torch.autograd.Function):
         return g.to(ctx.dtype), None, None
 
 
+def _exchange(comm, t: torch.Tensor, have, want) -> torch.Tensor:
+    """Equal blocks of t's last axis moved between the model ranks: rank
+    q holds the global blocks `have[q]` (in that order) and receives the
+    blocks `want[q]`; returns this rank's `want` blocks in order (one
+    all-to-all, each block sent once)."""
+    r, n = comm.coords[comm.tp], comm.sizes[comm.tp]
+    blk = t.shape[-1] // len(have[r])
+    mine = {b: t[..., i * blk:(i + 1) * blk] for i, b in enumerate(have[r])}
+    lead = tuple(t.shape[:-1])
+    sends = [[b for b in want[q] if b in mine] for q in range(n)]
+    recvs = [[b for b in want[r] if b in have[q]] for q in range(n)]
+    got = comm.all_to_all(
+        [torch.stack([mine[b] for b in bs]) if bs else t.new_empty(0)
+         for bs in sends],
+        [(len(bs), *lead, blk) for bs in recvs], comm.tp)
+    blocks = {b: part[j] for bs, part in zip(recvs, got)
+              for j, b in enumerate(bs)}
+    return torch.cat([blocks[b] for b in want[r]], dim=-1)
+
+
+class _ColumnProduct(torch.autograd.Function):
+    """x (..., K), the same on every model rank, times the rank's column
+    block w (K, N / n) of a weight split by column over the model axis:
+    the rank's output columns.  Backward: w's gradient from its columns;
+    x's gradient whole, as one device computes it and the same on every
+    rank (so x enters no region): every rank's output-column gradient
+    gathered, times the rank's rows of w (exchanged from the ranks'
+    columns, its share of w), the rows' blocks gathered."""
+
+    @staticmethod
+    def forward(ctx, x, w, comm):
+        ctx.comm = comm
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        comm = ctx.comm
+        n = comm.sizes[comm.tp]
+        k, m = w.shape[0] // n, w.shape[1]
+        dw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, m)
+        # block (row block kb, column block q) is rank q's rows kb
+        rows = _exchange(comm, w.reshape(1, n * k * m),
+                         [tuple(kb * n + q for kb in range(n))
+                          for q in range(n)],
+                         [tuple(q * n + c for c in range(n))
+                          for q in range(n)])
+        rows = rows.view(n, k, m).transpose(0, 1).reshape(k, n * m)
+        whole = comm.all_gather(g.contiguous(), g.ndim - 1, (comm.tp,))
+        dx = comm.all_gather((whole @ rows.T).contiguous(), g.ndim - 1,
+                             (comm.tp,))
+        return dx, dw, None
+
+
+class _Exchange(torch.autograd.Function):
+    """`_exchange` of `have` into `want`; backward, the gradient's blocks
+    sent back (`want` into `have`)."""
+
+    @staticmethod
+    def forward(ctx, t, comm, have, want):
+        ctx.comm, ctx.have, ctx.want = comm, have, want
+        return _exchange(comm, t, have, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(ctx.comm, g.contiguous(), ctx.want, ctx.have),
+                None, None, None)
+
+
 class _Product(torch.autograd.Function):
     """A 16-bit product whose contraction is split over the model axis,
     with a float32 result, so that the ranks' partial products are
@@ -401,12 +506,16 @@ class _GatherModel(torch.autograd.Function):
 class ModelSplit:
     """One block's tensor-parallel region on the model axis, for one rank.
     `parts` names the block's parts computed split: "core" (an
-    attention's heads), "ffn" (the dense FFN's d_ff or the MoE experts'
-    hidden dim) and "shared" (the shared experts' d_ff).  A layer takes
-    the object of its part (`of`) or None, reads its block of the split
-    dimension (`block`), enters with `enter`, forms its partial products
-    of a contraction split over the axis with `product` and leaves with
-    `leave`."""
+    attention's heads, a Mamba mixer's d_inner channels, an xLSTM
+    mixer's heads or head dims and its output columns), "ffn" (the dense
+    FFN's d_ff or the MoE experts' hidden dim) and "shared" (the shared
+    experts' d_ff).  A layer takes the object of its part (`of`) or None,
+    reads its block of the split dimension (`block`), enters with
+    `enter`, forms its partial products of a contraction split over the
+    axis with `product` and leaves with `leave`; a recurrent mixer also
+    moves blocks between the ranks (`exchange`), gathers a last-axis
+    block (`gather_last`) and takes output columns whose input gradient
+    it needs exact (`columns`)."""
 
     def __init__(self, comm: Comm, parts):
         self.comm, self.parts = comm, frozenset(parts)
@@ -431,6 +540,23 @@ class ModelSplit:
         `dtype` (t's by default)."""
         return _ModelSum.apply(t, self.comm, dtype or t.dtype)
 
+    def exchange(self, t: torch.Tensor, have, want) -> torch.Tensor:
+        """Equal blocks of t's last axis moved between the ranks: rank q
+        holds the global blocks `have[q]` and takes `want[q]`."""
+        return _Exchange.apply(t, self.comm, have, want)
+
+    def columns(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The rank's output columns x @ w of w's column block, x the same
+        on every rank, with x's gradient whole and exact on every rank
+        (`_ColumnProduct`: x does not enter the region)."""
+        return _ColumnProduct.apply(x, w, self.comm)
+
+    def gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's last-axis block of t concatenated; backward, the
+        rank's block of the gradient (every model rank's loss is the same:
+        `enter` the result where ranks use it in part)."""
+        return _GatherModel.apply(t, self.comm)
+
     def product(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """This rank's partial product a @ w (or the experts' a (G, E, C,
         K) by w (E, K, N)) over its block of the contraction, for `leave`:
@@ -445,8 +571,40 @@ class ModelSplit:
         return self.comm.all_gather(t, dim, (self.comm.tp,))
 
 
+class SeqSplit:
+    """An attention layer's decode cache split by sequence position over
+    `axes` (the model axis, and the data axes before it where the batch
+    does not split): this rank holds cache slots [start, start + n) of
+    `total` and attends over them where they lie (flash-decoding).
+    `merge` combines the ranks' per-query (max, sum of exponentials)
+    pairs by log-sum-exp and `sum` adds their partial outputs, both over
+    `axes` and in float32 (the sum in float64 for float32 activations),
+    so that every rank holds the whole attention of every query."""
+
+    def __init__(self, comm: Comm, axes, start: int, total: int):
+        self.comm, self.axes = comm, tuple(axes)
+        self.start, self.total = start, total
+
+    def merge(self, m: torch.Tensor, l: torch.Tensor):
+        """(max, sum) over every rank's slots, from this rank's."""
+        both = self.comm.all_gather(torch.stack([m, l])[None].contiguous(),
+                                    0, self.axes)
+        ms, ls = both[:, 0], both[:, 1]
+        top = ms.amax(0)
+        return top, (ls * torch.exp(ms - top)).sum(0)
+
+    def sum(self, t: torch.Tensor, dtype) -> torch.Tensor:
+        """The ranks' partial outputs t summed, in `dtype`."""
+        return self.comm.all_reduce(t.to(_wide(dtype)), self.axes).to(dtype)
+
+
 # a block's parts split over the model axis when this leaf's spec names it
 _PART_LEAVES = {"core": "core.wq", "ffn": "ffn.wg", "shared": "ffn.shared.wg"}
+# the leaf that splits each mixer's "core" part: attention heads, Mamba's
+# d_inner rows of x_proj, an mLSTM's output columns, an sLSTM's head dims
+_CORE_LEAF = {"attn": "core.wq", "attn_chunked": "core.wq",
+              "mamba": "core.x_proj", "mlstm": "core.out",
+              "slstm": "core.w_in"}
 
 
 def _part(path) -> str | None:
@@ -527,17 +685,19 @@ class Plan:
                 @ layers.act(head, self.cfg)).float()
         return _GatherModel.apply(part, self.comm)
 
+    def _kind(self, i: int) -> str:
+        return self.cfg.pattern[i % len(self.cfg.pattern)]
+
     def split(self, i: int) -> ModelSplit | None:
         """Block i's tensor-parallel region: the parts whose leaves the
-        rules split over the model axis ("core" only for an attention
-        mixer: Mamba and xLSTM mixers are gathered whole), or None."""
+        rules split over the model axis (the mixer's "core" by its
+        `_CORE_LEAF`), or None."""
         tp = self.comm.tp
         if tp is None or self.comm.sizes[tp] == 1:
             return None
-        kind = self.cfg.pattern[i % len(self.cfg.pattern)]
-        parts = [part for part, leaf in _PART_LEAVES.items()
-                 if (part != "core" or kind in ("attn", "attn_chunked"))
-                 and tp in self.specs.get(f"blocks.{i}.{leaf}", ())]
+        leaves = dict(_PART_LEAVES, core=_CORE_LEAF[self._kind(i)])
+        parts = [part for part, leaf in leaves.items()
+                 if tp in self.specs.get(f"blocks.{i}.{leaf}", ())]
         return ModelSplit(self.comm, parts) if parts else None
 
     def block(self, i: int) -> tuple[dict, ModelSplit | None]:
@@ -564,24 +724,114 @@ class Plan:
                 node[last] = self.leaf(name, skip, model_sum)
         return out, split
 
+    def model_dims(self, i: int, name: str, spec=None) -> tuple[int, ...]:
+        """The dimensions of layer i's cache leaf `name` that the layer
+        keeps split over the model axis as it is stored: a recurrent
+        mixer's d_inner or head dims inside its region (the rules'
+        `sharding.cache_specs`), in decode an attention's sequence
+        (`seq_split`); () for the rest, which the layer reads whole."""
+        tp = self.comm.tp
+        if tp is None or self.comm.sizes[tp] == 1:
+            return ()
+        kind = self._kind(i)
+        if kind in ("attn", "attn_chunked"):
+            return (1,) if spec is not None and tp in sharding._axes(
+                spec[1]) else ()
+        split = self.split(i)
+        if split is None or "core" not in split.parts:
+            return ()
+        return _recurrent_dims(self.cfg, kind, name, self.comm.sizes[tp])
+
+    def _skip(self, i: int, name: str) -> tuple[int, ...]:
+        spec = self.cache_specs[i][name]
+        return ((0,) if self.comm.rows else ()) + self.model_dims(i, name,
+                                                                  spec)
+
+    def seq_split(self, i: int, cache: dict) -> SeqSplit | None:
+        """Layer i's K/V split by sequence over the model axis (with the
+        data axes where the batch does not split): the rank's slots, or
+        None where the sequence is stored whole on the model axis (a
+        length that does not divide it), or for a recurrent layer."""
+        if "k" not in cache or not self.model_dims(
+                i, "k", self.cache_specs[i]["k"]):
+            return None
+        axes = sharding._axes(self.cache_specs[i]["k"][1])
+        n = sharding.local(cache["k"]).shape[1]
+        idx = 0
+        for a in axes:
+            idx = idx * self.comm.sizes[a] + self.comm.coords[a]
+        return SeqSplit(self.comm, axes, idx * n,
+                        n * math.prod(self.comm.sizes[a] for a in axes))
+
     def cache_in(self, i: int, cache: dict) -> dict:
-        """Layer i's decode cache in the layout a rank computes in: its
-        own rows, every other dimension whole."""
-        skip = (0,) if self.comm.rows else ()
+        """Layer i's decode cache in the layout the layer computes in: its
+        own rows and the dimensions it keeps split over the model axis
+        (`model_dims`) as stored, every other dimension whole."""
         return {n: self.comm.gather_spec(sharding.local(t),
-                                         self.cache_specs[i][n], skip)
+                                         self.cache_specs[i][n],
+                                         self._skip(i, n))
                 for n, t in cache.items()}
 
     def cache_out(self, i: int, cache: dict, new: dict) -> dict:
         """Write this rank's block of layer i's updated cache `new` (in
         the compute layout) into its stored shards; returns `cache`."""
-        skip = (0,) if self.comm.rows else ()
         for n, t in cache.items():
             loc = sharding.local(t)
-            part = self.comm.own(new[n], self.cache_specs[i][n], skip)
+            part = self.comm.own(new[n], self.cache_specs[i][n],
+                                 self._skip(i, n))
             if part.data_ptr() != loc.data_ptr() or loc.device.type == "meta":
                 loc.copy_(part)
         return cache
+
+    def store_caches(self, mesh, caches):
+        """A prefill's caches in the compute layout (the rank's rows; a
+        recurrent mixer's region's dimensions split over the model axis;
+        all else whole: a tensor-parallel attention's K/V come gathered to
+        every KV head, `layers.whole_kv`) as the rank's stored shards
+        (DTensors of the global caches)."""
+        rows = self.comm.dp_size if self.comm.rows else 1
+        n = self.comm.sizes[self.comm.tp] if self.comm.tp else 1
+        out, shapes = [], []
+        for i, c in enumerate(caches):
+            layer = {}
+            for name, t in c.items():
+                shape = list(t.shape)
+                shape[0] *= rows
+                for d in self.model_dims(i, name):
+                    shape[d] *= n
+                layer[name] = torch.empty(shape, device="meta")
+            shapes.append(layer)
+        self.cache_specs = sharding.cache_specs(mesh, self.cfg, shapes)
+        for i, c in enumerate(caches):
+            layer = {}
+            for name, t in c.items():
+                spec = self.cache_specs[i][name]
+                dims = self.model_dims(i, name)
+                if any(self.comm.tp not in sharding._axes(spec[d])
+                       for d in dims):
+                    raise ValueError(f"layer {i}'s {name} is split over the "
+                                     f"model axis on {dims}, stored {spec}")
+                skip = ((0,) if self.comm.rows else ()) + dims
+                layer[name] = sharding.wrap(
+                    mesh, self.comm.own(t, spec, skip).contiguous(),
+                    shapes[i][name].shape, spec)
+            out.append(layer)
+        return out
+
+
+def _recurrent_dims(cfg, kind: str, name: str, n: int) -> tuple[int, ...]:
+    """A recurrent mixer's cache dimensions its region keeps split over a
+    model axis of n (those the rules split, `sharding.cache_specs`):
+    Mamba's d_inner; an sLSTM's head dim; an mLSTM's trailing head dim
+    (C's key dim, n's), its m whole."""
+    if kind == "mamba":
+        return ({"conv": (2,), "ssm": (1,)}[name]
+                if cfg.d_inner % n == 0 else ())
+    if cfg.hd % n:
+        return ()
+    if kind == "slstm":
+        return (2,)
+    return {"C": (3,), "n": (2,), "m": ()}[name]
 
 
 def whole(tree):

@@ -133,51 +133,42 @@ def _spans(s: int) -> list[tuple[int, int]]:
     return [(t, min(s, t + n)) for t in range(0, s, n)]
 
 
-def _mamba_spans(p, x, cfg, state=None):
-    """`ssm.mamba_apply` with each span of positions one `ssm_step` over
-    the span folded into the batch, each from the span's first state."""
+def _mamba_spans(h, xs, dts, bs, cs, a):
+    """`ssm.scan` with each span of positions one `ssm_step` over the span
+    folded into the batch, each from the span's first state."""
     import torch
 
     from repro_torch.models import ssm
 
-    if state is None:
-        state = ssm.init_mamba_state(cfg, x.shape[0], x.device)
-    xs, xs_f32, dts, bs, cs, z, tail = ssm._pre_scan(p, x, cfg,
-                                                     state["conv"])
-    a = -torch.exp(p["a_log"])
-    h, b, ys = state["ssm"], x.shape[0], []
-    for t0, t1 in _spans(x.shape[1]):
+    b, ys = xs.shape[0], []
+    for t0, t1 in _spans(xs.shape[1]):
         n = t1 - t0
         fold = lambda t: t[:, t0:t1].reshape(b * n, *t.shape[2:])
         h_all, y = ssm.ssm_step(h.repeat_interleave(n, 0), fold(xs),
                                 fold(dts), fold(bs), fold(cs), a)
         ys.append(y.view(b, n, -1))
         h = h_all.view(b, n, *h.shape[1:])[:, -1]
-    out = ssm._out(p, torch.cat(ys, dim=1), xs_f32, z, cfg)
-    return out, {"conv": tail.contiguous(), "ssm": h}
+    return h, torch.cat(ys, dim=1)
 
 
-def _slstm_spans(p, x, cfg, state=None):
-    """`xlstm.slstm_apply` with each span of positions one `slstm_step`
-    over the span folded into the batch."""
+def _slstm_spans(pre, r, state, tp=None):
+    """`xlstm.slstm_scan` with each span of positions one `slstm_step`
+    over the span folded into the batch (a split recurrence's gathers
+    then one a span, of the span's bytes)."""
     import torch
 
     from repro_torch.models import xlstm
 
-    b, s, d = x.shape
-    if state is None:
-        state = xlstm.init_slstm_state(cfg, b, x.device)
-    pre = xlstm._slstm_pre(p, x, cfg)
-    hs = []
-    for t0, t1 in _spans(s):
+    b, hs = pre.shape[0], []
+    for t0, t1 in _spans(pre.shape[1]):
         n = t1 - t0
         h_t, new = xlstm.slstm_step(
-            pre[:, t0:t1].reshape(b * n, *pre.shape[2:]), p["r"],
-            {k: v.repeat_interleave(n, 0) for k, v in state.items()})
-        hs.append(h_t.view(b, n, d))
+            pre[:, t0:t1].reshape(b * n, *pre.shape[2:]), r,
+            {k: v.repeat_interleave(n, 0) for k, v in state.items()}, tp)
+        hs.append(h_t.view(b, n, *h_t.shape[1:]))
         state = {k: v.view(b, n, *v.shape[1:])[:, -1]
                  for k, v in new.items()}
-    return xlstm._slstm_out(p, torch.cat(hs, dim=1), cfg), state
+    return torch.cat(hs, dim=1), state
 
 
 def _meta_tokens(logits, *args, **kwargs):
@@ -194,8 +185,8 @@ def shape_only_paths():
     by `cell_inputs`)."""
     from repro_torch.models import sampling, ssm, xlstm
 
-    swaps = ((ssm, "mamba_apply", _mamba_spans),
-             (xlstm, "slstm_apply", _slstm_spans),
+    swaps = ((ssm, "scan", _mamba_spans),
+             (xlstm, "slstm_scan", _slstm_spans),
              (sampling, "sample_tokens", _meta_tokens))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:

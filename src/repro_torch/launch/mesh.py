@@ -204,12 +204,41 @@ def _rank_main(rank, world, backend, device, store, shape, axes,
         mesh = make_mesh(shape, axes, device_type=device)
         result = fn(rank, mesh, *args)
         torch.save(result, out / f"rank{rank}.pt")
-    except BaseException:
-        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+    except BaseException as exc:
+        record_failure(out, rank, exc, traceback.format_exc())
         sys.exit(1)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# what a rank raises when a peer's process went away first (gloo's and
+# NCCL's words for a closed connection): such a rank failed second
+_PEER_LOST = ("Connection closed by peer", "Connection reset by peer",
+              "Broken pipe", "remote process exited", "NCCL communicator was "
+              "aborted")
+
+
+def _peer_lost(exc: BaseException) -> bool:
+    return isinstance(exc, dist.DistNetworkError) or any(
+        w in str(exc) for w in _PEER_LOST)
+
+
+def record_failure(out: Path, rank: int, exc: BaseException,
+                   trace: str) -> None:
+    """Rank `rank`'s failure, before its process group is torn down: its
+    traceback in `rank<r>.err`, and one line in `failures`, appended in
+    one write to a file opened with O_APPEND, so that the lines stand in
+    the order the ranks failed ("<rank> own" or "<rank> peer": whether
+    the rank raised of its own or saw a peer's connection close)."""
+    (out / f"rank{rank}.err").write_text(trace)
+    line = f"{rank} {'peer' if _peer_lost(exc) else 'own'}\n".encode()
+    fd = os.open(out / "failures", os.O_WRONLY | os.O_APPEND | os.O_CREAT,
+                 0o644)
+    try:
+        os.write(fd, line)
+    finally:
+        os.close(fd)
 
 
 def spawn(fn, world_size: int, *, backend: str, device: str = "cuda",
@@ -273,9 +302,13 @@ def _join(procs, tmp: str, deadline: float, timeout_s: float) -> None:
         running = [p for p in running if p.exitcode is None]
         if any(p.exitcode not in (None, 0) for p in procs):
             # a peer of the failed rank fails too once its connection
-            # closes: let those exit, and name the first to fail first
-            multiprocessing.connection.wait([p.sentinel for p in running],
-                                            _GRACE_S)
+            # closes, and the failed rank may still be exiting: let them
+            # exit, and name the first to fail first
+            grace = time.monotonic() + _GRACE_S
+            while running and time.monotonic() < grace:
+                multiprocessing.connection.wait(
+                    [p.sentinel for p in running], grace - time.monotonic())
+                running = [p for p in running if p.exitcode is None]
             raise RankFailed(_failures(procs, Path(tmp)))
 
 
@@ -283,13 +316,25 @@ _GRACE_S = 2.0
 
 
 def _failures(procs, tmp: Path) -> str:
-    """Each failed rank's traceback, in the order they were written."""
-    failed = [p for p in procs if p.exitcode not in (None, 0)]
+    """Each failed rank's traceback: first the ranks that raised of their
+    own, then those that only saw a peer's connection close, each group
+    in the order of the `failures` lines (the order of failure); a rank
+    that died without a line (killed, or dead before its `except`) last.
+    A rank with a line has failed even if its process is still exiting
+    (it exits with code 1)."""
+    order: dict[str, tuple[int, int]] = {}
+    log = tmp / "failures"
+    lines = log.read_text().split("\n") if log.exists() else []
+    for i, line in enumerate(lines):
+        if line.count(" ") == 1:
+            rank, how = line.split(" ")
+            order.setdefault(f"rank{rank}", (how != "own", i))
+    failed = [p for p in procs
+              if p.exitcode not in (None, 0) or p.name in order]
+    failed.sort(key=lambda p: order.get(p.name, (2, 0)))
     err = {p.name: tmp / f"{p.name}.err" for p in failed}
-    failed.sort(key=lambda p: (not err[p.name].exists(),
-                               err[p.name].exists()
-                               and err[p.name].stat().st_mtime_ns))
     return "\n".join(
-        f"{p.name} exited with code {p.exitcode}:\n"
+        f"{p.name} exited with code "
+        f"{1 if p.exitcode is None else p.exitcode}:\n"
         + (err[p.name].read_text() if err[p.name].exists()
            else "(no traceback)") for p in failed)

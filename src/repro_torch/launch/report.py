@@ -177,19 +177,20 @@ def roofline_table(recs: list[dict], mesh: str = "single") -> str:
 
 def dryrun_table(recs: list[dict]) -> str:
     """One row per (arch, cell, mesh): a rank's argument and temporary
-    bytes and its collectives' bytes by op (all-gather, all-reduce) and by
-    link (NVLink within a host, the network across hosts)."""
+    bytes and its collectives' bytes by op (all-gather, all-reduce,
+    all-to-all) and by link (NVLink within a host, the network across
+    hosts)."""
     g = 2**30
     rows = [
         f"{COMPUTED}", "",
         "| arch | cell | mesh | status | run s | args GiB | temp GiB | "
-        "AG GiB | AR GiB | NVLink GiB | network GiB |",
-        "|---|---|---|---|---|---|---|---|---|---|---|",
+        "AG GiB | AR GiB | A2A GiB | NVLink GiB | network GiB |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in _sorted(recs):
         if r["status"] != "ok":
             rows.append(f"| {r['arch']} | {r['cell']} | {r['mesh']} | "
-                        f"skipped ({r['reason'][:40]}...) " + "| — " * 7
+                        f"skipped ({r['reason'][:40]}...) " + "| — " * 8
                         + "|")
             continue
         c = r["collectives"]["bytes_by_op"]
@@ -201,6 +202,7 @@ def dryrun_table(recs: list[dict]) -> str:
             f"| {r['memory']['temp_size_in_bytes'] / g:.2f} "
             f"| {c.get('all-gather', 0) / g:.2f} "
             f"| {c.get('all-reduce', 0) / g:.2f} "
+            f"| {c.get('all-to-all', 0) / g:.2f} "
             f"| {link.get('nvlink', 0) / g:.2f} "
             f"| {link.get('network', 0) / g:.2f} |"
         )
@@ -216,9 +218,8 @@ def bottleneck_notes(recs: list[dict]) -> str:
         "bf16.",
         ("memory", "prefill"): "activation and logits traffic dominates: "
         "take only the last position's logits and fuse attention's stages.",
-        ("memory", "decode"): "decode streams every weight and the whole "
-        "cache a step: batch more sequences per card, or split the cache's "
-        "sequence instead of gathering it.",
+        ("memory", "decode"): "decode streams every weight and the rank's "
+        "cache shard a step: batch more sequences per card.",
         ("collective", "train"): "the blocks' weight gathers over the "
         "data axes (the model axis's blocks stay split: tensor-parallel "
         "compute), the model axis's activation sums and the gradient "
@@ -228,10 +229,10 @@ def bottleneck_notes(recs: list[dict]) -> str:
         "model axis's activation sums dominate: overlap the next block's "
         "gather with this block's compute.",
         ("collective", "decode"): "a step gathers each block's model-axis "
-        "block of weights over the data axes, the vocabulary blocks of the "
-        "embedding and head, and the cache's sequence over the model axis: "
-        "attend over the local sequence shard (sequence-split decode "
-        "attention) and look up only the tokens' rows.",
+        "block of weights over the data axes and the vocabulary blocks of "
+        "the embedding and head (the cache stays where it lies): gather "
+        "the serving weights once per generate and look up only the "
+        "tokens' rows.",
         ("compute", "train"): "compute-bound: drop the remat recompute or "
         "the ranks' redundant rows on the model axis.",
     }

@@ -55,7 +55,7 @@ def _timed(fn, dev: torch.device):
 
 @torch.inference_mode()
 def generate(cfg, params, prompts, gen_len, sampler="ky", mesh=None,
-             features=None, key=None, logits_out=None):
+             features=None, key=None, logits_out=None, comms_out=None):
     """prompts (B, S0) int -> (B, S0 + gen_len) int32 tokens (the prompt
     echoed, then the sampled continuation).  Returns (tokens, seconds of
     each decode step after the first token).
@@ -68,7 +68,9 @@ def generate(cfg, params, prompts, gen_len, sampler="ky", mesh=None,
     prefill and decode steps run through the meshed factories (batch and
     caches bound as the reference's `_generate` binds them); every rank
     returns the whole tokens.  `logits_out`, a list, receives the logits
-    (B, V) each token was drawn from."""
+    (B, V) each token was drawn from; `comms_out`, a dict, the meshed
+    prefill's and decode step's `collectives.Comm` ("prefill",
+    "decode"), which count their collectives by op and axis."""
     key = key if key is not None else prng.key(0)
     dev = prompts.device
     b, s0 = prompts.shape
@@ -82,6 +84,8 @@ def generate(cfg, params, prompts, gen_len, sampler="ky", mesh=None,
     if mesh is not None:  # bind the batch specs; the stored caches come
         # grown by decode's headroom, each rank its shard
         prefill_fn = prefill_fn(batch, extra=gen_len)
+        if comms_out is not None:
+            comms_out["prefill"] = prefill_fn.comm
     logits, caches = prefill_fn(params, batch)
     if mesh is None:
         caches = tfm.grow_attn_caches(caches, cfg, gen_len)
@@ -94,6 +98,8 @@ def generate(cfg, params, prompts, gen_len, sampler="ky", mesh=None,
     serve_fn = steps_lib.make_serve_step(cfg, mesh, sampler=sampler, **kw)
     if mesh is not None:
         serve_fn, _ = serve_fn(caches, b)  # bind the cache specs + batch
+        if comms_out is not None:
+            comms_out["decode"] = serve_fn.comm
     tok = sample_tokens(logits, key, sampler, **kw)[:, None]
     out = [prompts, tok]
     times = []

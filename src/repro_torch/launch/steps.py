@@ -297,30 +297,13 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
                 logits, caches = tfm.prefill(params, cfg, b, shard=plan)
             if extra:
                 caches = tfm.grow_attn_caches(caches, cfg, extra)
-            return comm.gather_rows(logits), _store_caches(
-                comm, mesh, cfg, caches)
+            return comm.gather_rows(logits), plan.store_caches(mesh,
+                                                               caches)
 
         mesh_step.comm = comm
         return mesh_step
 
     return with_batch
-
-
-def _store_caches(comm, mesh, cfg, caches):
-    """Caches in the compute layout (the rank's rows, all else whole: a
-    tensor-parallel attention's K/V come gathered to every KV head,
-    `layers.whole_kv`) as the rank's stored shards (DTensors of the
-    global caches)."""
-    rows = comm.dp_size if comm.rows else 1
-    shapes = [{n: torch.empty((t.shape[0] * rows, *t.shape[1:]),
-                              device="meta") for n, t in c.items()}
-              for c in caches]
-    cspecs = sharding.cache_specs(mesh, cfg, shapes)
-    skip = (0,) if comm.rows else ()
-    return [{n: sharding.wrap(mesh, comm.own(t, cspecs[i][n], skip)
-                               .contiguous(), shapes[i][n].shape,
-                               cspecs[i][n])
-             for n, t in c.items()} for i, c in enumerate(caches)]
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None, sampler: str = "ky",

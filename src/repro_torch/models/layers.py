@@ -27,8 +27,11 @@ the rank's heads or columns (`wq`, `bq` and `wo`'s rows by query head,
 `wk`/`wv`/`bk`/`bv` by KV head or whole when the KV heads do not divide
 the axis, `wg`/`wu` by column and `wd` by row), the input enters the
 region and the partial output of the row-split product (float32 for
-16-bit activations) leaves it summed over the axis.  With `tp` None
-every op is the one-device op.
+16-bit activations) leaves it summed over the axis.  Decode attention
+takes `seq`, a `collectives.SeqSplit`, where the cache is split by
+sequence over the ranks: it attends over the rank's slots and merges
+the ranks' partial softmaxes.  With `tp` and `seq` None every op is the
+one-device op.
 """
 
 from __future__ import annotations
@@ -494,13 +497,16 @@ def attention_decode(
     *,
     kind: str,
     tp=None,
+    seq=None,
 ) -> tuple[torch.Tensor, dict]:
     """One new token against the cache.  The cache is written in place at
     `pos` (`pos % window` for `attn_chunked`), where the reference returns
     an updated copy (its step donates the old one); the masked direct
     attention then runs over the whole cache.  With `tp` the cache holds
     every KV head: the new token's K/V of the rank's heads are gathered
-    over the model axis into it, and the rank attends over its heads."""
+    over the model axis into it, and the rank attends over its heads.
+    With `seq` (a `collectives.SeqSplit`) the cache holds the rank's
+    block of slots: `_decode_seq_split`."""
     heads = None
     if tp is not None:
         heads = rank_heads(cfg, tp, x.device)
@@ -513,13 +519,17 @@ def attention_decode(
     q = _scale_queries(q, cfg)
 
     ck, cv = cache["k"], cache["v"]
-    s_max = ck.shape[1]
+    s_max = ck.shape[1] if seq is None else seq.total
     slot = pos % s_max if kind == "attn_chunked" else pos
     if not 0 <= slot < s_max:
         raise ValueError(f"position {pos} is outside the cache of {s_max}")
     if heads is not None:
         new = whole_kv({"k": k, "v": v}, cfg, tp)
         k, v = new["k"], new["v"]
+    if seq is not None:
+        return _decode_seq_split(p, q, k, v, cache, pos, slot, cfg,
+                                 kind=kind, tp=tp, seq=seq,
+                                 heads=heads), cache
     ck[:, slot] = k[:, 0]
     cv[:, slot] = v[:, 0]
 
@@ -534,14 +544,8 @@ def attention_decode(
     g = h // kvh
     qr = q.reshape(b, kvh, g, d)
     s = torch.einsum("bhgd,bkhd->bhgk", qr.float(), ck.float())
-    k_idx = torch.arange(s_max, device=x.device)
-    if kind == "attn_chunked":
-        # ring cache of one window; valid entries share the query's chunk
-        k_pos = pos - ((pos - k_idx) % s_max)
-        mask = (k_pos >= 0) & (k_pos // cfg.chunk_size
-                               == pos // cfg.chunk_size)
-    else:
-        mask = k_idx <= pos
+    mask = _decode_mask(torch.arange(s_max, device=x.device), pos, s_max,
+                        cfg, kind)
     s = torch.where(mask[None, None, None, :], s, NEG_INF)
     pattn = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bhgk,bkhd->bhgd", pattn, cv)
@@ -551,6 +555,59 @@ def attention_decode(
     if tp is None:
         return o @ act(p["wo"], cfg), cache
     return tp.leave(tp.product(o, act(p["wo"], cfg)), o.dtype), cache
+
+
+def _decode_mask(k_idx: torch.Tensor, pos: int, s_max: int,
+                 cfg: ModelConfig, kind: str) -> torch.Tensor:
+    """Which cache slots `k_idx` (absolute) the query at `pos` reads."""
+    if kind == "attn_chunked":
+        # ring cache of one window; valid entries share the query's chunk
+        k_pos = pos - ((pos - k_idx) % s_max)
+        return (k_pos >= 0) & (k_pos // cfg.chunk_size
+                               == pos // cfg.chunk_size)
+    return k_idx <= pos
+
+
+def _decode_seq_split(p, q, k, v, cache, pos, slot, cfg, *, kind, tp, seq,
+                      heads):
+    """Decode attention over a cache split by sequence (flash-decoding):
+    the rank that holds `slot` writes the new K/V (every KV head); every
+    rank scores every query head (gathered over the model axis) against
+    its slots, masked by their absolute indices, and the ranks' (max,
+    sum of exponentials) pairs merge by log-sum-exp (`seq.merge`).  The
+    probabilities are then the softmax's, exp(s - max) / sum, rounded to
+    the activation type as one device rounds them; their partial
+    products with the rank's V sum over the ranks (`seq.sum`).  A rank
+    then applies its rows of `wo` to its own heads, as prefill does."""
+    ck, cv = cache["k"], cache["v"]
+    n = ck.shape[1]
+    if seq.start <= slot < seq.start + n:
+        ck[:, slot - seq.start] = k[:, 0]
+        cv[:, slot - seq.start] = v[:, 0]
+    if tp is not None:
+        q = tp.gather(q, 2)  # every query head, in the padded order
+    b, _, h, d = q.shape
+    kvh = ck.shape[2]
+    g = h // kvh
+    s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(b, kvh, g, d).float(),
+                     ck.float())
+    mask = _decode_mask(seq.start + torch.arange(n, device=q.device), pos,
+                        seq.total, cfg, kind)[None, None, None, :]
+    m = s.masked_fill(~mask, NEG_INF).amax(-1)
+    e = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    m, l = seq.merge(m, e.sum(-1))
+    pattn = (torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+             / l[..., None]).to(q.dtype)
+    o = seq.sum(torch.einsum("bhgk,bkhd->bhgd", pattn.float(), cv.float()),
+                q.dtype)
+    qmask = head_geometry(cfg, q.device)[3]
+    if qmask is not None:
+        o = o * qmask.reshape(kvh, g, 1).to(o.dtype)[None]
+    o = o.reshape(b, 1, h * d)
+    if tp is None:
+        return o @ act(p["wo"], cfg)
+    o = o[..., heads.q0 * d:heads.q1 * d]
+    return tp.leave(tp.product(o, act(p["wo"], cfg)), o.dtype)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int, kind: str,

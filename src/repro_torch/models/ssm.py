@@ -51,11 +51,15 @@ def init_mamba(gen, cfg: ModelConfig, device) -> Params:
     )
 
 
-def init_mamba_state(cfg: ModelConfig, batch: int, device) -> dict:
+def init_mamba_state(cfg: ModelConfig, batch: int, device,
+                     d_inner: int | None = None) -> dict:
+    """The zero state; `d_inner` channels (a model rank's block, all of
+    them by default)."""
+    di = cfg.d_inner if d_inner is None else d_inner
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di),
                             dtype=cfg.act_dtype, device=device),
-        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+        "ssm": torch.zeros((batch, di, cfg.ssm_state),
                            dtype=torch.float32, device=device),
     }
 
@@ -70,15 +74,45 @@ def ssm_step(h, x_t, dt_t, b_t, c_t, a):
     return h, (h * c_t.float()[:, None, :]).sum(-1)
 
 
-def _pre_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, conv_tail):
+def scan(h, xs, dts, bs, cs, a):
+    """`ssm_step` over the positions of xs (B, S, di): (the state after
+    them, ys (B, S, di) float32).  A dry run swaps this loop for spans of
+    positions (`launch/dryrun.shape_only_paths`)."""
+    ys = []
+    for t in range(xs.shape[1]):
+        h, y = ssm_step(h, xs[:, t], dts[:, t], bs[:, t], cs[:, t], a)
+        ys.append(y)
+    return h, torch.stack(ys, dim=1)
+
+
+def _rank_channels(xz: torch.Tensor, tp):
+    """A model rank's d_inner channels of x and of z from its stored
+    columns of in_proj's product: in_proj (d, 2 di) splits by column, so
+    with the axis of n ranks, rank q holds blocks 2q and 2q + 1 of the
+    2n blocks of di / n columns (x's blocks first, then z's), and
+    computes on x's block q and z's block n + q (one exchange)."""
+    n = tp.size
+    xz = tp.exchange(xz, [(2 * q, 2 * q + 1) for q in range(n)],
+                     [(q, n + q) for q in range(n)])
+    w = xz.shape[-1] // 2
+    return xz[..., :w], xz[..., w:]
+
+
+def _pre_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, conv_tail,
+              tp=None):
     """in_proj, the causal depthwise convolution over the carried-in tail
     (B, K-1, di) and the new positions, silu, and the parameter
     projections.  Returns (xs, xs unrounded in float32, dts, bs, cs, z,
-    new_tail)."""
+    new_tail).  With `tp`, of the rank's channels: x_proj's row-split
+    product is summed over the model axis (and re-entered: each rank
+    reads dt, B and C for its own channels)."""
     di, n, r, kc = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
     s = x.shape[1]
     xz = x @ layers.act(p["in_proj"], cfg)
-    xs, z = xz[..., :di], xz[..., di:]
+    if tp is None:
+        xs, z = xz[..., :di], xz[..., di:]
+    else:
+        xs, z = _rank_channels(xz, tp)
     ext = torch.cat([conv_tail, xs], dim=1)  # (B, K-1+S, di)
     new_tail = ext[:, ext.shape[1] - (kc - 1):]
     conv_w = layers.act(p["conv_w"], cfg)
@@ -89,7 +123,11 @@ def _pre_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, conv_tail):
     # rounds it to the activation type where xs is stored for the rest
     xs_f32 = conv.float() * layers.sigmoid(conv).float()
     xs = xs_f32.to(conv.dtype)
-    dbl = xs @ layers.act(p["x_proj"], cfg)
+    if tp is None:
+        dbl = xs @ layers.act(p["x_proj"], cfg)
+    else:
+        dbl = tp.enter(tp.leave(tp.product(xs, layers.act(p["x_proj"],
+                                                          cfg)), xs.dtype))
     dt_r, b, c = dbl[..., :r], dbl[..., r:r + n], dbl[..., r + n:]
     dts = torch.nn.functional.softplus((dt_r @ layers.act(p["dt_proj"], cfg))
                                        .float()
@@ -97,34 +135,43 @@ def _pre_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, conv_tail):
     return xs, xs_f32, dts, b, c, z, new_tail
 
 
-def _out(p: Params, ys: torch.Tensor, xs_f32, z, cfg: ModelConfig):
-    y = (ys + p["d_skip"] * xs_f32).to(cfg.act_dtype)
-    return (y * layers.silu(z)) @ layers.act(p["out_proj"], cfg)
+def _out(p: Params, ys: torch.Tensor, xs_f32, z, cfg: ModelConfig, tp=None):
+    y = (ys + p["d_skip"] * xs_f32).to(cfg.act_dtype) * layers.silu(z)
+    if tp is None:
+        return y @ layers.act(p["out_proj"], cfg)
+    return tp.leave(tp.product(y, layers.act(p["out_proj"], cfg)), y.dtype)
 
 
-def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
+def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None,
+                tp=None):
     """Training / prefill: x (B, S, d) -> (y (B, S, d), the state after
-    S)."""
+    S).  With `tp` (the block's `collectives.ModelSplit`), the rank's
+    d_inner channels: conv, scan and state of those channels, the two
+    products that contract d_inner (x_proj's, out_proj's) summed over
+    the model axis."""
+    if tp is not None:
+        x = tp.enter(x)
     if state is None:
-        state = init_mamba_state(cfg, x.shape[0], x.device)
-    xs, xs_f32, dts, bs, cs, z, tail = _pre_scan(p, x, cfg, state["conv"])
-    a = -torch.exp(p["a_log"])
-    h = state["ssm"]
-    ys = []
-    for t in range(x.shape[1]):
-        h, y = ssm_step(h, xs[:, t], dts[:, t], bs[:, t], cs[:, t], a)
-        ys.append(y)
-    out = _out(p, torch.stack(ys, dim=1), xs_f32, z, cfg)
+        state = init_mamba_state(cfg, x.shape[0], x.device,
+                                 p["conv_b"].shape[0])
+    xs, xs_f32, dts, bs, cs, z, tail = _pre_scan(p, x, cfg, state["conv"],
+                                                 tp)
+    h, ys = scan(state["ssm"], xs, dts, bs, cs, -torch.exp(p["a_log"]))
+    out = _out(p, ys, xs_f32, z, cfg, tp)
     return out, {"conv": tail.contiguous(), "ssm": h}
 
 
 def mamba_decode(p: Params, x: torch.Tensor, state: dict,
-                 cfg: ModelConfig):
-    """x (B, 1, d) -> (y (B, 1, d), state), the state updated in place."""
-    xs, xs_f32, dts, bs, cs, z, tail = _pre_scan(p, x, cfg, state["conv"])
+                 cfg: ModelConfig, tp=None):
+    """x (B, 1, d) -> (y (B, 1, d), state), the state updated in place
+    (with `tp`, the rank's channels of it)."""
+    if tp is not None:
+        x = tp.enter(x)
+    xs, xs_f32, dts, bs, cs, z, tail = _pre_scan(p, x, cfg, state["conv"],
+                                                 tp)
     a = -torch.exp(p["a_log"])
     h, y = ssm_step(state["ssm"], xs[:, 0], dts[:, 0], bs[:, 0], cs[:, 0], a)
-    out = _out(p, y[:, None], xs_f32, z, cfg)
+    out = _out(p, y[:, None], xs_f32, z, cfg, tp)
     state["conv"].copy_(tail)
     state["ssm"].copy_(h)
     return out, state

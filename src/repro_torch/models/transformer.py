@@ -19,18 +19,24 @@ and each block's leaves are gathered just before the block runs (inside
 the superblock's checkpoint in training, so the backward gathers them
 again, and the recompute issues the region's sums again), as the
 reference's GSPMD gathers its FSDP-sharded weights per scanned layer.
-Where the rules split an attention's heads, the FFN's d_ff, the experts'
-hidden dim or the shared experts' d_ff over the model axis, the block
-gets those leaves still split and its `ModelSplit` (`Plan.block`), and
-the layers compute the rank's heads and columns and sum the partial
-outputs over the axis (tensor parallelism); Mamba and xLSTM mixers get
-None and whole weights.  The embedding and the head stay split over the
-model axis by vocabulary (a masked lookup summed over it; a column
-block of logits gathered over it); a decode cache is gathered to the
-rank's rows before its layer and its block written back after (every
-KV head: a prefill's and a new token's K/V of the rank's heads are
-gathered over the model axis, `layers.whole_kv`).  The counterpart of
-the reference's `act_spec` constraints.
+Where the rules split an attention's heads, a Mamba mixer's d_inner, an
+xLSTM mixer's heads, head dims or output columns, the FFN's d_ff, the
+experts' hidden dim or the shared experts' d_ff over the model axis, the
+block gets those leaves still split and its `ModelSplit` (`Plan.block`),
+and the layers compute the rank's heads, channels and columns and sum
+or gather the partial outputs over the axis (tensor parallelism).  The
+embedding and the head stay split over the model axis by vocabulary (a
+masked lookup summed over it; a column block of logits gathered over
+it).  A decode cache is read as the rank stores it, its rows and its
+block of the dimensions the rules split over the model axis (a
+recurrent state's channels or head dims; an attention's sequence, which
+decode attends where it lies, `collectives.SeqSplit`), every other
+dimension gathered before the layer and its block written back after (a
+prefill's and a new token's K/V of the rank's heads are gathered over
+the model axis to every KV head, `layers.whole_kv`; an mLSTM's prefill
+state by head is moved to its stored head-dim blocks,
+`xlstm.mlstm_stored`).  The counterpart of the reference's `act_spec`
+constraints.
 """
 
 from __future__ import annotations
@@ -86,24 +92,24 @@ def _mixer_apply(p, x, cfg, kind, positions, q_offset, tp=None):
                                       positions=positions, q_offset=q_offset,
                                       tp=tp)
     if kind == "mamba":
-        return ssm.mamba_apply(p, x, cfg)
+        return ssm.mamba_apply(p, x, cfg, **_tp(tp))
     if kind == "mlstm":
-        return xlstm.mlstm_apply(p, x, cfg)
+        return xlstm.mlstm_apply(p, x, cfg, **_tp(tp))
     if kind == "slstm":
-        return xlstm.slstm_apply(p, x, cfg)
+        return xlstm.slstm_apply(p, x, cfg, **_tp(tp))
     raise ValueError(kind)
 
 
-def _mixer_decode(p, x, cache, pos, cfg, kind, tp=None):
+def _mixer_decode(p, x, cache, pos, cfg, kind, tp=None, seq=None):
     if kind in ATTN_KINDS:
         return layers.attention_decode(p, x, cache, pos, cfg, kind=kind,
-                                       tp=tp)
+                                       tp=tp, seq=seq)
     if kind == "mamba":
-        return ssm.mamba_decode(p, x, cache, cfg)
+        return ssm.mamba_decode(p, x, cache, cfg, **_tp(tp))
     if kind == "mlstm":
-        return xlstm.mlstm_decode(p, x, cache, cfg)
+        return xlstm.mlstm_decode(p, x, cache, cfg, **_tp(tp))
     if kind == "slstm":
-        return xlstm.slstm_decode(p, x, cache, cfg)
+        return xlstm.slstm_decode(p, x, cache, cfg, **_tp(tp))
     raise ValueError(kind)
 
 
@@ -152,10 +158,12 @@ def block_apply(p: Params, x, cfg: ModelConfig, slot: int, positions,
 
 
 def block_decode(p: Params, x, cache, pos: int, cfg: ModelConfig,
-                 slot: int, split=None):
+                 slot: int, split=None, seq=None):
+    """(x, cache) after one block at one new position; `seq`: an
+    attention cache's `collectives.SeqSplit` on a mesh, or None."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     mix, cache = _mixer_decode(p["core"], h, cache, pos, cfg,
-                               cfg.pattern[slot], _part(split, "core"))
+                               cfg.pattern[slot], _part(split, "core"), seq)
     return _ffn(p, x, mix, cfg, slot, split=split), cache
 
 
@@ -286,7 +294,11 @@ def forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
                                split=split)
         tp = _part(split, "core")
         if collect_cache and tp is not None:
-            cache = layers.whole_kv(cache, cfg, tp)
+            kind = cfg.pattern[_slot(cfg, i)]
+            if kind in ATTN_KINDS:
+                cache = layers.whole_kv(cache, cfg, tp)
+            elif kind == "mlstm":
+                cache = xlstm.mlstm_stored(cache, cfg, tp)
         caches.append(cache)
     return _logits(p, cfg, x, shard), caches if collect_cache else None
 
@@ -432,7 +444,8 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, caches, pos: int,
                                         _slot(cfg, i))
             continue
         x, new = block_decode(blk, x, shard.cache_in(i, caches[i]), pos,
-                              cfg, _slot(cfg, i), split)
+                              cfg, _slot(cfg, i), split,
+                              shard.seq_split(i, caches[i]))
         caches[i] = shard.cache_out(i, caches[i], new)
     return _logits(p, cfg, x, shard)[:, 0], caches
 

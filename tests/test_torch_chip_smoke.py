@@ -495,9 +495,11 @@ def test_a_sliced_rank_job_equals_the_whole_run():
 def test_lm_mesh_phases_are_registered_and_run_before_timing():
     """serve_lm_mesh runs after the one-card LM phases and train_lm_mesh
     after the one-card training ones, both before `timing`; both run
-    alone through tools/chip_phases.py: yi-9b (2 layers) and
-    qwen2-moe-a2.7b (1) served at full width over a (2, 4) mesh, 8
-    tokens; yi-9b (2 layers) trained at B 8 x S 512 for 3 steps."""
+    alone through tools/chip_phases.py: yi-9b (2 layers),
+    qwen2-moe-a2.7b (1), xlstm-350m (4: one period of its pattern) and
+    jamba-1.5-large-398b (1: a Mamba mixer) served at full width over a
+    (2, 4) mesh, 4 tokens (8 until the cut printed with them); yi-9b (2
+    layers) trained at B 8 x S 512 for 3 steps."""
     import importlib.util
     import inspect
 
@@ -516,8 +518,10 @@ def test_lm_mesh_phases_are_registered_and_run_before_timing():
     assert all(hasattr(cs, name) for name in phases.PHASES)
     assert phases.main(["phase_timing"]) == 2  # not runnable alone
     assert cs.LM_MESH == (2, 4)
-    assert cs.LM_MESH_SERVE == {"yi-9b": 2, "qwen2-moe-a2.7b": 1}
-    assert (cs.LM_BATCH, cs.LM_PROMPT, cs.LM_MESH_GEN) == (8, 128, 8)
+    assert cs.LM_MESH_SERVE == {"yi-9b": 2, "qwen2-moe-a2.7b": 1,
+                                "xlstm-350m": 4, "jamba-1.5-large-398b": 1}
+    assert (cs.LM_BATCH, cs.LM_PROMPT, cs.LM_MESH_GEN) == (8, 128, 4)
+    assert cs.LM_MESH_GEN_CUT == "8 -> 4"
     assert (cs.LM_MESH_TRAIN_ARCH, cs.LM_MESH_TRAIN_LAYERS,
             cs.LM_MESH_TRAIN_BATCH, cs.LM_MESH_TRAIN_SEQ,
             cs.LM_MESH_TRAIN_STEPS) == ("yi-9b", 2, 8, 512, 3)

@@ -654,6 +654,35 @@ def test_spawn_fails_when_a_rank_fails():
     assert time.monotonic() - t0 < RANK_TIMEOUT_S / 2
 
 
+def test_spawn_names_the_rank_that_raised_before_its_peer(tmp_path):
+    """The peer's failure recorded first, both tracebacks with one mtime:
+    the rank that raised of its own is still named first, and a rank
+    with no record (killed) last."""
+    class Proc:
+        def __init__(self, name, exitcode):
+            self.name, self.exitcode = name, exitcode
+
+    lost = RuntimeError("[pair.cc:534] Connection closed by peer "
+                        "[127.0.0.1]:1234")
+    mesh_mod.record_failure(tmp_path, 0, lost, "rank 0 lost its peer\n")
+    mesh_mod.record_failure(tmp_path, 1, RuntimeError("rank 1 fails"),
+                            "rank 1 fails on purpose\n")
+    for r in (0, 1):
+        os.utime(tmp_path / f"rank{r}.err", ns=(10**18, 10**18))
+    procs = [Proc("rank0", 1), Proc("rank1", 1), Proc("rank2", -9),
+             Proc("rank3", 0)]
+    text = mesh_mod._failures(procs, tmp_path)
+    assert text.startswith("rank1 exited with code 1:\nrank 1 fails")
+    names = [line.split()[0] for line in text.splitlines()
+             if " exited with code " in line]
+    assert names == ["rank1", "rank0", "rank2"]
+    assert "(no traceback)" in text
+    # the rank that raised may still be exiting when its peer has exited
+    procs[1].exitcode = None
+    assert mesh_mod._failures(procs, tmp_path).startswith(
+        "rank1 exited with code 1:\nrank 1 fails")
+
+
 def test_spawn_times_out_a_hung_rank():
     with pytest.raises(TimeoutError, match="still running"):
         mesh_mod.spawn(cases.hang, 1, backend="gloo", device="cpu",

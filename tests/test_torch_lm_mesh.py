@@ -7,8 +7,8 @@ the meshed factories of `launch/steps.py`) against the reference's.
   rules run in a subprocess with 8 simulated host devices (the (2, 4)
   mesh through `compat.make_mesh`, the production meshes as
   `jax.sharding.AbstractMesh`).
-* The steps: 8 gloo CPU ranks as (2, 4) run reduced yi-9b, qwen2-moe and
-  xlstm-350m in float32 with the reference's weights
+* The steps: 8 gloo CPU ranks as (2, 4) run reduced yi-9b, qwen2-moe,
+  xlstm-350m and jamba in float32 with the reference's weights
   (`torch_rank_cases.lm_mesh_cases`): prefill logits and caches, three
   teacher-forced decode steps' logits and KY tokens, one train step's
   loss, gradients and updated leaves.  Every rank returns the same; each
@@ -26,13 +26,15 @@ the meshed factories of `launch/steps.py`) against the reference's.
   AdamW's first step scales that noise to the learning rate); both are
   held at `CANCEL_RTOL` of their scale on both bounds.  A 1 x 1 world is
   bit-equal to the single-process step.
-* Tensor-parallel compute, counted: on (2, 4) no attention, MLP or MoE
-  block leaf is gathered over the model axis (Mamba and xLSTM mixers'
-  leaves still are), and the region's sums over it are the ones the
-  blocks' parts need; on the shape-only meshes (2, 4) and (16, 16) a
-  rank's gathered block leaves of yi-9b, qwen2-moe-a2.7b and jamba at
-  full width are the model axis's share of the leaf exactly where the
-  reference's rules split it.
+* Tensor-parallel compute, counted: on (2, 4) no block leaf the rules
+  split over the model axis (attention, Mamba and xLSTM mixers, MLP,
+  MoE) is gathered over it, and the region's sums over it are the ones
+  the blocks' parts need; on the shape-only meshes (2, 4) and (16, 16) a
+  rank's gathered block leaves of yi-9b, qwen2-moe-a2.7b, jamba and
+  xlstm-350m at full width are the model axis's share of the leaf
+  exactly where the reference's rules split it; and decode over a cache
+  split by sequence moves the same bytes over the model axis whatever
+  the cache's length.
 * Checkpoints: a (2, 4) run resumed from its checkpoint is bit-equal to
   the uninterrupted run, and the checkpoint restores onto (1, 2) and
   1 x 1 with every leaf bit-equal.
@@ -189,10 +191,10 @@ _REFERENCE = textwrap.dedent("""
         out["leaves"] = jax.tree.map(np.asarray, new)
         return out
 
-    for arch in {STEP_ARCHS!r}:
+    for arch in sys.argv[2].split(","):
         cfg = dataclasses.replace(configs.get_config(arch).reduced(),
-                                  dtype="float32")
-        params = tfm.init_model(jax.random.PRNGKey({SEED}), cfg)
+                                  dtype="float32", param_dtype="float32")
+        params = tfm.init_model(jax.random.PRNGKey(int(sys.argv[3])), cfg)
         x = inputs(cfg.vocab)
         with jax.set_mesh(dev_mesh):
             meshed = run(cfg, params, x, dev_mesh)
@@ -215,8 +217,23 @@ _REFERENCE = textwrap.dedent("""
         pickle.dump(res, f)
     print("REFERENCE_OK")
 """).format(MESHES=MESHES, CELLS=SPEC_CELLS, ARCHS=ARCHS, B=cases.LM_B,
-            S0=cases.LM_S0, GEN=cases.LM_GEN, SEQ=cases.LM_SEQ,
-            STEP_ARCHS=cases.LM_ARCHS, SEED=WEIGHT_SEED)
+            S0=cases.LM_S0, GEN=cases.LM_GEN, SEQ=cases.LM_SEQ)
+
+
+def run_reference(out: Path, archs=cases.LM_ARCHS,
+                  seed: int = WEIGHT_SEED) -> dict:
+    """The reference's rules and its (2, 4) and unsharded steps of the
+    reduced `archs` on `_weights(arch, seed)`, in a subprocess with 8
+    simulated host devices, written to `out`."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    res = subprocess.run([sys.executable, "-c", _REFERENCE, str(out),
+                          ",".join(archs), str(seed)],
+                         env=env, capture_output=True, text=True, timeout=900)
+    assert "REFERENCE_OK" in res.stdout, (res.stdout[-2000:]
+                                          + res.stderr[-4000:])
+    with open(out, "rb") as f:
+        return pickle.load(f)
 
 
 @pytest.fixture(scope="module")
@@ -224,29 +241,20 @@ def reference(tmp_path_factory):
     """The reference's rules and meshed steps, once a session in a
     subprocess with 8 simulated host devices."""
     def compute():
-        out = tmp_path_factory.mktemp("lm_mesh") / "reference.pkl"
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                   JAX_PLATFORMS="cpu",
-                   XLA_FLAGS="--xla_force_host_platform_device_count=8")
-        res = subprocess.run([sys.executable, "-c", _REFERENCE, str(out)],
-                             env=env, capture_output=True, text=True,
-                             timeout=900)
-        assert "REFERENCE_OK" in res.stdout, (res.stdout[-2000:]
-                                              + res.stderr[-4000:])
-        with open(out, "rb") as f:
-            return pickle.load(f)
+        return run_reference(tmp_path_factory.mktemp("lm_mesh")
+                             / "reference.pkl")
 
     return cases.once_per_session(tmp_path_factory, "lm_mesh_reference",
                                   compute)
 
 
-def _weights(arch: str) -> dict:
+def _weights(arch: str, seed: int = WEIGHT_SEED) -> dict:
     """The reference's `init_model` tree of reduced `arch` (float32), as
     numpy: the weights every side of these tests holds."""
     cfg = dataclasses.replace(r_configs.get_config(arch).reduced(),
-                              dtype="float32")
+                              dtype="float32", param_dtype="float32")
     return jax.tree.map(np.asarray, r_tfm.init_model(
-        jax.random.PRNGKey(WEIGHT_SEED), cfg))
+        jax.random.PRNGKey(seed), cfg))
 
 
 @pytest.fixture(scope="module")
@@ -397,6 +405,16 @@ def _gap(a, b) -> float:
                         - np.asarray(b, np.float64)).max())
 
 
+def one_process_bound(k: str, r_mesh, r_one) -> float:
+    """The bound on quantity k's gap of the port's meshed step from its
+    one-process step: the larger of 1e-5 of its scale (`CANCEL_RTOL` for
+    a cancelling leaf) and the reference's own meshed-against-unsharded
+    gap."""
+    cancel = k.rsplit("/", 1)[-1] in CANCELLING
+    return max((CANCEL_RTOL if cancel else 1e-5) * _scale(r_one),
+               _gap(r_mesh, r_one))
+
+
 def _ref_caches(tree, cfg, i) -> dict:
     """Layer i's caches from the reference's stacked tree."""
     period = len(cfg.pattern)
@@ -454,8 +472,7 @@ def test_mesh_steps_hold_against_single_process_and_reference(
     for k in mesh:
         scale = _scale(r_one[k])
         cancel = k.rsplit("/", 1)[-1] in CANCELLING
-        bound = max((CANCEL_RTOL if cancel else 1e-5) * scale,
-                    _gap(r_mesh[k], r_one[k]))
+        bound = one_process_bound(k, r_mesh[k], r_one[k])
         assert _gap(mesh[k], one[k]) <= bound, (k, _gap(mesh[k], one[k]),
                                                 bound)
         # where the reference's mesh moves further from its own unsharded
@@ -550,10 +567,8 @@ def _part(name: str) -> str:
 
 def _split_by_rule(cfg, name: str, spec) -> bool:
     """Whether a block leaf is computed split: the rules name the model
-    axis in its spec, and it is an attention mixer's or an FFN's leaf."""
-    kind = cfg.pattern[int(name.split(".")[1]) % len(cfg.pattern)]
-    return "model" in spec and (_part(name) != "core"
-                                or kind in t_tfm.ATTN_KINDS)
+    axis in its spec (every mixer's and FFN's split leaves are)."""
+    return "model" in spec
 
 
 # the split block leaves of full-width yi-9b: 32 query heads and d_ff
@@ -565,17 +580,18 @@ YI_SPLIT = {(2, 4): {"core.wq", "core.wk", "core.wv", "core.wo", "ffn.wg",
 
 @pytest.mark.parametrize("shape", [(2, 4), (16, 16)])
 @pytest.mark.parametrize("arch", ["yi-9b", "qwen2-moe-a2.7b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "xlstm-350m"])
 def test_a_rank_gathers_its_model_share_of_each_split_leaf(arch, shape):
     """Shape only, at full width: `Plan.block` of every slot of the
     pattern keeps a leaf split over the model axis exactly where the
-    reference's rules (`sharding.param_spec`) split it in an attention
-    mixer or an FFN (the MoE experts' hidden dim and the shared experts'
-    d_ff included), and a rank's gathered bytes of such a leaf are the
-    whole leaf's divided by the model axis; every other block leaf (the
-    norms, the router, Mamba's mixer, K/V projections whose heads do
-    not divide the axis) is whole.  The block's `ModelSplit` names the
-    parts those leaves belong to."""
+    reference's rules (`sharding.param_spec`) split it (attention heads,
+    Mamba's d_inner, the xLSTM mixers' heads, head dims and output
+    columns, the MoE experts' hidden dim, the dense and shared experts'
+    d_ff), and a rank's gathered bytes of such a leaf are the whole
+    leaf's divided by the model axis; every other block leaf (the norms,
+    the router, the mLSTM gates, xlstm-350m's 4 mLSTM heads on 16 ranks,
+    K/V projections whose heads do not divide the axis) is whole.  The
+    block's `ModelSplit` names the parts those leaves belong to."""
     cfg = t_configs.get_config(arch)
     plan, whole = _plan(cfg, shape)
     for i in range(len(cfg.pattern)):
@@ -594,27 +610,54 @@ def test_a_rank_gathers_its_model_share_of_each_split_leaf(arch, shape):
             _part(n) for n in split_names}, i
         if arch == "yi-9b":
             assert {n[len(prefix):] for n in split_names} == YI_SPLIT[shape]
-    if arch == "jamba-1.5-large-398b":  # Mamba mixers stay whole
+    if arch == "jamba-1.5-large-398b":  # Mamba's channels split
         mamba = cfg.pattern.index("mamba")
-        assert "core" not in plan.split(mamba).parts
+        assert "core" in plan.split(mamba).parts
+
+
+def _model_sums(cfg, plan, step: str) -> int:
+    """The all-reduces over the model axis a prefill or a decode step
+    makes: the embedding's sum, and each layer's split parts' (an FFN
+    part one; attention's `wo` sum, and in decode its sequence-split
+    output's; Mamba's x_proj and out_proj sums; an mLSTM's decode
+    readout over its split key dim; none for an sLSTM, whose split
+    recurrence and output gather)."""
+    n = 1
+    for i in range(cfg.n_layers):
+        split = plan.split(i)
+        if split is None:
+            continue
+        n += len(split.parts - {"core"})
+        if "core" not in split.parts:
+            continue
+        kind = cfg.pattern[i % len(cfg.pattern)]
+        if kind in t_tfm.ATTN_KINDS:
+            n += 1 + (step == "decode")
+        elif kind == "mamba":
+            n += 2
+        elif kind == "mlstm":
+            n += step == "decode"
+    return n
 
 
 @pytest.mark.parametrize("arch", cases.LM_ARCHS)
 def test_split_leaves_are_not_gathered_over_the_model_axis(ranks, arch):
     """Counted on every (2, 4) rank's `Comm`, in the prefill, the decode
-    steps and a train step's gradient pass: no leaf of a split part
-    (attention, MLP, MoE experts, shared experts) is all-gathered over
-    the model axis, while every other block leaf the rules split over it
-    (the xLSTM mixers') still is; the model axis's all-reduces are the
-    embedding's sum and one sum per split part of each layer, in the
-    prefill and in each decode step, and at least the forward's and the
-    backward's of each part in training."""
+    steps and a train step's gradient pass: no block leaf the rules
+    split over the model axis (attention, Mamba and xLSTM mixers, MLP,
+    MoE experts, shared experts) is all-gathered over it, and the model
+    axis's all-reduces are the embedding's sum and the sums each split
+    part of each layer needs (`_model_sums`), in the prefill and in each
+    decode step, and at least the forward's and the backward's of each
+    part in training."""
     cfg = cases.lm_cfg(arch)
     plan, _ = _plan(cfg, (2, 4))
     parts = sum(len(s.parts) for s in map(plan.split, range(cfg.n_layers))
                 if s is not None)
-    assert parts == {"yi-9b": 4, "qwen2-moe-a2.7b": 6, "xlstm-350m": 0}[arch]
-    want = {"prefill": 1 + parts, "decode": cases.LM_GEN * (1 + parts)}
+    assert parts == {"yi-9b": 4, "qwen2-moe-a2.7b": 6, "xlstm-350m": 8,
+                     "jamba-1.5-large-398b": 16}[arch]
+    want = {"prefill": _model_sums(cfg, plan, "prefill"),
+            "decode": cases.LM_GEN * _model_sums(cfg, plan, "decode")}
     for r in ranks["2x4"]:
         for step, rec in r[arch]["comm"].items():
             blocks = {n: a for n, a in rec["leaf_axes"].items()
@@ -631,6 +674,33 @@ def test_split_leaves_are_not_gathered_over_the_model_axis(ranks, arch):
                 assert got == want[step], (step, got, want[step])
             else:
                 assert got >= 2 * parts + 1, (step, got)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "jamba-1.5-large-398b"])
+def test_decode_moves_no_cache_over_the_model_axis(arch):
+    """Shape only, reduced, on (2, 4): a decode step whose K/V caches are
+    split by sequence over the model axis (32 or 64 slots, 8 or 16 a
+    rank) moves the same bytes over that axis at either length (every
+    query head's queries, the ranks' per-query (max, sum) pairs and
+    partial outputs: no cache slot crosses it), where gathering the
+    cache's sequence would double them."""
+    from repro_torch.launch import dryrun
+
+    cfg = t_configs.get_config(arch).reduced()
+    mesh = mesh_mod.AbstractMesh((2, 4), ("data", "model"))
+    got = {}
+    for seq in (32, 64):
+        fn, args, _, _ = dryrun.cell_inputs(cfg, "decode", seq, 8, mesh)
+        attn = [i for i in range(cfg.n_layers)
+                if cfg.pattern[i % len(cfg.pattern)] == "attn"]
+        _, cspecs = t_steps.make_serve_step(cfg, mesh)(args[2], 8)
+        assert attn and all(cspecs[i]["k"][1] == "model" for i in attn)
+        with dryrun.shape_only_paths():
+            fn(*args)
+        got[seq] = {k: v for k, v in fn.comm.axis_bytes.items()
+                    if k.endswith("over model")}
+        assert got[seq].get("all-gather over model", 0) > 0
+    assert got[32] == got[64]
 
 
 def test_kv_projections_read_in_part_get_whole_gradients(ranks, single):

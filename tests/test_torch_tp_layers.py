@@ -5,6 +5,16 @@ process: every model rank's slice run in turn through a stand-in of
 partial outputs and input gradients summed, against the one-device layer
 (float32, within 1e-5 of each quantity's scale).
 
+The recurrent mixers (`ssm.mamba_apply`/`mamba_decode`,
+`xlstm.mlstm_*`, `xlstm.slstm_*`) and decode attention over a cache
+split by sequence (`collectives.SeqSplit`) exchange values between the
+ranks mid-layer, so their ranks run at once, one thread each, on the
+real `ModelSplit` and its autograd functions over a model axis whose
+collectives meet at a barrier (`ThreadComm`): every rank's output and
+input gradient, the split leaves' gradients put together and the whole
+leaves' summed over the ranks, and the states' blocks against the
+one-device layer's.
+
 The head geometries cover the configs' cases and one none of them has:
 KV heads split with their query groups (yi-9b, qwen2-moe on (2, 4)),
 KV heads replicated with each rank's query heads inside one group
@@ -17,14 +27,16 @@ one-device K/V.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import threading
 
 import pytest
 import torch
 
 from repro_torch import configs as t_configs
 from repro_torch.launch import collectives
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm, xlstm
 
 RTOL = 1e-5
 
@@ -278,3 +290,354 @@ def test_a_16_bit_partial_product_is_float32_with_the_16_bit_backward():
             assert float((got.float() - ref.float()).abs().max()) <= \
                 1e-2 * float(ref.float().abs().max())
 
+
+
+# ---------------------------------------------------------------------------
+# mixers whose ranks exchange values mid-layer: one thread a rank
+# ---------------------------------------------------------------------------
+
+
+class _Hub:
+    """Where a model axis's threads meet: each collective hands in one
+    value a rank and reads every rank's (a barrier on each side)."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.barrier = threading.Barrier(size, timeout=120)
+        self.slots = [None] * size
+
+    def meet(self, r: int, value):
+        self.slots[r] = value
+        self.barrier.wait()
+        out = list(self.slots)
+        self.barrier.wait()
+        return out
+
+
+class ThreadComm:
+    """The collectives of model rank `index` of a `_Hub`'s axis, as
+    `collectives.Comm` offers them to `ModelSplit` and `SeqSplit`: the
+    sums add the ranks' terms in rank order."""
+
+    def __init__(self, hub: _Hub, index: int):
+        self.hub, self.tp, self.dp = hub, "model", ()
+        self.sizes, self.coords = {"model": hub.size}, {"model": index}
+
+    def _meet(self, value):
+        return self.hub.meet(self.coords["model"], value)
+
+    def all_reduce(self, t, axes):
+        parts = self._meet(t)
+        out = parts[0]
+        for q in parts[1:]:
+            out = out + q
+        return out
+
+    def all_gather(self, t, dim, axes):
+        return torch.cat(self._meet(t), dim)
+
+    def all_to_all(self, parts, shapes, axis):
+        sent = self._meet(parts)
+        r = self.coords["model"]
+        return [sent[q][r].reshape(shapes[q]) for q in range(self.hub.size)]
+
+
+def _on_ranks(size: int, fn) -> list:
+    """fn(tp) on `size` threads, tp rank r's `ModelSplit` (its "core"
+    part) over a `ThreadComm`; every rank's result, in rank order."""
+    hub = _Hub(size)
+
+    def run(r):
+        try:
+            return fn(collectives.ModelSplit(ThreadComm(hub, r), {"core"}))
+        except BaseException:
+            hub.barrier.abort()
+            raise
+
+    with concurrent.futures.ThreadPoolExecutor(size) as pool:
+        return [f.result() for f in [pool.submit(run, r)
+                                     for r in range(size)]]
+
+
+def _leaves(p) -> dict:
+    return {n: t.detach().clone() for n, t in dict(
+        p.named_parameters() if hasattr(p, "named_parameters") else p
+    ).items()}
+
+
+def _blocks(t, dim, size):
+    return list(t.chunk(size, dim))
+
+
+# the mLSTM input-gate bias: the output is invariant to a shift of every
+# input-gate logit, so its gradient is a cancelling sum of large terms
+# (tests/test_torch_train.py BI_RTOL)
+CANCEL_RTOL = {"bi": 0.1}
+
+
+def _check_ranks(results, want_out, want_dx, want_grads, cut, whole):
+    """Every rank's output and input gradient against the one-device
+    layer's; each leaf in `cut` ({name: dim}) put together from the
+    ranks' blocks, each in `whole` summed over the ranks."""
+    for r in results:
+        _close(r["out"], want_out)
+        _close(r["dx"], want_dx)
+    for n, dim in cut.items():
+        _close(torch.cat([r["grads"][n] for r in results], dim),
+               want_grads[n])
+    for n in whole:
+        got, want = sum(r["grads"][n] for r in results), want_grads[n]
+        scale = float(want.abs().max()) or 1.0
+        assert float((got - want).abs().max()) <= CANCEL_RTOL.get(
+            n, RTOL) * scale, n
+
+
+def _mamba_cfg():
+    return dataclasses.replace(
+        t_configs.get_config("jamba-1.5-large-398b").reduced(),
+        dtype="float32")
+
+
+# Mamba leaves split by the rules: (dim, of the 2 d_inner columns)
+_MAMBA_CUT = {"conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_proj": 1,
+              "dt_bias": 0, "a_log": 0, "d_skip": 0, "out_proj": 0}
+
+
+def _mamba_rank(p: dict, tp) -> dict:
+    out = {n: _blocks(t, _MAMBA_CUT[n], tp.size)[tp.index]
+           for n, t in p.items() if n in _MAMBA_CUT}
+    out["in_proj"] = _blocks(p["in_proj"], 1, tp.size)[tp.index]
+    return out
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_mamba_ranks_match_the_one_device_mixer(size):
+    """Reduced jamba's Mamba mixer (d_inner 128) over 2 and 4 ranks, each
+    its d_inner channels: in_proj's column blocks exchanged into each
+    rank's x and z channels, x_proj's and out_proj's row-split products
+    summed; forward, backward, the prefill state's channel blocks, and
+    one decode step from them."""
+    cfg = _mamba_cfg()
+    gen = torch.Generator().manual_seed(5)
+    p = _leaves(ssm.init_mamba(gen, cfg, torch.device("cpu")))
+    p["dt_bias"] = torch.randn(p["dt_bias"].shape, generator=gen) - 4.0
+    b, s = 2, 6
+    x = torch.randn((b, s, cfg.d_model), generator=gen)
+    x1 = torch.randn((b, 1, cfg.d_model), generator=gen)
+    dy = torch.randn(x.shape, generator=gen)
+    one = {n: t.clone().requires_grad_(True) for n, t in p.items()}
+    xw = x.clone().requires_grad_(True)
+    want, state = ssm.mamba_apply(one, xw, cfg)
+    want.backward(dy)
+    state = {n: t.detach() for n, t in state.items()}
+    want_dec, want_state = ssm.mamba_decode(
+        p, x1, {n: t.clone() for n, t in state.items()}, cfg)
+
+    def rank(tp):
+        leaves = {n: t.clone().requires_grad_(True)
+                  for n, t in _mamba_rank(p, tp).items()}
+        xr = x.clone().requires_grad_(True)
+        out, st = ssm.mamba_apply(leaves, xr, cfg, tp=tp)
+        out.backward(dy)
+        mine = {"conv": _blocks(state["conv"], 2, tp.size)[tp.index].clone(),
+                "ssm": _blocks(state["ssm"], 1, tp.size)[tp.index].clone()}
+        with torch.no_grad():
+            dec, mine = ssm.mamba_decode(_mamba_rank(p, tp), x1, mine, cfg,
+                                         tp=tp)
+        return {"out": out.detach(), "dx": xr.grad, "state": st,
+                "grads": {n: t.grad for n, t in leaves.items()},
+                "dec": dec, "dec_state": mine}
+
+    res = _on_ranks(size, rank)
+    _check_ranks(res, want.detach(), xw.grad,
+                 {n: t.grad for n, t in one.items()},
+                 dict(_MAMBA_CUT, in_proj=1), ())
+    for n, dim in (("conv", 2), ("ssm", 1)):
+        _close(torch.cat([r["state"][n].detach() for r in res], dim),
+               state[n])
+        _close(torch.cat([r["dec_state"][n] for r in res], dim),
+               want_state[n])
+    for r in res:
+        _close(r["dec"], want_dec)
+
+
+def _xlstm_cfg(d=None):
+    cfg = dataclasses.replace(t_configs.get_config("xlstm-350m").reduced(),
+                              dtype="float32")
+    return cfg if d is None else dataclasses.replace(cfg, d_model=d,
+                                                     head_dim=d // cfg.n_heads)
+
+
+@pytest.mark.parametrize("size", [4, 8])
+def test_mlstm_ranks_match_the_one_device_mixer(size):
+    """Reduced xlstm's mLSTM (4 heads of 16) over 4 ranks, a head each,
+    and over 8, where the heads do not split and every rank runs every
+    head: the rank's output columns of wo_gate and out; forward,
+    backward, the prefill state as the rank stores it (C's and n's
+    key-dim block, m whole: `xlstm.mlstm_stored`), and one decode step
+    on it (the readout's sums over the split key dim)."""
+    cfg = _xlstm_cfg()
+    gen = torch.Generator().manual_seed(6)
+    p = _leaves(xlstm.init_mlstm(gen, cfg, torch.device("cpu")))
+    p["bi"] = torch.randn(p["bi"].shape, generator=gen)
+    b, s = 2, 8
+    x = torch.randn((b, s, cfg.d_model), generator=gen)
+    x1 = torch.randn((b, 1, cfg.d_model), generator=gen)
+    dy = torch.randn(x.shape, generator=gen)
+    one = {n: t.clone().requires_grad_(True) for n, t in p.items()}
+    xw = x.clone().requires_grad_(True)
+    want, state = xlstm.mlstm_apply(one, xw, cfg)
+    want.backward(dy)
+    state = {n: t.detach() for n, t in state.items()}
+    want_dec, want_state = xlstm.mlstm_decode(
+        p, x1, {n: t.clone() for n, t in state.items()}, cfg)
+    heads = cfg.n_heads % size == 0
+    cut = {"wo_gate": 1, "out": 1}
+    if heads:
+        cut.update(wq=1, wk=1, wv=1)
+
+    def stored(st, tp):
+        k = lambda t: _blocks(t, -1, tp.size)[tp.index].clone()
+        return {"C": k(st["C"]), "n": k(st["n"]), "m": st["m"].clone()}
+
+    def rank(tp):
+        mine = {n: (_blocks(t, cut[n], tp.size)[tp.index] if n in cut else t)
+                for n, t in p.items()}
+        leaves = {n: t.clone().requires_grad_(True) for n, t in mine.items()}
+        xr = x.clone().requires_grad_(True)
+        out, st = xlstm.mlstm_apply(leaves, xr, cfg, tp=tp)
+        out.backward(dy)
+        with torch.no_grad():
+            st = xlstm.mlstm_stored({n: t.detach() for n, t in st.items()},
+                                    cfg, tp)
+            dec, dst = xlstm.mlstm_decode(mine, x1, stored(state, tp), cfg,
+                                          tp=tp)
+        return {"out": out.detach(), "dx": xr.grad, "state": st,
+                "grads": {n: t.grad for n, t in leaves.items()},
+                "dec": dec, "dec_state": dst, "want": stored(want_state, tp),
+                "prefill": stored(state, tp)}
+
+    res = _on_ranks(size, rank)
+    _check_ranks(res, want.detach(), xw.grad,
+                 {n: t.grad for n, t in one.items()}, cut,
+                 [n for n in p if n not in cut])
+    for r in res:
+        _close(r["dec"], want_dec)
+        for n in ("C", "n", "m"):
+            _close(r["state"][n], r["prefill"][n])
+            _close(r["dec_state"][n], r["want"][n])
+
+
+@pytest.mark.parametrize("size", [4, 8])
+def test_slstm_ranks_match_the_one_device_mixer(size):
+    """Reduced xlstm's sLSTM (head dim 16) over 4 and 8 ranks: each rank
+    its head dims of w_in and of the state and r's stored rows, exchanged
+    for its output dims, h gathered every position, and its output
+    columns of `out`.  Every contraction over the split dims is taken
+    whole: forward, backward (every rank's input gradient whole, no sum),
+    the state's blocks and one decode step."""
+    cfg = _xlstm_cfg()
+    hd, h = cfg.hd, cfg.n_heads
+    gen = torch.Generator().manual_seed(7)
+    p = _leaves(xlstm.init_slstm(gen, cfg, torch.device("cpu")))
+    p["b"] = torch.randn(p["b"].shape, generator=gen)
+    b, s = 2, 5
+    x = torch.randn((b, s, cfg.d_model), generator=gen)
+    x1 = torch.randn((b, 1, cfg.d_model), generator=gen)
+    dy = torch.randn(x.shape, generator=gen)
+    one = {n: t.clone().requires_grad_(True) for n, t in p.items()}
+    xw = x.clone().requires_grad_(True)
+    want, state = xlstm.slstm_apply(one, xw, cfg)
+    want.backward(dy)
+    state = {n: t.detach() for n, t in state.items()}
+    want_dec, want_state = xlstm.slstm_decode(
+        p, x1, {n: t.clone() for n, t in state.items()}, cfg)
+
+    def rank(tp):
+        j = _blocks(torch.arange(hd), 0, tp.size)[tp.index]
+        mine = {"b": p["b"], "out": _blocks(p["out"], 1, tp.size)[tp.index],
+                "w_in": p["w_in"].view(-1, 4, h, hd)[..., j].reshape(
+                    cfg.d_model, -1),
+                "r": p["r"][:, j]}
+        leaves = {n: t.clone().requires_grad_(True) for n, t in mine.items()}
+        xr = x.clone().requires_grad_(True)
+        out, st = xlstm.slstm_apply(leaves, xr, cfg, tp=tp)
+        out.backward(dy)
+        with torch.no_grad():
+            dec, dst = xlstm.slstm_decode(
+                mine, x1, {n: t[..., j].clone() for n, t in state.items()},
+                cfg, tp=tp)
+        grads = {n: t.grad for n, t in leaves.items()}
+        full = {n: torch.zeros_like(p[n]) for n in ("w_in", "r")}
+        full["w_in"].view(-1, 4, h, hd)[..., j] = grads["w_in"].view(
+            cfg.d_model, 4, h, -1)
+        full["r"][:, j] = grads["r"]
+        grads.update(full)
+        return {"out": out.detach(), "dx": xr.grad, "j": j, "grads": grads,
+                "state": {n: t.detach() for n, t in st.items()},
+                "dec": dec, "dec_state": dst}
+
+    res = _on_ranks(size, rank)
+    _check_ranks(res, want.detach(), xw.grad,
+                 {n: t.grad for n, t in one.items()}, {"out": 1},
+                 ["b", "w_in", "r"])
+    for r in res:
+        _close(r["dec"], want_dec)
+        for n in ("c", "n", "h", "m"):
+            _close(r["state"][n], state[n][..., r["j"]])
+            _close(r["dec_state"][n], want_state[n][..., r["j"]])
+
+
+# (kind, cache slots, position of the new token, model axis)
+SEQ_CASES = {
+    "attn_divides": ("attn", 8, 2, 4),
+    "attn_late": ("attn", 8, 7, 2),
+    "attn_does_not_divide": ("attn", 9, 5, 4),
+    "ring_divides": ("attn_chunked", 4, 6, 4),
+    "ring_does_not_divide": ("attn_chunked", 6, 9, 4),
+}
+
+
+@pytest.mark.parametrize("geometry", ["kv_split", "kv_replicated",
+                                      "padded_gqa", "straddling_groups"])
+@pytest.mark.parametrize("case", list(SEQ_CASES))
+def test_decode_attention_over_a_sequence_split_cache(case, geometry):
+    """One decode step with every rank's heads, the cache split by
+    sequence (each rank its block of slots, `collectives.SeqSplit`)
+    where the length divides the axis and whole on every rank where it
+    does not (the rules' layouts): every rank's output and its block of
+    the written cache equal the one-device step's.  Shards holding no
+    valid slot (an early position, a ring's other window) add nothing."""
+    kind, s_max, pos, size = SEQ_CASES[case]
+    heads, kv, pad, _ = GEOMETRIES[geometry]
+    cfg = _cfg(heads, kv, pad)
+    if kind == "attn_chunked":
+        cfg = dataclasses.replace(cfg, chunk_size=s_max)
+    gen = torch.Generator().manual_seed(8)
+    p = _attention_weights(cfg, gen)
+    b = 2
+    kvp = layers.head_geometry(cfg)[1]
+    cache = {n: torch.randn((b, s_max, kvp, cfg.hd), generator=gen)
+             for n in ("k", "v")}
+    x = torch.randn((b, 1, cfg.d_model), generator=gen)
+    want, want_cache = layers.attention_decode(
+        p, x, {n: t.clone() for n, t in cache.items()}, pos, cfg, kind=kind)
+    split = s_max % size == 0
+
+    def rank(tp):
+        n = s_max // size
+        lo = tp.index * n if split else 0
+        mine = {k: (t[:, lo:lo + n] if split else t).clone()
+                for k, t in cache.items()}
+        seq = collectives.SeqSplit(tp.comm, ("model",), lo, s_max) \
+            if split else None
+        out, mine = layers.attention_decode(
+            _rank_attention(p, cfg, tp), x, mine, pos, cfg, kind=kind,
+            tp=tp, seq=seq)
+        return {"out": out, "cache": mine, "lo": lo}
+
+    for r in _on_ranks(size, rank):
+        _close(r["out"], want)
+        for n in ("k", "v"):
+            got = r["cache"][n]
+            _close(got, want_cache[n][:, r["lo"]:r["lo"] + got.shape[1]])

@@ -173,18 +173,25 @@ def once_per_session(tmp_path_factory, name: str, compute):
 # reference's weights; every rank returns whole tensors
 # ---------------------------------------------------------------------------
 
-LM_ARCHS = ("yi-9b", "qwen2-moe-a2.7b", "xlstm-350m")
+LM_ARCHS = ("yi-9b", "qwen2-moe-a2.7b", "xlstm-350m", "jamba-1.5-large-398b")
 LM_B, LM_S0, LM_GEN, LM_SEQ = 8, 16, 3, 16
+# decode's K/V cache slots: a multiple of the (2, 4) mesh's model axis, so
+# that the cache is split by sequence there (6 slots a rank: the last
+# rank holds no valid slot until the third decode step)
+LM_CACHE = 24
 LM_KEY = 5
 
 
 def lm_cfg(arch: str):
+    """Reduced `arch` computing and holding its leaves in float32 (jamba's
+    config holds bf16 leaves, and a bf16 gradient turns float32 rounding
+    into whole bf16 steps, which no float32 bound holds)."""
     import dataclasses
 
     from repro_torch import configs as t_configs
 
     return dataclasses.replace(t_configs.get_config(arch).reduced(),
-                               dtype="float32")
+                               dtype="float32", param_dtype="float32")
 
 
 def lm_inputs(vocab: int, seed: int = 0) -> dict:
@@ -216,7 +223,8 @@ def comm_record(comm) -> dict:
 
 def lm_serve(cfg, model, inputs, mesh=None) -> dict:
     """Prefill logits and caches, then GEN teacher-forced decode steps
-    with the KY sampler: each step's logits and tokens (whole); on a
+    (the attention caches grown to LM_CACHE slots) with the KY sampler:
+    each step's logits and tokens (whole); on a
     mesh, the prefill's and the decode steps' collectives
     (`comm_record`)."""
     from repro_torch import prng
@@ -236,7 +244,7 @@ def lm_serve(cfg, model, inputs, mesh=None) -> dict:
     out = {"prefill_logits": logits,
            "prefill_caches": [{n: t.clone() for n, t in c.items()}
                               for c in caches]}
-    caches = tfm.grow_attn_caches(caches, cfg, LM_GEN)
+    caches = tfm.grow_attn_caches(caches, cfg, LM_CACHE - LM_S0)
     if mesh is not None:
         serve, _ = steps.make_serve_step(cfg, mesh, sampler="ky")(caches,
                                                                   LM_B)
