@@ -206,10 +206,11 @@ each printing one JSON line; any failure raises and exits non-zero:
               wall with profiling on and off, medians of 3 runs.
 16. serve_lm (after profile, before `timing`) — LM serving at yi-9b's
               full width (d 4,096; its 48 layers cut to LM_SERVE_LAYERS'
-              16, printed; bf16, random weights from a seeded
+              8, printed; bf16, random weights from a seeded
               generator): caches freed,
               then 8 prompts of 128 tokens (seeded) through
-              `launch.serve.generate(..., 32, sampler="ky")` after a
+              `launch.serve.generate(..., 16, sampler="ky")` (LM_GEN, cut
+              from 32, printed) after a
               warm-up, counters zeroed before and read after: K1 launched
               3 times (the tree's levels, 128 bins each) and K2 once per
               token, nothing else, and no word made in plain torch.  Every
@@ -217,10 +218,10 @@ each printing one JSON line; any failure raises and exits non-zero:
               `steps.make_serve_step` give the same tokens, each equal to
               the twin's draw (`ky_token_sample` on the CPU) on the same
               float32 logits and key; the last step's logits within 5% of
-              the largest |logit| of a full forward over the 160 tokens
+              the largest |logit| of a full forward over the 144 tokens
               (bf16); greedy decoding twice gives equal tokens.  Then
               (timing_serve_lm) prefill of 8 x 128 tokens and decode per
-              token (medians over the 31 steps, CUDA events) beside their
+              token (medians over the 15 steps, CUDA events) beside their
               bounds (bf16 operations at 989 TFLOP/s; bytes at 3.35 TB/s),
               a step split into the model and the draw with the card's
               busy share, the draw beside `torch.multinomial(softmax)`,
@@ -228,9 +229,9 @@ each printing one JSON line; any failure raises and exits non-zero:
               their twins and bounds: the kernels line's token-draw rows.
               The model is freed and the serve CLI runs in a subprocess
               (`python -m repro_torch.launch.serve --arch yi-9b --batch 8
-              --prompt-len 128 --gen 32 --sampler ky`), which must exit 0.
+              --prompt-len 128 --gen 16 --sampler ky`), which must exit 0.
 17. serve_lm_moe — the same run, checks and timings for qwen2-moe-a2.7b
-              at full width (12 of its 24 layers, LM_SERVE_LAYERS; d 2,048,
+              at full width (6 of its 24 layers, LM_SERVE_LAYERS; d 2,048,
               16 heads of 128 with qkv bias, 60 experts top-4 at 1,408 and
               a shared 5,632; the whole stack 14.3 B parameters, 28.6 GB
               in bf16; vocabulary 151,936: 3 K1 launches a token).  Prefill routes each row as a group
@@ -239,7 +240,7 @@ each printing one JSON line; any failure raises and exits non-zero:
               prefill, each decode step and the forward are printed, and
               decode against forward holds the rows that dropped none.
               The bounds count every expert's slots (`lm_expert_macs`).
-18. serve_lm_xlstm — the same for xlstm-350m at full width (8 of 24
+18. serve_lm_xlstm — the same for xlstm-350m at full width (4 of 24
               layers, d 1,024, mLSTM:sLSTM 3:1, vocabulary 50,304: 3 K1 launches a
               token; the recurrent states are the caches), decode against
               forward within 10% (its exponential gates amplify bf16
@@ -320,23 +321,44 @@ each printing one JSON line; any failure raises and exits non-zero:
               collectives' host ms and result bytes a token by op and
               axis and by axis, a decode step's by axis, and the
               resident bytes.
-25. train_lm_mesh (after train_block) — LM training over the mesh:
-              yi-9b at full width cut to 2 of 48 layers, float32 leaves,
-              B 8 x S 512 `SyntheticLM`, 3 AdamW steps on the NCCL world
-              (whose rank 0 then runs the one-process reference) and the
-              (2, 4) gloo world, under deterministic algorithms: the same
-              losses on every rank, falling; in the gloo world, before
-              the last step a checkpoint of block 0 and the final norm
-              with their moments (every rank sends its shards to rank 0,
-              which writes them whole), those zeroed and restored from it
-              bit for bit, the last step run from them; ranks holding the
-              same block of a leaf hold the same bytes; step 0's loss and
-              gradient norm within LM_MESH_LOSS_RTOL and
-              LM_MESH_GNORM_RTOL of the one-process run's, and each
-              leaf's update within LM_MESH_UPDATE_RTOL of the norm of the
-              one-process update (bit-equal on the NCCL 1 x 1 world);
-              each step's wall, collective ms and each rank's collective
-              bytes by op and axis, and the resident bytes, printed.
+25. train_lm_mesh (after train_block) — LM training over the mesh at
+              full width with depth cut, float32 leaves, under
+              deterministic algorithms, on the NCCL world (whose rank 0
+              first runs each one-process reference) and the (2, 4) gloo
+              world: yi-9b 2 of 48 layers, B 8 x S 512 `SyntheticLM`, 3
+              AdamW steps; then the models whose recurrent mixers split
+              over "model" (Mamba by channel, mLSTM by head, sLSTM by
+              head dim), one AdamW step each on B 8 x S 128:
+              xlstm-350m 4 of 24 layers (three mLSTM and an sLSTM) and
+              jamba-1.5-large-398b 1 of 72 (a Mamba mixer and the dense
+              FFN; 2.1 G leaves, built by the gloo ranks in turns); each
+              cut printed.  For each model: the same losses on every
+              rank (yi-9b's falling); in the gloo world, before yi-9b's
+              last step a checkpoint of block 0 and the final norm with
+              their moments (every rank sends its shards to rank 0,
+              which writes them whole), those zeroed and restored from
+              it bit for bit, the last step run from them; ranks holding
+              the same block of a leaf hold the same bytes; a rank's
+              leaves take its shards' bytes; step 0's loss within
+              LM_MESH_LOSS_RTOL (yi-9b, 5e-5) or LM_MESH_LOSS_RTOL_BY_ARCH
+              (xlstm-350m and jamba 1e-4, each between its sound gap and
+              a fault planted in its split region) and its gradient norm
+              within LM_MESH_GNORM_RTOL (1e-3; xlstm-350m 1e-2,
+              LM_MESH_GNORM_RTOL_BY_ARCH) of the one-process run's, and
+              each leaf's update within LM_MESH_UPDATE_RTOL (0.25)
+              of the norm of the one-process update (bit-equal on the
+              NCCL 1 x 1 world); each step's wall, collective ms and
+              each rank's collective bytes by op and axis, and the
+              resident bytes, printed.
+26. examples (after train_lm_mesh) — the port's four examples
+              (`examples/torch_quickstart.py`, `torch_mrf_denoise.py`,
+              `torch_serve_lm.py`, `torch_train_lm.py`, the reference's
+              four with the same arguments and checks) on the card at
+              their smallest arguments (EXAMPLES), as subprocesses
+              started together: each exits 0 and prints its check
+              (TVD < 0.05; the denoised error below the noisy one; each
+              sampler's line; the loss fell) and "OK", the four within
+              60 s; their seconds on a phase_seconds line.
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device,
 or run from a directory that lacks the port's sources, it prints no result
@@ -460,6 +482,7 @@ def main() -> int:
     timed(phase_train_lm, torch)
     timed(phase_train_block, torch)
     timed(phase_train_lm_mesh, torch)
+    timed(phase_examples, torch)
     timed(phase_timing, torch, launches, k3_err, mrf_launches, k4_err,
           sharded_launches, k5_err, k6_err, per_call, k1_ptxas, runtime,
           lanes_err, counts, lm_rows)
@@ -3423,7 +3446,11 @@ LM_XLSTM_ARCH = "xlstm-350m"  # mLSTM:sLSTM 3:1, 0.23 B parameters
 # Mamba + attention + MoE on every other layer; 398.6 B parameters do not
 # fit one card, so it serves at reduced() (nothing sharded yet)
 LM_HYBRID_ARCH = "jamba-1.5-large-398b"
-LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 16
+# tokens the one-card serving phases generate (printed with each phase's
+# cut), cut from 32 when train_lm_mesh came to train three models and the
+# examples joined: a whole run passed 1,100 s
+LM_GEN_CUT = "32 -> 16"
 # the one-card serving phases' depth, full widths (printed), cut to keep
 # chip_smoke within its time with the LM mesh's phases (a whole run took
 # up to 1,187 s of its 1,200 with qwen2-moe-a2.7b's 24 layers, and 1,130 s
@@ -3648,7 +3675,8 @@ def _serve_cut(arch: str, phase: str):
 
     full = get_config(arch)
     emit({"phase": f"{phase}_cut", "arch": arch, "widths": "full",
-          "layers": f"{LM_SERVE_LAYERS[arch]} of {full.n_layers}"})
+          "layers": f"{LM_SERVE_LAYERS[arch]} of {full.n_layers}",
+          "gen": LM_GEN, "gen_cut": LM_GEN_CUT})
     return dataclasses.replace(full, n_layers=LM_SERVE_LAYERS[arch])
 
 
@@ -3680,6 +3708,8 @@ def phase_serve_lm_hybrid(torch, per_call: dict) -> list:
     from repro_torch.configs import get_config
 
     _free(torch)
+    emit({"phase": "serve_lm_hybrid_cut", "arch": LM_HYBRID_ARCH,
+          "widths": "reduced()", "gen": LM_GEN, "gen_cut": LM_GEN_CUT})
     rows = _serve_lm(torch, per_call, get_config(LM_HYBRID_ARCH).reduced(),
                      "serve_lm_hybrid")
     _free(torch)
@@ -4466,22 +4496,45 @@ def _train_cli_resume(torch) -> None:
     runs = {"first": ["--steps", "4", "--ckpt-every", "2"],
             "resumed": ["--steps", "6", "--ckpt-every", "2", "--resume"],
             "whole": ["--steps", "6", "--ckpt-every", "2"]}
-    out = {}
-    for name, extra in runs.items():
+
+    def cmd(name):
         d = base / ("whole" if name == "whole" else "split")
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", *common,
-               *extra, "--ckpt-dir", str(d), "--metrics-out",
-               str(d) + ".jsonl"]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True, timeout=600)
-        out[name] = {"rc": res.returncode, "s": time.perf_counter() - t0,
-                     "tail": res.stdout.splitlines()[-2:]}
-        check(res.returncode == 0, f"train CLI ({name}) exited "
-              f"{res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
-        if name == "resumed":
-            check("[train] resumed from step 4" in res.stdout,
-                  f"train CLI: no resume: {res.stdout[-1000:]}")
+        return [sys.executable, "-m", "repro_torch.launch.train", *common,
+                *runs[name], "--ckpt-dir", str(d), "--metrics-out",
+                str(d) + ".jsonl"]
+
+    # the uninterrupted run shares nothing with the split one: it runs
+    # alongside (deterministic algorithms hold each bit for bit)
+    t_whole = time.perf_counter()
+    whole_proc = subprocess.Popen(cmd("whole"), cwd=ROOT, env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+    out = {}
+    try:
+        for name in ("first", "resumed", "whole"):
+            t0 = time.perf_counter()
+            if name == "whole":
+                stdout, stderr = whole_proc.communicate(timeout=600)
+                res = subprocess.CompletedProcess(cmd(name),
+                                                  whole_proc.returncode,
+                                                  stdout, stderr)
+                t0 = t_whole
+            else:
+                res = subprocess.run(cmd(name), cwd=ROOT, env=env,
+                                     capture_output=True, text=True,
+                                     timeout=600)
+            out[name] = {"rc": res.returncode, "s": time.perf_counter() - t0,
+                         "tail": res.stdout.splitlines()[-2:]}
+            check(res.returncode == 0, f"train CLI ({name}) exited "
+                  f"{res.returncode}: {res.stdout[-2000:]} "
+                  f"{res.stderr[-2000:]}")
+            if name == "resumed":
+                check("[train] resumed from step 4" in res.stdout,
+                      f"train CLI: no resume: {res.stdout[-1000:]}")
+    finally:
+        if whole_proc.poll() is None:  # a failed check stops it too
+            whole_proc.kill()
+            whole_proc.wait()
     read = lambda p: [json_mod.loads(ln) for ln in open(p)]
     split, whole = read(str(base / "split") + ".jsonl"), read(
         str(base / "whole") + ".jsonl")
@@ -4510,6 +4563,18 @@ LM_MESH_GEN = 4
 LM_MESH_GEN_CUT = "8 -> 4"
 LM_MESH_TRAIN_ARCH, LM_MESH_TRAIN_LAYERS = "yi-9b", 2
 LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS = 8, 512, 3
+# the models whose recurrent mixers split over "model" (Mamba by d_inner
+# channel, mLSTM by head, sLSTM by head dim), trained at the depths
+# serve_lm_mesh serves them (xlstm-350m: one period, three mLSTM and an
+# sLSTM; jamba: a Mamba mixer and the dense FFN), float32 leaves, one
+# AdamW step each on B 8 x S 128 (the sLSTM gathers h over "model" at
+# every position, forward and backward)
+LM_MESH_TRAIN_TP = {"xlstm-350m": 4, "jamba-1.5-large-398b": 1}
+LM_MESH_TP_BATCH, LM_MESH_TP_SEQ, LM_MESH_TP_STEPS = 8, 128, 1
+# gloo ranks sharing the card build a training model past this in turns
+# (jamba's layer: 2.1 G float32 leaves, 8.4 GB; yi-9b's 2 layers, 3.5 GB,
+# at once)
+LM_MESH_TRAIN_TURN_BYTES = 2**32
 # bf16 logits of the mesh's rows (GEMMs over 4 rows, not 8) against the
 # one-process step's, teacher-forced on the same tokens: a share of the
 # largest |logit| (the decode-against-forward limit, LM_FORWARD_RTOL)
@@ -4528,7 +4593,18 @@ LM_MESH_LOGIT_RTOL = LM_FORWARD_RTOL
 # half the batch (a dropped dp sum) moves the norm by a third and the
 # updates by about their size (PERF.md, PR 24).
 LM_MESH_LOSS_RTOL = 5e-5
+# the same limit for the models of LM_MESH_TRAIN_TP, each between its
+# sound gap and the gap of a fault planted in its own split region
+# (PERF.md §6): xlstm-350m sound 1.107e-5, its sLSTM's h gathered from
+# the wrong ranks 4.41e-3; jamba with x_proj's partial sum not summed
+# over "model" 2.07e-4 (its sound gap as yi-9b's and xlstm's, ~1.5e-5)
+LM_MESH_LOSS_RTOL_BY_ARCH = {"xlstm-350m": 1e-4,
+                             "jamba-1.5-large-398b": 1e-4}
 LM_MESH_GNORM_RTOL = 1e-3
+# xlstm-350m's gradient norm: its exponential gates amplify the bf16
+# tensor-parallel step's rounding (sound 1.646e-3, the planted sLSTM
+# fault 0.0521; PERF.md §6)
+LM_MESH_GNORM_RTOL_BY_ARCH = {"xlstm-350m": 1e-2}
 LM_MESH_UPDATE_RTOL = 0.25
 # the checkpoint saved, zeroed and restored on the gloo world: block 0's
 # leaves and moments, the final norm and the step (a full-width block)
@@ -4579,6 +4655,37 @@ def _resident(torch, model, specs, cfg, mesh, base: int) -> dict:
             "spec_shard_bytes": spec_bytes}
 
 
+def _build_shards(torch, device_mesh, cfg, turn_bytes: int,
+                  train: bool = False):
+    """(the model built from the seed on the card and distributed, each
+    rank keeping its shards and the whole freed; its specs).  gloo ranks
+    sharing the card build a whole model past `turn_bytes` in turns (one
+    at a time: eight of jamba's layer and its float32 draws at once
+    passed the card's 80 GB)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    big = sum(w.numel() * w.element_size() for w in tfm.init_model(
+        cfg, device="meta", train=train).parameters()) > turn_bytes
+    turns = (dist.get_world_size()
+             if dist.get_backend() == "gloo" and big else 1)
+    rank = dist.get_rank()
+    for turn in range(turns):
+        if turn == rank % turns:
+            whole = tfm.init_model(cfg, seed=LM_SEED, device=dev,
+                                   train=train)
+            specs = sharding.param_specs(device_mesh, cfg, whole)
+            model = sharding.distribute(device_mesh, whole, specs, cfg=cfg)
+            del whole
+            _free(torch)
+        if turns > 1:
+            dist.barrier()
+    return model, specs
+
+
 def rank_lm_serve(rank, device_mesh, gloo_tokens) -> dict:
     """One rank of serve_lm_mesh, for each arch of LM_MESH_SERVE in turn:
     the model built on the card from the seed and distributed (each rank
@@ -4608,29 +4715,13 @@ def _rank_serve(torch, rank, device_mesh, cfg) -> dict:
 
     from repro_torch import prng
     from repro_torch.core.interp import build_exp_weight_lut
-    from repro_torch.launch import collectives, serve, sharding
+    from repro_torch.launch import collectives, serve
     from repro_torch.models import sampling
-    from repro_torch.models import transformer as tfm
 
     dev = torch.device("cuda", torch.cuda.current_device())
     base = _requested(torch)
-    # gloo ranks sharing the card build a whole model past 2 GB in turns
-    # (one at a time: eight of jamba's layer and its float32 draws at once
-    # passed the card's 80 GB)
     t_build = time.perf_counter()
-    big = sum(w.numel() * w.element_size() for w in tfm.init_model(
-        cfg, device="meta").parameters()) > 2**31
-    turns = (dist.get_world_size()
-             if dist.get_backend() == "gloo" and big else 1)
-    for turn in range(turns):
-        if turn == rank % turns:
-            whole = tfm.init_model(cfg, seed=LM_SEED, device=dev)
-            specs = sharding.param_specs(device_mesh, cfg, whole)
-            model = sharding.distribute(device_mesh, whole, specs, cfg=cfg)
-            del whole
-            _free(torch)
-        if turns > 1:
-            dist.barrier()
+    model, specs = _build_shards(torch, device_mesh, cfg, 2**31)
     build_s = time.perf_counter() - t_build
     mem = _resident(torch, model, specs, cfg, device_mesh, base)
     g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
@@ -4873,20 +4964,63 @@ def _full_layers(arch: str) -> int:
     return get_config(arch).n_layers
 
 
-def rank_lm_train(rank, device_mesh, single_path, ckpt_dir) -> dict:
-    """One rank of train_lm_mesh, under deterministic algorithms: yi-9b's
-    training model (float32 leaves) built on the card and distributed,
-    LM_MESH_TRAIN_STEPS AdamW steps on `SyntheticLM` batches placed on
-    the mesh; with `ckpt_dir` (the gloo world), before the last step a
-    checkpoint of LM_MESH_CKPT_LEAVES (rank 0 writes it), those leaves
-    and moments zeroed and restored from it (bit-equal to the state
-    saved), and the last step run from the restored state.  In the NCCL
-    world (`single_path` not written yet) rank 0 then runs the
-    one-process reference and writes its leaves to `single_path`; every
-    rank returns, for each leaf's block, the squared norms of its
-    difference from the one-process leaf and of the one-process update
-    (read by memory map)."""
+def lm_mesh_train_runs() -> dict:
+    """train_lm_mesh's models in order: {arch: (layers, batch, seq,
+    steps)}."""
+    runs = {LM_MESH_TRAIN_ARCH: (LM_MESH_TRAIN_LAYERS, LM_MESH_TRAIN_BATCH,
+                                 LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS)}
+    runs.update({arch: (layers, LM_MESH_TP_BATCH, LM_MESH_TP_SEQ,
+                        LM_MESH_TP_STEPS)
+                 for arch, layers in LM_MESH_TRAIN_TP.items()})
+    return runs
+
+
+def rank_lm_train(rank, device_mesh, single_dir, ckpt_dir) -> dict:
+    """One rank of train_lm_mesh, under deterministic algorithms: each
+    model of `lm_mesh_train_runs` in turn (`_rank_train`; the one-process
+    references' files in `single_dir`, yi-9b's checkpoint in `ckpt_dir`),
+    freed before the next."""
     import torch
+    import torch.distributed as dist
+
+    _deterministic(torch)
+    out = {}
+    for arch, run in lm_mesh_train_runs().items():
+        out[arch] = _rank_train(
+            torch, rank, device_mesh, arch, run,
+            os.path.join(single_dir, arch),
+            ckpt_dir if arch == LM_MESH_TRAIN_ARCH else None)
+        _free(torch)
+    dist.barrier()
+    return out
+
+
+def _mesh_train_cfg(arch: str, n_layers: int):
+    """`arch` at full width, depth cut, its leaves in float32 (jamba's
+    config holds bf16 leaves)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=n_layers,
+                               param_dtype="float32")
+
+
+def _rank_train(torch, rank, device_mesh, arch, run, single_path,
+                ckpt_dir) -> dict:
+    """`arch`'s training model (float32 leaves) built from the seed on the
+    card and distributed (`_build_shards`), then run = (layers, batch,
+    seq, steps) AdamW steps on `SyntheticLM` batches placed on the mesh;
+    with `ckpt_dir` (yi-9b, the gloo world), before the last step a
+    checkpoint of LM_MESH_CKPT_LEAVES (rank 0 writes it), those leaves and
+    moments zeroed and restored from it (bit-equal to the state saved),
+    and the last step run from the restored state.  In the NCCL world
+    (`single_path` not written yet) rank 0 first runs the one-process
+    reference and writes its leaves to `single_path` (its state freed
+    before the mesh's is built: jamba's layer with its moments is 25
+    GB); every rank returns, for each leaf's block, the squared norms of
+    its difference from the one-process leaf and of the one-process
+    update (read by memory map)."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -4895,17 +5029,19 @@ def rank_lm_train(rank, device_mesh, single_path, ckpt_dir) -> dict:
     from repro_torch.launch import train as train_lib
     from repro_torch.models import transformer as tfm
 
-    _deterministic(torch)
+    n_layers, batch_size, seq, n_steps = run
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = _mesh_cfg(torch, LM_MESH_TRAIN_ARCH, LM_MESH_TRAIN_LAYERS)
-    opt_cfg = _mesh_opt_cfg(cfg)
-    data = SyntheticLM(cfg.vocab, LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_BATCH,
-                       seed=LM_SEED)
+    cfg = _mesh_train_cfg(arch, n_layers)
+    opt_cfg = _mesh_opt_cfg(n_steps)
+    data = SyntheticLM(cfg.vocab, seq, batch_size, seed=LM_SEED)
+    if rank == 0 and not os.path.exists(single_path):
+        _train_single(torch, cfg, opt_cfg, data, n_steps, single_path)
+    dist.barrier()
     base = _requested(torch)
-    whole = tfm.init_model(cfg, seed=LM_SEED, device=dev, train=True)
-    specs = sharding.param_specs(device_mesh, cfg, whole)
-    params = sharding.distribute(device_mesh, whole, specs, cfg=cfg)
-    del whole
+    t_build = time.perf_counter()
+    params, specs = _build_shards(torch, device_mesh, cfg,
+                                  LM_MESH_TRAIN_TURN_BYTES, train=True)
+    build_s = time.perf_counter() - t_build
     mem = _resident(torch, params, specs, cfg, device_mesh, base)
     with_batch, _ = steps.make_train_step(cfg, device_mesh, opt_cfg)
     fn, bspecs = with_batch(data.batch(0))
@@ -4913,14 +5049,16 @@ def rank_lm_train(rank, device_mesh, single_path, ckpt_dir) -> dict:
     leaves = tfm.train_leaves(params, cfg)
     init = {n: sharding.local(p).detach().clone() for n, p in leaves.items()}
     state = train_lib.moments(device_mesh, leaves, opt_cfg)
-    saved = [n for n in leaves if n.startswith(LM_MESH_CKPT_LEAVES)]
-    tree = {"params": {n: leaves[n] for n in saved},
-            "opt": {"m": {n: state["m"][n] for n in saved},
-                    "v": {n: state["v"][n] for n in saved},
-                    "step": state["step"]}}
+    tree = None
+    if ckpt_dir is not None:
+        saved = [n for n in leaves if n.startswith(LM_MESH_CKPT_LEAVES)]
+        tree = {"params": {n: leaves[n] for n in saved},
+                "opt": {"m": {n: state["m"][n] for n in saved},
+                        "v": {n: state["v"][n] for n in saved},
+                        "step": state["step"]}}
     rows, restored = [], None
-    for i in range(LM_MESH_TRAIN_STEPS):
-        if ckpt_dir is not None and i == LM_MESH_TRAIN_STEPS - 1:
+    for i in range(n_steps):
+        if ckpt_dir is not None and i == n_steps - 1:
             restored = _save_zero_restore(torch, ckpt, train_lib, cfg,
                                           tree, ckpt_dir, i)
         batch = place_batch(data.batch(i), bshard, dev)
@@ -4939,9 +5077,7 @@ def rank_lm_train(rank, device_mesh, single_path, ckpt_dir) -> dict:
                      "collective_bytes": collective_bytes(
                          collectives.BYTES, b0, 1),
                      **{k: float(v) for k, v in m.items()}})
-    if rank == 0 and not os.path.exists(single_path):
-        _train_single(torch, cfg, opt_cfg, data, single_path)
-    dist.barrier()
+    del state, tree
     ref = torch.load(single_path, mmap=True, weights_only=True)
     sq, digests = {}, {}
     for n, p in leaves.items():
@@ -4953,10 +5089,12 @@ def rank_lm_train(rank, device_mesh, single_path, ckpt_dir) -> dict:
         sq[n] = (block, float((got - want).double().square().sum()),
                  float((want - init[n]).double().square().sum()))
         digests[n] = (block, _digest(got))
+        del want
     dist.barrier()
     return {"rank": rank, "coords": tuple(device_mesh.get_coordinate()),
-            "steps": rows, "restored_bit_equal": restored,
-            "update_sq": sq, "digests": digests, **mem}
+            "build_s": build_s, "steps": rows,
+            "restored_bit_equal": restored, "update_sq": sq,
+            "digests": digests, **mem}
 
 
 def _update_gaps(ranks) -> dict:
@@ -5001,17 +5139,20 @@ def _deterministic(torch) -> None:
     torch.use_deterministic_algorithms(True)
 
 
-def _mesh_opt_cfg(cfg):
-    import dataclasses
+def _mesh_opt_cfg(n_steps: int):
+    """AdamW as train_lm runs it, float32 moments (`steps.default_opt_cfg`
+    keeps bf16 moments for models past 2e11 parameters, which a cut
+    model is not, and counts a model's parameters by whole periods of
+    its pattern, which jamba's one layer is not)."""
+    from repro_torch.optim import adamw
 
-    from repro_torch.launch import steps
-
-    return dataclasses.replace(steps.default_opt_cfg(cfg), lr=TRAIN_LR,
-                               warmup_steps=TRAIN_WARMUP,
-                               total_steps=LM_MESH_TRAIN_STEPS + 1)
+    return adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                             total_steps=n_steps + 1,
+                             moment_dtype="float32")
 
 
-def _train_single(torch, cfg, opt_cfg, data, single_path) -> None:
+def _train_single(torch, cfg, opt_cfg, data, n_steps: int,
+                  single_path) -> None:
     """The one-process run train_lm_mesh holds the ranks against: the same
     model, batches and steps with mesh None; its final leaves saved to
     `single_path`, its steps beside them."""
@@ -5026,7 +5167,7 @@ def _train_single(torch, cfg, opt_cfg, data, single_path) -> None:
     state = adamw.init(leaves, opt_cfg)
     fn = steps.make_train_step(cfg, None, opt_cfg)
     rows = []
-    for i in range(LM_MESH_TRAIN_STEPS):
+    for i in range(n_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, _, m = fn(model, state, to_device(data.batch(i), dev))
@@ -5041,101 +5182,218 @@ def _train_single(torch, cfg, opt_cfg, data, single_path) -> None:
 
 
 def phase_train_lm_mesh(torch) -> None:
-    """LM training over ranks: yi-9b at full width, 2 of 48 layers,
-    float32 leaves, B 8 x S 512, 3 AdamW steps, first on an NCCL world of
-    min(cards, 4) ranks (its rank 0 then runs the one-process reference),
-    then on 8 gloo ranks sharing the card as (2, 4), which saves a
-    checkpoint before the last step and restores it."""
+    """LM training over ranks at full width with depth cut
+    (`lm_mesh_train_runs`, float32 leaves): yi-9b 2 of 48 layers, B 8 x S
+    512, 3 AdamW steps; the models whose recurrent mixers split over
+    "model", xlstm-350m 4 of 24 layers and jamba-1.5-large-398b 1 of 72,
+    B 8 x S 128, one step each.  First on an NCCL world of min(cards, 4)
+    ranks (its rank 0 first runs each one-process reference), then on 8
+    gloo ranks sharing the card as (2, 4), which saves yi-9b's checkpoint
+    before its last step and restores it."""
     import shutil
 
     from repro_torch.launch import mesh as mesh_mod
 
     card = nvidia_smi()
-    emit({"phase": "train_lm_mesh_cut", "arch": LM_MESH_TRAIN_ARCH,
-          "layers": f"{LM_MESH_TRAIN_LAYERS} of "
-                    f"{_full_layers(LM_MESH_TRAIN_ARCH)}",
-          "widths": "full", "batch": LM_MESH_TRAIN_BATCH,
-          "seq": LM_MESH_TRAIN_SEQ, "steps": LM_MESH_TRAIN_STEPS})
+    runs = lm_mesh_train_runs()
+    for arch, (layers, batch, seq, n_steps) in runs.items():
+        emit({"phase": "train_lm_mesh_cut", "arch": arch,
+              "layers": f"{layers} of {_full_layers(arch)}",
+              "widths": "full", "leaves": "float32", "batch": batch,
+              "seq": seq, "steps": n_steps})
     shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
-    LM_MESH_DIR.mkdir(parents=True)
-    single_path = str(LM_MESH_DIR / "single_leaves.pt")
+    single_dir = LM_MESH_DIR / "single"
+    single_dir.mkdir(parents=True)
     _free(torch)
     n = min(torch.cuda.device_count(), NCCL_MAX_RANKS)
     worlds = {
         "nccl": mesh_mod.spawn(
             rank_lm_train, n, backend="nccl", device="cuda",
             timeout_s=RANK_TIMEOUT_S, mesh_shape=(1, n),
-            args=(single_path, None)),
+            args=(str(single_dir), None)),
         "gloo": mesh_mod.spawn(
             rank_lm_train, LM_MESH[0] * LM_MESH[1], backend="gloo",
             device="cuda", timeout_s=RANK_TIMEOUT_S, mesh_shape=LM_MESH,
-            args=(single_path, str(LM_MESH_DIR / "ckpt_gloo"))),
+            args=(str(single_dir), str(LM_MESH_DIR / "ckpt_gloo"))),
     }
-    single = torch.load(single_path + ".steps")
-    for name, ranks in worlds.items():
-        gaps = _update_gaps(ranks)
-        worst = max((g, leaf) for leaf, g in gaps.items())
-        exact = all(e == 0.0 for r in ranks
-                    for _, e, _ in r["update_sq"].values())
-        s0, o0 = ranks[0]["steps"][0], single[0]
-        loss_gap = abs(s0["loss"] - o0["loss"]) / abs(o0["loss"])
-        gnorm_gap = abs(s0["grad_norm"] - o0["grad_norm"]) / o0["grad_norm"]
-        emit({"phase": "train_lm_mesh", "backend": name, "card": card,
-              "mesh": list(LM_MESH) if name == "gloo" else [1, n],
-              "arch": LM_MESH_TRAIN_ARCH, "layers": LM_MESH_TRAIN_LAYERS,
-              "steps_rank0": ranks[0]["steps"],
-              "collective_bytes_per_step_ranks": [
-                  r["steps"][0]["collective_bytes"] for r in ranks],
-              "step_s_ranks": [[s["s"] for s in r["steps"]] for r in ranks],
-              "one_process_steps": single,
-              "resident_bytes_ranks": [r["resident_bytes"] for r in ranks],
-              "requested_bytes_ranks": [r["requested_bytes"]
-                                        for r in ranks],
-              "spec_shard_bytes_ranks": [r["spec_shard_bytes"]
-                                         for r in ranks],
-              "step0_loss_gap": loss_gap, "loss_rtol": LM_MESH_LOSS_RTOL,
-              "step0_grad_norm_gap": gnorm_gap,
-              "grad_norm_rtol": LM_MESH_GNORM_RTOL,
-              "update_gap_worst": worst, "update_gaps": gaps,
-              "update_rtol": LM_MESH_UPDATE_RTOL,
-              "bit_equal_one_process": exact,
-              "restored_bit_equal": [r["restored_bit_equal"]
-                                     for r in ranks]})
-        losses = [s["loss"] for s in ranks[0]["steps"]]
-        for r in ranks:
-            where = f"train_lm_mesh {name}: rank {r['rank']}"
-            check([s["loss"] for s in r["steps"]] == losses,
-                  f"{where}'s losses differ from rank 0's")
-            check(name != "gloo" or r["restored_bit_equal"], f"{where}'s "
-                  "state restored from the checkpoint differs from the "
-                  "state saved")
-            check(r["requested_bytes"] == r["spec_shard_bytes"],
-                  f"{where} holds {r['requested_bytes']} bytes of leaves, "
-                  f"its shards {r['spec_shard_bytes']}")
-        # the replicas of each block of each leaf are bit-equal
-        for leaf in ranks[0]["digests"]:
-            by_block: dict = {}
-            for r in ranks:
-                sl, dg = r["digests"][leaf]
-                by_block.setdefault(str(sl), set()).add(dg)
-            check(all(len(d) == 1 for d in by_block.values()),
-                  f"train_lm_mesh {name}: ranks holding the same block of "
-                  f"{leaf} differ")
-        check(all(x == x for x in losses) and losses[-1] < losses[0],
-              f"train_lm_mesh {name}: the loss did not fall over "
-              f"{LM_MESH_TRAIN_STEPS} steps: {losses}")
-        check(loss_gap <= LM_MESH_LOSS_RTOL, f"train_lm_mesh {name}: step "
-              f"0's loss differs from one process's by {loss_gap} of it "
-              f"(limit {LM_MESH_LOSS_RTOL})")
-        check(gnorm_gap <= LM_MESH_GNORM_RTOL, f"train_lm_mesh {name}: step"
-              f" 0's gradient norm differs from one process's by "
-              f"{gnorm_gap} of it (limit {LM_MESH_GNORM_RTOL})")
-        check(worst[0] <= LM_MESH_UPDATE_RTOL, f"train_lm_mesh {name}: leaf"
-              f" {worst[1]}'s update differs from one process's by "
-              f"{worst[0]} of its norm (limit {LM_MESH_UPDATE_RTOL})")
-        check(name != "nccl" or n != 1 or exact, "train_lm_mesh nccl: the "
-              "1 x 1 world's leaves differ from the one-process run's")
+    for arch, (layers, _, _, n_steps) in runs.items():
+        single = torch.load(single_dir / f"{arch}.steps")
+        rtols = (LM_MESH_LOSS_RTOL_BY_ARCH.get(arch, LM_MESH_LOSS_RTOL),
+                 LM_MESH_GNORM_RTOL_BY_ARCH.get(arch, LM_MESH_GNORM_RTOL))
+        for name, world in worlds.items():
+            _check_train_world(torch, card, arch, layers, n_steps, name,
+                               [r[arch] for r in world], single, rtols, n)
     shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+
+
+def _check_train_world(torch, card, arch, layers, n_steps, name, ranks,
+                       single, rtols, n) -> None:
+    """Print one world's run of `arch` and hold it: every rank's losses
+    equal (and falling over several steps), a rank's leaves take its
+    shards' bytes, replicas of each block bit-equal, yi-9b's checkpoint
+    restored bit for bit (gloo), step 0's loss and gradient norm within
+    `rtols` = (loss, norm) of one process's, each leaf's update within
+    LM_MESH_UPDATE_RTOL, the NCCL 1 x 1 world bit-equal."""
+    loss_rtol, gnorm_rtol = rtols
+    gaps = _update_gaps(ranks)
+    worst = max((g, leaf) for leaf, g in gaps.items())
+    exact = all(e == 0.0 for r in ranks
+                for _, e, _ in r["update_sq"].values())
+    s0, o0 = ranks[0]["steps"][0], single[0]
+    loss_gap = abs(s0["loss"] - o0["loss"]) / abs(o0["loss"])
+    gnorm_gap = abs(s0["grad_norm"] - o0["grad_norm"]) / o0["grad_norm"]
+    emit({"phase": "train_lm_mesh", "backend": name, "card": card,
+          "mesh": list(LM_MESH) if name == "gloo" else [1, n],
+          "arch": arch, "layers": layers,
+          "build_s_ranks": [r["build_s"] for r in ranks],
+          "steps_rank0": ranks[0]["steps"],
+          "collective_bytes_per_step_ranks": [
+              r["steps"][0]["collective_bytes"] for r in ranks],
+          "collective_bytes_by_axis_per_step_ranks": [
+              by_axis(r["steps"][0]["collective_bytes"]) for r in ranks],
+          "step_s_ranks": [[s["s"] for s in r["steps"]] for r in ranks],
+          "one_process_steps": single,
+          "resident_bytes_ranks": [r["resident_bytes"] for r in ranks],
+          "requested_bytes_ranks": [r["requested_bytes"] for r in ranks],
+          "spec_shard_bytes_ranks": [r["spec_shard_bytes"] for r in ranks],
+          "step0_loss_gap": loss_gap, "loss_rtol": loss_rtol,
+          "step0_grad_norm_gap": gnorm_gap, "grad_norm_rtol": gnorm_rtol,
+          "update_gap_worst": worst, "update_gaps": gaps,
+          "update_rtol": LM_MESH_UPDATE_RTOL,
+          "bit_equal_one_process": exact,
+          "restored_bit_equal": [r["restored_bit_equal"] for r in ranks]})
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    where = f"train_lm_mesh {arch} {name}"
+    for r in ranks:
+        rank = f"{where}: rank {r['rank']}"
+        check([s["loss"] for s in r["steps"]] == losses,
+              f"{rank}'s losses differ from rank 0's")
+        check(name != "gloo" or arch != LM_MESH_TRAIN_ARCH
+              or r["restored_bit_equal"], f"{rank}'s state restored from "
+              "the checkpoint differs from the state saved")
+        check(r["requested_bytes"] == r["spec_shard_bytes"],
+              f"{rank} holds {r['requested_bytes']} bytes of leaves, its "
+              f"shards {r['spec_shard_bytes']}")
+    # the replicas of each block of each leaf are bit-equal
+    for leaf in ranks[0]["digests"]:
+        by_block: dict = {}
+        for r in ranks:
+            sl, dg = r["digests"][leaf]
+            by_block.setdefault(str(sl), set()).add(dg)
+        check(all(len(d) == 1 for d in by_block.values()),
+              f"{where}: ranks holding the same block of {leaf} differ")
+    check(all(x == x for x in losses)
+          and (n_steps == 1 or losses[-1] < losses[0]),
+          f"{where}: the loss did not fall over {n_steps} steps: {losses}")
+    check(loss_gap <= loss_rtol, f"{where}: step 0's loss differs from one "
+          f"process's by {loss_gap} of it (limit {loss_rtol})")
+    check(gnorm_gap <= gnorm_rtol, f"{where}: step 0's gradient norm "
+          f"differs from one process's by {gnorm_gap} of it (limit "
+          f"{gnorm_rtol})")
+    check(worst[0] <= LM_MESH_UPDATE_RTOL, f"{where}: leaf {worst[1]}'s "
+          f"update differs from one process's by {worst[0]} of its norm "
+          f"(limit {LM_MESH_UPDATE_RTOL})")
+    check(name != "nccl" or n != 1 or exact, f"{where}: the 1 x 1 world's "
+          "leaves differ from the one-process run's")
+
+
+# the port's four examples (examples/torch_*.py, the counterparts of the
+# reference's quickstart.py, mrf_denoise.py, serve_lm.py and train_lm.py)
+# at their smallest arguments, on the card (their default device), as
+# subprocesses started together; the four within EXAMPLES_S
+EXAMPLES = {
+    "quickstart": [],
+    "mrf_denoise": ["--size", "16", "--iters", "10"],
+    "serve_lm": ["--batch", "2", "--prompt-len", "8", "--gen", "3"],
+    "train_lm": ["--size", "2m", "--steps", "10"],
+}
+EXAMPLES_S = 60.0
+EXAMPLE_TIMEOUT_S = 300.0
+
+
+def _example_checks(name: str, out: str) -> dict:
+    """The readings of an example's own printed check (quickstart: the
+    total variation distance from exact inference; mrf_denoise: the noisy
+    and denoised errors; serve_lm: each sampler's line; train_lm: the
+    loss fell)."""
+    if name == "quickstart":
+        m = re.search(r"total variation distance: ([0-9.]+)", out)
+        return {"tvd": float(m.group(1)) if m else None}
+    if name == "mrf_denoise":
+        m = re.search(r"noisy error ([0-9.]+) -> denoised error ([0-9.]+)",
+                      out)
+        return {"noisy_error": float(m.group(1)) if m else None,
+                "denoised_error": float(m.group(2)) if m else None}
+    if name == "serve_lm":
+        return {"samplers": re.findall(r"\[serve_lm\] +(\w+) *:", out)}
+    return {"loss_decreased": "[train_lm] loss decreased" in out}
+
+
+def phase_examples(torch) -> None:
+    """The four examples on the card, as a user runs them (`python
+    examples/torch_<name>.py` with EXAMPLES' arguments, the kernels
+    already built), started together: each exits 0 and prints its own
+    check and "OK" last, the four within EXAMPLES_S.  Prints each one's
+    seconds on a phase_seconds line."""
+    import shutil
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    work = ROOT / "build" / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    procs, logs = {}, {}
+    t0 = time.perf_counter()
+    for name, args in EXAMPLES.items():
+        argv = [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"),
+                *args]
+        if name == "train_lm":
+            argv += ["--ckpt-dir", str(work / "ckpt")]
+        logs[name] = (work / f"{name}.out", work / f"{name}.err")
+        with open(logs[name][0], "w") as out, open(logs[name][1], "w") as err:
+            procs[name] = subprocess.Popen(argv, cwd=work, env=env,
+                                           stdout=out, stderr=err)
+    ends: dict = {}
+    while len(ends) < len(procs):
+        late = time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S
+        for name, proc in procs.items():
+            if name in ends:
+                continue
+            if proc.poll() is not None:
+                ends[name] = time.perf_counter() - t0
+            elif late:
+                proc.kill()
+                proc.wait()
+                ends[name] = None
+        time.sleep(0.05)
+    wall = time.perf_counter() - t0
+    readings = {}
+    for name, (out, err) in logs.items():
+        text = out.read_text()
+        readings[name] = {"rc": procs[name].returncode, "s": ends[name],
+                          "last_line": (text.strip().splitlines()
+                                        or [""])[-1],
+                          **_example_checks(name, text)}
+    emit({"phase_seconds": "examples", "s": wall, "card": nvidia_smi(),
+          "examples": readings})
+    for name, r in readings.items():
+        tail = logs[name][1].read_text()[-2000:]
+        check(r["s"] is not None, f"example {name} ran past "
+              f"{EXAMPLE_TIMEOUT_S} s")
+        check(r["rc"] == 0 and r["last_line"].endswith("OK"),
+              f"example {name} exited {r['rc']}: {tail}")
+    q, m = readings["quickstart"], readings["mrf_denoise"]
+    check(q["tvd"] is not None and q["tvd"] < 0.05, f"quickstart: TVD "
+          f"{q['tvd']}")
+    check(m["denoised_error"] is not None
+          and m["denoised_error"] < m["noisy_error"],
+          f"mrf_denoise: {m}")
+    check(readings["serve_lm"]["samplers"] == ["ky", "gumbel", "greedy"],
+          f"serve_lm: {readings['serve_lm']}")
+    check(readings["train_lm"]["loss_decreased"], "train_lm: the loss did "
+          "not fall")
+    check(wall <= EXAMPLES_S, f"the four examples took {wall} s (limit "
+          f"{EXAMPLES_S})")
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def phase_train_block(torch) -> None:

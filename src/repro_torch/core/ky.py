@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -151,6 +152,16 @@ def quantize_probs(p: torch.Tensor, bits: int = 8) -> torch.Tensor:
     pmax = torch.clamp(p.amax(-1, keepdim=True), min=1e-30)
     scale = torch.full_like(pmax, float(top)) / pmax
     return torch.clamp(torch.round(p * scale), 0, top).to(torch.int32)
+
+
+def entropy(p) -> float:
+    """Shannon entropy in bits — KY consumes at most H+2 bits per accepted
+    sample (Knuth-Yao optimality), the basis of the Fig. 11 scaling claim.
+    Float64 on the host, the reference's formula."""
+    p = np.asarray(p, np.float64)
+    p = p / p.sum()
+    nz = p[p > 0]
+    return float(-(nz * np.log2(nz)).sum())
 
 
 def _check_words(words: torch.Tensor, total_steps: int) -> None:

@@ -1,13 +1,15 @@
 """Report tables the port's CLIs print (port of the reference's
 `launch/report.py`).
 
-`profile_table`, `quality_table` and `verification_table` render the same
-rows into the same bytes as the reference's; `attribution_table` is
-`obs.attrib`'s.  `load`, `roofline_table`, `dryrun_table` and
-`bottleneck_notes` render the LM dry run's JSONs (`launch/dryrun.py`):
-its numbers are computed from shapes on meta tensors, never measured, and
-each table says so.  Their memory column holds a rank's peak live bytes
-against one H100's 80 GB.
+`profile_table`, `quality_table`, `verification_table`, `compile_table`
+and `runtime_table` render the same rows into the same bytes as the
+reference's; `attribution_table` is `obs.attrib`'s.  `main` prints the
+compile and runtime tables too when `compile/` and `runtime/` record
+directories (`load_compile`) sit beside the dry run's.  `load`,
+`roofline_table`, `dryrun_table` and `bottleneck_notes` render the LM
+dry run's JSONs (`launch/dryrun.py`): its numbers are computed from
+shapes on meta tensors, never measured, and each table says so.  Their
+memory column holds a rank's peak live bytes against one H100's 80 GB.
 
     PYTHONPATH=src python -m repro_torch.launch.report build/dryrun
 """
@@ -127,6 +129,88 @@ def profile_table(rows: list[dict], comm: list[dict] | None = None) -> str:
             f"| {'n/a' if bw is None else f'{bw / 1e9:.3g}GB/s'} |"
         )
     return "\n".join(out)
+
+
+def load_compile(results_dir: str) -> list[dict]:
+    """Every result JSON under `results_dir`, in file-name order (the
+    compile chain's and the serving runtime's benchmark records)."""
+    out = []
+    for f in sorted(glob.glob(os.path.join(results_dir, "*.json"))):
+        with open(f) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def compile_table(recs: list[dict]) -> str:
+    """Per-workload view of the compile chain: compile cost, cache
+    behavior (hit rate, evictions, resident size/capacity), the schedule
+    the passes chose vs a random placement, and the eager-vs-schedule
+    backend wall-clock per sweep."""
+    rows = [
+        "| workload | kind | nodes | colors | compile cold | cache hit | "
+        "hit rate | evict | cached | sweep cycles | vs random | hop-bytes | "
+        "vs random | eager sweep | schedule sweep |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in sorted(recs, key=lambda r: (r["kind"], r["n_nodes"])):
+        cyc_win = r["random_sweep_cycles"] / max(r["sweep_cycles"], 1)
+        hop_win = r["random_hop_bytes"] / max(r["comm_hop_bytes"], 1)
+        eager = r.get("eager_sweep_s")
+        sched = r.get("schedule_sweep_s")
+        evict = r.get("cache_evictions")
+        size, cap = r.get("cache_size"), r.get("cache_capacity")
+        cached = f"{size}/{cap}" if size is not None else "—"
+        rows.append(
+            f"| {r['workload']} | {r['kind']} | {r['n_nodes']} "
+            f"| {r['n_colors']} | {r['compile_cold_ms']:.1f}ms "
+            f"| {r['compile_warm_us']:.0f}us | {r['cache_hit_rate']:.2f} "
+            f"| {evict if evict is not None else '—'} | {cached} "
+            f"| {r['sweep_cycles']} | {cyc_win:.2f}x "
+            f"| {r['comm_hop_bytes']} | {hop_win:.2f}x "
+            f"| {_fmt_s(eager) if eager is not None else '—'} "
+            f"| {_fmt_s(sched) if sched is not None else '—'} |"
+        )
+    return "\n".join(rows)
+
+
+def runtime_table(recs: list[dict]) -> str:
+    """Serving-runtime view: the batched engine vs the one-query-at-a-time
+    baseline on the same trace.  The quality columns (worst split R-hat /
+    smallest ESS over served queries) are populated when the trace ran
+    with engine diagnostics on; records without the fields render "n/a".
+    A record with the executor's gates adds their footer."""
+    rows = [
+        "| trace | backend | models | queries | mean batch | batched qps | "
+        "serial qps | speedup | hit rate | evict | recompiles | sim p95 | "
+        "sim p99 | rhat max | ess min | dropped |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in sorted(recs, key=lambda r: (r["trace"], r["backend"])):
+        p99 = r.get("sim_latency_p99_ms")
+        rows.append(
+            f"| {r['trace']} | {r['backend']} | {r['n_models']} "
+            f"| {r['n_queries']} | {r['mean_batch']:.2f} "
+            f"| {r['batched_qps']:.1f} | {r['serial_qps']:.1f} "
+            f"| {r['speedup']:.2f}x | {r['cache_hit_rate']:.3f} "
+            f"| {r['cache_evictions']} | {r['recompiles']} "
+            f"| {r['sim_latency_p95_ms']:.2f}ms "
+            f"| {'n/a' if p99 is None else f'{p99:.2f}ms'} "
+            f"| {_fmt_q(r.get('rhat_max'), '.3f')} "
+            f"| {_fmt_q(r.get('ess_min'), '.0f')} "
+            f"| {_fmt_q(r.get('trace_dropped'), 'd')} |"
+        )
+    g = next((r for r in recs if "workers_speedup" in r), None)
+    if g:
+        rows += [
+            "",
+            f"executor gates: 4-worker sim speedup "
+            f"{g['workers_speedup']:.2f}x · sliced serving bit-exact "
+            f"({g['slicing_batches']} sliced batches) · calibration median "
+            f"err {g['calib_median_err']:.1%} · bursty max queue depth "
+            f"{g['bursty_max_queue_depth']} at shed rate "
+            f"{g['bursty_shed_rate']:.1%} ({g['bursty_defers']} defers)",
+        ]
+    return "\n".join(rows)
 
 
 CELL_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
@@ -261,6 +345,17 @@ def main(argv=None) -> int:
     print(dryrun_table(recs))
     print("\n## Bottlenecks\n")
     print(bottleneck_notes(recs))
+    # the compile chain's and the runtime's records, where their
+    # directories sit beside the dry run's
+    for sub, title, table in (
+            ("compile", "Compile chain (repro_torch.compile)", compile_table),
+            ("runtime", "Serving runtime (repro_torch.runtime)",
+             runtime_table)):
+        rdir = os.path.join(os.path.dirname(os.path.abspath(d)), sub)
+        rrecs = load_compile(rdir) if os.path.isdir(rdir) else []
+        if rrecs:
+            print(f"\n## {title}\n")
+            print(table(rrecs))
     return 0
 
 

@@ -23,9 +23,10 @@ Port of `repro/launch/train.py`:
   JSON lines.
 
 `--mesh DxM` trains over a (D, M) = ("data", "model") mesh of D*M ranks
-started by `torchrun` (or `launch.mesh.spawn`), each joining with
-`--backend` (gloo moves host memory and lets ranks share a card or run
-on the CPU; nccl needs a card a rank): the parameters and AdamW moments
+started by `torchrun`, each joining with `--backend` (gloo moves host
+memory and lets ranks share a card or run on the CPU; nccl needs a card
+a rank), or by `launch.mesh.spawn` running `train_rank` on each: the
+parameters and AdamW moments
 are distributed by the reference's sharding rules
 (`launch/sharding.py`), each batch is placed on the mesh
 (`data.place_batch`), checkpoints are written whole by rank 0 and
@@ -142,7 +143,7 @@ def _restore_into(cfg, tree: dict, by_path: dict) -> None:
         sharding.load_whole(leaf, arr)
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -168,12 +169,19 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default="",
                     help="write each step's loss, grad_norm and lr here "
                     "(JSON lines, exact floats)")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def _deterministic() -> None:
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     mesh_shape(args.mesh)  # a malformed spec raises before anything runs
     if args.deterministic:
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-        torch.use_deterministic_algorithms(True)
+        _deterministic()
     dev, mesh = join_mesh(args.mesh, args.backend, args.device)
     try:
         return _train(args, dev, mesh)
@@ -182,6 +190,20 @@ def main(argv=None):
             import torch.distributed as dist
 
             dist.destroy_process_group()
+
+
+def train_rank(rank, device_mesh, argv):
+    """`main(argv)` as one rank of a world that `launch.mesh.spawn`
+    started: the trainer over `device_mesh`, that world's ("data",
+    "model") mesh (`--mesh` and `--backend` are not read; the rank's
+    device is its card, or the CPU for a CPU mesh).  Returns the losses
+    rank 0 logged (every other rank's list is empty)."""
+    args = _parser().parse_args(argv)
+    if args.deterministic:
+        _deterministic()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_mesh.device_type == "cuda" else torch.device("cpu"))
+    return _train(args, dev, device_mesh)
 
 
 def _train(args, dev, mesh):

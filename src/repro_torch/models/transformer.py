@@ -336,7 +336,8 @@ def train_forward(p: Params, cfg: ModelConfig, batch: dict[str, Any], *,
 
     def superblock(x, aux, first):
         moe = []
-        for j in range(period):
+        # a depth cut short of a whole period ends with a partial one
+        for j in range(min(period, cfg.n_layers - first)):
             blk, split = _block(p, first + j, shard)
             x, _ = block_apply(blk, x, cfg, j, positions, aux=moe,
                                split=split)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""A reduced model's (2, 4) meshed train step against the bound of
-`tests/test_torch_lm_mesh.py` (`one_process_bound`): each gradient's
-and updated leaf's gap from the port's one-process step as a share of
-its bound (above 1: past it), the largest of each first.  For every
-updated leaf past its bound it then reads the elements past the bound:
-how many there are, how many of them had gradients of opposite signs in
-the meshed and the one-process step, and, at the largest gap, the
+"""A reduced model's (2, 4) meshed train step against the bounds of
+`tests/test_torch_lm_mesh.py`: each gradient's gap from the port's
+one-process step as a share of its bound (`one_process_bound`), and each
+updated leaf's, element by element, as a share of `update_bound` (the
+leaf's flat bound or AdamW's first step over its gradient's bound,
+whichever is larger), beside its share of the flat bound alone; above 1:
+past it; the largest of each first.  For every updated leaf past its
+flat bound it then reads the elements past it: how many there are, how
+many of them had gradients of opposite signs in the meshed and the
+one-process step, and, at the largest gap, the update bound there, the
 gradient on the four sides (the port's mesh and one process, the
 reference's (2, 4) step and its unsharded one) over the leaf's gradient
 scale, AdamW's first-step factor there on each side (|g'| / (|g'| +
@@ -22,14 +25,14 @@ repository root:
         --seed 2
 
 With `--float64` it runs only the port's meshed step against its one
-process, both in float64 (`_float64`), and prints the largest gaps over
-each quantity's scale: where the meshed step computes what one process
-computes, they are float64 rounding (yi-9b, qwen2-moe and jamba: the
-xLSTM's float32 states do not run in float64).
+process, both in float64 (`torch_rank_cases.lm_train_float64`), and
+prints the largest gaps over each quantity's scale: where the meshed
+step computes what one process computes, they are float64 rounding
+(yi-9b, qwen2-moe and jamba: the xLSTM's float32 states do not run in
+float64).
 """
 
 import argparse
-import dataclasses
 import sys
 import tempfile
 from pathlib import Path
@@ -46,28 +49,12 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 
 
-_OPT_CFG = cases.lm_opt_cfg
-_FLOAT = torch.Tensor.float
-
-
-def _float64(cfg):
-    """cfg in float64, with AdamW's moments and the model code's
-    `.float()` reads (float32 for 16-bit activations) kept in float64: a
-    meshed step then differs from one process by float64 rounding
-    alone."""
-    torch.Tensor.float = lambda t, *a, **k: (
-        t if t.dtype == torch.float64 else _FLOAT(t, *a, **k))
-    cases.lm_opt_cfg = lambda: dataclasses.replace(_OPT_CFG(),
-                                                   moment_dtype="float64")
-    return dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
-
-
 def train(rank, mesh, arch, tree, wide=False):
+    if wide:
+        return cases.lm_train_float64(arch, tree, mesh)
     cfg = cases.lm_cfg(arch)
-    cfg = _float64(cfg) if wide else cfg
     model = convert.lm_params_from_reference(tree, cfg, "cpu", train=True)
-    return cases.lm_train(cfg, model.double() if wide else model,
-                          cases.lm_inputs(cfg.vocab), mesh)
+    return cases.lm_train(cfg, model, cases.lm_inputs(cfg.vocab), mesh)
 
 
 def float64_gaps(arch: str, seed: int) -> None:
@@ -137,28 +124,42 @@ def main(argv) -> None:
     got, one = _sides(meshed, cfg, True), _sides(single, cfg, True)
     r_mesh, r_one = _sides(ref["mesh"], cfg, False), _sides(
         ref["single"], cfg, False)
-    bounds = {k: lm_mesh.one_process_bound(k, r_mesh[k], r_one[k])
-              for k in got}
-    shares = sorted(((np.abs(got[k] - one[k]).max() / bounds[k], k)
+    init = {"leaves" + k: v for k, v in _walk(tree)}
+    flat = {k: lm_mesh.one_process_bound(k, r_mesh[k], r_one[k])
+            for k in got}
+    bounds = dict(flat)
+    for k in got:
+        if k.startswith("leaves/"):
+            g = "grads/" + k[len("leaves/"):]
+            bounds[k] = lm_mesh.update_bound(
+                init[k], one[g], single["grad_norm"], flat[g], flat[k],
+                lm_mesh.reference_opt_cfg())
+    shares = sorted(((float((np.abs(got[k] - one[k]) / bounds[k]).max()),
+                      float(np.abs(got[k] - one[k]).max() / flat[k]), k)
                      for k in got), reverse=True)
     for part in ("grads", "leaves"):
         print(f"{args.arch} seed {args.seed}: {part}, gap / bound, largest "
-              f"first")
-        for share, k in [x for x in shares if x[1].startswith(part)][:6]:
-            print(f"  {share:.3f} {k}")
-    for share, k in shares:
-        if share <= 1 or not k.startswith("leaves/"):
+              f"first" + (" (gap / the leaf's flat bound)"
+                          if part == "leaves" else ""))
+        for share, old, k in [x for x in shares
+                              if x[2].startswith(part)][:6]:
+            print(f"  {share:.3f} {k}" + (f" ({old:.3f})"
+                                          if part == "leaves" else ""))
+    for share, old, k in shares:
+        if old <= 1 or not k.startswith("leaves/"):
             continue
         g = "grads/" + k[len("leaves/"):]
         gap = np.abs(got[k] - one[k])
-        past = gap > bounds[k]
+        past = gap > flat[k]
         flip = past & (np.sign(got[g]) != np.sign(one[g]))
         i = np.unravel_index(np.argmax(gap), gap.shape)
         scale = np.abs(r_one[g]).max()
         print(f"{k}: {int(past.sum())} of {gap.size} elements past the "
-              f"bound {bounds[k]:.4g}, {int(flip.sum())} of them with "
+              f"flat bound {flat[k]:.4g}, {int(flip.sum())} of them with "
               f"gradients of opposite signs; largest gap {gap[i]:.4g} at "
-              f"{tuple(int(j) for j in i)}, the reference's gap there "
+              f"{tuple(int(j) for j in i)} (its update bound "
+              f"{np.broadcast_to(bounds[k], gap.shape)[i]:.4g}), the "
+              f"reference's gap there "
               f"{abs(r_mesh[k][i] - r_one[k][i]):.4g}; gradient there / "
               f"the leaf's gradient scale {scale:.4g}: mesh "
               f"{got[g][i] / scale:.4g}, one process {one[g][i] / scale:.4g},"
@@ -170,7 +171,6 @@ def main(argv) -> None:
               f"one process {factor(one[g][i], single):.4g}, reference "
               f"mesh {factor(r_mesh[g][i], ref['mesh']):.4g}, reference "
               f"unsharded {factor(r_one[g][i], ref['single']):.4g}")
-
 
 if __name__ == "__main__":
     main(sys.argv[1:])

@@ -499,22 +499,25 @@ def test_lm_mesh_phases_are_registered_and_run_before_timing():
     qwen2-moe-a2.7b (1), xlstm-350m (4: one period of its pattern) and
     jamba-1.5-large-398b (1: a Mamba mixer) served at full width over a
     (2, 4) mesh, 4 tokens (8 until the cut printed with them); yi-9b (2
-    layers) trained at B 8 x S 512 for 3 steps."""
+    layers) trained at B 8 x S 512 for 3 steps, then xlstm-350m and
+    jamba (the depths they are served at) at B 8 x S 128 for one step,
+    each with its own step-0 loss limit; the examples after them."""
     import importlib.util
     import inspect
 
     cs = _chip_smoke()
     src = inspect.getsource(cs.main)
     order = ["phase_moe_block", "phase_serve_lm_mesh", "phase_train_lm,",
-             "phase_train_block", "phase_train_lm_mesh", "phase_timing"]
+             "phase_train_block", "phase_train_lm_mesh", "phase_examples",
+             "phase_timing"]
     where = [src.index(name) for name in order]
     assert where == sorted(where)
     spec = importlib.util.spec_from_file_location(
         "chip_phases", ROOT / "tools" / "chip_phases.py")
     phases = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(phases)
-    assert {"phase_serve_lm_mesh", "phase_train_lm_mesh"} <= set(
-        phases.PHASES)
+    assert {"phase_serve_lm_mesh", "phase_train_lm_mesh",
+            "phase_examples"} <= set(phases.PHASES)
     assert all(hasattr(cs, name) for name in phases.PHASES)
     assert phases.main(["phase_timing"]) == 2  # not runnable alone
     assert cs.LM_MESH == (2, 4)
@@ -525,6 +528,15 @@ def test_lm_mesh_phases_are_registered_and_run_before_timing():
     assert (cs.LM_MESH_TRAIN_ARCH, cs.LM_MESH_TRAIN_LAYERS,
             cs.LM_MESH_TRAIN_BATCH, cs.LM_MESH_TRAIN_SEQ,
             cs.LM_MESH_TRAIN_STEPS) == ("yi-9b", 2, 8, 512, 3)
+    assert cs.lm_mesh_train_runs() == {
+        "yi-9b": (2, 8, 512, 3), "xlstm-350m": (4, 8, 128, 1),
+        "jamba-1.5-large-398b": (1, 8, 128, 1)}
+    assert {a: cs.LM_MESH_SERVE[a] for a in cs.LM_MESH_TRAIN_TP} == \
+        cs.LM_MESH_TRAIN_TP
+    assert cs.LM_MESH_LOSS_RTOL == 5e-5 and cs.LM_MESH_GNORM_RTOL == 1e-3
+    assert set(cs.LM_MESH_LOSS_RTOL_BY_ARCH) == set(cs.LM_MESH_TRAIN_TP)
+    assert set(cs.LM_MESH_GNORM_RTOL_BY_ARCH) <= set(cs.LM_MESH_TRAIN_TP)
+    assert (cs.LM_GEN, cs.LM_GEN_CUT) == (16, "32 -> 16")
 
 
 def test_train_lm_mesh_counts_each_block_of_an_update_once():
@@ -554,7 +566,7 @@ def test_lm_mesh_phases_report_collective_bytes_by_op_and_axis():
     assert "collective_bytes_per_token_ranks" in inspect.getsource(
         cs.phase_serve_lm_mesh)
     assert "collective_bytes_per_step_ranks" in inspect.getsource(
-        cs.phase_train_lm_mesh)
+        cs._check_train_world)
 
 
 @pytest.mark.parametrize("phase", ["phase_serve_lm_mesh",
@@ -573,7 +585,8 @@ def test_no_failure_of_an_lm_mesh_phase_is_caught(phase, monkeypatch,
     cs = _chip_smoke()
     for fn in (cs.phase_serve_lm_mesh, cs.phase_train_lm_mesh,
                cs.rank_lm_serve, cs._rank_serve, cs._serve_single,
-               cs.rank_lm_train, cs._save_zero_restore, cs._train_single,
+               cs.rank_lm_train, cs._rank_train, cs._check_train_world,
+               cs._build_shards, cs._save_zero_restore, cs._train_single,
                cs._resident):
         assert "except" not in inspect.getsource(fn), fn.__name__
 
@@ -586,3 +599,33 @@ def test_no_failure_of_an_lm_mesh_phase_is_caught(phase, monkeypatch,
     monkeypatch.setattr(cs, "LM_MESH_DIR", tmp_path / "lm_mesh")
     with pytest.raises(mesh_mod.RankFailed, match="rank3"):
         getattr(cs, phase)(torch)
+
+
+def test_examples_phase_runs_the_four_examples_at_their_smallest():
+    """phase_examples runs each reference example's `torch_` counterpart
+    (on the card, their default device) with the arguments the CPU test
+    of the examples gives them, and reads each one's own printed check."""
+    cs = _chip_smoke()
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_examples", ROOT / "tests" / "test_torch_examples.py")
+    examples = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(examples)
+    assert cs.EXAMPLES == {name: args for name, args in
+                           examples.CASES.items()
+                           if not name.endswith("_ranks")}
+    for name in cs.EXAMPLES:
+        assert (ROOT / "examples" / f"{name}.py").exists()
+        assert (ROOT / "examples" / f"torch_{name}.py").exists()
+    assert cs.EXAMPLES_S == 60.0
+    assert cs._example_checks(
+        "quickstart", "total variation distance: 0.0123\nOK\n") == {
+            "tvd": 0.0123}
+    assert cs._example_checks(
+        "mrf_denoise", "noisy error 0.250 -> denoised error 0.031\n") == {
+            "noisy_error": 0.25, "denoised_error": 0.031}
+    out = "".join(f"[serve_lm] {s:7s}: {9.5:8.1f} tok/s, x\n"
+                  for s in ("ky", "gumbel", "greedy"))
+    assert cs._example_checks("serve_lm", out) == {
+        "samplers": ["ky", "gumbel", "greedy"]}
+    assert cs._example_checks("train_lm", "[train_lm] loss decreased — OK") \
+        == {"loss_decreased": True}

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import os
 import pickle
 import subprocess
@@ -273,7 +274,8 @@ def ranks(tmp_path_factory, trees):
         run = lambda fn, shape, *args: mesh_mod.spawn(
             fn, shape[0] * shape[1], backend="gloo", device="cpu",
             timeout_s=RANK_TIMEOUT_S, mesh_shape=shape, args=args)
-        out = {"2x4": run(cases.lm_mesh_cases, (2, 4), trees, ck, False),
+        out = {"2x4": run(cases.lm_mesh_cases, (2, 4), trees, ck, False,
+                          cases.LM_FLOAT64_ARCH),
                "1x1": run(cases.lm_mesh_cases, (1, 1), trees, ck, True),
                "restore_1x2": run(cases.lm_restore, (1, 2), trees["yi-9b"],
                                   ck),
@@ -306,6 +308,8 @@ def _single(trees) -> dict:
                 cfg, convert.lm_params_from_reference(trees[arch], cfg,
                                                       "cpu"), x)
         out[arch] = res
+    out["float64"] = cases.lm_train_float64(cases.LM_FLOAT64_ARCH,
+                                            trees[cases.LM_FLOAT64_ARCH])
     return out
 
 
@@ -415,6 +419,55 @@ def one_process_bound(k: str, r_mesh, r_one) -> float:
                _gap(r_mesh, r_one))
 
 
+def reference_opt_cfg():
+    """The reference's AdamW settings of the tests' step
+    (`torch_rank_cases.lm_opt_cfg`): its defaults, warmup 1 of 10
+    steps."""
+    from repro.optim import adamw as r_adamw
+
+    return r_adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+
+
+def first_step(p, g, opt) -> np.ndarray:
+    """Leaf `p` after AdamW's first step (zero moments) on the clipped
+    gradient `g`, in float64, as the reference's `adamw.update` computes
+    it at step 1 (src/repro/optim/adamw.py; not the port's
+    `optim/adamw`, so that the check's oracle is independent of the code
+    under test): m-hat is g, v-hat g², the step g / (|g| + eps), which
+    increases with g, and the weight decay of a leaf of two or more axes
+    (the same on both sides of a comparison)."""
+    warm = min(1 / max(opt.warmup_steps, 1), 1.0)
+    frac = min(max((1 - opt.warmup_steps)
+                   / max(opt.total_steps - opt.warmup_steps, 1), 0.0), 1.0)
+    lr = opt.lr * warm * (opt.min_lr_ratio + (1 - opt.min_lr_ratio)
+                          * 0.5 * (1 + math.cos(math.pi * frac)))
+    b1, b2 = opt.beta1, opt.beta2
+    p, g = np.asarray(p, np.float64), np.asarray(g, np.float64)
+    mh = (1 - b1) * g / (1 - b1)
+    vh = (1 - b2) * g * g / (1 - b2)
+    decay = opt.weight_decay if p.ndim >= 2 else 0.0
+    return p * (1 - lr * decay) - lr * (mh / (np.sqrt(vh) + opt.eps))
+
+
+def update_bound(p, g_one, grad_norm, grad_bound, leaf_bound,
+                 opt) -> np.ndarray:
+    """Per element, the bound on an updated leaf's gap of the meshed step
+    from the one-process step: the larger of `leaf_bound`
+    (`one_process_bound` of the leaf) and the range of AdamW's first
+    step (`first_step`) over the one-process clipped gradient g1 = c
+    `g_one` plus or minus δ = c `grad_bound` (the gradient's own bound,
+    clipped; c = min(1, clip_norm / `grad_norm`)).  Where |g1| is far
+    above eps + δ that range is negligible and the leaf's bound holds;
+    where g1 lies near eps, the step moves with the gradient's rounding
+    and the range says how far it may."""
+    c = min(1.0, opt.clip_norm / max(float(grad_norm), 1e-9))
+    g1 = np.asarray(g_one, np.float64) * c
+    delta = grad_bound * c
+    spread = np.abs(first_step(p, g1 + delta, opt)
+                    - first_step(p, g1 - delta, opt))
+    return np.maximum(leaf_bound, spread)
+
+
 def _ref_caches(tree, cfg, i) -> dict:
     """Layer i's caches from the reference's stacked tree."""
     period = len(cfg.pattern)
@@ -456,25 +509,40 @@ def test_every_rank_returns_the_same(ranks, arch):
         assert torch.equal(r[arch]["ky_tokens"], rs[0][arch]["ky_tokens"])
 
 
+def _leaves(tree) -> dict:
+    """{"leaves/<path>": array} of a reference tree (initial weights)."""
+    return {"leaves/" + "/".join(str(p.key) for p in path):
+            np.asarray(v, np.float64)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
 @pytest.mark.parametrize("arch", cases.LM_ARCHS)
 def test_mesh_steps_hold_against_single_process_and_reference(
-        ranks, single, reference, arch):
+        ranks, single, reference, trees, arch):
     """The (2, 4) ranks' steps within the larger of 1e-5 of each
     quantity's scale and the reference's own meshed-against-unsharded
-    gap of the port's single-process step, and within 1e-4 of the scale
-    of the reference's meshed step."""
+    gap of the port's single-process step (each updated leaf, element by
+    element, within the larger of that and `update_bound`: AdamW's first
+    step over its gradient's bound), and within 1e-4 of the scale of the
+    reference's meshed step."""
     cfg = cases.lm_cfg(arch)
     mesh = _quantities(ranks["2x4"][0][arch], cfg, False)
     one = _quantities(single[arch], cfg, False)
     r_mesh = _quantities(reference["steps"][arch]["mesh"], cfg, True)
     r_one = _quantities(reference["steps"][arch]["single"], cfg, True)
     assert mesh.keys() == one.keys() == r_mesh.keys() == r_one.keys()
+    init, opt = _leaves(trees[arch]), reference_opt_cfg()
     for k in mesh:
         scale = _scale(r_one[k])
         cancel = k.rsplit("/", 1)[-1] in CANCELLING
         bound = one_process_bound(k, r_mesh[k], r_one[k])
-        assert _gap(mesh[k], one[k]) <= bound, (k, _gap(mesh[k], one[k]),
-                                                bound)
+        if k.startswith("leaves/"):
+            g = "grads/" + k[len("leaves/"):]
+            bound = update_bound(
+                init[k], one[g], one["grad_norm"],
+                one_process_bound(g, r_mesh[g], r_one[g]), bound, opt)
+        gap = np.abs(mesh[k] - one[k])
+        assert np.all(gap <= bound), (k, float((gap / bound).max()))
         # where the reference's mesh moves further from its own unsharded
         # step than that: the path mesh -> one process -> the reference's
         # one process -> its mesh
@@ -483,6 +551,30 @@ def test_mesh_steps_hold_against_single_process_and_reference(
                         + _gap(r_one[k], r_mesh[k]))
         assert _gap(mesh[k], r_mesh[k]) <= ref_bound, (
             k, _gap(mesh[k], r_mesh[k]), ref_bound)
+
+
+FLOAT64_RTOL = 1e-10
+
+
+def test_float64_mesh_step_holds_against_single_process(ranks, single):
+    """Reduced jamba's (2, 4) train step against one process, both in
+    float64 (`torch_rank_cases.lm_train_float64`): the loss, the
+    gradient norm, every gradient and every updated leaf within
+    FLOAT64_RTOL of its scale.  The split regions (Mamba's channels,
+    attention's heads, the FFN's columns) reorder additions only, so the
+    gaps are float64 rounding (about 1e-13), where a misplaced block or a
+    dropped sum reads O(1)."""
+    got, want = ranks["2x4"][0]["float64"], single["float64"]
+    for k in ("loss", "grad_loss", "grad_norm"):
+        assert got[k].dtype == torch.float64
+        assert abs(float(got[k]) - float(want[k])) <= (
+            FLOAT64_RTOL * abs(float(want[k]))), k
+    for part in ("grads", "leaves"):
+        assert got[part].keys() == want[part].keys()
+        for n, w in want[part].items():
+            assert got[part][n].dtype == w.dtype == torch.float64, n
+            assert _gap(got[part][n], w) <= FLOAT64_RTOL * _scale(w), (
+                part, n, _gap(got[part][n], w) / _scale(w))
 
 
 @pytest.mark.parametrize("arch", cases.LM_ARCHS)

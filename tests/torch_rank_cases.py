@@ -10,6 +10,8 @@ against the single-process mesh.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import fcntl
 import os
 import time
@@ -180,14 +182,16 @@ LM_B, LM_S0, LM_GEN, LM_SEQ = 8, 16, 3, 16
 # rank holds no valid slot until the third decode step)
 LM_CACHE = 24
 LM_KEY = 5
+# the model whose (2, 4) train step is also held against one process in
+# float64 (`lm_train_float64`): its Mamba and attention splits; the
+# xLSTM's float32 states do not run in float64
+LM_FLOAT64_ARCH = "jamba-1.5-large-398b"
 
 
 def lm_cfg(arch: str):
     """Reduced `arch` computing and holding its leaves in float32 (jamba's
     config holds bf16 leaves, and a bf16 gradient turns float32 rounding
     into whole bf16 steps, which no float32 bound holds)."""
-    import dataclasses
-
     from repro_torch import configs as t_configs
 
     return dataclasses.replace(t_configs.get_config(arch).reduced(),
@@ -296,12 +300,13 @@ def lm_generate(cfg, model, inputs, mesh=None) -> dict:
     return {"tokens": toks, "kv_peak": kv.peak}
 
 
-def lm_train(cfg, model, inputs, mesh=None, ckpt_dir=None) -> dict:
-    """One AdamW step: its loss, gradients (whole, by state-dict name) and
-    updated leaves; on a mesh the collectives of the gradients' pass
-    (`comm_record`), and with `ckpt_dir` a checkpoint after that step, a
-    second step, and the second step again from the checkpoint restored
-    onto fresh state."""
+def lm_train(cfg, model, inputs, mesh=None, ckpt_dir=None,
+             opt_cfg=None) -> dict:
+    """One AdamW step (`opt_cfg`, by default `lm_opt_cfg()`): its loss,
+    gradients (whole, by state-dict name) and updated leaves; on a mesh
+    the collectives of the gradients' pass (`comm_record`), and with
+    `ckpt_dir` a checkpoint after that step, a second step, and the
+    second step again from the checkpoint restored onto fresh state."""
     import copy
 
     from repro_torch.launch import collectives, sharding
@@ -311,8 +316,10 @@ def lm_train(cfg, model, inputs, mesh=None, ckpt_dir=None) -> dict:
     batch = {k: torch.from_numpy(inputs[k]) for k in ("tokens", "labels")}
     shapes = {n: p.shape for n, p in tfm.train_leaves(model, cfg).items()}
 
+    opt_cfg = lm_opt_cfg() if opt_cfg is None else opt_cfg
+
     def build(m):
-        return t_train.build(cfg, lm_opt_cfg(), "cpu", mesh, batch, m)
+        return t_train.build(cfg, opt_cfg, "cpu", mesh, batch, m)
 
     def whole(tree):
         return {n: collectives.whole(t).reshape(shapes[n]).detach().clone()
@@ -351,11 +358,45 @@ def lm_train(cfg, model, inputs, mesh=None, ckpt_dir=None) -> dict:
     return out
 
 
-def lm_mesh_cases(rank, device_mesh, trees, ckpt_dir, restore) -> dict:
+@contextlib.contextmanager
+def float64_reads():
+    """While open, the model code's `.float()` reads (float32 for 16-bit
+    activations) leave a float64 tensor float64, so that a float64 step
+    computes in float64 throughout."""
+    plain = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: (
+        t if t.dtype == torch.float64 else plain(t, *a, **k))
+    try:
+        yield
+    finally:
+        torch.Tensor.float = plain
+
+
+def lm_train_float64(arch: str, tree, mesh=None) -> dict:
+    """`lm_train` of reduced `arch` in float64: activations, leaves and
+    AdamW's moments (`tree` the reference's float32 weights, widened).
+    A meshed step then differs from one process by float64 rounding
+    alone, where a misplaced block would read O(1) of a quantity's
+    scale."""
+    from repro_torch import convert
+
+    cfg = dataclasses.replace(lm_cfg(arch), dtype="float64",
+                              param_dtype="float64")
+    opt_cfg = dataclasses.replace(lm_opt_cfg(), moment_dtype="float64")
+    with float64_reads():
+        model = convert.lm_params_from_reference(tree, cfg, "cpu",
+                                                 train=True).double()
+        return lm_train(cfg, model, lm_inputs(cfg.vocab), mesh,
+                        opt_cfg=opt_cfg)
+
+
+def lm_mesh_cases(rank, device_mesh, trees, ckpt_dir, restore,
+                  float64_arch=None) -> dict:
     """Every LM case on this rank's position: `trees` the reference's
     weights by arch (numpy); `ckpt_dir` where the (2, 4) world writes its
     checkpoint, which a world with `restore` restores after its cases
-    (`lm_restore`)."""
+    (`lm_restore`); with `float64_arch`, that model's train step in
+    float64 too (`lm_train_float64`, under "float64")."""
     from repro_torch import convert
 
     out = {"rank": rank, "coords": tuple(int(c) for c in
@@ -376,6 +417,9 @@ def lm_mesh_cases(rank, device_mesh, trees, ckpt_dir, restore) -> dict:
         res["comm"].update(train.pop("comm"))
         res.update(train)
         out[arch] = res
+    if float64_arch is not None:
+        out["float64"] = lm_train_float64(float64_arch, trees[float64_arch],
+                                          device_mesh)
     if restore:
         out["restored"] = lm_restore(rank, device_mesh, trees["yi-9b"],
                                      ckpt_dir)

@@ -22,7 +22,7 @@ PHASES = ("phase_build", "phase_threefry", "phase_k2", "phase_k1",
           "phase_k5", "phase_k6", "phase_serve_ranks", "phase_lanes",
           "phase_serve_runtime", "phase_profile", "phase_mamba_block",
           "phase_moe_block", "phase_train_lm", "phase_train_block",
-          "phase_serve_lm_mesh", "phase_train_lm_mesh")
+          "phase_serve_lm_mesh", "phase_train_lm_mesh", "phase_examples")
 
 
 def main(argv=None) -> int:
